@@ -1,0 +1,47 @@
+"""The port (thyroid_tpu_torch) and chip_smoke.py import nothing of JAX,
+flax or the JAX package, and every port module imports without them."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "thyroid_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "thyroid_tpu")
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.unit
+def test_package_imports_with_jax_blocked():
+    """Every port module and chip_smoke import in a process where importing
+    jax, flax or thyroid_tpu fails."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+        "import thyroid_tpu_torch as pkg\n"
+        "for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

@@ -1,0 +1,91 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+at small shapes with ragged edges (rows and columns that do not fill a
+tile). Marked `cuda`: they skip without a card, and run on the machine that
+has one with
+`python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py`.
+
+Tolerance: float32 1e-4 and bfloat16 1e-2 relative to max(1, max|plain|),
+as chip_smoke.py holds the main-path shapes."""
+import pytest
+import torch
+
+from thyroid_tpu_torch.models.vit.swin import shift_attention_mask
+from thyroid_tpu_torch.ops import attention, percentile, token_fused
+
+RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rn(gen, *shape, scale=1.0, dtype=torch.float32):
+    return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def _close(got, want, dtype):
+    got, want = got.float(), want.float()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= RTOL[dtype] * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(3, 17, 19, 1), (2, 224, 224, 1)])
+def test_percentile(gen, dtype, shape):
+    x = (torch.rand(*shape, generator=gen, device="cuda") * 65535).to(dtype)
+    before = percentile.fused_percentile_normalize.launches
+    got = percentile.fused_percentile_normalize(x)
+    assert percentile.fused_percentile_normalize.launches == before + 1
+    want = percentile.percentile_normalize_plain(x)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -8
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,c,o,bias", [(70, 96, 288, True), (33, 40, 20, False),
+                                        (130, 1536, 768, False)])
+def test_ln_matmul(gen, dtype, t, c, o, bias):
+    args = (_rn(gen, t, c, dtype=dtype), 1 + _rn(gen, c, scale=0.1),
+            _rn(gen, c, scale=0.1), _rn(gen, c, o, scale=c ** -0.5, dtype=dtype),
+            _rn(gen, o, scale=0.1) if bias else None)
+    _close(token_fused.fused_ln_matmul(*args),
+           token_fused.ln_matmul_plain(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,c,h", [(45, 96, 384), (33, 100, 200),
+                                   (40, 1024, 4096)])
+def test_ln_mlp_residual(gen, dtype, t, c, h):
+    args = (_rn(gen, t, c, dtype=dtype), 1 + _rn(gen, c, scale=0.1),
+            _rn(gen, c, scale=0.1), _rn(gen, c, h, scale=c ** -0.5, dtype=dtype),
+            _rn(gen, h, scale=0.1), _rn(gen, h, c, scale=h ** -0.5, dtype=dtype),
+            _rn(gen, c, scale=0.1))
+    _close(token_fused.fused_ln_mlp_residual(*args),
+           token_fused.ln_mlp_residual_plain(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,r,c,heads,ws,shift", [
+    (2, 16, 96, 3, 4, 2), (1, 14, 384, 12, 7, 3), (3, 7, 768, 24, 7, 0),
+    (1, 16, 64, 1, 8, 4)])
+def test_swin_block_attention(gen, dtype, b, r, c, heads, ws, shift):
+    n = ws * ws
+    mask = shift_attention_mask(r, r, ws, shift)
+    args = (_rn(gen, b, r, r, 3, c, dtype=dtype), _rn(gen, b, r, r, c, dtype=dtype),
+            _rn(gen, c, c, scale=0.05, dtype=dtype), _rn(gen, c, scale=0.1),
+            _rn(gen, heads, n, n, scale=0.1),
+            torch.from_numpy(mask).cuda() if mask is not None else None)
+    kw = dict(window_size=ws, num_heads=heads, scale=(c // heads) ** -0.5)
+    _close(attention.fused_swin_block_attention(*args, **kw),
+           attention.swin_block_attention_plain(*args, **kw), dtype)

@@ -1,0 +1,129 @@
+"""Port Swin (thyroid_tpu_torch.models.vit.swin) and the JAX→port weight
+carrier (models/from_jax.py) against the JAX package, on the CPU, in
+float32, with the JAX golden tests' parameter bump so that logits of a
+random init are not flat."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.torch_parity import SMALL_SWIN, count_leaves, jax_swin
+from thyroid_tpu_torch.models.base import create_and_init, num_parameters
+from thyroid_tpu_torch.models.from_jax import load_jax_params, to_jax_params
+from thyroid_tpu_torch.models.registry import ModelRegistry, resolve_dtype
+
+SWIN_TINY = {"name": "swin_tiny", "in_channels": 1, "num_classes": 2}
+
+
+def _jax_logits(config, params, x, use_pallas):
+    from thyroid_tpu.models.registry import ModelRegistry as JaxRegistry
+
+    model = JaxRegistry.create_model(
+        dict(config, use_pallas_attention=use_pallas))
+    return np.asarray(model.apply({"params": params}, jnp.asarray(x),
+                                  train=False))
+
+
+def _port_logits(config, params, x):
+    model = create_and_init(config, device="cpu")
+    load_jax_params(model, params)
+    with torch.inference_mode():
+        return model(torch.from_numpy(x)).numpy()
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """JAX swin_tiny (registry config, as served) with bumped params."""
+    return jax_swin(SWIN_TINY)
+
+
+@pytest.mark.unit
+def test_load_jax_params_is_strict(tiny):
+    _, params = tiny
+    assert count_leaves(params) == 173
+    model = create_and_init(SWIN_TINY, device="cpu")
+    load_jax_params(model, params)
+    assert num_parameters(model) == 27_517_820
+    block = params["stage_2"]["block_5"]
+    np.testing.assert_array_equal(
+        model.stage_2.block_5.attn.qkv.kernel.detach().numpy(),
+        block["attn"]["qkv"]["kernel"])
+    np.testing.assert_array_equal(
+        model.patch_embed.weight.detach().numpy(),
+        params["patch_embed"]["kernel"].transpose(3, 2, 0, 1))
+    back = to_jax_params(model)
+    assert count_leaves(back) == 173
+    np.testing.assert_array_equal(back["patch_embed"]["kernel"],
+                                  params["patch_embed"]["kernel"])
+
+    missing = {k: v for k, v in params.items() if k != "head"}
+    with pytest.raises(KeyError, match="head"):
+        load_jax_params(model, missing)
+    extra = dict(params, extra={"kernel": np.zeros((2, 2), np.float32)})
+    with pytest.raises(KeyError, match="extra"):
+        load_jax_params(model, extra)
+    bad = dict(params, head={"kernel": np.zeros((3, 2), np.float32),
+                             "bias": params["head"]["bias"]})
+    with pytest.raises(ValueError, match="head.kernel"):
+        load_jax_params(model, bad)
+
+
+@pytest.mark.unit
+def test_full_width_swin_tiny_matches_jax(tiny):
+    """Full-width, full-depth swin_tiny, batch 1, against the JAX plain
+    path. atol 1e-4 on logits: twelve blocks of float32 summation-order
+    drift between XLA and PyTorch."""
+    _, params = tiny
+    x = np.random.RandomState(3).randn(1, 224, 224, 1).astype(np.float32)
+    want = _jax_logits(SWIN_TINY, params, x, use_pallas=False)
+    got = _port_logits(SWIN_TINY, params, x)
+    assert got.shape == (1, 2) and got.dtype == np.float32
+    assert np.abs(got - want).max() < 1e-4, (got, want)
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("use_pallas", [True, False],
+                         ids=["jax_pallas_interpret", "jax_xla"])
+def test_small_swin_matches_jax(use_pallas):
+    """img 64, embed 32, depths (2, 2), heads (1, 2), window 4: shifted and
+    unshifted blocks, one PatchMerging. atol 1e-5, the JAX package's own
+    fused-vs-XLA model bound."""
+    _, params = jax_swin(SMALL_SWIN)
+    x = np.random.RandomState(4).randn(2, 64, 64, 1).astype(np.float32)
+    want = _jax_logits(SMALL_SWIN, params, x, use_pallas)
+    got = _port_logits(SMALL_SWIN, params, x)
+    assert np.abs(got - want).max() < 1e-5, (got, want)
+    assert np.ptp(want[:, 0]) > 1e-3      # the comparison is not vacuous
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("flag", ["medical_adaptations", "contrast_adaptive",
+                                  "quality_guided", "uncertainty_head", "ape"])
+def test_unported_options_raise(flag):
+    with pytest.raises(NotImplementedError, match=flag):
+        ModelRegistry.create_model(dict(SMALL_SWIN, **{flag: True}))
+
+
+@pytest.mark.unit
+def test_unported_modes_raise():
+    with pytest.raises(NotImplementedError, match="padding"):
+        ModelRegistry.create_model(dict(SMALL_SWIN, img_size=80))
+    model = create_and_init(SMALL_SWIN, device="cpu")
+    x = torch.zeros(1, 64, 64, 1)
+    for kw in ({"train": True}, {"capture": True}):
+        with pytest.raises(NotImplementedError):
+            model(x, **kw)
+    with pytest.raises(NotImplementedError):
+        ModelRegistry.create_model({"name": "swin_medical"})
+
+
+@pytest.mark.unit
+def test_registry_and_dtype():
+    assert "swin_tiny" in ModelRegistry.list_models("vit")
+    assert resolve_dtype({"dtype": "bf16"}) is torch.bfloat16
+    assert resolve_dtype({}) is torch.float32
+    with pytest.raises(ValueError):
+        ModelRegistry.create_model({"name": "no_such_model"})
+    model = create_and_init(dict(SMALL_SWIN, dtype="bf16"), device="cpu")
+    out = model(torch.zeros(2, 64, 64, 1))
+    assert out.dtype == torch.float32 and out.shape == (2, 2)

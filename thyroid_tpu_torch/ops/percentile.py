@@ -1,0 +1,71 @@
+"""Per-image percentile normalisation (counterpart of thyroid_tpu/ops/percentile.py).
+
+`fused_percentile_normalize` launches the CUDA kernel
+`csrc/percentile.cu` on a CUDA tensor and runs its plain PyTorch version,
+`percentile_normalize_plain`, on a CPU tensor. Both compute the same
+bisection brackets (see the kernel's source note).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .image import per_image_quantile_fast
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def percentile_normalize_plain(x: torch.Tensor,
+                               percentiles: Tuple[float, float] = (1.0, 99.0),
+                               iters: int = 22,
+                               eps: float = 1e-8) -> torch.Tensor:
+    """Plain PyTorch version: the two bisection quantiles, clip and scale,
+    in float32; the result in x's dtype."""
+    xf = x.to(torch.float32)
+    p_lo = per_image_quantile_fast(xf, percentiles[0] / 100.0, iters)
+    p_hi = per_image_quantile_fast(xf, percentiles[1] / 100.0, iters)
+    p_lo = p_lo.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+    p_hi = p_hi.reshape(p_lo.shape)
+    y = torch.minimum(torch.maximum(xf, p_lo), p_hi)
+    return ((y - p_lo) / (p_hi - p_lo + eps)).to(x.dtype)
+
+
+def fused_percentile_normalize(x: torch.Tensor,
+                               percentiles: Tuple[float, float] = (1.0, 99.0),
+                               iters: int = 22,
+                               eps: float = 1e-8) -> torch.Tensor:
+    """x (B, H, W, C) → same shape and dtype, each image clipped to its
+    bisection percentiles and scaled to [0, 1]."""
+    if x.device.type == "cpu":
+        return percentile_normalize_plain(x, percentiles, iters, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fused_percentile_normalize takes float32 or "
+                        f"bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("fused_percentile_normalize needs a contiguous tensor")
+    b = x.shape[0]
+    n = x.numel() // b if b else 0
+    y = torch.empty_like(x)
+    if b == 0 or n == 0:
+        return y
+    # thresholds rounded to float32 as the JAX kernel does
+    t_lo = float(np.float32(percentiles[0] / 100.0 * (n - 1)))
+    t_hi = float(np.float32(percentiles[1] / 100.0 * (n - 1)))
+    fn = _build.function("percentile", "tt_percentile_normalize", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p])
+    status = fn(_build.ptr(x), _build.ptr(y), b, n, t_lo, t_hi, eps, iters,
+                int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device))
+    _build.check("percentile", status, "fused_percentile_normalize")
+    fused_percentile_normalize.launches += 1
+    return y
+
+
+fused_percentile_normalize.launches = 0

@@ -1,0 +1,102 @@
+"""Bucketed inference (counterpart of thyroid_tpu/serving/engine.py).
+
+Requests carry raw frames (N, S, S, 1) on the uint16 scale. Each request
+is padded up to the smallest batch bucket that holds it (repeating its
+last frame), or cut into chunks of the largest bucket, and every bucket
+runs the same program: `prepare_images` → gray→RGB for 3-channel models →
+`standardize` → the model → float32 softmax. The padding rows are sliced
+off. Fixed buckets keep the kernels' shapes to a small known set.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Any, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..data.pipeline import IMAGENET_MEAN, IMAGENET_STD, prepare_images
+from ..models.base import create_and_init
+from ..models.from_jax import load_jax_params
+from ..models.registry import cfg_get
+from ..ops.image import standardize
+from ..ops.platform import DeviceLike, resolve_device
+
+DEFAULT_BUCKETS = (1, 8, 32, 128)
+RAW_SIDE = 512   # the CARS frame side warmup feeds
+
+
+class InferenceEngine:
+    """Bucketed batch inference over one model; thread-safe `predict`.
+
+    `params` is a JAX parameter tree (nested dicts of arrays) carried in
+    through `load_jax_params`; None draws random weights from seed 0.
+    `device` None means the CUDA card, and raises when there is none."""
+
+    def __init__(self, model_config: Any,
+                 params: Optional[Mapping[str, Any]] = None,
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 device: DeviceLike = None):
+        if model_config is None:
+            raise ValueError("need model_config")
+        self.device = resolve_device(device)
+        self.model_config = model_config
+        self.model = create_and_init(model_config, seed=0, device=self.device)
+        if params is not None:
+            load_jax_params(self.model, params)
+        self.img_size = int(cfg_get(model_config, "img_size",
+                                    self.model.img_size))
+        self.in_channels = int(cfg_get(model_config, "in_channels", 1))
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        if self.in_channels == 3:
+            self.mean, self.std = IMAGENET_MEAN, IMAGENET_STD
+        else:
+            self.mean, self.std = (0.5,), (0.5,)
+        self._lock = threading.Lock()
+
+    def run(self, x: torch.Tensor) -> torch.Tensor:
+        """One bucket: raw frames on the engine's device → probabilities."""
+        with torch.inference_mode():
+            x = prepare_images(x, self.img_size)
+            if self.in_channels == 3 and x.shape[-1] == 1:
+                x = x.repeat(1, 1, 1, 3)
+            x = standardize(x, self.mean, self.std)
+            logits = self.model(x)
+            return torch.softmax(logits.float(), dim=-1)
+
+    def bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def warmup(self) -> None:
+        """Run every bucket once on zero frames (first-call set-up)."""
+        for b in self.buckets:
+            x = torch.zeros(b, RAW_SIDE, RAW_SIDE, 1, device=self.device)
+            with self._lock:
+                self.run(x)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def predict(self, images: np.ndarray) -> np.ndarray:
+        """images (N, S, S[, 1]) raw frames → (N, num_classes) float32
+        probabilities. N may exceed the largest bucket; it is chunked."""
+        images = np.asarray(images, np.float32)
+        if images.ndim == 3:
+            images = images[..., None]
+        n = images.shape[0]
+        top = self.buckets[-1]
+        outs: List[np.ndarray] = []
+        for start in range(0, n, top):
+            chunk = images[start:start + top]
+            m = chunk.shape[0]
+            b = self.bucket_for(m)
+            if m < b:
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:], b - m, axis=0)], axis=0)
+            x = torch.from_numpy(chunk).to(self.device)
+            with self._lock:
+                probs = self.run(x)
+            outs.append(probs.cpu().numpy()[:m])
+        return np.concatenate(outs, axis=0)
