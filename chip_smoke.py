@@ -16,7 +16,20 @@ Phases, each printing its lines before the final one:
    agree with the same engine on the CPU in float32;
 4. times: each kernel's median time per forward at bucket 32 beside its
    bound, its plain version and a library yardstick, and end-to-end
-   images/s of predict at buckets 32 and 128.
+   images/s of predict at buckets 32 and 128; a profile of one predict;
+5. train kernels: the training attention's forward and backward kernels
+   against their plain versions (output, dqkv, dbias) at every shape a
+   swin_tiny train step gives them at batch 32, in float32 and bfloat16;
+6. train slice: one train step of full-width swin_tiny (float32, drop path
+   0, batch 8) on the card against the same step on the CPU (loss and
+   gradients), the bf16 step's loss against it, then Trainer.fit for one
+   epoch of 256 raw 512x512 frames at batch 32 with validation on 64 and
+   test(checkpoint=best): the counters must move by 12 forward and 12
+   backward attention launches per train step, 15/12/12 serving launches
+   per eval forward and one percentile launch per pipeline;
+7. train times: each training kernel's median time per train step beside
+   its bound, plain version and library yardstick, training images/s at
+   batch 32 and 128, and a profile of one train step at batch 32.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -25,10 +38,12 @@ before that line is printed. Needs one CUDA card; exits nonzero without one.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,6 +61,16 @@ RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 PERCENTILE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -8}
 # engine probabilities vs the CPU float32 engine on the same weights
 PROB_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+# attention backward's dbias, a sum over up to 2048 windows taken in
+# another order than the plain version's, relative to max(1, max|plain|)
+DBIAS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+# one train step on the card vs the CPU, float32: relative loss difference,
+# and |grad_card - grad_cpu| / |grad_cpu| over all parameters (global norms)
+STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-4, 1e-3
+BF16_LOSS_TOL = 3e-2           # bf16 card loss vs the CPU float32 loss
+TRAIN_FRAMES, VAL_FRAMES = 256, 64
+# scratch of the training phases (the fit's checkpoints), removed at the end
+WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 def log(*parts) -> None:
@@ -418,7 +443,6 @@ def phase_profile(engine, n: int = BATCH, top: int = 12) -> None:
     """Where the time of one predict call at bucket `n` goes: device time
     by kernel name from torch.profiler, and the device's busy share of the
     call's wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     frames = (np.random.RandomState(2).rand(n, 512, 512, 1) * 65535) \
@@ -429,19 +453,388 @@ def phase_profile(engine, n: int = BATCH, top: int = 12) -> None:
         t0 = time.perf_counter()
         engine.predict(frames)
         wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, f"predict bucket {n}", top)
+
+
+def report_profile(prof, wall_us: float, what: str, top: int) -> None:
+    """Device busy share of `what`'s wall time and its top kernels."""
+    from torch.autograd import DeviceType
+
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in rows)
     if busy_us == 0:
         log("[profile] torch.profiler recorded no device time: not measured")
         return
-    log(f"[profile] predict bucket {n}: wall {wall_us / 1e3:.2f} ms, device "
+    log(f"[profile] {what}: wall {wall_us / 1e3:.2f} ms, device "
         f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"idle {100 * (1 - busy_us / wall_us):.1f}%")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / busy_us:5.1f}% "
             f"x{e.count:<4d} {e.key[:90]}")
+
+
+# ---------------------------------------------------------------- training
+
+
+def swin_tiny_train_shapes(batch: int):
+    """Every (kernel, shape) of the training attention's forward and
+    backward in one swin_tiny train step at `batch`, with its count per
+    step: the serving attention's shapes, one launch each way per block."""
+    attn = swin_tiny_shapes(batch)["swin_block_attention"]
+    return {"swin_attention": dict(attn), "swin_attention_bwd": dict(attn)}
+
+
+def make_train_inputs(kernel: str, shape, dtype, gen):
+    """Seeded (qkv, bias, mask) or (qkv, dout, bias, mask) on the card."""
+    from thyroid_tpu_torch.models.vit.swin import shift_attention_mask
+
+    b, r, c, heads, ws, shift = shape
+    mask = shift_attention_mask(r, r, ws, shift)
+    mask = torch.from_numpy(mask).cuda() if mask is not None else None
+    qkv = torch.randn(b, r, r, 3, c, generator=gen, device="cuda").to(dtype)
+    bias = torch.randn(heads, ws * ws, ws * ws, generator=gen,
+                       device="cuda") * 0.1
+    if kernel == "swin_attention":
+        return qkv, bias, mask
+    dout = torch.randn(b, r, r, c, generator=gen, device="cuda").to(dtype)
+    return qkv, dout, bias, mask
+
+
+def train_kernel_fns(shape):
+    """{kernel: (wrapper, plain version)} of the training attention, each
+    returning a tuple of outputs."""
+    from thyroid_tpu_torch.ops import attention
+
+    _, _, c, heads, ws, _ = shape
+    kw = dict(window_size=ws, num_heads=heads, scale=(c // heads) ** -0.5)
+    return {
+        "swin_attention": (
+            lambda *a: (attention.fused_swin_attention(*a, **kw),),
+            lambda *a: (attention.swin_attention_plain(*a, **kw),)),
+        "swin_attention_bwd": (
+            lambda *a: attention.fused_swin_attention_bwd(*a, **kw),
+            lambda *a: attention.swin_attention_bwd_plain(*a, **kw)),
+    }
+
+
+def train_library_fn(kernel: str, shape, args):
+    """SDPA with the bias (+ mask) as attn_mask between window partition and
+    reverse; for the backward, torch.autograd.grad through that composition
+    to qkv and bias. Timing only: the port never calls it."""
+    import torch.nn.functional as F
+
+    qkv, bias, mask = args[0], args[-2], args[-1]
+    b, r, _, _, c = qkv.shape
+    _, _, _, heads, ws, _ = shape
+    n, nw, dh = ws * ws, (r // ws) ** 2, c // heads
+
+    def attend(qkv, bias):
+        win = qkv.reshape(b, r // ws, ws, r // ws, ws, 3, heads, dh) \
+            .permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b * nw, heads, n, dh)
+        am = bias[None].expand(nw, heads, n, n) if mask is None \
+            else bias[None] + mask[:, None]
+        am = am.to(qkv.dtype)[None].expand(b, nw, heads, n, n) \
+            .reshape(b * nw, heads, n, n)
+        o = F.scaled_dot_product_attention(win[0], win[1], win[2],
+                                           attn_mask=am, scale=dh ** -0.5)
+        return o.reshape(b, r // ws, r // ws, heads, ws, ws, dh) \
+            .permute(0, 1, 4, 2, 5, 3, 6).reshape(b, r, r, c)
+
+    if kernel == "swin_attention":
+        return lambda: attend(qkv, bias)
+    q = qkv.detach().requires_grad_()
+    bb = bias.detach().requires_grad_()
+    out = attend(q, bb)
+    return lambda: torch.autograd.grad(out, (q, bb), args[1], retain_graph=True)
+
+
+def train_work(kernel: str, shape, dtype):
+    """(bytes, operations, peak operations/s) of one call. Forward:
+    4·N²·C operations per window, read 3C and write C elements per token,
+    plus bias and mask. Backward: 10·N²·C per window, read 3C + C and write
+    3C per token, plus bias, mask and dbias (f32)."""
+    s = torch.tensor([], dtype=dtype).element_size()
+    b, r, c, heads, ws, shift = shape
+    n, nw = ws * ws, (r // ws) ** 2
+    tokens = b * r * r
+    side = heads * n * n * 4 + (nw * n * n * 4 if shift else 0)
+    if kernel == "swin_attention":
+        return tokens * 4 * c * s + side, b * nw * 4 * n * n * c, \
+            PEAK_OPS_PER_S[dtype]
+    return tokens * 7 * c * s + side + heads * n * n * 4, \
+        b * nw * 10 * n * n * c, PEAK_OPS_PER_S[dtype]
+
+
+def compare_train(kernel: str, got, want, dtype):
+    """[(name, max_abs_err, tol, ok)] of a training kernel's outputs."""
+    names = ("out",) if kernel == "swin_attention" else ("dqkv", "dbias")
+    rows = []
+    for name, g, w in zip(names, got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs().max().item()
+        rtol = DBIAS_RTOL[dtype] if name == "dbias" else RTOL[dtype]
+        tol = rtol * max(1.0, w.abs().max().item())
+        ok = bool(np.isfinite(err)) and err <= tol and bool(torch.isfinite(g).all())
+        rows.append((name, err, tol, ok))
+    return rows
+
+
+def phase_train_kernels(train_shapes) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel, cases in train_shapes.items():
+            for shape in cases:
+                args = make_train_inputs(kernel, shape, dtype, gen)
+                fused, plain = train_kernel_fns(shape)[kernel]
+                got, want = fused(*args), plain(*args)
+                torch.cuda.synchronize()
+                for name, err, tol, ok in compare_train(kernel, got, want, dtype):
+                    log(f"[train-kernels] {kernel} {name} {str(dtype)[6:]} "
+                        f"{shape}: max_abs_err {err:.3e} tol {tol:.3e} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failed.append((kernel, name, str(dtype), shape, err))
+                del args, got, want
+    if failed:
+        raise AssertionError(f"training kernels disagree with their plain "
+                             f"versions: {failed}")
+
+
+def train_counters():
+    from thyroid_tpu_torch.ops import attention
+
+    return {**counters(), "swin_attention": attention.fused_swin_attention}
+
+
+def read_train_counts():
+    from thyroid_tpu_torch.ops import attention
+
+    got = {k: fn.launches for k, fn in train_counters().items()}
+    got["swin_attention_bwd"] = attention.fused_swin_attention.bwd_launches
+    return got
+
+
+def reset_train_counts() -> None:
+    from thyroid_tpu_torch.ops import attention
+
+    for fn in train_counters().values():
+        fn.launches = 0
+    attention.fused_swin_attention.bwd_launches = 0
+
+
+def make_trainer(config, params, out: str, device=None, **training):
+    from thyroid_tpu_torch.models.registry import ModelRegistry
+    from thyroid_tpu_torch.training.configs import TRAINER_DEFAULT, TRAINING_VIT
+    from thyroid_tpu_torch.training.engine import Trainer
+
+    tcfg = dict(TRAINING_VIT, **training)
+    return Trainer(ModelRegistry.create_model(config), config, tcfg,
+                   dict(TRAINER_DEFAULT, max_epochs=tcfg["epochs"]),
+                   steps_per_epoch=TRAIN_FRAMES // BATCH,
+                   output_dir=WORK / out, params=params, device=device)
+
+
+def phase_train_slice(params):
+    """The card's train step against the CPU's, then Trainer.fit and
+    test(checkpoint=best) with the launch counts checked."""
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+
+    rs = np.random.RandomState(4)
+    x = rs.randn(8, 224, 224, 1).astype(np.float32)
+    y = (np.arange(8) % 2).astype(np.int64)
+    w = np.ones(8, np.float32)
+    f32 = dict(SWIN_TINY, dtype="f32", drop_path_rate=0.0)
+
+    def step(config, device):
+        trainer = make_trainer(config, params, "step", device=device)
+        dev = trainer.device
+        loss, _, grads = trainer.loss_and_grads(
+            torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
+            torch.from_numpy(w).to(dev))
+        return float(loss), {n: g.float().cpu() for n, g in grads.items()}
+
+    cpu_loss, cpu_grads = step(f32, "cpu")
+    card_loss, card_grads = step(f32, None)
+    bf16_loss, _ = step(dict(f32, dtype="bf16"), None)
+    torch.cuda.empty_cache()
+    diff = sum(float(((card_grads[n] - g) ** 2).sum()) for n, g in cpu_grads.items())
+    norm = sum(float((g ** 2).sum()) for g in cpu_grads.values())
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_rel = (diff / norm) ** 0.5
+    log(f"[train] swin_tiny f32 step, batch 8, card vs cpu: loss {card_loss:.7f} "
+        f"vs {cpu_loss:.7f} (relative {loss_rel:.3e}, tol {STEP_LOSS_RTOL:.0e}); "
+        f"|grad diff| / |grad| {grad_rel:.3e} (tol {STEP_GRAD_RTOL:.0e}, "
+        f"|grad| {norm ** 0.5:.4e})")
+    log(f"[train] swin_tiny bf16 step on the card: loss {bf16_loss:.7f}, "
+        f"{abs(bf16_loss - cpu_loss):.3e} from the cpu f32 loss "
+        f"(tol {BF16_LOSS_TOL:.0e})")
+    if not (loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL
+            and abs(bf16_loss - cpu_loss) <= BF16_LOSS_TOL):
+        raise AssertionError("the card's train step disagrees with the CPU's")
+
+    frames = (rs.rand(TRAIN_FRAMES + VAL_FRAMES, 512, 512, 1) * 65535) \
+        .astype(np.float32)
+    labels = rs.permutation(np.arange(TRAIN_FRAMES + VAL_FRAMES) % 2)
+    reset_train_counts()
+    t0 = time.perf_counter()
+    train = DevicePipeline(frames[:TRAIN_FRAMES], labels[:TRAIN_FRAMES],
+                           batch_size=BATCH, train=True)
+    val = DevicePipeline(frames[TRAIN_FRAMES:], labels[TRAIN_FRAMES:],
+                         batch_size=BATCH)
+    trainer = make_trainer(SWIN_TINY, params, "fit", epochs=1)
+    fit = trainer.fit(train, val)
+    test = trainer.test(val, checkpoint=fit.best_checkpoint)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_train_counts()
+    steps = train.steps_per_epoch()
+    forwards = 2 * val.steps_per_epoch()          # validation + test
+    log(f"[train] Trainer.fit swin_tiny bf16 (drop path 0.2): 1 epoch, "
+        f"{steps} steps of {BATCH} + {forwards} eval forwards + test in "
+        f"{secs:.2f} s; launches {launches}")
+    want = {"percentile": 2, "ln_matmul": 15 * forwards,
+            "ln_mlp_residual": 12 * forwards,
+            "swin_block_attention": 12 * forwards,
+            "swin_attention": 12 * steps, "swin_attention_bwd": 12 * steps}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    metrics = {**fit.history[-1], **test}
+    log("[train] " + json.dumps({k: v for k, v in metrics.items()
+                                 if k.startswith(("train_", "val_", "test_"))}))
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad or fit.best_checkpoint is None:
+        raise AssertionError(f"non-finite metrics {bad} or no checkpoint")
+    return launches
+
+
+def phase_train_times(train_shapes, launches, params):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dtype = torch.bfloat16
+    meta = {"swin_attention": ("fused_swin_attention", "swin_attention.cu",
+                               "ops/attention.py:441"),
+            "swin_attention_bwd": ("fused_swin_attention_bwd",
+                                   "swin_attention_bwd.cu",
+                                   "ops/attention.py:776")}
+    entries = []
+    for kernel, cases in train_shapes.items():
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+               "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0}
+        for shape, count in cases.items():
+            args = make_train_inputs(kernel, shape, dtype, gen)
+            fused, plain = train_kernel_fns(shape)[kernel]
+            ms = median_ms(lambda: fused(*args))
+            plain_ms = median_ms(lambda: plain(*args), reps=5, warm=1)
+            lib_ms = median_ms(train_library_fn(kernel, shape, args))
+            err = max(row[1] for row in compare_train(
+                kernel, fused(*args), plain(*args), dtype))
+            nbytes, ops, peak = train_work(kernel, shape, dtype)
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            t_ops = ops / peak * 1e3
+            log(f"[train-times] {kernel} bf16 {shape} x{count}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                f"bound {max(t_bytes, t_ops):.4f} ms "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["library_ms"] += count * lib_ms
+            tot["bound_ms"] += count * max(t_bytes, t_ops)
+            tot["bytes_ms"] += count * t_bytes
+            tot["ops_ms"] += count * t_ops
+            tot["err"] = max(tot["err"], err)
+            del args
+        name, src, replaces = meta[kernel]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"thyroid_tpu_torch/csrc/{src}",
+            "replaces": f"thyroid_tpu/{replaces}",
+            "launches": launches[kernel],
+            "max_abs_err": tot["err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+            else "operations",
+            "library_ms": tot["library_ms"]})
+        log(f"[train-times] {name} per train step at batch {BATCH}: "
+            f"{tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms)")
+
+    from thyroid_tpu_torch.training.metrics import zero_metric_state
+
+    for n in (BATCH, 128):
+        torch.cuda.reset_peak_memory_stats()
+        trainer = make_trainer(SWIN_TINY, params, "speed")
+        x = torch.randn(n, 224, 224, 1, generator=gen, device="cuda")
+        y = torch.arange(n, device="cuda") % 2
+        w = torch.ones(n, device="cuda")
+
+        def step():
+            trainer.train_step(zero_metric_state(device="cuda"), x, y, w)
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        secs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        med = statistics.median(secs)
+        log(f"[train-times] train step batch {n}: median {med * 1e3:.2f} ms "
+            f"over 5, {n / med:.1f} images/s (bf16, drop path 0.2, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB)")
+        if n == BATCH:
+            phase_train_profile(trainer, x, y, w)
+        del trainer, x
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase_train_profile(trainer, x, y, w, top: int = 14) -> None:
+    """Where the time of one train step at x's batch goes: device time by
+    kernel, the device's busy share, the number of kernel launches and the
+    host's heaviest operators; then forward + backward and the optimizer
+    update timed apart, each up to a synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from thyroid_tpu_torch.training.metrics import zero_metric_state
+
+    n = x.shape[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(zero_metric_state(device="cuda"), x, y, w)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, f"train step batch {n}", top)
+    events = prof.key_averages()
+    kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    log(f"[profile] train step batch {n}: {kernels} device kernel launches; "
+        f"heaviest host operators by self time:")
+    for e in host[:8]:
+        log(f"[profile] host {e.self_cpu_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+            f"{e.key[:80]}")
+
+    def timed(fn) -> float:
+        secs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return statistics.median(secs) * 1e3
+
+    _, _, grads = trainer.loss_and_grads(x, y, w)
+    fb = timed(lambda: trainer.loss_and_grads(x, y, w))
+    opt = timed(lambda: trainer.state.apply_gradients(grads))
+    log(f"[profile] train step batch {n} apart, median of 5: forward + "
+        f"backward {fb:.2f} ms, optimizer update {opt:.2f} ms")
 
 
 def main() -> int:
@@ -455,6 +848,15 @@ def main() -> int:
     engine, launches = phase_slice(params)
     entries = phase_times(shapes, engine, launches)
     phase_profile(engine)
+    del engine
+    torch.cuda.empty_cache()
+    train_shapes = swin_tiny_train_shapes(BATCH)
+    phase_train_kernels(train_shapes)
+    try:
+        train_launches = phase_train_slice(params)
+        entries += phase_train_times(train_shapes, train_launches, params)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ has one with
 `python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py`.
 
 Tolerance: float32 1e-4 and bfloat16 1e-2 relative to max(1, max|plain|),
-as chip_smoke.py holds the main-path shapes."""
+as chip_smoke.py holds the main-path shapes; the attention backward's
+dbias, a sum over windows taken in another order, 1e-4 (float32) and 1e-3
+(bfloat16) relative to max(1, max|plain|)."""
 import pytest
 import torch
 
@@ -13,6 +15,7 @@ from thyroid_tpu_torch.models.vit.swin import shift_attention_mask
 from thyroid_tpu_torch.ops import attention, percentile, token_fused
 
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+DBIAS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -28,11 +31,11 @@ def _rn(gen, *shape, scale=1.0, dtype=torch.float32):
     return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, rtol=RTOL):
     got, want = got.float(), want.float()
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    assert err <= RTOL[dtype] * max(1.0, want.abs().max().item()), err
+    assert err <= rtol[dtype] * max(1.0, want.abs().max().item()), err
 
 
 @pytest.mark.cuda
@@ -89,3 +92,55 @@ def test_swin_block_attention(gen, dtype, b, r, c, heads, ws, shift):
     kw = dict(window_size=ws, num_heads=heads, scale=(c // heads) ** -0.5)
     _close(attention.fused_swin_block_attention(*args, **kw),
            attention.swin_block_attention_plain(*args, **kw), dtype)
+
+
+SWIN_TRAIN_CASES = [
+    (1, 8, 32, 1, 4, 0), (1, 16, 96, 3, 4, 2), (1, 14, 192, 6, 7, 0),
+    (1, 14, 384, 12, 7, 3), (1, 7, 768, 24, 7, 0), (1, 16, 64, 1, 8, 4),
+    (1, 16, 128, 4, 8, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,r,c,heads,ws,shift", SWIN_TRAIN_CASES)
+def test_swin_attention_forward(gen, dtype, b, r, c, heads, ws, shift):
+    n = ws * ws
+    mask = shift_attention_mask(r, r, ws, shift)
+    args = (_rn(gen, b, r, r, 3, c, dtype=dtype), _rn(gen, heads, n, n, scale=0.1),
+            torch.from_numpy(mask).cuda() if mask is not None else None)
+    kw = dict(window_size=ws, num_heads=heads)
+    before = attention.fused_swin_attention.launches
+    got = attention.fused_swin_attention(*args, **kw)
+    assert attention.fused_swin_attention.launches == before + 1
+    _close(got, attention.swin_attention_plain(
+        *args, **kw, scale=(c // heads) ** -0.5), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,r,c,heads,ws,shift", SWIN_TRAIN_CASES)
+def test_swin_attention_backward(gen, dtype, b, r, c, heads, ws, shift):
+    """The backward kernel against its plain version, and autograd through
+    fused_swin_attention reaching it (one forward and one backward launch)."""
+    n = ws * ws
+    mask = shift_attention_mask(r, r, ws, shift)
+    qkv = _rn(gen, b, r, r, 3, c, dtype=dtype)
+    bias = _rn(gen, heads, n, n, scale=0.1)
+    m = torch.from_numpy(mask).cuda() if mask is not None else None
+    dout = _rn(gen, b, r, r, c, dtype=dtype)
+    kw = dict(window_size=ws, num_heads=heads, scale=(c // heads) ** -0.5)
+    dq, db = attention.fused_swin_attention_bwd(qkv, dout, bias, m, **kw)
+    dq_ref, db_ref = attention.swin_attention_bwd_plain(qkv, dout, bias, m, **kw)
+    assert dq.dtype == dtype and db.dtype == torch.float32
+    _close(dq, dq_ref, dtype)
+    _close(db, db_ref, dtype, DBIAS_RTOL)
+
+    fwd, bwd = (attention.fused_swin_attention.launches,
+                attention.fused_swin_attention.bwd_launches)
+    tq, tb = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+    out = attention.fused_swin_attention(tq, tb, m, **kw)
+    out.backward(dout)
+    assert (attention.fused_swin_attention.launches,
+            attention.fused_swin_attention.bwd_launches) == (fwd + 1, bwd + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(tq.grad, dq) and torch.equal(tb.grad, db)

@@ -110,9 +110,14 @@ def test_unported_modes_raise():
         ModelRegistry.create_model(dict(SMALL_SWIN, img_size=80))
     model = create_and_init(SMALL_SWIN, device="cpu")
     x = torch.zeros(1, 64, 64, 1)
-    for kw in ({"train": True}, {"capture": True}):
+    for kw in ({"capture": True}, {"capture": True, "train": True}):
         with pytest.raises(NotImplementedError):
             model(x, **kw)
+    # training is ported; its DropPath needs an explicit generator
+    with pytest.raises(ValueError, match="Generator"):
+        model(x, train=True)
+    out = model(x, train=True, generator=torch.Generator().manual_seed(0))
+    assert out.shape == (1, 2) and out.requires_grad
     with pytest.raises(NotImplementedError):
         ModelRegistry.create_model({"name": "swin_medical"})
 
@@ -125,5 +130,9 @@ def test_registry_and_dtype():
     with pytest.raises(ValueError):
         ModelRegistry.create_model({"name": "no_such_model"})
     model = create_and_init(dict(SMALL_SWIN, dtype="bf16"), device="cpu")
-    out = model(torch.zeros(2, 64, 64, 1))
+    with torch.no_grad():
+        out = model(torch.zeros(2, 64, 64, 1))
     assert out.dtype == torch.float32 and out.shape == (2, 2)
+    # the serving forward's kernels have no backward: they refuse autograd
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(torch.zeros(2, 64, 64, 1))

@@ -84,3 +84,22 @@ def test_rejects_shapes_that_do_not_tile():
         tattn.fused_swin_block_attention(
             qkv, torch.zeros(1, 6, 6, 8), torch.zeros(8, 8), None,
             torch.zeros(2, 16, 16), window_size=4, num_heads=2)
+
+
+@pytest.mark.unit
+def test_block_attention_refuses_autograd():
+    """The serving half-block has no backward: with grad mode on and an
+    input requiring grad it raises and points at fused_swin_attention."""
+    args = [torch.from_numpy(RS.randn(*s).astype(np.float32))
+            for s in ((1, 8, 8, 3, 16), (1, 8, 8, 16), (16, 16), (16,),
+                      (2, 16, 16))]
+    kw = dict(window_size=4, num_heads=2)
+    want = tattn.fused_swin_block_attention(*args, **kw)
+    for i in range(len(args)):
+        grad_args = list(args)
+        grad_args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="fused_swin_attention"):
+            tattn.fused_swin_block_attention(*grad_args, **kw)
+        with torch.no_grad():
+            assert torch.equal(
+                tattn.fused_swin_block_attention(*grad_args, **kw), want)

@@ -93,3 +93,30 @@ def test_wrappers_reject_bad_widths():
         ttf.fused_ln_mlp_residual(x, torch.ones(8), torch.zeros(8),
                                   torch.zeros(8, 16), torch.zeros(16),
                                   torch.zeros(8, 16), torch.zeros(8))
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("which", ["ln_matmul", "ln_mlp_residual"])
+def test_serving_kernels_refuse_autograd(which):
+    """Forward-only wrappers raise, naming the ROADMAP items of their
+    backward kernels, when grad mode is on and an input requires grad; they
+    run under torch.no_grad and on inputs that need no gradient."""
+    c, h = 8, 16
+    x = torch.from_numpy(_f32(5, c))
+    g, b = torch.ones(c), torch.zeros(c)
+    w1 = torch.from_numpy(_f32(c, h, scale=0.1))
+    if which == "ln_matmul":
+        fn = ttf.fused_ln_matmul
+        args = [x, g, b, w1, torch.zeros(h)]
+    else:
+        fn = ttf.fused_ln_mlp_residual
+        args = [x, g, b, w1, torch.zeros(h),
+                torch.from_numpy(_f32(h, c, scale=0.1)), torch.zeros(c)]
+    want = fn(*args)
+    for i in range(len(args)):
+        grad_args = list(args)
+        grad_args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="Queue 2 items 9-11"):
+            fn(*grad_args)
+        with torch.no_grad():
+            assert torch.equal(fn(*grad_args), want)

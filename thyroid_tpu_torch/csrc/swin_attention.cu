@@ -1,39 +1,43 @@
-// fused_swin_block_attention: Swin's attention half-block in one kernel.
+// Swin window attention: the serving half-block and the training forward.
 //
-// Replaces the TPU kernel thyroid_tpu/ops/attention.py _swin_proj_kernel
-// (pallas_call in _fused_swin_fwd_call, public wrapper
-// fused_swin_block_attention).
+// tt_swin_block_attention replaces the TPU kernel
+// thyroid_tpu/ops/attention.py _swin_proj_kernel (pallas_call in
+// _fused_swin_fwd_call, public wrapper fused_swin_block_attention).
+// tt_swin_attention replaces _swin_kernel (the same pallas_call without
+// the projection; public wrapper fused_swin_attention, whose backward is
+// swin_attention_bwd.cu).
 //
-// What it computes, for qkv (B, H, W, 3, C) and the residual stream
-// (B, H, W, C), both in the compute type (f32 or bf16), in the frame the
-// caller already rolled: for every ws x ws window and every head, in f32,
+// What they compute, for qkv (B, H, W, 3, C) in the compute type (f32 or
+// bf16), in the frame the caller already rolled: for every ws x ws window
+// and every head, in f32,
 //   S = (q * scale) k^T + bias[head] (+ mask[window]),  P = softmax(S),
-//   O = P v;
-// O (N x C) rounded to the compute type; Y = O Wp (f32 accumulation) + bp;
-// out = residual + Y stored in the compute type, at the window's own
-// positions (window partition and reverse are index arithmetic, never a
-// copy through global memory). bias is the relative-position bias already
+//   O = P v.
+// The training forward stores O in the compute type at the window's own
+// positions of (B, H, W, C). The serving half-block instead rounds O
+// (N x C) to the compute type, forms Y = O Wp (f32 accumulation) + bp and
+// stores out = residual + Y, with the residual stream (B, H, W, C) in the
+// compute type. Window partition and reverse are index arithmetic, never a
+// copy through global memory. bias is the relative-position bias already
 // gathered to (heads, N, N) f32; mask is the (nW, N, N) f32 shift mask of
 // 0 / -100, or null. The loops run over exactly N = ws*ws keys, no padding.
+// The per-head core (gather, scores, softmax, P v) is swin_window.cuh.
 //
-// Bound on the H100: per window 4*N^2*C operations for attention and
-// 2*N*C^2 for the projection, on 5*N*C elements moved, so bound by
-// operations at every Swin stage. Design (simple first): one block of 256
-// threads per window. Per head, q/k/v (N x head_dim) are gathered into
+// Bound on the H100: per window 4*N^2*C operations for attention (and
+// 2*N*C^2 for the projection), on 4*N*C elements moved for the training
+// forward (5*N*C with the projection). Design (simple first): one block of
+// 256 threads per window. Per head, q/k/v (N x head_dim) are gathered into
 // shared memory as f32, scores and softmax (a warp per row, max-shifted)
-// stay in shared memory, and P v lands in an N x C tile of the compute type
-// in shared memory (75 KB at C = 768 in bf16, 150 KB in f32). The
-// projection then streams Wp through shared memory in 32 x 128 tiles into
-// register accumulators and adds bias and residual in its epilogue.
-// Scalar f32 FMAs; tensor-core tiles are later work.
-#include "common.cuh"
-
-#include <cfloat>
+// stay in shared memory, and P v goes either straight to global memory
+// (training forward) or into an N x C tile of the compute type in shared
+// memory (75 KB at C = 768 in bf16, 150 KB in f32). The projection then
+// streams Wp through shared memory in 32 x 128 tiles into register
+// accumulators and adds bias and residual in its epilogue. Scalar f32
+// FMAs; tensor-core tiles are later work.
+#include "swin_window.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using swin::kThreads;
 constexpr int kPCols = 128; // projection column tile
 constexpr int kPBK = 32;    // projection K chunk
 
@@ -60,11 +64,8 @@ swin_block_attention_kernel(const T* __restrict__ qkv, const T* __restrict__ xre
                             float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = ws * ws, dh = c / heads;
-  const int nwh = hh / ws, nww = ww / ws;
-  const int b = blockIdx.x / (nwh * nww);
-  const int wi = blockIdx.x % (nwh * nww);  // window index inside the image
-  const int wr = wi / nww, wc = wi % nww;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const swin::Window w = swin::window_of(blockIdx.x, hh, ww, ws);
+  const int tid = threadIdx.x;
 
   T* Os = reinterpret_cast<T*>(smem_raw);
   float* work = reinterpret_cast<float*>(smem_raw + align16(sizeof(T) * static_cast<size_t>(n) * c));
@@ -74,54 +75,10 @@ swin_block_attention_kernel(const T* __restrict__ qkv, const T* __restrict__ xre
   float* Ss = Vs + n * dh;          // n x (n + 1)
   float* Wps = work;                // kPBK x kPCols, after the attention
 
-  // token t of this window -> its row in the (B*H*W) spatial grid
-  auto token = [&](int t) -> size_t {
-    return (static_cast<size_t>(b) * hh + wr * ws + t / ws) * ww + wc * ws + t % ws;
-  };
-
   for (int h = 0; h < heads; ++h) {
-    for (int i = tid; i < n * dh; i += kThreads) {
-      const int t = i / dh, d = i % dh;
-      const T* src = qkv + token(t) * 3 * c + h * dh + d;
-      Qs[t * (dh + 1) + d] = to_f32(src[0]) * scale;
-      Ks[t * (dh + 1) + d] = to_f32(src[c]);
-      Vs[t * dh + d] = to_f32(src[2 * c]);
-    }
-    __syncthreads();
-
-    const float* bh = bias + static_cast<size_t>(h) * n * n;
-    const float* mw = mask != nullptr ? mask + static_cast<size_t>(wi) * n * n : nullptr;
-    for (int i = tid; i < n * n; i += kThreads) {
-      const int r = i / n, j = i % n;
-      float s = 0.f;
-      for (int d = 0; d < dh; ++d) s = fmaf(Qs[r * (dh + 1) + d], Ks[j * (dh + 1) + d], s);
-      s += bh[i];
-      if (mw != nullptr) s += mw[i];
-      Ss[r * (n + 1) + j] = s;
-    }
-    __syncthreads();
-
-    for (int r = warp; r < n; r += kWarps) {
-      float* sr = Ss + r * (n + 1);
-      const bool has0 = lane < n, has1 = lane + 32 < n;
-      const float v0 = has0 ? sr[lane] : -FLT_MAX;
-      const float v1 = has1 ? sr[lane + 32] : -FLT_MAX;
-      const float m = warp_max(fmaxf(v0, v1));
-      const float e0 = has0 ? expf(v0 - m) : 0.f;
-      const float e1 = has1 ? expf(v1 - m) : 0.f;
-      const float sum = warp_sum(e0 + e1);
-      if (has0) sr[lane] = e0 / sum;
-      if (has1) sr[lane + 32] = e1 / sum;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < n * dh; i += kThreads) {
-      const int r = i / dh, d = i % dh;
-      float o = 0.f;
-      for (int j = 0; j < n; ++j) o = fmaf(Ss[r * (n + 1) + j], Vs[j * dh + d], o);
-      Os[r * c + h * dh + d] = from_f32<T>(o);
-    }
-    __syncthreads();
+    swin::head_probs<T>(qkv, bias, mask, w, c, h, dh, scale, Qs, Ks, Vs, dh, Ss);
+    swin::head_pv(Ss, Vs, dh, n, dh,
+                  [&](int r, int d, float o) { Os[r * c + h * dh + d] = from_f32<T>(o); });
   }
 
   // out-projection + bias + residual; rows ty + 8*i (n <= 64), columns 4*tx + e
@@ -160,7 +117,7 @@ swin_block_attention_kernel(const T* __restrict__ qkv, const T* __restrict__ xre
     for (int i = 0; i < 8; ++i) {
       const int r = ty + 8 * i;
       if (r >= n) continue;
-      const size_t base = token(r) * c;
+      const size_t base = w.token(r) * c;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = n0 + tx * 4 + e;
@@ -187,6 +144,46 @@ int launch(const void* qkv, const void* xres, const void* wp, const float* bp,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Training forward: the same per-head core, O stored straight into
+// (B, H, W, C) at the window's own positions.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+swin_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
+                      const float* __restrict__ mask, T* __restrict__ out, int hh, int ww,
+                      int c, int heads, int ws, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = ws * ws, dh = c / heads;
+  const swin::Window w = swin::window_of(blockIdx.x, hh, ww, ws);
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // n x (dh + 1)
+  float* Ks = Qs + n * (dh + 1);                   // n x (dh + 1)
+  float* Vs = Ks + n * (dh + 1);                   // n x dh
+  float* Ss = Vs + n * dh;                         // n x (n + 1)
+  for (int h = 0; h < heads; ++h) {
+    swin::head_probs<T>(qkv, bias, mask, w, c, h, dh, scale, Qs, Ks, Vs, dh, Ss);
+    swin::head_pv(Ss, Vs, dh, n, dh, [&](int r, int d, float o) {
+      out[w.token(r) * c + h * dh + d] = from_f32<T>(o);
+    });
+  }
+}
+
+template <typename T>
+int launch_fwd(const void* qkv, const float* bias, const float* mask, void* out, int b,
+               int hh, int ww, int c, int heads, int ws, float scale, cudaStream_t s) {
+  const int n = ws * ws, dh = c / heads;
+  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(n) * (dh + 1) +
+                                       static_cast<size_t>(n) * dh +
+                                       static_cast<size_t>(n) * (n + 1));
+  cudaError_t err = cudaFuncSetAttribute(swin_attention_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = b * (hh / ws) * (ww / ws);
+  swin_attention_kernel<T><<<blocks, kThreads, smem, s>>>(
+      static_cast<const T*>(qkv), bias, mask, static_cast<T*>(out), hh, ww, c, heads, ws,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 TT_EXPORT int tt_swin_block_attention(const void* qkv, const void* xres, const void* wp,
@@ -201,4 +198,15 @@ TT_EXPORT int tt_swin_block_attention(const void* qkv, const void* xres, const v
                                          heads, ws, scale, s)
                  : launch<float>(qkv, xres, wp, fbp, fbias, fmask, y, b, hh, ww, c, heads, ws,
                                  scale, s);
+}
+
+TT_EXPORT int tt_swin_attention(const void* qkv, const void* bias, const void* mask, void* out,
+                                int b, int hh, int ww, int c, int heads, int ws, float scale,
+                                int is_bf16, void* stream) {
+  const float* fbias = static_cast<const float*>(bias);
+  const float* fmask = static_cast<const float*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_fwd<__nv_bfloat16>(qkv, fbias, fmask, out, b, hh, ww, c, heads, ws,
+                                             scale, s)
+                 : launch_fwd<float>(qkv, fbias, fmask, out, b, hh, ww, c, heads, ws, scale, s);
 }

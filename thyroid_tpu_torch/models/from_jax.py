@@ -52,19 +52,31 @@ def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> None:
         raise KeyError(f"port parameters with no JAX leaf: {missing}")
 
 
-def to_jax_params(model: torch.nn.Module) -> Dict[str, Any]:
-    """The inverse of load_jax_params: the model's parameters as a JAX
-    parameter tree of float32 numpy arrays."""
+def jax_tree(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """{port parameter name: tensor} → the JAX parameter tree (nested dicts)
+    of float32 CPU tensors, conv weights OIHW → HWIO. `load_jax_params`
+    takes it back."""
     inverse = {v: k for k, v in _CONV_KERNELS.items()}
     tree: Dict[str, Any] = {}
-    for name, p in model.named_parameters():
-        arr = p.detach().float().cpu().numpy()
+    for name, p in named.items():
+        t = p.detach().float().cpu()
         if name in inverse:
-            arr = arr.transpose(2, 3, 1, 0)          # OIHW → HWIO
+            t = t.permute(2, 3, 1, 0).contiguous()    # OIHW → HWIO
             name = inverse[name]
         node = tree
         *parents, leaf = name.split(".")
         for key in parents:
             node = node.setdefault(key, {})
-        node[leaf] = arr
+        node[leaf] = t
     return tree
+
+
+def to_jax_params(model: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse of load_jax_params: the model's parameters as a JAX
+    parameter tree of float32 numpy arrays."""
+
+    def numpy(tree):
+        return {k: numpy(v) if isinstance(v, dict) else v.numpy()
+                for k, v in tree.items()}
+
+    return numpy(jax_tree(dict(model.named_parameters())))

@@ -53,3 +53,26 @@ class MlpParams(nn.Module):
         super().__init__()
         self.Dense_0 = DenseParams(in_dim, hidden)
         self.Dense_1 = DenseParams(hidden, in_dim)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: drop the residual branch per sample. In training
+    each sample keeps its branch with probability 1 − rate, scaled by
+    1/keep; the Bernoulli draws come from the explicit `generator` (on x's
+    device). An identity at eval or at rate 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("DropPath in training needs a torch.Generator")
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))

@@ -1,13 +1,22 @@
-"""Swin Transformer serving forward (counterpart of thyroid_tpu/models/vit/swin.py).
+"""Swin Transformer (counterpart of thyroid_tpu/models/vit/swin.py).
 
-The forward is the one the JAX package runs when `use_pallas_attention` is
-on and `deterministic=True`: per block, roll → fused LN+QKV
-(`fused_ln_matmul`) → fused W-MSA + out-projection + residual
-(`fused_swin_block_attention`, the residual being the rolled pre-LN
-stream) → roll back → fused LN+MLP+residual (`fused_ln_mlp_residual`);
-PatchMerging's norm + reduction through `fused_ln_matmul` without bias.
+Two forwards, the ones the JAX package runs with `use_pallas_attention` on:
+
+- serving (`train=False`, `deterministic=True` in JAX): per block, roll →
+  fused LN+QKV (`fused_ln_matmul`) → fused W-MSA + out-projection +
+  residual (`fused_swin_block_attention`, the residual being the rolled
+  pre-LN stream) → roll back → fused LN+MLP+residual
+  (`fused_ln_mlp_residual`); PatchMerging's norm + reduction through
+  `fused_ln_matmul` without bias. These kernels have no backward.
+- training (`train=True`): per block, roll → LayerNorm → QKV matmul →
+  `fused_swin_attention` (forward and backward kernels) → out-projection →
+  roll back → shortcut + DropPath; then LayerNorm → MLP with exact GELU →
+  residual + DropPath; PatchMerging's LayerNorm and reduction as plain
+  matmuls. Everything but the attention is plain PyTorch, as it is XLA in
+  JAX; dense layers cast their float32 parameters to the model dtype.
+
 The patch-embed convolution, `patch_norm`, the final norm, the mean pool
-and the float32 head are plain PyTorch, as they are XLA ops in JAX.
+and the float32 head are plain PyTorch in both, as they are XLA ops in JAX.
 
 Parameters are float32 and named as in the JAX tree; the stream runs in
 the model dtype (float32 or bfloat16). Options of the JAX model that this
@@ -23,11 +32,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ...ops.attention import fused_swin_block_attention
+from ...ops.attention import fused_swin_attention, fused_swin_block_attention
 # re-exported under the JAX module's names
 from ...ops.attention import window_partition, window_reverse  # noqa: F401
 from ...ops.token_fused import fused_ln_matmul, fused_ln_mlp_residual
-from ..layers import LN_EPS, DenseParams, LNParams, MlpParams, trunc_normal_
+from ..layers import (LN_EPS, DenseParams, DropPath, LNParams, MlpParams,
+                      trunc_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 
 
@@ -87,11 +97,20 @@ class WindowAttention(nn.Module):
         self.proj = DenseParams(dim, dim)
 
 
+def dense(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+          dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.Dense(dtype=dtype) numerics from raw parameters: input and
+    parameters cast to `dtype`, the product and the bias add in `dtype`."""
+    y = x.to(dtype) @ kernel.to(dtype)
+    return y + bias.to(dtype) if bias is not None else y
+
+
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None):
+                 qk_scale: Optional[float] = None,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         h, w = input_resolution
         ws, shift = window_size, shift_size
@@ -109,6 +128,7 @@ class SwinBlock(nn.Module):
         self.attn = WindowAttention(dim, ws, num_heads, qkv_bias)
         self.norm2 = LNParams(dim)
         self.mlp = MlpParams(dim, int(dim * mlp_ratio))
+        self.drop_path = DropPath(drop_path_rate)
         self.register_buffer("rel_index", torch.from_numpy(
             relative_position_index(ws).reshape(-1).astype(np.int64)),
             persistent=False)
@@ -117,11 +137,20 @@ class SwinBlock(nn.Module):
             "attn_mask", torch.from_numpy(mask) if mask is not None else None,
             persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _bias_hnn(self) -> torch.Tensor:
+        """The relative-position bias gathered to (heads, N, N) float32;
+        autograd scatters its gradient back into the table."""
+        n = self.ws * self.ws
+        return self.attn.relative_position_bias_table[self.rel_index] \
+            .reshape(n, n, self.num_heads).permute(2, 0, 1).float().contiguous()
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train:
+            return self._forward_train(x, generator)
         b, l, c = x.shape
         h, w = self.resolution
         ws, shift = self.ws, self.shift
-        n = ws * ws
         xs = x.reshape(b, h, w, c)
         if shift > 0:
             xs = torch.roll(xs, shifts=(-shift, -shift), dims=(1, 2))
@@ -129,11 +158,10 @@ class SwinBlock(nn.Module):
         a = self.attn
         qkv = fused_ln_matmul(xs, self.norm1.scale, self.norm1.bias,
                               a.qkv.kernel, a.qkv.bias).reshape(b, h, w, 3, c)
-        bias_hnn = a.relative_position_bias_table[self.rel_index] \
-            .reshape(n, n, self.num_heads).permute(2, 0, 1).float().contiguous()
         xs = fused_swin_block_attention(
-            qkv, xs, a.proj.kernel, a.proj.bias, bias_hnn, self.attn_mask,
-            window_size=ws, num_heads=self.num_heads, scale=self.scale)
+            qkv, xs, a.proj.kernel, a.proj.bias, self._bias_hnn(),
+            self.attn_mask, window_size=ws, num_heads=self.num_heads,
+            scale=self.scale)
         if shift > 0:
             xs = torch.roll(xs, shifts=(shift, shift), dims=(1, 2))
         m = self.mlp
@@ -141,9 +169,37 @@ class SwinBlock(nn.Module):
             xs.reshape(b, l, c).contiguous(), self.norm2.scale, self.norm2.bias,
             m.Dense_0.kernel, m.Dense_0.bias, m.Dense_1.kernel, m.Dense_1.bias)
 
+    def _forward_train(self, x: torch.Tensor,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The JAX block's fused training branch (use_pallas, not
+        deterministic), x (B, L, C) in the model dtype."""
+        b, l, c = x.shape
+        h, w = self.resolution
+        ws, shift = self.ws, self.shift
+        dt = x.dtype
+        xs = x.reshape(b, h, w, c)
+        if shift > 0:
+            xs = torch.roll(xs, shifts=(-shift, -shift), dims=(1, 2))
+        a = self.attn
+        xn = manual_layer_norm(xs, self.norm1.scale, self.norm1.bias, dt)
+        qkv = dense(xn, a.qkv.kernel, a.qkv.bias, dt).reshape(b, h, w, 3, c)
+        out = fused_swin_attention(
+            qkv, self._bias_hnn(), self.attn_mask, window_size=ws,
+            num_heads=self.num_heads, scale=self.scale).to(dt)
+        out = dense(out, a.proj.kernel, a.proj.bias, dt)
+        if shift > 0:
+            out = torch.roll(out, shifts=(shift, shift), dims=(1, 2))
+        x = x + self.drop_path(out.reshape(b, l, c), True, generator)
+        m = self.mlp
+        y = manual_layer_norm(x, self.norm2.scale, self.norm2.bias, dt)
+        y = F.gelu(dense(y, m.Dense_0.kernel, m.Dense_0.bias, dt))
+        y = dense(y, m.Dense_1.kernel, m.Dense_1.bias, dt)
+        return x + self.drop_path(y, True, generator)
+
 
 class PatchMerging(nn.Module):
-    """2×2 patch merge, 4C → 2C, norm + reduction in one fused kernel."""
+    """2×2 patch merge, 4C → 2C: norm + reduction in one fused kernel when
+    serving, LayerNorm and a plain matmul in training."""
 
     def __init__(self, input_resolution: Tuple[int, int], dim: int):
         super().__init__()
@@ -151,13 +207,17 @@ class PatchMerging(nn.Module):
         self.norm = LNParams(4 * dim)
         self.reduction = DenseParams(4 * dim, 2 * dim, use_bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h, w = self.resolution
         b, _, c = x.shape
         x = x.reshape(b, h, w, c)
         merged = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
                             x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
         merged = merged.reshape(b, -1, 4 * c).contiguous()
+        if train:
+            normed = manual_layer_norm(merged, self.norm.scale, self.norm.bias,
+                                       x.dtype)
+            return dense(normed, self.reduction.kernel, None, x.dtype)
         return fused_ln_matmul(merged, self.norm.scale, self.norm.bias,
                                self.reduction.kernel, None)
 
@@ -165,22 +225,26 @@ class PatchMerging(nn.Module):
 class SwinStage(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int], depth: int,
                  num_heads: int, window_size: int, mlp_ratio: float,
-                 qkv_bias: bool, qk_scale: Optional[float], downsample: bool):
+                 qkv_bias: bool, qk_scale: Optional[float], downsample: bool,
+                 drop_path_rates: Sequence[float] = ()):
         super().__init__()
         self.depth = depth
+        rates = tuple(drop_path_rates) or (0.0,) * depth
         for i in range(depth):
             self.add_module(f"block_{i}", SwinBlock(
                 dim, input_resolution, num_heads, window_size,
                 shift_size=0 if i % 2 == 0 else window_size // 2,
-                mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale))
+                mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
+                drop_path_rate=float(rates[i])))
         self.downsample = PatchMerging(input_resolution, dim) \
             if downsample else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, train, generator)
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.downsample(x, train)
         return x
 
 
@@ -191,7 +255,7 @@ class SwinTransformer(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  window_size: int = 7, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 patch_norm: bool = True,
+                 drop_path_rate: float = 0.2, patch_norm: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if img_size % patch_size:
@@ -202,6 +266,8 @@ class SwinTransformer(nn.Module):
         self.dtype = dtype
         self.num_layers = len(depths)
         res = img_size // patch_size
+        # stochastic-depth rate of each block, rising linearly over the net
+        dpr = np.linspace(0.0, drop_path_rate, sum(depths))
         self.patch_embed = nn.Conv2d(in_channels, embed_dim, patch_size,
                                      stride=patch_size)
         self.patch_norm = LNParams(embed_dim) if patch_norm else None
@@ -212,7 +278,8 @@ class SwinTransformer(nn.Module):
                 depth=depths[i], num_heads=num_heads[i],
                 window_size=window_size, mlp_ratio=mlp_ratio,
                 qkv_bias=qkv_bias, qk_scale=qk_scale,
-                downsample=i < self.num_layers - 1))
+                downsample=i < self.num_layers - 1,
+                drop_path_rates=dpr[sum(depths[:i]):sum(depths[:i + 1])]))
         self.norm = LNParams(int(embed_dim * 2 ** (self.num_layers - 1)))
         self.head = DenseParams(self.norm.scale.shape[0], num_classes)
 
@@ -230,12 +297,15 @@ class SwinTransformer(nn.Module):
             self.patch_embed.bias.zero_()
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                capture: bool = False) -> torch.Tensor:
-        """x (B, S, S, in_channels) NHWC → (B, num_classes) float32 logits."""
-        if train or capture:
+                capture: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, S, S, in_channels) NHWC → (B, num_classes) float32 logits.
+        `train` takes the training forward, whose DropPath draws come from
+        `generator` (on x's device)."""
+        if capture:
             raise NotImplementedError(
-                "training and attention capture are not ported (ROADMAP "
-                "Queue 1: swin_tiny training)")
+                "attention capture is not ported (ROADMAP Queue 1 item 8: "
+                "Analysis)")
         b = x.shape[0]
         dt = self.dtype
         x = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.patch_embed.weight.to(dt),
@@ -244,7 +314,7 @@ class SwinTransformer(nn.Module):
         if self.patch_norm is not None:
             x = manual_layer_norm(x, self.patch_norm.scale, self.patch_norm.bias, dt)
         for i in range(self.num_layers):
-            x = getattr(self, f"stage_{i}")(x)
+            x = getattr(self, f"stage_{i}")(x, train, generator)
         x = manual_layer_norm(x, self.norm.scale, self.norm.bias, dt)
         feat = x.mean(dim=1)
         return feat.float() @ self.head.kernel + self.head.bias
@@ -266,13 +336,19 @@ _UNPORTED = ("medical_adaptations", "contrast_adaptive", "quality_guided",
 
 def build_swin(cfg: Any) -> SwinTransformer:
     name = cfg_get(cfg, "name", "swin_tiny")
-    dim, depths, heads, _, img = SWIN_PARAMS.get(
+    dim, depths, heads, dpr, img = SWIN_PARAMS.get(
         name, (96, (2, 2, 6, 2), (3, 6, 12, 24), 0.2, 224))
     on = [k for k in _UNPORTED
           if cfg_get(cfg, k, name == "swin_medical" and k == "medical_adaptations")]
     if on:
         raise NotImplementedError(
             f"Swin options {on} are not ported (ROADMAP Queue 1: Swin options)")
+    dropout = [k for k in ("drop_rate", "attn_drop_rate")
+               if float(cfg_get(cfg, k, 0.0))]
+    if dropout:
+        raise NotImplementedError(
+            f"Swin {dropout} > 0 is not ported (ROADMAP Queue 1: Swin "
+            "options); every Swin config in configs/ sets both to 0")
     return SwinTransformer(
         img_size=int(cfg_get(cfg, "img_size", img)),
         patch_size=int(cfg_get(cfg, "patch_size", 4)),
@@ -285,6 +361,7 @@ def build_swin(cfg: Any) -> SwinTransformer:
         mlp_ratio=float(cfg_get(cfg, "mlp_ratio", 4.0)),
         qkv_bias=bool(cfg_get(cfg, "qkv_bias", True)),
         qk_scale=cfg_get(cfg, "qk_scale", None),
+        drop_path_rate=float(cfg_get(cfg, "drop_path_rate", dpr)),
         patch_norm=bool(cfg_get(cfg, "patch_norm", True)),
         dtype=resolve_dtype(cfg),
     )

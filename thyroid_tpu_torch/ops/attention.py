@@ -1,11 +1,19 @@
 """Swin window attention (counterpart of thyroid_tpu/ops/attention.py).
 
-`fused_swin_block_attention` is the serving half-block — window
-partition, W-MSA with relative-position bias and shift mask, window
-reverse, out-projection, bias and residual — in one CUDA kernel
-(`csrc/swin_attention.cu`) on CUDA tensors, and in its plain PyTorch
-version, `swin_block_attention_plain`, on CPU tensors.
-`window_attention_reference` is the per-window reference the tests use.
+- `fused_swin_block_attention` is the serving half-block — window
+  partition, W-MSA with relative-position bias and shift mask, window
+  reverse, out-projection, bias and residual — in one CUDA kernel
+  (`csrc/swin_attention.cu`), forward only.
+- `fused_swin_attention` is the training (and eval) W-MSA without the
+  projection, differentiable: a `torch.autograd.Function` pairs the forward
+  kernel (`csrc/swin_attention.cu`) with a backward kernel
+  (`csrc/swin_attention_bwd.cu`) that recomputes the softmax from the saved
+  inputs, as the JAX custom_vjp does.
+
+Each runs its CUDA kernel on CUDA tensors and its plain PyTorch version
+(`swin_block_attention_plain`, `swin_attention_plain`,
+`swin_attention_bwd_plain`) on CPU tensors. `window_attention_reference`
+is the per-window reference the tests use.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .platform import refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_TOKENS = 64   # the kernel's row layout covers windows up to 8 x 8
@@ -52,6 +61,228 @@ def window_reverse(windows: torch.Tensor, ws: int, h: int, w: int) -> torch.Tens
     b = windows.shape[0] // ((h // ws) * (w // ws))
     x = windows.reshape(b, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, h, w, c)
+
+
+def _check_windows(qkv: torch.Tensor, bias: torch.Tensor,
+                   mask: Optional[torch.Tensor], ws: int, num_heads: int) -> None:
+    b, hh, ww, three, c = qkv.shape
+    n = ws * ws
+    if three != 3:
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not (B, H, W, 3, C)")
+    if hh % ws or ww % ws or c % num_heads:
+        raise ValueError(f"({hh}, {ww}, {c}) does not tile into {ws}x{ws} "
+                         f"windows of {num_heads} heads")
+    nw = (hh // ws) * (ww // ws)
+    if tuple(bias.shape) != (num_heads, n, n):
+        raise ValueError(f"bias {tuple(bias.shape)} is not "
+                         f"{(num_heads, n, n)}")
+    if mask is not None and tuple(mask.shape) != (nw, n, n):
+        raise ValueError(f"mask {tuple(mask.shape)} is not {(nw, n, n)}")
+
+
+def _check_cuda(name: str, qkv: torch.Tensor, n: int, *tensors) -> None:
+    if qkv.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {qkv.dtype}")
+    if n > _MAX_TOKENS:
+        raise ValueError(f"window of {n} tokens: {name} takes at most "
+                         f"{_MAX_TOKENS}")
+    for t in (qkv,) + tensors:
+        if t is None:
+            continue
+        if t.device != qkv.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {qkv.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous tensors")
+
+
+def _window_heads(x: torch.Tensor, ws: int, num_heads: int) -> torch.Tensor:
+    """(B, H, W, C) → (B·nW, heads, N, C/heads) float32, windows in
+    row-major order."""
+    c = x.shape[-1]
+    win = window_partition(x.float(), ws)
+    return win.reshape(win.shape[0], ws * ws, num_heads, c // num_heads) \
+        .transpose(1, 2)
+
+
+def _heads_window(o: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
+    """The inverse of _window_heads: (B·nW, heads, N, dh) → (B, H, W, C)."""
+    bw, heads, n, dh = o.shape
+    return window_reverse(o.transpose(1, 2).reshape(bw, n, heads * dh), ws, h, w)
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor,
+           mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """softmax(q_s kᵀ + bias (+ mask)) over (B·nW, heads, N, N) in float32;
+    q is already scaled; mask (nW, N, N) is indexed by the window's index
+    inside its image."""
+    bw, heads, n, _ = q.shape
+    s = q @ k.transpose(-1, -2) + bias[None].float()
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.reshape(bw // nw, nw, heads, n, n)
+             + mask[None, :, None].float()).reshape(bw, heads, n, n)
+    return torch.softmax(s, dim=-1)
+
+
+def swin_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
+                         mask: Optional[torch.Tensor], *, window_size: int,
+                         num_heads: int, scale: float) -> torch.Tensor:
+    """Plain version of fused_swin_attention's forward: W-MSA in float32 on
+    qkv (B, H, W, 3, C), the output (B, H, W, C) in qkv's dtype."""
+    b, hh, ww, _, c = qkv.shape
+    ws = window_size
+    q, k, v = (_window_heads(qkv[:, :, :, i], ws, num_heads) for i in range(3))
+    o = _probs(q * scale, k, bias, mask) @ v
+    return _heads_window(o, ws, hh, ww).to(qkv.dtype)
+
+
+def swin_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
+                             bias: torch.Tensor,
+                             mask: Optional[torch.Tensor], *,
+                             window_size: int, num_heads: int,
+                             scale: float):
+    """Plain version of fused_swin_attention's backward, by the explicit
+    formulas in float32 (q_s = q·scale, P recomputed):
+    dV = Pᵀ dO, dP = dO Vᵀ, dS = P ⊙ (dP − rowsum(dP ⊙ P)),
+    dQ = scale·dS K, dK = dSᵀ q_s, dBias = Σ over batch and windows of dS.
+    dout (B, H, W, C) → (dqkv (B, H, W, 3, C) in qkv's dtype,
+    dbias (heads, N, N) float32)."""
+    b, hh, ww, _, c = qkv.shape
+    ws = window_size
+    q, k, v = (_window_heads(qkv[:, :, :, i], ws, num_heads) for i in range(3))
+    do = _window_heads(dout, ws, num_heads)
+    qs = q * scale
+    p = _probs(qs, k, bias, mask)
+    dv = p.transpose(-1, -2) @ do
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = (ds @ k) * scale
+    dk = ds.transpose(-1, -2) @ qs
+    dqkv = torch.stack([_heads_window(t, ws, hh, ww) for t in (dq, dk, dv)],
+                       dim=3).to(qkv.dtype)
+    return dqkv, ds.sum(dim=0)
+
+
+def _swin_attention_fwd(qkv, bias, mask, *, window_size: int, num_heads: int,
+                        scale: float) -> torch.Tensor:
+    """Forward of fused_swin_attention on qkv's device: the kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if qkv.device.type == "cpu":
+        return swin_attention_plain(qkv, bias, mask, window_size=window_size,
+                                    num_heads=num_heads, scale=scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    b, hh, ww, _, c = qkv.shape
+    bias_f = bias.float().contiguous()
+    mask_f = mask.float().contiguous() if mask is not None else None
+    _check_cuda("fused_swin_attention", qkv, window_size ** 2, bias_f, mask_f)
+    out = torch.empty(b, hh, ww, c, dtype=qkv.dtype, device=qkv.device)
+    if b == 0:
+        return out
+    fn = _build.function("swin_attention", "tt_swin_attention",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    status = fn(_build.ptr(qkv), _build.ptr(bias_f),
+                _build.ptr(mask_f) if mask_f is not None else None,
+                _build.ptr(out), b, hh, ww, c, num_heads, window_size,
+                float(scale), int(qkv.dtype == torch.bfloat16),
+                _build.stream_ptr(qkv.device))
+    _build.check("swin_attention", status, "fused_swin_attention")
+    fused_swin_attention.launches += 1
+    return out
+
+
+def fused_swin_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
+                             bias: torch.Tensor, mask: Optional[torch.Tensor],
+                             *, window_size: int, num_heads: int,
+                             scale: float):
+    """The backward of fused_swin_attention, given the output gradient
+    dout (B, H, W, C) in qkv's dtype → (dqkv (B, H, W, 3, C) in qkv's dtype,
+    dbias (heads, N, N) float32): the kernel on a CUDA tensor, the plain
+    version on a CPU tensor. Its launches count on
+    fused_swin_attention.bwd_launches."""
+    if qkv.device.type == "cpu":
+        return swin_attention_bwd_plain(qkv, dout, bias, mask,
+                                        window_size=window_size,
+                                        num_heads=num_heads, scale=scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    b, hh, ww, _, c = qkv.shape
+    n = window_size ** 2
+    bias_f = bias.float().contiguous()
+    mask_f = mask.float().contiguous() if mask is not None else None
+    _check_cuda("fused_swin_attention backward", qkv, n, dout, bias_f, mask_f)
+    if dout.dtype != qkv.dtype or tuple(dout.shape) != (b, hh, ww, c):
+        raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} does not "
+                         f"match qkv {qkv.dtype} {tuple(qkv.shape)}")
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.zeros(num_heads, n, n, dtype=torch.float32, device=qkv.device)
+    if b == 0:
+        return dqkv, dbias
+    lib = _build.library("swin_attention_bwd")
+    groups_fn = lib.tt_swin_bwd_groups
+    groups_fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    groups_fn.restype = ctypes.c_int
+    windows = b * (hh // window_size) * (ww // window_size)
+    partial = torch.empty(num_heads, groups_fn(windows, num_heads), n, n,
+                          dtype=torch.float32, device=qkv.device)
+    fn = _build.function("swin_attention_bwd", "tt_swin_attention_bwd",
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    status = fn(_build.ptr(qkv), _build.ptr(dout), _build.ptr(bias_f),
+                _build.ptr(mask_f) if mask_f is not None else None,
+                _build.ptr(dqkv), _build.ptr(dbias), _build.ptr(partial),
+                b, hh, ww, c, num_heads, window_size, float(scale),
+                int(qkv.dtype == torch.bfloat16), _build.stream_ptr(qkv.device))
+    _build.check("swin_attention_bwd", status, "fused_swin_attention backward")
+    fused_swin_attention.bwd_launches += 1
+    return dqkv, dbias
+
+
+class _SwinAttention(torch.autograd.Function):
+    """custom_vjp of the JAX package: the residuals are the inputs (qkv,
+    bias, mask), never the probabilities; the backward recomputes them."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, window_size, num_heads, scale):
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.cfg = dict(window_size=window_size, num_heads=num_heads,
+                       scale=scale)
+        return _swin_attention_fwd(qkv, bias, mask, **ctx.cfg)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        qkv, bias, mask = ctx.saved_tensors
+        # the incoming gradient rounded to qkv's dtype, as _swin_attn_ad_bwd
+        dqkv, dbias = fused_swin_attention_bwd(
+            qkv, grad.to(qkv.dtype).contiguous(), bias, mask, **ctx.cfg)
+        return dqkv, dbias.to(bias.dtype), None, None, None, None
+
+
+def fused_swin_attention(qkv: torch.Tensor, bias: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None, *,
+                         window_size: int, num_heads: int,
+                         scale: Optional[float] = None,
+                         rows_per_step: Optional[int] = None) -> torch.Tensor:
+    """qkv (B, H, W, 3, C) — already LN'd, projected and rolled if shifted;
+    bias (heads, N, N) the gathered relative-position bias; mask (nW, N, N)
+    shift mask or None → (B, H, W, C) attention output in qkv's dtype,
+    windows already reversed.
+
+    Differentiable in qkv and bias (dqkv in qkv's dtype, dbias in bias's);
+    the mask gets no gradient. `rows_per_step` is accepted and ignored: it
+    tiled the TPU grid."""
+    del rows_per_step
+    _check_windows(qkv, bias, mask, window_size, num_heads)
+    if scale is None:
+        scale = (qkv.shape[-1] // num_heads) ** -0.5
+    return _SwinAttention.apply(qkv, bias, mask, window_size, num_heads,
+                                float(scale))
+
+
+fused_swin_attention.launches = 0
+fused_swin_attention.bwd_launches = 0
 
 
 def swin_block_attention_plain(qkv: torch.Tensor, residual: torch.Tensor,
@@ -98,20 +329,16 @@ def fused_swin_block_attention(qkv: torch.Tensor, residual: torch.Tensor,
     proj_kernel (C, C), proj_bias (C,) or None; bias (heads, N, N) the
     gathered relative-position bias; mask (nW, N, N) shift mask or None.
     → (B, H, W, C) in qkv's dtype."""
-    b, hh, ww, three, c = qkv.shape
+    refuse_autograd("fused_swin_block_attention", "training uses "
+                    "fused_swin_attention, as in the JAX package, where this "
+                    "serving call has no autodiff", qkv, residual,
+                    proj_kernel, proj_bias, bias)
+    b, hh, ww, _, c = qkv.shape
     ws, n = window_size, window_size * window_size
-    if three != 3 or tuple(residual.shape) != (b, hh, ww, c):
+    _check_windows(qkv, bias, mask, ws, num_heads)
+    if tuple(residual.shape) != (b, hh, ww, c):
         raise ValueError(f"qkv {tuple(qkv.shape)} / residual "
                          f"{tuple(residual.shape)} do not match")
-    if hh % ws or ww % ws or c % num_heads:
-        raise ValueError(f"({hh}, {ww}, {c}) does not tile into {ws}x{ws} "
-                         f"windows of {num_heads} heads")
-    nw = (hh // ws) * (ww // ws)
-    if tuple(bias.shape) != (num_heads, n, n):
-        raise ValueError(f"bias {tuple(bias.shape)} is not "
-                         f"{(num_heads, n, n)}")
-    if mask is not None and tuple(mask.shape) != (nw, n, n):
-        raise ValueError(f"mask {tuple(mask.shape)} is not {(nw, n, n)}")
     if scale is None:
         scale = (c // num_heads) ** -0.5
     if qkv.device.type == "cpu":
@@ -120,24 +347,15 @@ def fused_swin_block_attention(qkv: torch.Tensor, residual: torch.Tensor,
             window_size=ws, num_heads=num_heads, scale=float(scale))
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    if qkv.dtype not in _DTYPES:
-        raise TypeError(f"fused_swin_block_attention takes float32 or "
-                        f"bfloat16, got {qkv.dtype}")
     if residual.dtype != qkv.dtype:
         raise TypeError(f"residual {residual.dtype} != qkv {qkv.dtype}")
-    if n > _MAX_TOKENS:
-        raise ValueError(f"window {ws}x{ws} has more than {_MAX_TOKENS} tokens")
     wp = proj_kernel.to(qkv.dtype).contiguous()
     bp = (proj_bias.float() if proj_bias is not None
           else torch.zeros(c, dtype=torch.float32, device=qkv.device)).contiguous()
     bias = bias.float().contiguous()
     mask_f = mask.float().contiguous() if mask is not None else None
-    for t in (qkv, residual, wp, bp, bias) + ((mask_f,) if mask is not None else ()):
-        if t.device != qkv.device:
-            raise ValueError(f"tensors on {t.device} and {qkv.device}")
-        if not t.is_contiguous():
-            raise ValueError("fused_swin_block_attention needs contiguous "
-                             "qkv and residual")
+    _check_cuda("fused_swin_block_attention", qkv, n, residual, wp, bp, bias,
+                mask_f)
     is_bf16 = int(qkv.dtype == torch.bfloat16)
     y = torch.empty_like(residual)
     if b == 0:

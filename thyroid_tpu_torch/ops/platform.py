@@ -22,3 +22,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def refuse_autograd(name: str, reason: str, *tensors) -> None:
+    """Raise when `name`, a forward-only kernel wrapper, is called where
+    autograd would record it: grad mode on and any input requiring grad.
+    Its gradients would otherwise be silently wrong or absent."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: {reason}")

@@ -1,6 +1,7 @@
 """Token-major fused LN kernels (counterpart of thyroid_tpu/ops/token_fused.py).
 
-Forward only (serving):
+Forward only (serving; with autograd recording they raise, since their
+backward kernels are ROADMAP Queue 2 items 9-11):
 - `fused_ln_matmul`:        y = LN(x) @ W + b            (csrc/ln_matmul.cu)
 - `fused_ln_mlp_residual`:  y = x + fc2(gelu(fc1(LN(x))))  (csrc/ln_mlp.cu)
 
@@ -19,9 +20,12 @@ from typing import Optional
 import torch
 
 from . import _build
+from .platform import refuse_autograd
 
 LN_EPS = 1e-5
 _DTYPES = (torch.float32, torch.bfloat16)
+_NO_BWD = ("its backward kernels are not ported (ROADMAP Queue 2 items "
+           "9-11); training runs LN and the matmuls in plain PyTorch")
 
 
 def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -80,6 +84,7 @@ def fused_ln_matmul(x: torch.Tensor, ln_scale: torch.Tensor,
                     b: Optional[torch.Tensor], *,
                     eps: float = LN_EPS) -> torch.Tensor:
     """x (..., C) → LN(x) @ w + b, (..., O) in x's dtype; b may be None."""
+    refuse_autograd("fused_ln_matmul", _NO_BWD, x, ln_scale, ln_bias, w, b)
     lead, c = x.shape[:-1], x.shape[-1]
     out_dim = w.shape[1]
     if w.shape[0] != c:
@@ -121,6 +126,8 @@ def fused_ln_mlp_residual(x: torch.Tensor, ln_scale: torch.Tensor,
                           eps: float = LN_EPS) -> torch.Tensor:
     """x (..., C) → x + fc2(gelu(fc1(LN(x)))) in x's dtype; the 4C hidden
     layer never leaves the kernel."""
+    refuse_autograd("fused_ln_mlp_residual", _NO_BWD, x, ln_scale, ln_bias,
+                    w1, b1, w2, b2)
     c = x.shape[-1]
     hdim = w1.shape[1]
     if w1.shape[0] != c or tuple(w2.shape) != (hdim, c):

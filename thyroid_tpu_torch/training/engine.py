@@ -1,0 +1,385 @@
+"""Training engine (counterpart of thyroid_tpu/training/engine.py), loss
+mode "ce".
+
+`Trainer(model, model_config, training_config, trainer_config,
+steps_per_epoch).fit(train_pipeline, val_pipeline)` then
+`Trainer.test(pipeline, checkpoint=best)`, as `scripts/train.py` drives the
+JAX engine. A train step is: forward with `train=True` (DropPath draws
+from the trainer's generator on the device), cross-entropy with label
+smoothing and sample weights, backward (the Swin attention through its
+backward kernel), clip, AdamW with the schedule and layer decay, EMA, and a
+metric update that stays on the device. Evaluation runs the `train=False`
+(serving) forward under `torch.no_grad`.
+
+Differences from the JAX engine: the per-step loop is the only loop
+(`scan_epoch` is accepted; the JAX package documents its epoch scan as
+equal to this loop); the epoch permutation and DropPath draw from
+`torch.Generator`s seeded with `TrainerConfig.seed`, so their random
+streams are not JAX's; the initial weights come from the port's own
+initialisers unless `params` carries a JAX tree in. Distillation, DeiT's
+dual head, Inception's aux head, MixUp/CutMix, meshes and attention-map
+logging raise NotImplementedError; the TrainerConfig fields that only
+those read (mesh axes) and the two the JAX engine never reads
+(`log_every_n_steps`, `deterministic`) are left out.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Mapping, Optional
+
+import torch
+from torch.func import functional_call
+
+from ..models import vit  # noqa: F401  (registers the Swin family)
+from ..models.from_jax import load_jax_params
+from ..models.registry import ModelRegistry, cfg_get
+from ..ops.platform import DeviceLike, resolve_device
+from ..utils.observe import MetricLogger, StepTimer
+from .checkpoint import (BestCheckpointManager, load_checkpoint, load_payload,
+                         save_checkpoint)
+from .configs import VIT_OPTIMIZER_PARAMS
+from .losses import cross_entropy
+from .metrics import (finalize_metric_state, update_metric_state,
+                      zero_metric_state)
+from .schedules import build_optimizer, build_schedule
+from .train_state import TrainState
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class TrainerConfig:
+    max_epochs: int = 100
+    min_epochs: int = 1
+    max_steps: int = -1
+    precision: str = "bf16"
+    gradient_clip_val: Optional[float] = 1.0
+    gradient_clip_algorithm: str = "norm"
+    accumulate_grad_batches: int = 1
+    scan_epoch: bool = True     # accepted; the port always runs the step loop
+    check_val_every_n_epoch: int = 1
+    limit_train_batches: float = 1.0
+    limit_val_batches: float = 1.0
+    limit_test_batches: float = 1.0
+    enable_checkpointing: bool = True
+    mesh_shape: Optional[Dict[str, int]] = None
+    monitor_metric: str = "val_acc"
+    monitor_mode: str = "max"
+    early_stopping_patience: Optional[int] = 10
+    log_attention_every_n_epochs: int = 0
+    save_top_k: int = 3
+    save_last: bool = True
+    seed: int = 42
+
+    @classmethod
+    def from_config(cls, trainer_cfg: Any, training_cfg: Any) -> "TrainerConfig":
+        kw = {}
+        for f_ in cls.__dataclass_fields__:
+            v = cfg_get(trainer_cfg, f_, None)
+            if v is None:
+                v = cfg_get(training_cfg, f_, None)
+            if v is not None:
+                kw[f_] = v
+        return cls(**kw)
+
+
+@dataclass
+class FitResult:
+    best_metric: Optional[float]
+    best_checkpoint: Optional[Path]
+    history: List[Dict[str, float]] = field(default_factory=list)
+    stopped_epoch: int = 0
+
+
+def _limit_batches(limit, full: int) -> int:
+    """Lightning `limit_{train,val,test}_batches` semantics: an int is a
+    batch count (0 disables), a float a fraction of the epoch."""
+    if isinstance(limit, bool) or limit is None:
+        return full
+    if isinstance(limit, int):
+        return min(full, max(0, limit))
+    if float(limit) < 1.0:
+        return max(1, int(full * float(limit)))
+    return full
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported (ROADMAP Queue 1 {item})")
+
+
+class Trainer:
+    """Builds the optimizer and state from the configs and runs
+    fit/validate/test on `device` (the card unless the CPU is asked for).
+    `params`, a JAX parameter tree, replaces the seeded initial weights."""
+
+    def __init__(self, model: torch.nn.Module, model_config: Any,
+                 training_config: Any, trainer_config: Any = None,
+                 steps_per_epoch: int = 10, output_dir: str | Path = "outputs",
+                 teacher_fn: Optional[Callable] = None,
+                 distillation_config: Any = None,
+                 loss_mode: Optional[str] = None, mesh: Any = None,
+                 params: Optional[Mapping[str, Any]] = None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.model_config = model_config
+        self.training_config = training_config
+        self.cfg = TrainerConfig.from_config(trainer_config, training_config)
+        if teacher_fn is not None or distillation_config is not None:
+            raise _unported("distillation", "item 7: other experiments")
+        if mesh is not None or self.cfg.mesh_shape:
+            raise _unported("training on a mesh", "item 10: Parallelism")
+        if self.cfg.log_attention_every_n_epochs:
+            raise _unported("attention-map logging", "item 8: Analysis")
+        # trainer.precision drives the compute dtype: rebuild the model in
+        # bf16 unless the model config pins a dtype (params stay float32)
+        if self.cfg.precision == "bf16" and cfg_get(model_config, "dtype", None) is None:
+            mc = dict(model_config)
+            mc["dtype"] = "bf16"
+            model = ModelRegistry.create_model(mc)
+            self.model_config = mc
+        self.model = model
+        self.output_dir = Path(output_dir)
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+
+        if loss_mode is None:
+            name = str(cfg_get(model_config, "name", ""))
+            loss_mode = "deit" if name.startswith("deit") else "ce"
+        if loss_mode != "ce":
+            raise _unported(f"loss mode {loss_mode!r}", "item 5: rest of the zoo")
+        self.loss_mode = loss_mode
+        self.label_smoothing = float(
+            cfg_get(training_config, "label_smoothing",
+                    cfg_get(cfg_get(training_config, "loss", {}) or {},
+                            "label_smoothing", 0.0)) or 0.0)
+        for key in ("mixup_alpha", "cutmix_alpha"):
+            if float(cfg_get(training_config, key, 0.0) or 0.0) > 0:
+                raise _unported("MixUp/CutMix", "item 6: Augmentation")
+        opt = cfg_get(training_config, "optimizer_params", {}) or {}
+        if not opt and str(cfg_get(self.model_config, "architecture", "")) == "vit":
+            opt = dict(VIT_OPTIMIZER_PARAMS)
+        sched = cfg_get(training_config, "scheduler_params", {}) or {}
+        epochs = int(cfg_get(training_config, "epochs", self.cfg.max_epochs))
+        self.epochs = min(epochs, self.cfg.max_epochs)
+        self.schedule = build_schedule(
+            base_lr=float(cfg_get(opt, "lr", 1e-4)),
+            steps_per_epoch=steps_per_epoch,
+            epochs=self.epochs,
+            warmup_epochs=int(cfg_get(sched, "warmup_epochs", 0) or 0),
+            warmup_steps=int(cfg_get(sched, "warmup_steps", 0) or 0),
+            eta_min=float(cfg_get(sched, "eta_min", 0.0) or 0.0),
+            kind=cfg_get(sched, "name", "cosine"),
+            step_size=cfg_get(sched, "step_size", None),
+            gamma=cfg_get(sched, "gamma", None),
+        )
+
+        # weights drawn on the CPU, so a seed gives the same model anywhere
+        self.model.to("cpu")
+        self.model.init_weights(torch.Generator().manual_seed(self.cfg.seed))
+        if params is not None:
+            load_jax_params(self.model, params)
+        self.model.to(self.device)
+        depth = int(cfg_get(model_config, "depth", 0) or 0) or \
+            len(tuple(cfg_get(model_config, "depths", ()) or ())) or 12
+        tx = build_optimizer(
+            dict(self.model.named_parameters()), self.schedule,
+            weight_decay=float(cfg_get(opt, "weight_decay", 1e-5)),
+            beta1=float(cfg_get(opt, "beta1", 0.9)),
+            beta2=float(cfg_get(opt, "beta2", 0.999)),
+            eps=float(cfg_get(opt, "eps", 1e-8)),
+            gradient_clip_val=self.cfg.gradient_clip_val,
+            gradient_clip_algorithm=self.cfg.gradient_clip_algorithm,
+            layer_decay=cfg_get(training_config, "layer_decay", None),
+            num_layers=depth,
+            accumulate_steps=self.cfg.accumulate_grad_batches,
+            name=str(cfg_get(opt, "name", "adamw")),
+        )
+        ema_decay = cfg_get(training_config, "ema_decay", None)
+        self.ema_decay = float(ema_decay) if ema_decay else None
+        self.state = TrainState(self.model, tx, ema=self.ema_decay is not None)
+        # the epoch permutations (CPU) and the DropPath draws (device)
+        self.perm_generator = torch.Generator().manual_seed(self.cfg.seed)
+        self.dropout_generator = torch.Generator(device=self.device) \
+            .manual_seed(self.cfg.seed)
+        self._global_step = 0
+
+    # ------------------------------------------------------------------
+    def loss_and_grads(self, images: torch.Tensor, labels: torch.Tensor,
+                       weights: Optional[torch.Tensor]):
+        """One training forward and backward → (loss, logits, {name: grad})."""
+        logits = self.model(images, train=True,
+                            generator=self.dropout_generator)
+        if isinstance(logits, tuple):
+            raise _unported("auxiliary heads", "item 5: rest of the zoo")
+        loss = cross_entropy(logits, labels, self.label_smoothing, weights)
+        names = list(self.state.params)
+        grads = torch.autograd.grad(loss, [self.state.params[n] for n in names])
+        return loss.detach(), logits.detach(), dict(zip(names, grads))
+
+    def train_step(self, mstate: Dict[str, torch.Tensor], images: torch.Tensor,
+                   labels: torch.Tensor, weights: Optional[torch.Tensor]):
+        """forward, CE, backward, clip, AdamW, EMA, metric update →
+        (new metric state, P(class 1) scores)."""
+        loss, logits, grads = self.loss_and_grads(images, labels, weights)
+        self.state.apply_gradients(grads, ema_decay=self.ema_decay)
+        probs = torch.softmax(logits.float(), dim=-1)
+        return update_metric_state(mstate, probs, labels, weights, loss=loss)
+
+    @torch.no_grad()
+    def eval_step(self, variables: Dict[str, torch.Tensor],
+                  mstate: Dict[str, torch.Tensor], images: torch.Tensor,
+                  labels: torch.Tensor, weights: Optional[torch.Tensor]):
+        outputs = functional_call(self.model, variables, (images,),
+                                  {"train": False})
+        loss = cross_entropy(outputs, labels, self.label_smoothing, weights)
+        probs = torch.softmax(outputs.float(), dim=-1)
+        return update_metric_state(mstate, probs, labels, weights, loss=loss)
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, pipeline, epoch: int) -> Dict[str, float]:
+        """One epoch with no per-step host read: metric state, scores and
+        labels stay on the device until finalize_metric_state."""
+        del epoch
+        mstate = zero_metric_state(device=self.device)
+        scores: List = []
+        lbls: List = []
+        wts: List = []
+        max_batches = _limit_batches(self.cfg.limit_train_batches,
+                                     pipeline.steps_per_epoch())
+        if 0 < self.cfg.max_steps:
+            max_batches = min(max_batches,
+                              self.cfg.max_steps - self._global_step)
+        for i, batch in enumerate(pipeline.epoch(self.perm_generator)):
+            if i >= max_batches or (0 < self.cfg.max_steps <= self._global_step):
+                break
+            mstate, score1 = self.train_step(mstate, batch.image, batch.label,
+                                             batch.weight)
+            scores.append(score1)
+            lbls.append(batch.label)
+            wts.append(batch.weight)
+            self._global_step += 1
+        return finalize_metric_state(mstate, scores, lbls, wts, prefix="train_")
+
+    def eval_epoch(self, pipeline, prefix: str = "val_",
+                   use_ema: bool = False,
+                   limit_fraction: Optional[float] = None) -> Dict[str, float]:
+        mstate = zero_metric_state(device=self.device)
+        scores: List = []
+        lbls: List = []
+        wts: List = []
+        variables = self.state.variables(use_ema=use_ema)
+        if limit_fraction is None:
+            limit_fraction = self.cfg.limit_val_batches
+        n_eval = _limit_batches(limit_fraction, pipeline.steps_per_epoch())
+        for i, batch in enumerate(pipeline.epoch()):
+            if i >= n_eval:
+                break
+            mstate, score1 = self.eval_step(variables, mstate, batch.image,
+                                            batch.label, batch.weight)
+            scores.append(score1)
+            lbls.append(batch.label)
+            wts.append(batch.weight)
+        return finalize_metric_state(mstate, scores, lbls, wts, prefix=prefix)
+
+    def fit(self, train_pipeline, val_pipeline=None,
+            extra_ckpt_metadata: Optional[Dict[str, Any]] = None) -> FitResult:
+        model_name = str(cfg_get(self.model_config, "name", "model"))
+        ckpt_mgr = None
+        if self.cfg.enable_checkpointing:
+            ckpt_mgr = BestCheckpointManager(
+                self.output_dir / "checkpoints", model_name,
+                monitor=self.cfg.monitor_metric, mode=self.cfg.monitor_mode,
+                save_top_k=self.cfg.save_top_k, save_last=self.cfg.save_last)
+        history: List[Dict[str, float]] = []
+        metric_logger = MetricLogger(self.output_dir / "logs")
+        step_timer = StepTimer()
+        patience = self.cfg.early_stopping_patience
+        bad_epochs = 0
+        best = None
+        stopped = 0
+        try:
+            for epoch in range(self.epochs):
+                t0 = time.time()
+                metrics = self.train_epoch(train_pipeline, epoch)
+                if val_pipeline is not None and \
+                        (epoch + 1) % self.cfg.check_val_every_n_epoch == 0:
+                    metrics.update(self.eval_epoch(val_pipeline, "val_"))
+                metrics["epoch"] = epoch
+                metrics["lr"] = float(self.schedule(self._global_step))
+                metrics["time_s"] = time.time() - t0
+                step_timer.tick()
+                metrics.update(step_timer.stats())
+                metric_logger.log(metrics, step=epoch)
+                history.append(metrics)
+                logger.info("epoch %d: %s", epoch,
+                            {k: round(v, 4) for k, v in metrics.items()
+                             if isinstance(v, float)})
+                monitored = metrics.get(self.cfg.monitor_metric)
+                if ckpt_mgr is not None and monitored is not None:
+                    meta = {"model_config": dict(self.model_config),
+                            **(extra_ckpt_metadata or {})}
+                    if ckpt_mgr.step(self.state, metrics, epoch, meta):
+                        bad_epochs = 0
+                        best = monitored
+                    else:
+                        bad_epochs += 1
+                elif monitored is not None:
+                    improved = best is None or (
+                        monitored > best if self.cfg.monitor_mode == "max"
+                        else monitored < best)
+                    if improved:
+                        best, bad_epochs = monitored, 0
+                    else:
+                        bad_epochs += 1
+                stopped = epoch
+                if patience and bad_epochs >= patience and \
+                        epoch + 1 >= self.cfg.min_epochs:
+                    logger.info("early stopping at epoch %d", epoch)
+                    break
+                if 0 < self.cfg.max_steps <= self._global_step:
+                    break
+        finally:
+            metric_logger.close()
+        with open(self.output_dir / "history.json", "w") as f:
+            json.dump(history, f, indent=2)
+        return FitResult(
+            best_metric=best if best is not None else (
+                ckpt_mgr.best_metric if ckpt_mgr else None),
+            best_checkpoint=ckpt_mgr.best_path if ckpt_mgr else None,
+            history=history,
+            stopped_epoch=stopped,
+        )
+
+    def save_state(self, path: str | Path) -> Path:
+        """The full training state (params, opt_state, EMA, step) for an
+        exact resume."""
+        return save_checkpoint(path, self.state, include_opt_state=True)
+
+    def resume_from(self, path: str | Path) -> None:
+        """Restore a state saved by save_state; a plain model checkpoint
+        (no opt_state) warm-starts the parameters only."""
+        payload = load_payload(path)
+        load_jax_params(self.model, payload["params"])
+        self.state.step = int(payload.get("step", 0))
+        if payload.get("opt_state") is not None:
+            self.state.opt_state.load_state_dict(payload["opt_state"])
+        if self.state.ema_params is not None:
+            # an older checkpoint without EMA restarts the shadow from the
+            # restored parameters
+            src = payload.get("ema_params") or self.state.params
+            with torch.no_grad():
+                for n, e in self.state.ema_params.items():
+                    e.copy_(src[n])
+        self._global_step = self.state.step
+
+    def test(self, pipeline, checkpoint: Optional[str | Path] = None,
+             prefix: str = "test_") -> Dict[str, float]:
+        """Evaluate, first loading `checkpoint`'s parameters when given."""
+        if checkpoint is not None:
+            variables, _ = load_checkpoint(checkpoint)
+            load_jax_params(self.model, variables["params"])
+        return self.eval_epoch(pipeline, prefix=prefix,
+                               limit_fraction=self.cfg.limit_test_batches)
