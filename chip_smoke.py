@@ -29,7 +29,24 @@ Phases, each printing its lines before the final one:
    per eval forward and one percentile launch per pipeline;
 7. train times: each training kernel's median time per train step beside
    its bound, plain version and library yardstick, training images/s at
-   batch 32 and 128, and a profile of one train step at batch 32.
+   batch 32 and 128, and a profile of one train step at batch 32;
+8. quality kernels: the quality pipeline's kernels (statistics, stencil,
+   CLAHE apply, dual-grid CLAHE apply) against their plain versions on a
+   32-frame chunk of raw 512x512 synthetic frames, at grids 16x16 and
+   32x32, with the dual apply on a mixed per-image grid choice;
+9. quality slice: InferenceEngine(quality=True) serves swin_tiny at buckets
+   32 and 128 on frames in which every quality branch fires (counted on
+   the CPU); per 32-frame chunk the statistics, stencil, dual apply and
+   percentile kernels launch once each and the single apply never; the
+   card's quality stage and prepared images, and its probabilities, are
+   held against the CPU; quality_preprocess(merged=False) launches the
+   single apply twice and gives the merged path's output;
+10. quality times: each quality kernel's median time per 32-frame chunk
+   beside its bound and its plain version, images/s of predict with and
+   without the quality pipeline at buckets 32 and 128, the time of
+   DevicePipeline(quality_preprocessing=True) over 256 frames (its launch
+   counts checked) with the histogram/LUT chain timed apart, and a profile
+   of one quality predict at bucket 32.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -50,7 +67,8 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense bf16 tensor cores
-                  torch.float32: 67e12}     # float32 outside the tensor cores
+                  torch.float32: 67e12,     # float32 outside the tensor cores
+                  torch.float64: 34e12}     # float64 outside the tensor cores
 BATCH = 32                     # bucket the kernels are checked and timed at
 SWIN_TINY = {"name": "swin_tiny", "in_channels": 1, "num_classes": 2,
              "dtype": "bf16"}
@@ -71,6 +89,16 @@ BF16_LOSS_TOL = 3e-2           # bf16 card loss vs the CPU float32 loss
 TRAIN_FRAMES, VAL_FRAMES = 256, 64
 # scratch of the training phases (the fit's checkpoints), removed at the end
 WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# quality kernels vs their plain versions on the card: the statistics'
+# mean and std (float64 sums against float32 ones), relative; the
+# bilateral before the artifact chain's floor, in grey levels
+STATS_RTOL, BILATERAL_TOL = 1e-5, 1e-2
+# the card's quality stage vs the CPU's: share of pixels allowed to differ
+# (a floor of the bilateral or of the gamma power taken on either side of
+# an integer); the prepared [0, 1] images, where the quality stages agree,
+# differ by the resize's and normalisation's float32 rounding
+QUALITY_PIXEL_SHARE, PREPARE_TOL = 1e-4, 1e-5
+QUALITY_TRAIN_FRAMES = 256
 
 
 def log(*parts) -> None:
@@ -439,21 +467,23 @@ def phase_times(shapes, engine, launches):
     return entries
 
 
-def phase_profile(engine, n: int = BATCH, top: int = 12) -> None:
+def phase_profile(engine, n: int = BATCH, top: int = 12, frames=None,
+                  what: str = "predict") -> None:
     """Where the time of one predict call at bucket `n` goes: device time
     by kernel name from torch.profiler, and the device's busy share of the
-    call's wall time."""
+    call's wall time. Random raw frames unless `frames` are given."""
     from torch.profiler import ProfilerActivity, profile
 
-    frames = (np.random.RandomState(2).rand(n, 512, 512, 1) * 65535) \
-        .astype(np.float32)
+    if frames is None:
+        frames = (np.random.RandomState(2).rand(n, 512, 512, 1) * 65535) \
+            .astype(np.float32)
     engine.predict(frames)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.predict(frames)
         wall_us = (time.perf_counter() - t0) * 1e6
-    report_profile(prof, wall_us, f"predict bucket {n}", top)
+    report_profile(prof, wall_us, f"{what} bucket {n}", top)
 
 
 def report_profile(prof, wall_us: float, what: str, top: int) -> None:
@@ -837,6 +867,364 @@ def phase_train_profile(trainer, x, y, w, top: int = 14) -> None:
         f"backward {fb:.2f} ms, optimizer update {opt:.2f} ms")
 
 
+# ---------------------------------------------------------------- quality
+
+
+def frame_kind(frame: np.ndarray) -> str:
+    """The quality branch a (H, W) uint16-scale frame takes, by the port's
+    issue masks: extreme_dark, low_contrast, artifacts or clean."""
+    from thyroid_tpu_torch.ops.image import quality_issue_masks
+
+    masks = quality_issue_masks(torch.from_numpy(frame[None, ..., None]))
+    for k in ("extreme_dark", "low_contrast", "artifacts"):
+        if bool(masks[k][0]):
+            return k
+    return "clean"
+
+
+def quality_frames(n: int = BATCH, side: int = 512) -> np.ndarray:
+    """(n, side, side) float32 raw frames: the port's synthetic generator
+    with seeds 0, 1, 2, … (label seed % 2), two frames of each kind first,
+    then three crafted frames: an artifact frame with a saturated 32x32
+    block (its median keeps values above 250: the bilateral branch), a flat
+    frame (span 0: CLAHE passes it through) and a dim frame with two bright
+    spikes, whose 8-bit artifact frame is all 0 (darkened below 0.1x: the
+    guard blends it back); the rest are the next seeds' frames in order.
+    A near-black frame with brighter rows, the JAX test's guard frame,
+    stays under the 10x limit at 512x512."""
+    from thyroid_tpu_torch.data.synthetic import generate_image
+
+    kinds = ("extreme_dark", "low_contrast", "artifacts", "clean")
+    picked = {k: [] for k in kinds}
+    rest, seed = [], 0
+    while len(rest) + 2 * len(kinds) + 3 < n or \
+            min(len(v) for v in picked.values()) < 2:
+        frame = generate_image(seed, seed % 2, side).astype(np.float32)
+        kind = frame_kind(frame)
+        (picked[kind] if len(picked[kind]) < 2 else rest).append(frame)
+        seed += 1
+    block = picked["artifacts"][0].copy()
+    block[200:232, 300:332] = 65535.0
+    flat = np.full((side, side), 4321.0, np.float32)
+    dim = np.floor(np.random.RandomState(7).rand(side, side) * 200 + 20) \
+        .astype(np.float32)
+    dim[5, 5], dim[400, 70] = 60000.0, 50000.0
+    frames = [f for k in kinds for f in picked[k]] + [block, flat, dim] + rest
+    return np.stack(frames[:n])
+
+
+def quality_counters():
+    from thyroid_tpu_torch.ops import clahe, percentile, stencil
+
+    return {"stats_quantile": percentile.fused_stats_quantile,
+            "median_bilateral": stencil.fused_median_bilateral,
+            "apply_luts": clahe.apply_luts,
+            "apply_luts_dual": clahe.apply_luts_dual,
+            "percentile": percentile.fused_percentile_normalize}
+
+
+def quality_cases(frames: np.ndarray):
+    """The quality kernels' calls on one 32-frame chunk, with the inputs
+    the pipeline gives them: the raw frames (statistics), their 8-bit
+    artifact frames (stencil), and the 8-bit frames of the CLAHE round trip
+    with LUTs from the plain histogram chain at (clip 2.0, 16x16) and
+    (clip 0.03, 32x32), the dual apply choosing the coarse grid for every
+    third image. Each case: kernel, label, wrapper and plain calls, and
+    (bytes, float32 operations, float64 operations) of one call: each input
+    read once, each output written once; the statistics do 3 + 2·22
+    float32 and 4 float64 operations per pixel, the stencil 38 (median) +
+    6 per bilateral tap in float32 and 3 per tap in float64 (13 taps), the
+    apply about 20 per pixel (two tile coordinates and three blends)."""
+    from thyroid_tpu_torch.ops import clahe, percentile, stencil
+
+    x = torch.from_numpy(frames[..., None]).cuda()
+    b, h, w = frames.shape
+    n = b * h * w
+    q = percentile.stats_quantile_plain(x, 0.999)["quantile"]
+    x8 = torch.floor(torch.minimum(torch.clamp(x, min=0.0),
+                                   q.reshape(-1, 1, 1, 1)) / 256.0)
+    flat = x[..., 0].reshape(b, -1)
+    lo = flat.amin(1).reshape(b, 1, 1)
+    span = flat.amax(1).reshape(b, 1, 1) - lo
+    x8c = torch.floor((x[..., 0] - lo) / (span + 1e-8) * 255.0)
+    luts = {}
+    for grid, clip in (((16, 16), 2.0), ((32, 32), 0.03)):
+        area = (h // grid[0]) * (w // grid[1])
+        luts[grid] = clahe._luts_from_hists(clahe._tile_hists(x8c, grid),
+                                            area, clip)
+    luts_c, luts_f = clahe._dual_luts(x8c, 2.0, (16, 16), 0.03, (32, 32))
+    sel = torch.arange(b, device="cuda") % 3 == 0
+    n_sel = int(sel.sum())
+    dual_lut_bytes = (n_sel * luts_c[0].numel() + (b - n_sel) * luts_f[0].numel()) * 4
+    cases = [
+        ("stats_quantile", "512x512 x32",
+         lambda: percentile.fused_stats_quantile(x, 0.999),
+         lambda: percentile.stats_quantile_plain(x, 0.999),
+         (n * 4 + 5 * b * 4, n * (3 + 2 * 22), n * 4)),
+        ("median_bilateral", "512x512 x32 d=5",
+         lambda: stencil.fused_median_bilateral(x8),
+         lambda: stencil.median_bilateral_plain(x8),
+         (3 * n * 4, n * (38 + 13 * 6), n * (13 * 3 + 1))),
+    ]
+    for grid, lut in luts.items():
+        cases.append(("apply_luts", f"grid {grid[0]}x{grid[1]}",
+                      lambda lut=lut, grid=grid: clahe.apply_luts(x8c, lut, grid),
+                      lambda lut=lut, grid=grid: clahe._interp_luts(x8c, lut, grid),
+                      (2 * n * 4 + lut.numel() * 4, n * 20, 0)))
+    cases.append((
+        "apply_luts_dual", f"grids 16x16 / 32x32, {n_sel} of {b} coarse",
+        lambda: clahe.apply_luts_dual(x8c, luts_c, luts_f, sel, (16, 16), (32, 32)),
+        lambda: torch.where(sel.reshape(b, 1, 1),
+                            clahe._interp_luts(x8c, luts_c, (16, 16)),
+                            clahe._interp_luts(x8c, luts_f, (32, 32))),
+        (2 * n * 4 + dual_lut_bytes, n * 20, 0)))
+    return cases
+
+
+def compare_quality(kernel: str, got, want):
+    """(max error, differing elements, ok, note) of a quality kernel against
+    its plain version, with the tolerances above."""
+    if kernel == "stats_quantile":
+        exact = all(torch.equal(got[k], want[k]) for k in ("quantile", "max", "min"))
+        rel = max(((got[k] - want[k]).abs() / want[k].abs().clamp(min=1e-30))
+                  .max().item() for k in ("mean", "std"))
+        diff = sum(int((got[k] != want[k]).sum()) for k in got)
+        err = max((got[k] - want[k]).abs().max().item() for k in got)
+        return err, diff, exact and rel <= STATS_RTOL, \
+            f"quantile/max/min exact: {exact}; mean/std max relative {rel:.3e}"
+    if kernel == "median_bilateral":
+        med_exact = torch.equal(got[0], want[0])
+        err = (got[1] - want[1]).abs().max().item()
+        flips = int((torch.floor(got[1]) != torch.floor(want[1])).sum())
+        diff = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+        return err, diff, med_exact and err <= BILATERAL_TOL, \
+            f"median exact: {med_exact}; bilateral floor flips {flips}"
+    err = (got - want).abs().max().item()
+    diff = int((got != want).sum())
+    return err, diff, diff == 0, "exact"
+
+
+def phase_quality_kernels(cases) -> None:
+    failed = []
+    for kernel, label, fused, plain, _ in cases:
+        got, want = fused(), plain()
+        torch.cuda.synchronize()
+        err, diff, ok, note = compare_quality(kernel, got, want)
+        log(f"[quality-kernels] {kernel} {label}: max_abs_err {err:.3e}, "
+            f"{diff} elements differ ({note}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append((kernel, label, err, diff))
+        del got, want
+    if failed:
+        raise AssertionError(f"quality kernels disagree with their plain "
+                             f"versions: {failed}")
+
+
+def quality_branch_counts(frames: np.ndarray):
+    """How many frames take each branch, on the CPU with the plain
+    versions: the issue masks, clean, the bilateral select (an artifact
+    frame whose 8-bit median keeps a value above 250), flat (span 0) and
+    the two guards."""
+    from thyroid_tpu_torch.ops.image import median_filter_3x3
+    from thyroid_tpu_torch.ops.quality import over_correction, quality_branches
+
+    x = torch.from_numpy(frames[..., None])
+    processed, stats, masks = quality_branches(x)
+    bright, dark = over_correction(processed, stats["mean"])
+    x8 = torch.floor(torch.minimum(torch.clamp(x, min=0.0),
+                                   stats["quantile"].reshape(-1, 1, 1, 1)) / 256.0)
+    bilateral = masks["artifacts"] & (
+        median_filter_3x3(x8).reshape(len(x), -1).amax(1) > 250)
+    any_issue = masks["extreme_dark"] | masks["low_contrast"] | masks["artifacts"]
+    counts = {k: int(v.sum()) for k, v in masks.items()}
+    counts.update(clean=int((~any_issue).sum()), bilateral=int(bilateral.sum()),
+                  flat=int((stats["max"] == stats["min"]).sum()),
+                  guard_bright=int(bright.sum()), guard_dark=int(dark.sum()))
+    return counts
+
+
+def phase_quality_slice(params, frames: np.ndarray):
+    """Serve with the quality pipeline, check the launches per chunk, the
+    card against the CPU, and the classic path against the merged one."""
+    from thyroid_tpu_torch.data.pipeline import prepare_images
+    from thyroid_tpu_torch.ops.quality import quality_preprocess
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    counts = quality_branch_counts(frames)
+    log(f"[quality-slice] branches over the {len(frames)} frames (CPU): "
+        f"{json.dumps(counts)}")
+    missing = [k for k, v in counts.items()
+               if v == 0 and k not in ("guard_bright", "guard_dark")]
+    if missing or counts["guard_bright"] + counts["guard_dark"] == 0:
+        raise AssertionError(f"quality branches that never fired: {missing}")
+
+    engine = InferenceEngine(SWIN_TINY, params=params, quality=True)
+    engine.warmup()
+    batches = {32: frames[..., None], 128: np.tile(frames, (4, 1, 1))[..., None]}
+    watched = {**counters(), **quality_counters()}
+    for fn in watched.values():
+        fn.launches = 0
+    probs = {n: engine.predict(x) for n, x in batches.items()}
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in watched.items()}
+    chunks = sum(n // BATCH for n in batches)
+    want = {"stats_quantile": chunks, "median_bilateral": chunks,
+            "apply_luts": 0, "apply_luts_dual": chunks, "percentile": chunks,
+            "ln_matmul": 15 * len(batches), "ln_mlp_residual": 12 * len(batches),
+            "swin_block_attention": 12 * len(batches)}
+    log(f"[quality-slice] swin_tiny bf16 with quality=True served N=(32, 128) "
+        f"in {chunks} chunks of {BATCH}; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    for n, p in probs.items():
+        if p.shape != (n, 2) or not np.isfinite(p).all() \
+                or np.abs(p.sum(-1) - 1).max() > 1e-3:
+            raise AssertionError(f"N={n}: bad probabilities {p.shape}")
+
+    # the card against the CPU on 8 frames (two of each kind)
+    x8 = torch.from_numpy(frames[:8, ..., None])
+    q_cpu = quality_preprocess(x8)
+    q_card = quality_preprocess(x8.cuda()).cpu()
+    share = float((q_card != q_cpu).float().mean())
+    p_cpu = prepare_images(x8, 224, quality=True)
+    p_card = prepare_images(x8.cuda(), 224, quality=True).cpu()
+    p_err = float((p_card - p_cpu).abs().max())
+    log(f"[quality-slice] card vs cpu on 8 frames: quality stage "
+        f"{int((q_card != q_cpu).sum())} pixels differ (share {share:.3e}, "
+        f"allowed {QUALITY_PIXEL_SHARE:.0e}), max {float((q_card - q_cpu).abs().max()):.3e}; "
+        f"prepare_images max_abs_err {p_err:.3e} (tol {PREPARE_TOL:.0e} where the "
+        f"quality stages agree), {int((p_card != p_cpu).sum())} of "
+        f"{p_cpu.numel()} values differ")
+    if share > QUALITY_PIXEL_SHARE or (share == 0 and p_err > PREPARE_TOL):
+        raise AssertionError("the card's quality preprocessing disagrees "
+                             "with the CPU's")
+    cpu = InferenceEngine(dict(SWIN_TINY, dtype="f32"), params=params,
+                          quality=True, device="cpu").predict(frames[:8])
+    gpu32 = InferenceEngine(dict(SWIN_TINY, dtype="f32"), params=params,
+                            quality=True).predict(frames[:8])
+    gpu16 = engine.predict(frames[:8])
+    spread = float(cpu[:, 0].max() - cpu[:, 0].min())
+    for name, got, tol in (("cuda f32", gpu32, PROB_TOL[torch.float32]),
+                           ("cuda bf16", gpu16, PROB_TOL[torch.bfloat16])):
+        err = float(np.abs(got - cpu).max())
+        log(f"[quality-slice] N=8 probabilities with quality, {name} vs cpu "
+            f"f32: max_abs_err {err:.3e} tol {tol:.0e} (spread of p0 {spread:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"{name} probabilities disagree with the CPU")
+
+    # the classic path: two single-grid applies per chunk, the same output
+    x = torch.from_numpy(frames[..., None]).cuda()
+    merged = quality_preprocess(x)
+    for fn in quality_counters().values():
+        fn.launches = 0
+    classic = quality_preprocess(x, merged=False)
+    torch.cuda.synchronize()
+    classic_launches = {k: fn.launches for k, fn in quality_counters().items()}
+    same = torch.equal(classic, merged)
+    log(f"[quality-slice] quality_preprocess(merged=False) on one chunk: "
+        f"launches {classic_launches}; equal to the merged path: {same}")
+    if classic_launches != {"stats_quantile": 1, "median_bilateral": 1,
+                            "apply_luts": 2, "apply_luts_dual": 0,
+                            "percentile": 0} or not same:
+        raise AssertionError("the classic quality path disagrees")
+    launches["apply_luts"] = classic_launches["apply_luts"]
+    return engine, launches
+
+
+def phase_quality_times(cases, launches, engine, params, frames):
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+    from thyroid_tpu_torch.ops import clahe
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    meta = {"stats_quantile": ("fused_stats_quantile", "percentile.cu",
+                               "ops/percentile.py:133"),
+            "median_bilateral": ("fused_median_bilateral", "stencil.cu",
+                                 "ops/stencil.py:127"),
+            "apply_luts": ("apply_luts", "clahe.cu", "ops/clahe.py:268"),
+            "apply_luts_dual": ("apply_luts_dual", "clahe.cu", "ops/clahe.py:473")}
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+               "ops_ms": 0.0, "err": 0.0} for k in meta}
+    for kernel, label, fused, plain, (nbytes, f32_ops, f64_ops) in cases:
+        ms = median_ms(fused)
+        plain_ms = median_ms(plain, reps=5, warm=1)
+        err = compare_quality(kernel, fused(), plain())[0]
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = (f32_ops / PEAK_OPS_PER_S[torch.float32]
+                 + f64_ops / PEAK_OPS_PER_S[torch.float64]) * 1e3
+        log(f"[quality-times] {kernel} {label}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library none, bound {max(t_bytes, t_ops):.4f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+        t = tot[kernel]
+        t["ms"] += ms
+        t["plain_ms"] += plain_ms
+        t["bound_ms"] += max(t_bytes, t_ops)
+        t["bytes_ms"] += t_bytes
+        t["ops_ms"] += t_ops
+        t["err"] = max(t["err"], err)
+    entries = []
+    for kernel, (name, src, replaces) in meta.items():
+        t = tot[kernel]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"thyroid_tpu_torch/csrc/{src}",
+            "replaces": f"thyroid_tpu/{replaces}",
+            "launches": launches[kernel], "max_abs_err": t["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
+            "library_ms": None})
+        log(f"[quality-times] {name} per 32-frame chunk: {t['ms']:.4f} ms "
+            f"(bound {t['bound_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms)")
+
+    plain_engine = InferenceEngine(SWIN_TINY, params=params)
+    for n in (32, 128):
+        x = np.tile(frames, (n // len(frames), 1, 1))[..., None]
+        for name, eng in (("quality=True", engine), ("quality=False", plain_engine)):
+            eng.predict(x)
+            secs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                eng.predict(x)
+                secs.append(time.perf_counter() - t0)
+            med = statistics.median(secs)
+            log(f"[quality-times] predict {name} bucket {n}: median "
+                f"{med * 1e3:.2f} ms over 5, {n / med:.1f} images/s (raw "
+                f"512x512 synthetic frames from host memory)")
+    del plain_engine
+
+    raw = np.tile(frames, (QUALITY_TRAIN_FRAMES // len(frames), 1, 1))[..., None]
+    labels = np.arange(len(raw)) % 2
+    for fn in quality_counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = DevicePipeline(raw, labels, batch_size=BATCH, train=True,
+                          quality_preprocessing=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in quality_counters().items()}
+    chunks = len(raw) // BATCH
+    want = {"stats_quantile": chunks, "median_bilateral": chunks,
+            "apply_luts": 0, "apply_luts_dual": chunks, "percentile": chunks}
+    x = torch.from_numpy(frames[..., None]).cuda()
+    flat = x[..., 0].reshape(len(frames), -1)
+    lo = flat.amin(1).reshape(-1, 1, 1)
+    x8c = torch.floor((x[..., 0] - lo) / (flat.amax(1).reshape(-1, 1, 1) - lo
+                                          + 1e-8) * 255.0)
+    lut_ms = median_ms(lambda: clahe._dual_luts(x8c, 2.0, (16, 16), 0.03, (32, 32)))
+    log(f"[quality-times] DevicePipeline(quality_preprocessing=True) over "
+        f"{len(raw)} raw 512x512 frames: {secs * 1e3:.2f} ms "
+        f"({len(raw) / secs:.1f} frames/s, host->card copy included); "
+        f"launches {got}; histogram/LUT chain {lut_ms:.4f} ms per chunk, "
+        f"{chunks * lut_ms:.2f} ms over the {chunks} chunks")
+    if got != want or pipe.cache.shape != (len(raw), 224, 224, 1) \
+            or not bool(torch.isfinite(pipe.cache).all()):
+        raise AssertionError(f"quality DevicePipeline: launches {got}, "
+                             f"expected {want}")
+    del pipe, raw
+    phase_profile(engine, frames=frames[..., None], what="quality predict")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -857,6 +1245,12 @@ def main() -> int:
         entries += phase_train_times(train_shapes, train_launches, params)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    torch.cuda.empty_cache()
+    frames = quality_frames()
+    cases = quality_cases(frames)
+    phase_quality_kernels(cases)
+    q_engine, q_launches = phase_quality_slice(params, frames)
+    entries += phase_quality_times(cases, q_launches, q_engine, params, frames)
     log(json.dumps({"kernels": entries}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,17 @@ has one with
 Tolerance: float32 1e-4 and bfloat16 1e-2 relative to max(1, max|plain|),
 as chip_smoke.py holds the main-path shapes; the attention backward's
 dbias, a sum over windows taken in another order, 1e-4 (float32) and 1e-3
-(bfloat16) relative to max(1, max|plain|)."""
+(bfloat16) relative to max(1, max|plain|). The quality kernels: the
+statistics' quantile, max and min exact, mean and std rtol 1e-5 (float64
+sums against PyTorch's float32 ones); the stencil's median exact and its
+bilateral within 1e-2 grey levels (the JAX kernel test's bound); the CLAHE
+apply exact."""
 import pytest
 import torch
 
 from thyroid_tpu_torch.models.vit.swin import shift_attention_mask
-from thyroid_tpu_torch.ops import attention, percentile, token_fused
+from thyroid_tpu_torch.ops import (attention, clahe, percentile, stencil,
+                                   token_fused)
 
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 DBIAS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
@@ -144,3 +149,99 @@ def test_swin_attention_backward(gen, dtype, b, r, c, heads, ws, shift):
             attention.fused_swin_attention.bwd_launches) == (fwd + 1, bwd + 1)
     torch.cuda.synchronize()
     assert torch.equal(tq.grad, dq) and torch.equal(tb.grad, db)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((3, 17, 19, 1), 0), ((4, 512, 512, 1), 0),
+                                          ((1, 1, 7, 1), 0), ((2, 64, 64, 1), 1)])
+def test_stats_quantile(gen, shape, offset):
+    """n % 4 != 0 takes the scalar loads, 512² the float4 ones; a view
+    that starts 4 bytes into its storage takes the scalar loads too."""
+    n = torch.Size(shape).numel()
+    buf = torch.floor(torch.rand(n + offset, generator=gen, device="cuda") * 65535)
+    x = buf[offset:].reshape(shape)
+    before = percentile.fused_stats_quantile.launches
+    got = percentile.fused_stats_quantile(x, 0.999)
+    assert percentile.fused_stats_quantile.launches == before + 1
+    want = percentile.stats_quantile_plain(x, 0.999)
+    torch.cuda.synchronize()
+    for k in ("quantile", "max", "min"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("mean", "std"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 5, 7])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 1), (3, 67, 45, 1), (1, 4, 33, 1)])
+def test_median_bilateral(gen, d, shape):
+    """Ragged tiles, and frames only a few pixels high, where the
+    bilateral's reflect-101 reaches past the median's replicated edge."""
+    x8 = torch.floor(torch.rand(*shape, generator=gen, device="cuda") * 256)
+    before = stencil.fused_median_bilateral.launches
+    med, bil = stencil.fused_median_bilateral(x8, d=d)
+    assert stencil.fused_median_bilateral.launches == before + 1
+    want_med, want_bil = stencil.median_bilateral_plain(x8, d=d)
+    torch.cuda.synchronize()
+    assert torch.equal(med, want_med)
+    assert (bil - want_bil).abs().max().item() <= 1e-2
+
+
+def _luts(gen, b, grid):
+    return torch.floor(torch.rand(b, grid[0], grid[1], 256, generator=gen,
+                                  device="cuda") * 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,grid", [(512, 512, (16, 16)), (512, 512, (32, 32)),
+                                      (511, 511, (7, 9)), (63, 45, (9, 5)),
+                                      (64, 64, (32, 32))])
+def test_apply_luts(gen, h, w, grid):
+    """Odd tile sides (73×56, 7×9), which the TPU kernel refused, and 2×2
+    tiles, whose band needs 80 KB of LUT rows (above the 48 KB default)."""
+    x8 = torch.floor(torch.rand(2, h, w, generator=gen, device="cuda") * 300) - 20
+    luts = _luts(gen, 2, grid)
+    before = clahe.apply_luts.launches
+    got = clahe.apply_luts(x8, luts, grid)
+    assert clahe.apply_luts.launches == before + 1
+    want = clahe._interp_luts(x8, luts, grid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,grids", [(512, ((16, 16), (32, 32))),
+                                     (90, ((3, 5), (6, 10)))])
+def test_apply_luts_dual(gen, h, grids):
+    x8 = torch.floor(torch.rand(5, h, h, generator=gen, device="cuda") * 256)
+    luts_c, luts_f = _luts(gen, 5, grids[0]), _luts(gen, 5, grids[1])
+    sel = torch.tensor([True, False, False, True, False], device="cuda")
+    got = clahe.apply_luts_dual(x8, luts_c, luts_f, sel, *grids)
+    want = torch.where(sel.reshape(5, 1, 1),
+                       clahe._interp_luts(x8, luts_c, grids[0]),
+                       clahe._interp_luts(x8, luts_f, grids[1]))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_quality_wrappers_refuse(gen):
+    """A wrong dtype or a non-contiguous input raises; it never falls back
+    to the plain version."""
+    x = torch.rand(2, 64, 64, 1, generator=gen, device="cuda")
+    luts = _luts(gen, 2, (4, 4))
+    for bad in (x.double(), x.transpose(1, 2)):
+        with pytest.raises((TypeError, ValueError)):
+            percentile.fused_stats_quantile(bad, 0.999)
+        with pytest.raises((TypeError, ValueError)):
+            stencil.fused_median_bilateral(bad)
+        with pytest.raises((TypeError, ValueError)):
+            clahe.apply_luts(bad[..., 0], luts, (4, 4))
+    with pytest.raises(ValueError):
+        stencil.fused_median_bilateral(x, d=4)
+    with pytest.raises(ValueError):
+        clahe.apply_luts(x[..., 0], luts[:1], (4, 4))
+    with pytest.raises(ValueError):
+        clahe.apply_luts_dual(x[..., 0], luts, luts, torch.ones(3, dtype=torch.bool,
+                                                                device="cuda"),
+                              (4, 4), (4, 4))

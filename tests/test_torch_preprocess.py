@@ -115,5 +115,9 @@ def test_prepare_images_chunks_and_uint8(monkeypatch):
 
 @pytest.mark.unit
 def test_quality_pipeline_not_ported():
-    with pytest.raises(NotImplementedError, match="Quality pipeline"):
+    """The quality pipeline is ported (tests/test_torch_quality.py); like
+    the JAX package's, it refuses frames its CLAHE grids do not divide."""
+    with pytest.raises(ValueError, match="not divisible by CLAHE grid"):
         prepare_images(torch.zeros(1, 8, 8, 1), 4, quality=True)
+    with pytest.raises(ValueError, match="not divisible by CLAHE grid"):
+        jax_prepare(jnp.zeros((1, 8, 8, 1)), 4, quality=True)

@@ -7,7 +7,9 @@ the two can be compared like with like.
 
 Slice 1 serves swin_tiny from raw 512² frames: preprocess → 12 Swin
 blocks → softmax, through four hand-written CUDA kernels
-(`thyroid_tpu_torch/csrc/`).
+(`thyroid_tpu_torch/csrc/`). Slice 2 trains it (two attention kernels);
+slice 3 adds the quality-aware preprocessing to both paths (four kernels:
+statistics, median + bilateral stencil, CLAHE apply single and dual).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
-// fused_percentile_normalize: per-image 1st/99th-percentile clip and scale.
+// Two per-image bisection kernels of thyroid_tpu_torch/ops/percentile.py.
 //
-// Replaces the TPU kernel thyroid_tpu/ops/percentile.py
+// 1. fused_percentile_normalize: per-image 1st/99th-percentile clip and
+// scale. Replaces the TPU kernel thyroid_tpu/ops/percentile.py
 // _bisect_normalize_kernel (pallas_call in fused_percentile_normalize).
 //
 // What it computes, per image of N pixels: the value-space bisection of
@@ -21,6 +22,22 @@
 // same bracket update. The image (200,704 B at 224x224 float32) is re-read
 // from global memory on each pass, which the 50 MB L2 serves after the
 // first pass at serving batch sizes.
+//
+// 2. fused_stats_quantile: per-image mean, population std, max, min and
+// one bisection quantile (the quality pipeline's 99.9th). Replaces the TPU
+// kernel thyroid_tpu/ops/percentile.py _stats_quantile_kernel (pallas_call
+// in fused_stats_quantile). Bound on the H100: one read of the batch
+// (32 MiB per 32-frame chunk of 512x512 float32, about 10 us at 3.35 TB/s)
+// against 2 + iters passes of compares and adds. Design: one block of 1024
+// threads per image, as kernel 1: a pass for min, max and the sum, a pass
+// for the sum of squared deviations from the mean (both summed in double,
+// so mean and std differ from the plain version's float32 sums only in the
+// last bits), then `iters` count passes with kernel 1's bracket update;
+// the quantile, max and min are bit-equal to the plain version. The 1 MiB
+// image is re-read from L2 on every pass (a 32-frame chunk is 32 MiB, in
+// the 50 MB L2). Left for a later PR: one block per image occupies 32 of
+// the 132 SMs at a chunk of 32; a cluster of blocks per image sharing the
+// counts through distributed shared memory would use them all.
 #include "common.cuh"
 
 #include <cfloat>
@@ -121,7 +138,92 @@ percentile_normalize_kernel(const T* __restrict__ x, T* __restrict__ y, int n,
   }
 }
 
+// Sum a double over the block; every thread returns the total.
+__device__ __forceinline__ double block_sum(double a, double* s_a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  a = warp_sum(a);
+  if (lane == 0) s_a[warp] = a;
+  __syncthreads();
+  if (warp == 0) {
+    a = lane < kWarps ? s_a[lane] : 0.0;
+    a = warp_sum(a);
+    if (lane == 0) s_a[0] = a;
+  }
+  __syncthreads();
+  a = s_a[0];
+  __syncthreads();
+  return a;
+}
+
+// f(v) for every element of the image this thread owns; float4 loads
+// where the image starts 16 B aligned and n is a multiple of 4.
+template <typename F>
+__device__ __forceinline__ void for_each(const float* __restrict__ xi, int n, F f) {
+  if ((n & 3) == 0 && (reinterpret_cast<size_t>(xi) & 15) == 0) {
+    const float4* x4 = reinterpret_cast<const float4*>(xi);
+    for (int i = threadIdx.x; i < (n >> 2); i += kThreads) {
+      const float4 v = x4[i];
+      f(v.x);
+      f(v.y);
+      f(v.z);
+      f(v.w);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += kThreads) f(xi[i]);
+  }
+}
+
+// out (5, B): mean, std, max, min, quantile of each image.
+__global__ void __launch_bounds__(kThreads)
+stats_quantile_kernel(const float* __restrict__ x, float* __restrict__ out, int b, int n,
+                      float target, int iters) {
+  __shared__ float s_f0[kWarps], s_f1[kWarps];
+  __shared__ int s_i0[kWarps], s_i1[kWarps];
+  __shared__ double s_d[kWarps];
+  const float* xi = x + static_cast<size_t>(blockIdx.x) * n;
+
+  float mn = FLT_MAX, mx = -FLT_MAX;
+  double sum = 0.0;
+  for_each(xi, n, [&](float v) {
+    mn = fminf(mn, v);
+    mx = fmaxf(mx, v);
+    sum += v;
+  });
+  block_minmax(mn, mx, s_f0, s_f1);
+  const float mean = static_cast<float>(block_sum(sum, s_d) / n);
+
+  double sq = 0.0;
+  for_each(xi, n, [&](float v) {
+    const double d = static_cast<double>(v) - mean;
+    sq += d * d;
+  });
+  const float sd = static_cast<float>(sqrt(block_sum(sq, s_d) / n));
+
+  float lo = mn, hi = mx;
+  for (int it = 0; it < iters; ++it) {
+    const float mid = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+    int c = 0, unused = 0;
+    for_each(xi, n, [&](float v) { c += v <= mid; });
+    block_sum2(c, unused, s_i0, s_i1);
+    if (static_cast<float>(c) <= target) lo = mid; else hi = mid;
+  }
+  if (threadIdx.x == 0) {
+    out[blockIdx.x] = mean;
+    out[b + blockIdx.x] = sd;
+    out[2 * b + blockIdx.x] = mx;
+    out[3 * b + blockIdx.x] = mn;
+    out[4 * b + blockIdx.x] = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+  }
+}
+
 }  // namespace
+
+TT_EXPORT int tt_stats_quantile(const void* x, void* out, int b, int n, float target, int iters,
+                                void* stream) {
+  stats_quantile_kernel<<<b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), b, n, target, iters);
+  return static_cast<int>(cudaGetLastError());
+}
 
 TT_EXPORT int tt_percentile_normalize(const void* x, void* y, int b, int n, float t_lo,
                                       float t_hi, float eps, int iters, int is_bf16,

@@ -1,7 +1,9 @@
 """Device-resident batch pipeline (counterpart of thyroid_tpu/data/pipeline.py).
 
-`prepare_images(quality=False)` preprocesses raw frames once on the
-device (the serving engine uses it per request). `DevicePipeline` keeps a
+`prepare_images` preprocesses raw frames once on the device (the serving
+engine uses it per request): uint16 scale → with `quality`, the
+quality-aware pipeline (ops/quality.py) in chunks of 32 frames → resize →
+per-image percentile normalisation. `DevicePipeline` keeps a
 whole split's prepared images on the device and materialises each batch
 with a gather, the gray→RGB repeat for 3-channel models and `standardize`:
 - train: a shuffled permutation per epoch (from the caller's
@@ -9,8 +11,8 @@ with a gather, the gray→RGB repeat for 3-channel models and `standardize`:
   the epoch's order, so every batch has the same shape;
 - eval: sequential, the last batch padded with its last row at weight 0,
   so that metrics are exact.
-Augmentation and `create_data_loaders` are not ported (ROADMAP Queue 1
-items 6 and 2).
+Augmentation and `create_data_loaders` (which needs the dataset's PNG/TIFF
+decoding) are not ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -23,35 +25,41 @@ import torch
 from ..ops.image import (adaptive_normalize, resize_bilinear, standardize,
                          to_uint16_scale)
 from ..ops.platform import DeviceLike, resolve_device
+from ..ops.quality import quality_preprocess
 
 # ImageNet statistics for 3-channel models (gray→RGB repeat + ImageNet
 # normalisation, as the JAX package trains them)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-# images preprocessed in one piece; larger batches go in chunks of this size
+# frames preprocessed in one piece; larger batches go in chunks of this size
 CHUNK = 512
+# the same with the quality pipeline, whose full-resolution intermediates
+# (filters, CLAHE) this bounds; its math is per image, so chunking changes
+# no value
+QUALITY_CHUNK = 32
 
 
 def prepare_images(raw: torch.Tensor, img_size: int,
                    quality: bool = False) -> torch.Tensor:
     """Raw frames (N, H, W, C) → (N, img_size, img_size, C) float32 in
-    [0, 1]: uint16 scale → bilinear resize → per-image 1st/99th percentile
+    [0, 1]: uint16 scale → [quality pipeline, the reference's parameter
+    table] → bilinear resize → per-image 1st/99th percentile
     normalisation, on raw's device."""
-    if quality:
-        raise NotImplementedError(
-            "the quality pipeline is not ported (ROADMAP Queue 1: "
-            "Quality pipeline)")
 
     def one_chunk(x: torch.Tensor) -> torch.Tensor:
-        x = resize_bilinear(to_uint16_scale(x), img_size)
+        x = to_uint16_scale(x)
+        if quality:
+            x = quality_preprocess(x)
+        x = resize_bilinear(x, img_size)
         return adaptive_normalize(x, method="percentile",
                                   percentiles=(1.0, 99.0))
 
     n = raw.shape[0]
-    if n <= CHUNK:
+    chunk = QUALITY_CHUNK if quality else CHUNK
+    if n <= chunk:
         return one_chunk(raw)
-    return torch.cat([one_chunk(raw[s:s + CHUNK]) for s in range(0, n, CHUNK)])
+    return torch.cat([one_chunk(raw[s:s + chunk]) for s in range(0, n, chunk)])
 
 
 @dataclass

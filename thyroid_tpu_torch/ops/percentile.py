@@ -1,20 +1,24 @@
-"""Per-image percentile normalisation (counterpart of thyroid_tpu/ops/percentile.py).
+"""Per-image bisection percentiles (counterpart of thyroid_tpu/ops/percentile.py).
 
-`fused_percentile_normalize` launches the CUDA kernel
-`csrc/percentile.cu` on a CUDA tensor and runs its plain PyTorch version,
-`percentile_normalize_plain`, on a CPU tensor. Both compute the same
-bisection brackets (see the kernel's source note).
+Two wrappers of `csrc/percentile.cu`, each launching its CUDA kernel on a
+CUDA tensor and running its plain PyTorch version on a CPU tensor:
+- `fused_percentile_normalize` (plain: `percentile_normalize_plain`):
+  per-image 1st/99th-percentile clip and scale;
+- `fused_stats_quantile` (plain: `stats_quantile_plain`): per-image mean,
+  std, max, min and one percentile, for the quality pipeline.
+Both compute the same bisection brackets as `per_image_quantile_fast`
+(see the kernel's source note).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
-from .image import per_image_quantile_fast
+from .image import per_image_quantile_fast, quality_stats
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -69,3 +73,44 @@ def fused_percentile_normalize(x: torch.Tensor,
 
 
 fused_percentile_normalize.launches = 0
+
+
+def stats_quantile_plain(x: torch.Tensor, q: float,
+                         iters: int = 22) -> Dict[str, torch.Tensor]:
+    """Plain version of fused_stats_quantile: quality_stats plus the
+    bisection quantile."""
+    stats = quality_stats(x)
+    stats["quantile"] = per_image_quantile_fast(x, q, iters).reshape(x.shape[0])
+    return stats
+
+
+def fused_stats_quantile(x: torch.Tensor, q: float,
+                         iters: int = 22) -> Dict[str, torch.Tensor]:
+    """x (B, H, W, C) float32 → dict of (B,) float32: "mean", "std"
+    (population), "max", "min" and the bisection "quantile" at q."""
+    if x.device.type == "cpu":
+        return stats_quantile_plain(x, q, iters)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_stats_quantile takes float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("fused_stats_quantile needs a contiguous tensor")
+    b = x.shape[0]
+    n = x.numel() // b if b else 0
+    if n == 0:
+        raise ValueError("fused_stats_quantile needs a non-empty batch of "
+                         "non-empty images")
+    out = torch.empty(5, b, dtype=torch.float32, device=x.device)
+    fn = _build.function("percentile", "tt_stats_quantile", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    status = fn(_build.ptr(x), _build.ptr(out), b, n,
+                float(np.float32(q * (n - 1))), iters,
+                _build.stream_ptr(x.device))
+    _build.check("percentile", status, "fused_stats_quantile")
+    fused_stats_quantile.launches += 1
+    return dict(zip(("mean", "std", "max", "min", "quantile"), out.unbind(0)))
+
+
+fused_stats_quantile.launches = 0

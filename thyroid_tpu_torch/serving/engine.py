@@ -3,8 +3,9 @@
 Requests carry raw frames (N, S, S, 1) on the uint16 scale. Each request
 is padded up to the smallest batch bucket that holds it (repeating its
 last frame), or cut into chunks of the largest bucket, and every bucket
-runs the same program: `prepare_images` → gray→RGB for 3-channel models →
-`standardize` → the model → float32 softmax. The padding rows are sliced
+runs the same program: `prepare_images` (with the quality-aware pipeline
+when the engine was built with `quality=True`) → gray→RGB for 3-channel
+models → `standardize` → the model → float32 softmax. The padding rows are sliced
 off. Fixed buckets keep the kernels' shapes to a small known set.
 """
 from __future__ import annotations
@@ -31,11 +32,16 @@ class InferenceEngine:
 
     `params` is a JAX parameter tree (nested dicts of arrays) carried in
     through `load_jax_params`; None draws random weights from seed 0.
+    `quality` runs the quality-aware preprocessing (artifact filters,
+    gamma, CLAHE, ops/quality.py) on each request's raw frames before the
+    resize, as `scripts/serve.py --quality` does for the JAX engine; the
+    frame sides must then be divisible by its 32×32 CLAHE grid.
     `device` None means the CUDA card, and raises when there is none."""
 
     def __init__(self, model_config: Any,
                  params: Optional[Mapping[str, Any]] = None,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 quality: bool = False,
                  device: DeviceLike = None):
         if model_config is None:
             raise ValueError("need model_config")
@@ -48,6 +54,7 @@ class InferenceEngine:
                                     self.model.img_size))
         self.in_channels = int(cfg_get(model_config, "in_channels", 1))
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        self.quality = bool(quality)
         if self.in_channels == 3:
             self.mean, self.std = IMAGENET_MEAN, IMAGENET_STD
         else:
@@ -57,7 +64,7 @@ class InferenceEngine:
     def run(self, x: torch.Tensor) -> torch.Tensor:
         """One bucket: raw frames on the engine's device → probabilities."""
         with torch.inference_mode():
-            x = prepare_images(x, self.img_size)
+            x = prepare_images(x, self.img_size, quality=self.quality)
             if self.in_channels == 3 and x.shape[-1] == 1:
                 x = x.repeat(1, 1, 1, 3)
             x = standardize(x, self.mean, self.std)
