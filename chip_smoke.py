@@ -46,7 +46,27 @@ Phases, each printing its lines before the final one:
    without the quality pipeline at buckets 32 and 128, the time of
    DevicePipeline(quality_preprocessing=True) over 256 frames (its launch
    counts checked) with the histogram/LUT chain timed apart, and a profile
-   of one quality predict at bucket 32.
+   of one quality predict at bucket 32;
+11. token train kernels: the token backward kernels (LN + matmul dX/dgamma/
+   dbeta; LN + MLP dX/dgamma/dbeta and dW1/db1/dW2) and the LN + MLP
+   forward without its residual, against their plain versions at every
+   shape a swin_tiny train step with train_token_kernels gives them at
+   batch 32, in float32 and bfloat16;
+12. token train slice: one float32 train step (batch 8, drop path 0) of
+   full-width swin_tiny with train_token_kernels on the card against the
+   same step on the CPU and against phase 6's card step without the flag,
+   the bf16 step's loss against it, then Trainer.fit for one epoch of 256
+   raw 512x512 frames at batch 32 with validation on 64 and
+   test(checkpoint=best): per train step 12 launches each of the LN+QKV
+   forward, the LN+MLP forward without residual, the three token backward
+   kernels and the attention forward and backward; 15/12/12 per eval
+   forward;
+13. token train times: each token backward kernel's and each token
+   training forward's median time per train step beside its bound, plain
+   version and library yardstick (torch.autograd.grad through LayerNorm +
+   linear (+ GELU + linear)), training images/s at batch 32 and 128 with
+   the flag on beside the flag off, and a profile of one flagged train step
+   at batch 32.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -79,11 +99,14 @@ RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 PERCENTILE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -8}
 # engine probabilities vs the CPU float32 engine on the same weights
 PROB_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
-# attention backward's dbias, a sum over up to 2048 windows taken in
-# another order than the plain version's, relative to max(1, max|plain|)
+# attention backward's dbias, a sum over up to 2048 windows, and the token
+# backward kernels' dgamma, dbeta, dW1, db1 and dW2, sums over up to 100,352
+# tokens, taken in another order than the plain version's, relative to
+# max(1, max|plain|)
 DBIAS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # one train step on the card vs the CPU, float32: relative loss difference,
-# and |grad_card - grad_cpu| / |grad_cpu| over all parameters (global norms)
+# and |grad_card - grad_cpu| / |grad_cpu| over all parameters (global norms);
+# the same bounds hold the flagged token step against the unflagged one
 STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-4, 1e-3
 BF16_LOSS_TOL = 3e-2           # bf16 card loss vs the CPU float32 loss
 TRAIN_FRAMES, VAL_FRAMES = 256, 64
@@ -655,54 +678,67 @@ def reset_train_counts() -> None:
     attention.fused_swin_attention.bwd_launches = 0
 
 
-def make_trainer(config, params, out: str, device=None, **training):
+def make_trainer(config, params, out: str, device=None, token: bool = False,
+                 **training):
+    """A Trainer of `config`; with `token`, its model built from the same
+    arguments with train_token_kernels on (build_swin ignores the key, as
+    JAX's does)."""
     from thyroid_tpu_torch.models.registry import ModelRegistry
+    from thyroid_tpu_torch.models.vit.swin import SwinTransformer, swin_arguments
     from thyroid_tpu_torch.training.configs import TRAINER_DEFAULT, TRAINING_VIT
     from thyroid_tpu_torch.training.engine import Trainer
 
     tcfg = dict(TRAINING_VIT, **training)
-    return Trainer(ModelRegistry.create_model(config), config, tcfg,
+    model = SwinTransformer(**swin_arguments(config), train_token_kernels=True) \
+        if token else ModelRegistry.create_model(config)
+    return Trainer(model, config, tcfg,
                    dict(TRAINER_DEFAULT, max_epochs=tcfg["epochs"]),
                    steps_per_epoch=TRAIN_FRAMES // BATCH,
                    output_dir=WORK / out, params=params, device=device)
 
 
+def step_loss_grads(config, params, batch, device=None, token: bool = False):
+    """(loss, {name: float32 CPU gradient}) of one training forward and
+    backward of `config` on `batch` (numpy x, y, w) on `device`."""
+    trainer = make_trainer(config, params, "step", device=device, token=token)
+    dev = trainer.device
+    loss, _, grads = trainer.loss_and_grads(
+        *(torch.from_numpy(a).to(dev) for a in batch))
+    return float(loss), {n: g.float().cpu() for n, g in grads.items()}
+
+
+def step_agreement(got, want):
+    """(relative loss difference, |grad diff| / |grad|, |grad|) of two
+    (loss, grads) steps, `want` the reference."""
+    diff = sum(float(((got[1][n] - g) ** 2).sum()) for n, g in want[1].items())
+    norm = sum(float((g ** 2).sum()) for g in want[1].values())
+    return abs(got[0] - want[0]) / abs(want[0]), (diff / norm) ** 0.5, norm ** 0.5
+
+
 def phase_train_slice(params):
     """The card's train step against the CPU's, then Trainer.fit and
-    test(checkpoint=best) with the launch counts checked."""
+    test(checkpoint=best) with the launch counts checked. Returns the
+    launch counts, the step's batch and the card's float32 step."""
     from thyroid_tpu_torch.data.pipeline import DevicePipeline
 
     rs = np.random.RandomState(4)
-    x = rs.randn(8, 224, 224, 1).astype(np.float32)
-    y = (np.arange(8) % 2).astype(np.int64)
-    w = np.ones(8, np.float32)
+    batch = (rs.randn(8, 224, 224, 1).astype(np.float32),
+             (np.arange(8) % 2).astype(np.int64), np.ones(8, np.float32))
     f32 = dict(SWIN_TINY, dtype="f32", drop_path_rate=0.0)
-
-    def step(config, device):
-        trainer = make_trainer(config, params, "step", device=device)
-        dev = trainer.device
-        loss, _, grads = trainer.loss_and_grads(
-            torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
-            torch.from_numpy(w).to(dev))
-        return float(loss), {n: g.float().cpu() for n, g in grads.items()}
-
-    cpu_loss, cpu_grads = step(f32, "cpu")
-    card_loss, card_grads = step(f32, None)
-    bf16_loss, _ = step(dict(f32, dtype="bf16"), None)
+    cpu = step_loss_grads(f32, params, batch, "cpu")
+    card = step_loss_grads(f32, params, batch)
+    bf16_loss, _ = step_loss_grads(dict(f32, dtype="bf16"), params, batch)
     torch.cuda.empty_cache()
-    diff = sum(float(((card_grads[n] - g) ** 2).sum()) for n, g in cpu_grads.items())
-    norm = sum(float((g ** 2).sum()) for g in cpu_grads.values())
-    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    grad_rel = (diff / norm) ** 0.5
-    log(f"[train] swin_tiny f32 step, batch 8, card vs cpu: loss {card_loss:.7f} "
-        f"vs {cpu_loss:.7f} (relative {loss_rel:.3e}, tol {STEP_LOSS_RTOL:.0e}); "
+    loss_rel, grad_rel, norm = step_agreement(card, cpu)
+    log(f"[train] swin_tiny f32 step, batch 8, card vs cpu: loss {card[0]:.7f} "
+        f"vs {cpu[0]:.7f} (relative {loss_rel:.3e}, tol {STEP_LOSS_RTOL:.0e}); "
         f"|grad diff| / |grad| {grad_rel:.3e} (tol {STEP_GRAD_RTOL:.0e}, "
-        f"|grad| {norm ** 0.5:.4e})")
+        f"|grad| {norm:.4e})")
     log(f"[train] swin_tiny bf16 step on the card: loss {bf16_loss:.7f}, "
-        f"{abs(bf16_loss - cpu_loss):.3e} from the cpu f32 loss "
+        f"{abs(bf16_loss - cpu[0]):.3e} from the cpu f32 loss "
         f"(tol {BF16_LOSS_TOL:.0e})")
     if not (loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL
-            and abs(bf16_loss - cpu_loss) <= BF16_LOSS_TOL):
+            and abs(bf16_loss - cpu[0]) <= BF16_LOSS_TOL):
         raise AssertionError("the card's train step disagrees with the CPU's")
 
     frames = (rs.rand(TRAIN_FRAMES + VAL_FRAMES, 512, 512, 1) * 65535) \
@@ -737,7 +773,33 @@ def phase_train_slice(params):
     bad = [k for k, v in metrics.items() if not np.isfinite(v)]
     if bad or fit.best_checkpoint is None:
         raise AssertionError(f"non-finite metrics {bad} or no checkpoint")
-    return launches
+    return launches, batch, card
+
+
+def train_step_seconds(params, n: int, gen, token: bool = False):
+    """Median wall time of Trainer.train_step at batch n (bf16 swin_tiny,
+    drop path 0.2), 5 steps after 3 warm-up steps, each up to a
+    synchronize; returns it with the trainer and its batch."""
+    from thyroid_tpu_torch.training.metrics import zero_metric_state
+
+    trainer = make_trainer(SWIN_TINY, params, "speed", token=token)
+    x = torch.randn(n, 224, 224, 1, generator=gen, device="cuda")
+    y = torch.arange(n, device="cuda") % 2
+    w = torch.ones(n, device="cuda")
+
+    def step():
+        trainer.train_step(zero_metric_state(device="cuda"), x, y, w)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs), trainer, (x, y, w)
 
 
 def phase_train_times(train_shapes, launches, params):
@@ -790,39 +852,21 @@ def phase_train_times(train_shapes, launches, params):
         log(f"[train-times] {name} per train step at batch {BATCH}: "
             f"{tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms)")
 
-    from thyroid_tpu_torch.training.metrics import zero_metric_state
-
     for n in (BATCH, 128):
         torch.cuda.reset_peak_memory_stats()
-        trainer = make_trainer(SWIN_TINY, params, "speed")
-        x = torch.randn(n, 224, 224, 1, generator=gen, device="cuda")
-        y = torch.arange(n, device="cuda") % 2
-        w = torch.ones(n, device="cuda")
-
-        def step():
-            trainer.train_step(zero_metric_state(device="cuda"), x, y, w)
-
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        secs = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        med = statistics.median(secs)
+        med, trainer, batch = train_step_seconds(params, n, gen)
         log(f"[train-times] train step batch {n}: median {med * 1e3:.2f} ms "
             f"over 5, {n / med:.1f} images/s (bf16, drop path 0.2, "
             f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB)")
         if n == BATCH:
-            phase_train_profile(trainer, x, y, w)
-        del trainer, x
+            phase_train_profile(trainer, *batch)
+        del trainer, batch
         torch.cuda.empty_cache()
     return entries
 
 
-def phase_train_profile(trainer, x, y, w, top: int = 14) -> None:
+def phase_train_profile(trainer, x, y, w, top: int = 14,
+                        what: str = "train step") -> None:
     """Where the time of one train step at x's batch goes: device time by
     kernel, the device's busy share, the number of kernel launches and the
     host's heaviest operators; then forward + backward and the optimizer
@@ -839,12 +883,12 @@ def phase_train_profile(trainer, x, y, w, top: int = 14) -> None:
         trainer.train_step(zero_metric_state(device="cuda"), x, y, w)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    report_profile(prof, wall_us, f"train step batch {n}", top)
+    report_profile(prof, wall_us, f"{what} batch {n}", top)
     events = prof.key_averages()
     kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
-    log(f"[profile] train step batch {n}: {kernels} device kernel launches; "
+    log(f"[profile] {what} batch {n}: {kernels} device kernel launches; "
         f"heaviest host operators by self time:")
     for e in host[:8]:
         log(f"[profile] host {e.self_cpu_time_total / 1e3:9.3f} ms x{e.count:<5d} "
@@ -863,7 +907,7 @@ def phase_train_profile(trainer, x, y, w, top: int = 14) -> None:
     _, _, grads = trainer.loss_and_grads(x, y, w)
     fb = timed(lambda: trainer.loss_and_grads(x, y, w))
     opt = timed(lambda: trainer.state.apply_gradients(grads))
-    log(f"[profile] train step batch {n} apart, median of 5: forward + "
+    log(f"[profile] {what} batch {n} apart, median of 5: forward + "
         f"backward {fb:.2f} ms, optimizer update {opt:.2f} ms")
 
 
@@ -1225,6 +1269,317 @@ def phase_quality_times(cases, launches, engine, params, frames):
     return entries
 
 
+# ---------------------------------------------------------------- token training
+
+TOKEN_SUMS = ("dgamma", "dbeta", "dW1", "db1", "dW2")   # sums over tokens
+TOKEN_OUTPUTS = {"ln_matmul_bwd": ("dx", "dgamma", "dbeta"),
+                 "ln_mlp_bwd_dx": ("dx", "dgamma", "dbeta"),
+                 "ln_mlp_bwd_dw": ("dW1", "db1", "dW2"),
+                 "ln_mlp": ("y",), "ln_matmul_train": ("y",)}
+
+
+def token_train_shapes(batch: int):
+    """{(T, C): blocks} of a swin_tiny train step at `batch`: each block runs
+    every token kernel once on its stage's T = batch·56²/4^s tokens of width
+    C = 96·2^s."""
+    return {(batch * (56 // 2 ** i) ** 2, 96 * 2 ** i): depth
+            for i, depth in enumerate((2, 2, 6, 2))}
+
+
+def make_token_inputs(kernel: str, shape, dtype, gen):
+    """Seeded inputs of one token-kernel case on the card: x and dY in
+    `dtype`, weights in `dtype` scaled by fan-in^-1/2, LN and bias vectors
+    float32."""
+    t, c = shape
+
+    def rn(*s, scale=1.0, dt=torch.float32):
+        return (torch.randn(*s, generator=gen, device="cuda") * scale).to(dt)
+
+    ln = (rn(t, c, dt=dtype), 1 + rn(c, scale=0.1), rn(c, scale=0.1))
+    if kernel in ("ln_matmul_bwd", "ln_matmul_train"):
+        w = rn(c, 3 * c, scale=c ** -0.5, dt=dtype)
+        if kernel == "ln_matmul_train":
+            return ln + (w, rn(3 * c, scale=0.1))
+        return ln[0], ln[1], w, rn(t, 3 * c, dt=dtype)
+    mlp = (rn(c, 4 * c, scale=c ** -0.5, dt=dtype), rn(4 * c, scale=0.1),
+           rn(4 * c, c, scale=(4 * c) ** -0.5, dt=dtype))
+    if kernel == "ln_mlp":
+        return ln + mlp + (rn(c, scale=0.1),)
+    return ln + mlp + (rn(t, c, dt=dtype),)
+
+
+def token_fns(kernel: str):
+    """(wrapper, plain version) of a token kernel, each returning a tuple
+    of the outputs named in TOKEN_OUTPUTS."""
+    from thyroid_tpu_torch.ops import token_fused as tf
+
+    if kernel == "ln_matmul_bwd":
+        return tf.fused_ln_matmul_bwd, tf.ln_matmul_bwd_plain
+    if kernel == "ln_mlp_bwd_dx":
+        return (lambda *a: tf.fused_ln_mlp_bwd_dx(*a, residual=False),
+                lambda *a: tf.ln_mlp_bwd_plain(*a, False)[:3])
+    if kernel == "ln_mlp_bwd_dw":
+        return (tf.fused_ln_mlp_bwd_dw,
+                lambda *a: tf.ln_mlp_bwd_plain(*a, False)[3:])
+    if kernel == "ln_mlp":
+        return (lambda *a: (tf.fused_ln_mlp(*a),),
+                lambda *a: (tf.ln_mlp_plain(*a),))
+    return (lambda *a: (tf.fused_ln_matmul(*a),),
+            lambda *a: (tf.ln_matmul_plain(*a),))
+
+
+def token_library_fn(kernel: str, args):
+    """One PyTorch library composition of the same function, for timing
+    only (the port never calls it): LayerNorm + linear (+ GELU + linear),
+    and for a backward torch.autograd.grad through it to the same inputs
+    (x, γ, β for dX; W1, b1, W2 for the weight gradients)."""
+    import torch.nn.functional as F
+
+    if kernel == "ln_matmul_train":
+        return library_fn("ln_matmul", None, args)
+    x, c = args[0], args[0].shape[1]
+
+    def grad_of(out, inputs, dy):
+        return lambda: torch.autograd.grad(out, inputs, dy, retain_graph=True)
+
+    if kernel == "ln_matmul_bwd":
+        _, g, w, dy = args
+        xr = x.detach().requires_grad_()
+        gd, bd = g.to(x.dtype).requires_grad_(), torch.zeros_like(
+            g, dtype=x.dtype).requires_grad_()
+        out = F.linear(F.layer_norm(xr, (c,), gd, bd, 1e-5), w.t().contiguous())
+        return grad_of(out, (xr, gd, bd), dy)
+    _, g, b, w1, b1, w2 = args[:6]
+    need_x = kernel == "ln_mlp_bwd_dx"
+    xr = x.detach().requires_grad_(need_x)
+    gd = g.to(x.dtype).requires_grad_(need_x)
+    bd = b.to(x.dtype).requires_grad_(need_x)
+    need_w = kernel == "ln_mlp_bwd_dw"
+    w1t = w1.t().contiguous().requires_grad_(need_w)
+    b1d = b1.to(x.dtype).requires_grad_(need_w)
+    w2t = w2.t().contiguous().requires_grad_(need_w)
+    b2d = args[6].to(x.dtype) if kernel == "ln_mlp" else None
+
+    def mlp():
+        return F.linear(F.gelu(F.linear(F.layer_norm(xr, (c,), gd, bd, 1e-5),
+                                        w1t, b1d)), w2t, b2d)
+
+    if kernel == "ln_mlp":
+        return mlp
+    return grad_of(mlp(), (xr, gd, bd) if need_x else (w1t, b1d, w2t), args[6])
+
+
+def token_work(kernel: str, shape, dtype):
+    """(bytes, operations, peak operations/s) of one call: each input read
+    once, each output written once; the products' multiply-adds at the
+    tensor-core rate of the input type. LN + matmul backward: dXn = dY Wᵀ
+    (2·T·C·3C). LN + MLP backward dX: fc1 again, dA and dH W1ᵀ
+    (3 × 2·T·C·4C); dW: fc1 again, dA, xnᵀ dH and aᵀ dY (4 × 2·T·C·4C)."""
+    s = torch.tensor([], dtype=dtype).element_size()
+    t, c = shape
+    h, peak = 4 * c, PEAK_OPS_PER_S[dtype]
+    if kernel == "ln_matmul_train":
+        return work("ln_matmul", (t, c, 3 * c, True), dtype)
+    if kernel == "ln_mlp":
+        return work("ln_mlp_residual", (t, c, h), dtype)
+    if kernel == "ln_matmul_bwd":
+        o = 3 * c
+        return (2 * t * c + t * o + c * o) * s + 3 * c * 4, 2 * t * c * o, peak
+    vectors = (2 * c + h) * 4
+    if kernel == "ln_mlp_bwd_dx":
+        return (3 * t * c + 2 * c * h) * s + vectors + 2 * c * 4, 6 * t * c * h, peak
+    return (2 * t * c + 2 * c * h) * s + vectors + (2 * c * h + h) * 4, \
+        8 * t * c * h, peak
+
+
+def compare_token(kernel: str, got, want, dtype):
+    """[(name, max_abs_err, tol, ok)] of a token kernel's outputs, relative
+    to max(1, max|plain|): RTOL, or DBIAS_RTOL for the sums over tokens."""
+    rows = []
+    for name, g, w in zip(TOKEN_OUTPUTS[kernel], got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs().max().item()
+        rtol = DBIAS_RTOL[dtype] if name in TOKEN_SUMS else RTOL[dtype]
+        tol = rtol * max(1.0, w.abs().max().item())
+        ok = bool(np.isfinite(err)) and err <= tol and bool(torch.isfinite(g).all())
+        rows.append((name, err, tol, ok))
+    return rows
+
+
+def phase_token_kernels(shapes) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel in ("ln_matmul_bwd", "ln_mlp_bwd_dx", "ln_mlp_bwd_dw", "ln_mlp"):
+            for shape in shapes:
+                args = make_token_inputs(kernel, shape, dtype, gen)
+                fused, plain = token_fns(kernel)
+                got, want = fused(*args), plain(*args)
+                torch.cuda.synchronize()
+                for name, err, tol, ok in compare_token(kernel, got, want, dtype):
+                    log(f"[token-kernels] {kernel} {name} {str(dtype)[6:]} "
+                        f"{shape}: max_abs_err {err:.3e} tol {tol:.3e} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failed.append((kernel, name, str(dtype), shape, err))
+                del args, got, want
+    if failed:
+        raise AssertionError(f"token kernels disagree with their plain "
+                             f"versions: {failed}")
+
+
+def token_counters():
+    from thyroid_tpu_torch.ops import token_fused as tf
+
+    return {"ln_mlp": tf.fused_ln_mlp, "ln_matmul_bwd": tf.fused_ln_matmul_bwd,
+            "ln_mlp_bwd_dx": tf.fused_ln_mlp_bwd_dx,
+            "ln_mlp_bwd_dw": tf.fused_ln_mlp_bwd_dw}
+
+
+def phase_token_slice(params, batch, card_off):
+    """The flagged float32 step on the card against the CPU's and against
+    the unflagged card step `card_off` on the same `batch`, the bf16
+    flagged loss, then Trainer.fit and test(checkpoint=best) with the flag
+    on and the launch counts checked."""
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+
+    f32 = dict(SWIN_TINY, dtype="f32", drop_path_rate=0.0)
+    cpu = step_loss_grads(f32, params, batch, "cpu", token=True)
+    for fn in token_counters().values():
+        fn.launches = 0
+    card = step_loss_grads(f32, params, batch, token=True)
+    torch.cuda.synchronize()
+    step_launches = {k: fn.launches for k, fn in token_counters().items()}
+    bf16_loss, _ = step_loss_grads(dict(f32, dtype="bf16"), params, batch,
+                                   token=True)
+    torch.cuda.empty_cache()
+    ok = step_launches == {k: 12 for k in token_counters()}
+    for what, ref in (("cpu (flag on)", cpu), ("card (flag off)", card_off)):
+        loss_rel, grad_rel, norm = step_agreement(card, ref)
+        log(f"[token-train] swin_tiny f32 step with train_token_kernels, batch "
+            f"8, card vs {what}: loss {card[0]:.7f} vs {ref[0]:.7f} (relative "
+            f"{loss_rel:.3e}, tol {STEP_LOSS_RTOL:.0e}); |grad diff| / |grad| "
+            f"{grad_rel:.3e} (tol {STEP_GRAD_RTOL:.0e}, |grad| {norm:.4e})")
+        ok &= loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL
+    log(f"[token-train] swin_tiny bf16 step with train_token_kernels on the "
+        f"card: loss {bf16_loss:.7f}, {abs(bf16_loss - card[0]):.3e} from the "
+        f"card's f32 loss (tol {BF16_LOSS_TOL:.0e}); f32 step launches "
+        f"{step_launches}")
+    if not (ok and abs(bf16_loss - card[0]) <= BF16_LOSS_TOL):
+        raise AssertionError("the flagged train step disagrees")
+
+    rs = np.random.RandomState(8)
+    frames = (rs.rand(TRAIN_FRAMES + VAL_FRAMES, 512, 512, 1) * 65535) \
+        .astype(np.float32)
+    labels = rs.permutation(np.arange(TRAIN_FRAMES + VAL_FRAMES) % 2)
+    reset_train_counts()
+    for fn in token_counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train = DevicePipeline(frames[:TRAIN_FRAMES], labels[:TRAIN_FRAMES],
+                           batch_size=BATCH, train=True)
+    val = DevicePipeline(frames[TRAIN_FRAMES:], labels[TRAIN_FRAMES:],
+                         batch_size=BATCH)
+    trainer = make_trainer(SWIN_TINY, params, "token_fit", token=True, epochs=1)
+    fit = trainer.fit(train, val)
+    test = trainer.test(val, checkpoint=fit.best_checkpoint)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {**read_train_counts(),
+                **{k: fn.launches for k, fn in token_counters().items()}}
+    steps = train.steps_per_epoch()
+    forwards = 2 * val.steps_per_epoch()          # validation + test
+    log(f"[token-train] Trainer.fit swin_tiny bf16 with train_token_kernels "
+        f"(drop path 0.2): 1 epoch, {steps} steps of {BATCH} + {forwards} eval "
+        f"forwards + test in {secs:.2f} s; launches {launches}")
+    want = {"percentile": 2, "ln_matmul": 15 * forwards + 12 * steps,
+            "ln_mlp_residual": 12 * forwards,
+            "swin_block_attention": 12 * forwards,
+            "swin_attention": 12 * steps, "swin_attention_bwd": 12 * steps,
+            **{k: 12 * steps for k in token_counters()}}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    metrics = {**fit.history[-1], **test}
+    log("[token-train] " + json.dumps({k: v for k, v in metrics.items()
+                                       if k.startswith(("train_", "val_", "test_"))}))
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad or fit.best_checkpoint is None:
+        raise AssertionError(f"non-finite metrics {bad} or no checkpoint")
+    return launches
+
+
+def phase_token_times(shapes, launches, params):
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    dtype = torch.bfloat16
+    meta = {"ln_matmul_bwd": ("fused_ln_matmul_bwd", "ln_matmul_bwd.cu",
+                              "ops/token_fused.py:239"),
+            "ln_mlp_bwd_dx": ("fused_ln_mlp_bwd_dx", "ln_mlp_bwd.cu",
+                              "ops/token_fused.py:529"),
+            "ln_mlp_bwd_dw": ("fused_ln_mlp_bwd_dw", "ln_mlp_bwd.cu",
+                              "ops/token_fused.py:560")}
+    entries = []
+    for kernel in ("ln_matmul_bwd", "ln_mlp_bwd_dx", "ln_mlp_bwd_dw",
+                   "ln_matmul_train", "ln_mlp"):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+               "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0}
+        for shape, count in shapes.items():
+            args = make_token_inputs(kernel, shape, dtype, gen)
+            fused, plain = token_fns(kernel)
+            ms = median_ms(lambda: fused(*args))
+            plain_ms = median_ms(lambda: plain(*args), reps=5, warm=1)
+            lib_ms = median_ms(token_library_fn(kernel, args))
+            err = max(row[1] for row in compare_token(
+                kernel, fused(*args), plain(*args), dtype))
+            nbytes, ops, peak = token_work(kernel, shape, dtype)
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            t_ops = ops / peak * 1e3
+            log(f"[token-times] {kernel} bf16 {shape} x{count}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                f"bound {max(t_bytes, t_ops):.4f} ms "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["library_ms"] += count * lib_ms
+            tot["bound_ms"] += count * max(t_bytes, t_ops)
+            tot["bytes_ms"] += count * t_bytes
+            tot["ops_ms"] += count * t_ops
+            tot["err"] = max(tot["err"], err)
+            del args
+        log(f"[token-times] {kernel} per train step at batch {BATCH}: "
+            f"{tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms)")
+        if kernel not in meta:
+            continue
+        name, src, replaces = meta[kernel]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"thyroid_tpu_torch/csrc/{src}",
+            "replaces": f"thyroid_tpu/{replaces}",
+            "launches": launches[kernel],
+            "max_abs_err": tot["err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+            else "operations",
+            "library_ms": tot["library_ms"]})
+
+    for n in (BATCH, 128):
+        for token in (True, False):
+            torch.cuda.reset_peak_memory_stats()
+            med, trainer, batch = train_step_seconds(params, n, gen, token=token)
+            log(f"[token-times] train step batch {n}, train_token_kernels "
+                f"{'on' if token else 'off'}: median {med * 1e3:.2f} ms over 5, "
+                f"{n / med:.1f} images/s (bf16, drop path 0.2, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB)")
+            if n == BATCH and token:
+                phase_train_profile(trainer, *batch,
+                                    what="train step with train_token_kernels")
+            del trainer, batch
+            torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1241,16 +1596,23 @@ def main() -> int:
     train_shapes = swin_tiny_train_shapes(BATCH)
     phase_train_kernels(train_shapes)
     try:
-        train_launches = phase_train_slice(params)
+        train_launches, batch, card_step = phase_train_slice(params)
         entries += phase_train_times(train_shapes, train_launches, params)
+        torch.cuda.empty_cache()
+        frames = quality_frames()
+        cases = quality_cases(frames)
+        phase_quality_kernels(cases)
+        q_engine, q_launches = phase_quality_slice(params, frames)
+        entries += phase_quality_times(cases, q_launches, q_engine, params,
+                                       frames)
+        del q_engine, cases
+        torch.cuda.empty_cache()
+        token_shapes = token_train_shapes(BATCH)
+        phase_token_kernels(token_shapes)
+        token_launches = phase_token_slice(params, batch, card_step)
+        entries += phase_token_times(token_shapes, token_launches, params)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    torch.cuda.empty_cache()
-    frames = quality_frames()
-    cases = quality_cases(frames)
-    phase_quality_kernels(cases)
-    q_engine, q_launches = phase_quality_slice(params, frames)
-    entries += phase_quality_times(cases, q_launches, q_engine, params, frames)
     log(json.dumps({"kernels": entries}))
     log(card)
     print(json.dumps({"ok": True, "device": {

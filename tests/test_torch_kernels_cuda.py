@@ -6,7 +6,8 @@ has one with
 
 Tolerance: float32 1e-4 and bfloat16 1e-2 relative to max(1, max|plain|),
 as chip_smoke.py holds the main-path shapes; the attention backward's
-dbias, a sum over windows taken in another order, 1e-4 (float32) and 1e-3
+dbias, and the token backward kernels' dgamma, dbeta, dW1, db1 and dW2, sums
+over windows or tokens taken in another order, 1e-4 (float32) and 1e-3
 (bfloat16) relative to max(1, max|plain|). The quality kernels: the
 statistics' quantile, max and min exact, mean and std rtol 1e-5 (float64
 sums against PyTorch's float32 ones); the stencil's median exact and its
@@ -97,6 +98,122 @@ def test_swin_block_attention(gen, dtype, b, r, c, heads, ws, shift):
     kw = dict(window_size=ws, num_heads=heads, scale=(c // heads) ** -0.5)
     _close(attention.fused_swin_block_attention(*args, **kw),
            attention.swin_block_attention_plain(*args, **kw), dtype)
+
+
+# (tokens, width, hidden): ragged row blocks, widths that are not multiples
+# of 64 or 4, hidden widths with a partial chunk of 128 and of 16
+TOKEN_BWD_CASES = [(70, 96, 384), (33, 40, 200), (130, 768, 3072), (45, 100, 72)]
+
+
+def _token_args(gen, dtype, t, c, h, out=None):
+    """x, γ, β, W1 (c, h), b1, W2 (h, c), dY (t, out or c)."""
+    return (_rn(gen, t, c, dtype=dtype), 1 + _rn(gen, c, scale=0.1),
+            _rn(gen, c, scale=0.1), _rn(gen, c, h, scale=c ** -0.5, dtype=dtype),
+            _rn(gen, h, scale=0.1), _rn(gen, h, c, scale=h ** -0.5, dtype=dtype),
+            _rn(gen, t, out or c, dtype=dtype))
+
+
+def _close_all(got, want, dtype, sums):
+    """dX-like outputs at RTOL, sums over tokens at DBIAS_RTOL."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close(g, w, dtype, DBIAS_RTOL if i in sums else RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,c,h", TOKEN_BWD_CASES)
+def test_ln_matmul_bwd(gen, dtype, t, c, h):
+    """Kernel 9 against its plain version (dX; dγ, dβ as sums over tokens),
+    and two runs bit-equal (no atomics)."""
+    x, g, _, w, _, _, dy = _token_args(gen, dtype, t, c, h, out=h)
+    before = token_fused.fused_ln_matmul_bwd.launches
+    got = token_fused.fused_ln_matmul_bwd(x, g, w, dy)
+    assert token_fused.fused_ln_matmul_bwd.launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    _close_all(got, token_fused.ln_matmul_bwd_plain(x, g, w, dy), dtype, (1, 2))
+    again = token_fused.fused_ln_matmul_bwd(x, g, w, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("t,c,h", TOKEN_BWD_CASES)
+def test_ln_mlp_bwd(gen, dtype, residual, t, c, h):
+    """Kernels 10 (dX, dγ, dβ) and 11 (dW1, db1, dW2) against the plain
+    backward, and two runs bit-equal (no atomics)."""
+    args = _token_args(gen, dtype, t, c, h)
+    dx_before = token_fused.fused_ln_mlp_bwd_dx.launches
+    dw_before = token_fused.fused_ln_mlp_bwd_dw.launches
+    got = token_fused.fused_ln_mlp_bwd_dx(*args, residual=residual) \
+        + token_fused.fused_ln_mlp_bwd_dw(*args)
+    assert (token_fused.fused_ln_mlp_bwd_dx.launches,
+            token_fused.fused_ln_mlp_bwd_dw.launches) == (dx_before + 1, dw_before + 1)
+    assert got[0].dtype == dtype and all(v.dtype == torch.float32 for v in got[1:])
+    want = token_fused.ln_mlp_bwd_plain(*args, residual)
+    _close_all(got, want, dtype, (1, 2, 3, 4, 5))
+    again = token_fused.fused_ln_mlp_bwd_dx(*args, residual=residual) \
+        + token_fused.fused_ln_mlp_bwd_dw(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,c,h", [(45, 96, 384), (33, 100, 200)])
+def test_ln_mlp_no_residual(gen, dtype, t, c, h):
+    x, g, b, w1, b1, w2, _ = _token_args(gen, dtype, t, c, h)
+    b2 = _rn(gen, c, scale=0.1)
+    before = token_fused.fused_ln_mlp.launches
+    got = token_fused.fused_ln_mlp(x, g, b, w1, b1, w2, b2)
+    assert token_fused.fused_ln_mlp.launches == before + 1
+    _close(got, token_fused.ln_mlp_plain(x, g, b, w1, b1, w2, b2), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_token_autograd_reaches_the_kernels(gen, dtype):
+    """Autograd through fused_ln_matmul and fused_ln_mlp launches one
+    forward and the backward kernels once each, and its gradients equal
+    the kernels' own (cast to the parameters' float32)."""
+    t, c, h = 70, 96, 384
+    x, g, b, w1, b1, w2, dy = _token_args(gen, dtype, t, c, h)
+    b2 = _rn(gen, c, scale=0.1)
+    counters = (token_fused.fused_ln_mlp, token_fused.fused_ln_mlp_bwd_dx,
+                token_fused.fused_ln_mlp_bwd_dw)
+    before = [f.launches for f in counters]
+    leaves = [v.clone().requires_grad_() for v in (x, g, b, w1, b1, w2, b2)]
+    token_fused.fused_ln_mlp(*leaves).backward(dy)
+    assert [f.launches for f in counters] == [n + 1 for n in before]
+    want = token_fused.fused_ln_mlp_bwd_dx(x, g, b, w1, b1, w2, dy, residual=False) \
+        + token_fused.fused_ln_mlp_bwd_dw(x, g, b, w1, b1, w2, dy)
+    for leaf, w in zip(leaves[:6], want):
+        assert torch.equal(leaf.grad, w.to(leaf.dtype))
+    assert torch.equal(leaves[6].grad, dy.float().sum(0))
+
+    wq = _rn(gen, c, 3 * c, scale=c ** -0.5)
+    dyq = _rn(gen, t, 3 * c, dtype=dtype)
+    before = token_fused.fused_ln_matmul_bwd.launches
+    xq, gq = x.clone().requires_grad_(), g.clone().requires_grad_()
+    token_fused.fused_ln_matmul(xq, gq, b, wq, None).backward(dyq)
+    assert token_fused.fused_ln_matmul_bwd.launches == before + 1
+    dx, dg, _ = token_fused.fused_ln_matmul_bwd(x, g, wq.to(dtype), dyq)
+    assert torch.equal(xq.grad, dx) and torch.equal(gq.grad, dg)
+
+
+@pytest.mark.cuda
+def test_token_bwd_refuses(gen):
+    """Widths above 768 and a dY that does not match raise; they never fall
+    back to the plain version."""
+    x, g, b, w1, b1, w2, dy = _token_args(gen, torch.float32, 8, 1024, 64)
+    with pytest.raises(ValueError):
+        token_fused.fused_ln_mlp_bwd_dx(x, g, b, w1, b1, w2, dy, residual=False)
+    with pytest.raises(ValueError):
+        token_fused.fused_ln_mlp_bwd_dw(x, g, b, w1, b1, w2, dy)
+    x, g, b, w1, b1, w2, dy = _token_args(gen, torch.float32, 8, 64, 64)
+    with pytest.raises(ValueError):
+        token_fused.fused_ln_mlp_bwd_dw(x, g, b, w1, b1, w2, dy[:4])
+    with pytest.raises(ValueError):
+        token_fused.fused_ln_matmul_bwd(x, g, w1, dy.to(torch.bfloat16))
 
 
 SWIN_TRAIN_CASES = [

@@ -12,7 +12,8 @@ import pytest
 import torch
 import yaml
 
-from tests.torch_parity import SMALL_SWIN, jax_swin
+from tests.torch_parity import (SMALL_F32, SMALL_SWIN, assert_trees_close,
+                                flat_tree, jax_swin, small_batch)
 from thyroid_tpu_torch.data.pipeline import DevicePipeline
 from thyroid_tpu_torch.models.base import create_and_init
 from thyroid_tpu_torch.models.from_jax import jax_tree, load_jax_params
@@ -27,31 +28,12 @@ from thyroid_tpu_torch.training.configs import (TRAINER_DEFAULT, TRAINING_VIT,
 from thyroid_tpu_torch.training.engine import Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
-SMALL_F32 = dict(SMALL_SWIN, dtype="f32", drop_path_rate=0.0)
-
-
-def _flat(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        if hasattr(v, "items"):
-            out.update(_flat(v, f"{prefix}{k}."))
-        else:
-            out[f"{prefix}{k}"] = np.asarray(v)
-    return out
 
 
 def _np(tree):
     """A JAX-named tree of torch tensors as numpy, for the JAX functions."""
     return {k: _np(v) if hasattr(v, "items") else v.numpy()
             for k, v in tree.items()}
-
-
-def _assert_trees_close(got, want, atol, rtol):
-    got, want = _flat(got), _flat(want)
-    assert set(got) == set(want)
-    for k in want:
-        np.testing.assert_allclose(got[k], want[k], atol=atol, rtol=rtol,
-                                   err_msg=k)
 
 
 @pytest.fixture(scope="module")
@@ -62,15 +44,6 @@ def small():
     _, params = jax_swin(SMALL_SWIN)
     model = JaxRegistry.create_model(dict(SMALL_F32, use_pallas_attention=True))
     return model, params
-
-
-def _batch(seed, n=4):
-    rs = np.random.RandomState(seed)
-    x = rs.randn(n, 64, 64, 1).astype(np.float32)
-    y = (np.arange(n) % 2).astype(np.int32)
-    w = np.ones(n, np.float32)
-    w[-1] = 0.5
-    return x, y, w
 
 
 @pytest.mark.unit
@@ -91,7 +64,7 @@ def test_small_swin_train_grads_match_jax(small):
     from thyroid_tpu.training.losses import cross_entropy
 
     jmodel, params = small
-    x, y, w = _batch(5)
+    x, y, w = small_batch(5)
 
     def loss(p):
         logits = jmodel.apply({"params": p}, jnp.asarray(x), train=True,
@@ -107,9 +80,9 @@ def test_small_swin_train_grads_match_jax(small):
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(got_loss, list(model.parameters()))
     assert abs(got_loss.item() - float(want_loss)) < 1e-5
-    _assert_trees_close(jax_tree(dict(zip(names, grads))), want,
+    assert_trees_close(jax_tree(dict(zip(names, grads))), want,
                         atol=5e-5, rtol=5e-4)
-    assert max(np.abs(v).max() for v in _flat(want).values()) > 1e-3
+    assert max(np.abs(v).max() for v in flat_tree(want).values()) > 1e-3
 
 
 @pytest.mark.unit
@@ -146,7 +119,7 @@ def test_layer_decay_mask_matches_jax():
     from thyroid_tpu.training.schedules import layer_decay_mask
 
     params = _param_tree(0)
-    want = _flat(layer_decay_mask(_np(jax_tree(params)), 0.9, 2))
+    want = flat_tree(layer_decay_mask(_np(jax_tree(params)), 0.9, 2))
     got = tsched.layer_decay_mask(params, 0.9, 2)
     assert {k.replace("patch_embed.weight", "patch_embed.kernel"): v
             for k, v in got.items()} == {k: float(v) for k, v in want.items()}
@@ -185,7 +158,7 @@ def test_optimizer_matches_optax(grad_scale):
         jp = optax.apply_updates(jp, upd)
         tsched.apply_updates(tp, port.update(g, pstate, tp))
     assert pstate.count == 2
-    _assert_trees_close(jax_tree(tp), jp, atol=1e-6, rtol=0)
+    assert_trees_close(jax_tree(tp), jp, atol=1e-6, rtol=0)
     moved = max(float((tp[n] - p).abs().max()) for n, p in params.items())
     assert moved > 1e-3
 
@@ -281,7 +254,7 @@ def test_three_step_trajectory_matches_jax(small, tmp_path):
                  steps_per_epoch=3, output_dir=tmp_path / "port",
                  params=params, device="cpu")
     for step in range(3):
-        x, y, w = _batch(10 + step)
+        x, y, w = small_batch(10 + step)
         state, jm, _ = jt._train_step(
             state, zero_metric_state(), jnp.asarray(x), jnp.asarray(y),
             jnp.asarray(w), jax.random.PRNGKey(step), jnp.float32(0.0))
@@ -291,11 +264,11 @@ def test_three_step_trajectory_matches_jax(small, tmp_path):
         got = float(tm["loss_sum"]) / float(tm["w_sum"])
         assert abs(got - want) < 1e-5, (step, got, want)
     assert pt.state.step == 3 and int(state.step) == 3
-    _assert_trees_close(jax_tree(pt.state.params), state.params,
+    assert_trees_close(jax_tree(pt.state.params), state.params,
                         atol=1e-6, rtol=1e-5)
-    _assert_trees_close(jax_tree(pt.state.ema_params), state.ema_params,
+    assert_trees_close(jax_tree(pt.state.ema_params), state.ema_params,
                         atol=1e-6, rtol=1e-5)
-    new, old = _flat(jax_tree(pt.state.params)), _flat(params)
+    new, old = flat_tree(jax_tree(pt.state.params)), flat_tree(params)
     moved = max(np.abs(new[k] - old[k]).max() for k in old)
     assert moved > 1e-4          # two updates at lr 1e-4 moved the weights
 

@@ -10,6 +10,9 @@ import numpy as np
 SMALL_SWIN = {"name": "swin_tiny", "img_size": 64, "embed_dim": 32,
               "depths": (2, 2), "num_heads": (1, 2), "window_size": 4,
               "in_channels": 1, "num_classes": 2}
+# its float32 training configuration without DropPath (the two frameworks
+# draw DropPath from different random streams)
+SMALL_F32 = dict(SMALL_SWIN, dtype="f32", drop_path_rate=0.0)
 
 
 def perturb(tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -62,3 +65,33 @@ def jax_swin(config: Dict[str, Any], seed: int = 0):
 def count_leaves(tree: Dict[str, Any]) -> int:
     return sum(count_leaves(v) if hasattr(v, "items") else 1
                for v in tree.values())
+
+
+def small_batch(seed: int, n: int = 4):
+    """(images, int32 labels, weights with the last one 0.5) of SMALL_SWIN's
+    input size, from a numpy seed."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, 64, 64, 1).astype(np.float32)
+    y = (np.arange(n) % 2).astype(np.int32)
+    w = np.ones(n, np.float32)
+    w[-1] = 0.5
+    return x, y, w
+
+
+def flat_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested parameter tree as {"a.b.c": numpy array}."""
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def assert_trees_close(got, want, atol: float, rtol: float) -> None:
+    got, want = flat_tree(got), flat_tree(want)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=atol, rtol=rtol,
+                                   err_msg=k)

@@ -1,15 +1,18 @@
-// fused_ln_mlp_residual: y = x + fc2(gelu(fc1(LayerNorm(x)))) on token rows.
+// fused_ln_mlp_residual / fused_ln_mlp: y = [x +] fc2(gelu(fc1(LayerNorm(x))))
+// on token rows.
 //
 // Replaces the TPU kernel thyroid_tpu/ops/token_fused.py _ln_mlp_kernel
-// (pallas_call in _ln_mlp_fwd_call, public wrapper fused_ln_mlp_residual):
-// Swin's norm2 + MLP + residual.
+// (pallas_call in _ln_mlp_fwd_call, public wrappers fused_ln_mlp_residual
+// and fused_ln_mlp): Swin's norm2 + MLP, with the residual add when serving
+// and without it in training (DropPath and the skip stay outside), as the
+// TPU kernel's `residual` flag chooses.
 //
 // What it computes, for x (T, C), W1 (C, Hd), W2 (Hd, C) in the compute
 // type (f32 or bf16): per row, flax LayerNorm numerics in f32, the
 // normalised row rounded to the compute type; per hidden unit
 // h = xn . W1 + b1 (f32 accumulation) rounded to the compute type, exact
 // erf GELU in f32, rounded again; then acc = h . W2 in f32, and
-// y = acc + b2 + x stored in the compute type.
+// y = acc + b2 (+ x with the residual) stored in the compute type.
 //
 // Bound on the H100: 4*C*Hd operations per row for 2*C elements moved, so
 // bound by operations. Design (simple first): a block owns 32 rows and up
@@ -45,7 +48,7 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
               const float* __restrict__ beta, const T* __restrict__ w1,
               const float* __restrict__ b1, const T* __restrict__ w2,
               const float* __restrict__ b2, T* __restrict__ y, int t, int c, int hdim,
-              float eps) {
+              float eps, int residual) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * kBM;
@@ -179,7 +182,8 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
         const int jl = g * 64 + tx * 4 + e;
         if (jl < ncol) {
           const size_t off = static_cast<size_t>(row) * c + c0 + jl;
-          y[off] = from_f32<T>(acc[i][g][e] + b2[c0 + jl] + to_f32(x[off]));
+          const float v = acc[i][g][e] + b2[c0 + jl];
+          y[off] = from_f32<T>(residual ? v + to_f32(x[off]) : v);
         }
       }
     }
@@ -195,7 +199,7 @@ size_t smem_bytes(int c) {
 template <typename T>
 int launch(const void* x, const float* g, const float* b, const void* w1, const float* b1,
            const void* w2, const float* b2, void* y, int t, int c, int hdim, float eps,
-           cudaStream_t s) {
+           int residual, cudaStream_t s) {
   const size_t smem = smem_bytes(c);
   cudaError_t err = cudaFuncSetAttribute(ln_mlp_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -204,21 +208,22 @@ int launch(const void* x, const float* g, const float* b, const void* w1, const 
   const dim3 grid((t + kBM - 1) / kBM, (c + kCols - 1) / kCols);
   ln_mlp_kernel<T><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(x), g, b, static_cast<const T*>(w1), b1, static_cast<const T*>(w2),
-      b2, static_cast<T*>(y), t, c, hdim, eps);
+      b2, static_cast<T*>(y), t, c, hdim, eps, residual);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-TT_EXPORT int tt_ln_mlp_residual(const void* x, const void* gamma, const void* beta,
-                                 const void* w1, const void* b1, const void* w2, const void* b2,
-                                 void* y, int t, int c, int hdim, float eps, int is_bf16,
-                                 void* stream) {
+// residual = 1: y = x + MLP(LN(x)) (fused_ln_mlp_residual); 0: y = MLP(LN(x)).
+TT_EXPORT int tt_ln_mlp(const void* x, const void* gamma, const void* beta, const void* w1,
+                        const void* b1, const void* w2, const void* b2, void* y, int t, int c,
+                        int hdim, float eps, int residual, int is_bf16, void* stream) {
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
   const float* bb1 = static_cast<const float*>(b1);
   const float* bb2 = static_cast<const float*>(b2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(x, g, b, w1, bb1, w2, bb2, y, t, c, hdim, eps, s)
-                 : launch<float>(x, g, b, w1, bb1, w2, bb2, y, t, c, hdim, eps, s);
+  return is_bf16
+             ? launch<__nv_bfloat16>(x, g, b, w1, bb1, w2, bb2, y, t, c, hdim, eps, residual, s)
+             : launch<float>(x, g, b, w1, bb1, w2, bb2, y, t, c, hdim, eps, residual, s);
 }

@@ -7,25 +7,32 @@ Two forwards, the ones the JAX package runs with `use_pallas_attention` on:
   residual (`fused_swin_block_attention`, the residual being the rolled
   pre-LN stream) → roll back → fused LN+MLP+residual
   (`fused_ln_mlp_residual`); PatchMerging's norm + reduction through
-  `fused_ln_matmul` without bias. These kernels have no backward.
+  `fused_ln_matmul` without bias. The half-block attention kernel has no
+  backward.
 - training (`train=True`): per block, roll → LayerNorm → QKV matmul →
   `fused_swin_attention` (forward and backward kernels) → out-projection →
   roll back → shortcut + DropPath; then LayerNorm → MLP with exact GELU →
   residual + DropPath; PatchMerging's LayerNorm and reduction as plain
   matmuls. Everything but the attention is plain PyTorch, as it is XLA in
   JAX; dense layers cast their float32 parameters to the model dtype.
+  With `train_token_kernels` (off by default, as in JAX) norm1 + QKV run
+  through `fused_ln_matmul` and norm2 + MLP through `fused_ln_mlp`, both
+  under autograd with their backward kernels; PatchMerging stays plain.
 
 The patch-embed convolution, `patch_norm`, the final norm, the mean pool
 and the float32 head are plain PyTorch in both, as they are XLA ops in JAX.
 
 Parameters are float32 and named as in the JAX tree; the stream runs in
 the model dtype (float32 or bfloat16). Options of the JAX model that this
-forward does not serve raise NotImplementedError.
+forward does not serve raise NotImplementedError. As in JAX, `build_swin`
+does not read `train_token_kernels`: the flag is set on the module itself,
+`SwinTransformer(**swin_arguments(cfg), train_token_kernels=True)` (JAX:
+`create_model(cfg).clone(train_token_kernels=True)`).
 """
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +42,8 @@ from torch.nn import functional as F
 from ...ops.attention import fused_swin_attention, fused_swin_block_attention
 # re-exported under the JAX module's names
 from ...ops.attention import window_partition, window_reverse  # noqa: F401
-from ...ops.token_fused import fused_ln_matmul, fused_ln_mlp_residual
+from ...ops.token_fused import (fused_ln_matmul, fused_ln_mlp,
+                                fused_ln_mlp_residual)
 from ..layers import (LN_EPS, DenseParams, DropPath, LNParams, MlpParams,
                       trunc_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
@@ -110,7 +118,8 @@ class SwinBlock(nn.Module):
                  num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0,
+                 train_token_kernels: bool = False):
         super().__init__()
         h, w = input_resolution
         ws, shift = window_size, shift_size
@@ -129,6 +138,7 @@ class SwinBlock(nn.Module):
         self.norm2 = LNParams(dim)
         self.mlp = MlpParams(dim, int(dim * mlp_ratio))
         self.drop_path = DropPath(drop_path_rate)
+        self.train_token_kernels = train_token_kernels
         self.register_buffer("rel_index", torch.from_numpy(
             relative_position_index(ws).reshape(-1).astype(np.int64)),
             persistent=False)
@@ -172,7 +182,8 @@ class SwinBlock(nn.Module):
     def _forward_train(self, x: torch.Tensor,
                        generator: Optional[torch.Generator]) -> torch.Tensor:
         """The JAX block's fused training branch (use_pallas, not
-        deterministic), x (B, L, C) in the model dtype."""
+        deterministic), x (B, L, C) in the model dtype; with
+        train_token_kernels, its opt-in token-kernel variant."""
         b, l, c = x.shape
         h, w = self.resolution
         ws, shift = self.ws, self.shift
@@ -181,8 +192,13 @@ class SwinBlock(nn.Module):
         if shift > 0:
             xs = torch.roll(xs, shifts=(-shift, -shift), dims=(1, 2))
         a = self.attn
-        xn = manual_layer_norm(xs, self.norm1.scale, self.norm1.bias, dt)
-        qkv = dense(xn, a.qkv.kernel, a.qkv.bias, dt).reshape(b, h, w, 3, c)
+        if self.train_token_kernels:
+            qkv = fused_ln_matmul(xs.to(dt).contiguous(), self.norm1.scale,
+                                  self.norm1.bias, a.qkv.kernel, a.qkv.bias)
+        else:
+            xn = manual_layer_norm(xs, self.norm1.scale, self.norm1.bias, dt)
+            qkv = dense(xn, a.qkv.kernel, a.qkv.bias, dt)
+        qkv = qkv.reshape(b, h, w, 3, c)
         out = fused_swin_attention(
             qkv, self._bias_hnn(), self.attn_mask, window_size=ws,
             num_heads=self.num_heads, scale=self.scale).to(dt)
@@ -191,6 +207,11 @@ class SwinBlock(nn.Module):
             out = torch.roll(out, shifts=(shift, shift), dims=(1, 2))
         x = x + self.drop_path(out.reshape(b, l, c), True, generator)
         m = self.mlp
+        if self.train_token_kernels:
+            y = fused_ln_mlp(x.contiguous(), self.norm2.scale, self.norm2.bias,
+                             m.Dense_0.kernel, m.Dense_0.bias,
+                             m.Dense_1.kernel, m.Dense_1.bias)
+            return x + self.drop_path(y, True, generator)
         y = manual_layer_norm(x, self.norm2.scale, self.norm2.bias, dt)
         y = F.gelu(dense(y, m.Dense_0.kernel, m.Dense_0.bias, dt))
         y = dense(y, m.Dense_1.kernel, m.Dense_1.bias, dt)
@@ -226,7 +247,8 @@ class SwinStage(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int], depth: int,
                  num_heads: int, window_size: int, mlp_ratio: float,
                  qkv_bias: bool, qk_scale: Optional[float], downsample: bool,
-                 drop_path_rates: Sequence[float] = ()):
+                 drop_path_rates: Sequence[float] = (),
+                 train_token_kernels: bool = False):
         super().__init__()
         self.depth = depth
         rates = tuple(drop_path_rates) or (0.0,) * depth
@@ -235,7 +257,8 @@ class SwinStage(nn.Module):
                 dim, input_resolution, num_heads, window_size,
                 shift_size=0 if i % 2 == 0 else window_size // 2,
                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
-                drop_path_rate=float(rates[i])))
+                drop_path_rate=float(rates[i]),
+                train_token_kernels=train_token_kernels))
         self.downsample = PatchMerging(input_resolution, dim) \
             if downsample else None
 
@@ -256,6 +279,7 @@ class SwinTransformer(nn.Module):
                  window_size: int = 7, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  drop_path_rate: float = 0.2, patch_norm: bool = True,
+                 train_token_kernels: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if img_size % patch_size:
@@ -264,6 +288,7 @@ class SwinTransformer(nn.Module):
         self.img_size, self.in_channels = img_size, in_channels
         self.patch_size, self.embed_dim = patch_size, embed_dim
         self.dtype = dtype
+        self.train_token_kernels = train_token_kernels
         self.num_layers = len(depths)
         res = img_size // patch_size
         # stochastic-depth rate of each block, rising linearly over the net
@@ -279,7 +304,8 @@ class SwinTransformer(nn.Module):
                 window_size=window_size, mlp_ratio=mlp_ratio,
                 qkv_bias=qkv_bias, qk_scale=qk_scale,
                 downsample=i < self.num_layers - 1,
-                drop_path_rates=dpr[sum(depths[:i]):sum(depths[:i + 1])]))
+                drop_path_rates=dpr[sum(depths[:i]):sum(depths[:i + 1])],
+                train_token_kernels=train_token_kernels))
         self.norm = LNParams(int(embed_dim * 2 ** (self.num_layers - 1)))
         self.head = DenseParams(self.norm.scale.shape[0], num_classes)
 
@@ -334,7 +360,9 @@ _UNPORTED = ("medical_adaptations", "contrast_adaptive", "quality_guided",
              "uncertainty_head", "ape")
 
 
-def build_swin(cfg: Any) -> SwinTransformer:
+def swin_arguments(cfg: Any) -> Dict[str, Any]:
+    """The SwinTransformer arguments of a model config, as build_swin reads
+    them (not `train_token_kernels`, which JAX's build_swin ignores too)."""
     name = cfg_get(cfg, "name", "swin_tiny")
     dim, depths, heads, dpr, img = SWIN_PARAMS.get(
         name, (96, (2, 2, 6, 2), (3, 6, 12, 24), 0.2, 224))
@@ -349,7 +377,7 @@ def build_swin(cfg: Any) -> SwinTransformer:
         raise NotImplementedError(
             f"Swin {dropout} > 0 is not ported (ROADMAP Queue 1: Swin "
             "options); every Swin config in configs/ sets both to 0")
-    return SwinTransformer(
+    return dict(
         img_size=int(cfg_get(cfg, "img_size", img)),
         patch_size=int(cfg_get(cfg, "patch_size", 4)),
         in_channels=int(cfg_get(cfg, "in_channels", 1)),
@@ -365,6 +393,10 @@ def build_swin(cfg: Any) -> SwinTransformer:
         patch_norm=bool(cfg_get(cfg, "patch_norm", True)),
         dtype=resolve_dtype(cfg),
     )
+
+
+def build_swin(cfg: Any) -> SwinTransformer:
+    return SwinTransformer(**swin_arguments(cfg))
 
 
 for _name in SWIN_PARAMS:

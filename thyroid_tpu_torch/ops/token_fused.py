@@ -1,31 +1,42 @@
 """Token-major fused LN kernels (counterpart of thyroid_tpu/ops/token_fused.py).
 
-Forward only (serving; with autograd recording they raise, since their
-backward kernels are ROADMAP Queue 2 items 9-11):
-- `fused_ln_matmul`:        y = LN(x) @ W + b            (csrc/ln_matmul.cu)
+- `fused_ln_matmul`:        y = LN(x) @ W + b              (csrc/ln_matmul.cu)
 - `fused_ln_mlp_residual`:  y = x + fc2(gelu(fc1(LN(x))))  (csrc/ln_mlp.cu)
+- `fused_ln_mlp`:           y = fc2(gelu(fc1(LN(x))))      (training: DropPath
+                            and the skip stay outside; the same kernel)
 
-Each launches its CUDA kernel on CUDA tensors and runs its plain PyTorch
-version (`ln_matmul_plain`, `ln_mlp_residual_plain`) on CPU tensors. The
-compute dtype is x's dtype: weights are cast to it, LN parameters and
-biases to float32, as the JAX wrappers do. LN follows flax's fast-variance
-numerics in float32; intermediate activations are rounded to the compute
-dtype where the JAX kernels round them.
+All three are differentiable, as the JAX custom_vjps are: a
+`torch.autograd.Function` saves the inputs, and its backward recomputes the
+LN statistics (and, for the MLP, the 4C hidden layer) in the backward
+kernels, so neither direction keeps a hidden tensor in global memory:
+- `fused_ln_matmul_bwd`: dX, dγ, dβ of LN + matmul (csrc/ln_matmul_bwd.cu);
+  dW = LN(x)ᵀ dY and db = ΣdY are plain products, as JAX leaves them to XLA;
+- `fused_ln_mlp_bwd_dx`: dX, dγ, dβ of LN + MLP (csrc/ln_mlp_bwd.cu);
+- `fused_ln_mlp_bwd_dw`: dW1, db1, dW2 of LN + MLP (csrc/ln_mlp_bwd.cu);
+  db2 = ΣdY is a plain sum, as in JAX.
+
+Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
+PyTorch version (`ln_matmul_plain`, `ln_mlp_plain`, `ln_matmul_bwd_plain`,
+`ln_mlp_bwd_plain`) on CPU tensors. The compute dtype is x's dtype: weights
+are cast to it, LN parameters and biases to float32, as the JAX wrappers
+do. LN follows flax's fast-variance numerics in float32; intermediate
+activations are rounded to the compute dtype where the JAX kernels round
+them, and every product accumulates in float32. The backward kernels take
+widths C up to 768.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
 
 from . import _build
-from .platform import refuse_autograd
 
 LN_EPS = 1e-5
 _DTYPES = (torch.float32, torch.bfloat16)
-_NO_BWD = ("its backward kernels are not ported (ROADMAP Queue 2 items "
-           "9-11); training runs LN and the matmuls in plain PyTorch")
+_MAX_BWD_WIDTH = 768          # the backward kernels' widest row (csrc/token_bwd.cuh)
 
 
 def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -36,6 +47,30 @@ def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
     mul = torch.rsqrt(var + eps) * g
     return (x - mu) * mul + b
+
+
+def ln_stats(x: torch.Tensor, eps: float = LN_EPS):
+    """(x̂, rstd) of float32 rows for the LN backward, the same numerics."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    r = torch.rsqrt(var + eps)
+    return (x - mu) * r, r
+
+
+def ln_bwd_rows(dxn: torch.Tensor, xhat: torch.Tensor, r: torch.Tensor,
+                g: torch.Tensor) -> torch.Tensor:
+    """dX of y = x̂·γ + β given dXn, x̂ and rstd (float32 rows)."""
+    dxh = dxn * g
+    m1 = dxh.mean(dim=-1, keepdim=True)
+    m2 = (dxh * xhat).mean(dim=-1, keepdim=True)
+    return r * (dxh - m1 - xhat * m2)
+
+
+def gelu_grad(h: torch.Tensor) -> torch.Tensor:
+    """d/dh gelu(h) = Φ(h) + h·φ(h), exact erf (the JAX kernels' erf is
+    Abramowitz–Stegun's, 1.5e-7 from it)."""
+    cdf = 0.5 * (1.0 + torch.erf(h * math.sqrt(0.5)))
+    return cdf + h * torch.exp(-0.5 * h * h) * (1.0 / math.sqrt(2.0 * math.pi))
 
 
 def ln_matmul_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -50,17 +85,58 @@ def ln_matmul_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return y.to(cdt)
 
 
-def ln_mlp_residual_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                          w1: torch.Tensor, b1: torch.Tensor,
-                          w2: torch.Tensor, b2: torch.Tensor,
-                          eps: float = LN_EPS) -> torch.Tensor:
-    """Plain version of fused_ln_mlp_residual on x (T, C)."""
+def ln_mlp_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                 w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                 b2: torch.Tensor, eps: float = LN_EPS,
+                 residual: bool = False) -> torch.Tensor:
+    """Plain version of fused_ln_mlp (and, with `residual`, of
+    fused_ln_mlp_residual) on x (T, C)."""
     cdt = x.dtype
     xf = x.float()
     xn = ln_rows(xf, g.float(), b.float(), eps).to(cdt).float()
     h = (xn @ w1.to(cdt).float() + b1.float()).to(cdt).float()
     h = torch.nn.functional.gelu(h).to(cdt).float()
-    return (xf + (h @ w2.to(cdt).float() + b2.float())).to(cdt)
+    y = h @ w2.to(cdt).float() + b2.float()
+    return (xf + y if residual else y).to(cdt)
+
+
+def ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2,
+                          eps: float = LN_EPS) -> torch.Tensor:
+    """Plain version of fused_ln_mlp_residual on x (T, C)."""
+    return ln_mlp_plain(x, g, b, w1, b1, w2, b2, eps, residual=True)
+
+
+def ln_matmul_bwd_plain(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+                        dy: torch.Tensor, eps: float = LN_EPS):
+    """Plain version of fused_ln_matmul_bwd: x (T, C), w (C, O), dy (T, O)
+    in the compute dtype → (dX in it, dγ, dβ float32)."""
+    cdt = x.dtype
+    xhat, r = ln_stats(x.float(), eps)
+    dxn = dy.to(cdt).float() @ w.to(cdt).float().t()
+    dx = ln_bwd_rows(dxn, xhat, r, g.float()).to(cdt)
+    return dx, (dxn * xhat).sum(dim=0), dxn.sum(dim=0)
+
+
+def ln_mlp_bwd_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                     dy: torch.Tensor, residual: bool, eps: float = LN_EPS):
+    """Plain version of the LN + MLP backward (both kernels): x, dy (T, C)
+    in the compute dtype → (dX in it, dγ, dβ, dW1, db1, dW2 float32). The
+    LN is rebuilt as x̂·γ + β, as the JAX backward rebuilds it."""
+    cdt = x.dtype
+    xhat, r = ln_stats(x.float(), eps)
+    w1c, w2c = w1.to(cdt).float(), w2.to(cdt).float()
+    xn = (xhat * g.float() + b.float()).to(cdt).float()
+    hr = (xn @ w1c + b1.float()).to(cdt).float()
+    dyf = dy.to(cdt).float()
+    dh = ((dyf @ w2c.t()) * gelu_grad(hr)).to(cdt).float()
+    dxn = dh @ w1c.t()
+    dx = ln_bwd_rows(dxn, xhat, r, g.float())
+    if residual:
+        dx = dx + dyf
+    a = torch.nn.functional.gelu(hr).to(cdt).float()
+    return (dx.to(cdt), (dxn * xhat).sum(dim=0), dxn.sum(dim=0),
+            xn.t() @ dh, dh.sum(dim=0), a.t() @ dyf)
 
 
 def _check(name: str, x: torch.Tensor, *tensors: torch.Tensor) -> None:
@@ -79,44 +155,297 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1])
 
 
-def fused_ln_matmul(x: torch.Tensor, ln_scale: torch.Tensor,
-                    ln_bias: torch.Tensor, w: torch.Tensor,
-                    b: Optional[torch.Tensor], *,
-                    eps: float = LN_EPS) -> torch.Tensor:
-    """x (..., C) → LN(x) @ w + b, (..., O) in x's dtype; b may be None."""
-    refuse_autograd("fused_ln_matmul", _NO_BWD, x, ln_scale, ln_bias, w, b)
-    lead, c = x.shape[:-1], x.shape[-1]
-    out_dim = w.shape[1]
-    if w.shape[0] != c:
-        raise ValueError(f"w {tuple(w.shape)} does not take width {c}")
-    x2 = _flat(x)
+def _on_card(name: str, x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if x.device.type == "cpu":
-        return ln_matmul_plain(x2, ln_scale, ln_bias, w, b, eps) \
-            .reshape(*lead, out_dim)
+        return False
     if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    w = w.to(x.dtype).contiguous()
-    g = ln_scale.float().contiguous()
-    bl = ln_bias.float().contiguous()
-    wb = b.float().contiguous() if b is not None else None
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return True
+
+
+def _groups(lib: str, symbol: str, *sizes: int) -> int:
+    fn = _build.function(lib, symbol, [ctypes.c_int] * len(sizes))
+    return fn(*sizes)
+
+
+# ---------------------------------------------------------------- forward
+
+
+def _ln_matmul_fwd(x2, g, b, w, wb, eps):
+    if not _on_card("fused_ln_matmul", x2):
+        return ln_matmul_plain(x2, g, b, w, wb, eps)
+    t, c = x2.shape
+    out_dim = w.shape[1]
+    w = w.to(x2.dtype).contiguous()
+    g = g.float().contiguous()
+    bl = b.float().contiguous()
+    wb = wb.float().contiguous() if wb is not None else None
     _check("fused_ln_matmul", x2, g, bl, w, *([wb] if wb is not None else []))
-    t = x2.shape[0]
-    y = torch.empty(t, out_dim, dtype=x.dtype, device=x.device)
+    y = torch.empty(t, out_dim, dtype=x2.dtype, device=x2.device)
     if t == 0:
-        return y.reshape(*lead, out_dim)
+        return y
     fn = _build.function("ln_matmul", "tt_ln_matmul", [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_void_p])
     status = fn(_build.ptr(x2), _build.ptr(g), _build.ptr(bl), _build.ptr(w),
                 _build.ptr(wb) if wb is not None else None, _build.ptr(y),
-                t, c, out_dim, eps, int(x.dtype == torch.bfloat16),
-                _build.stream_ptr(x.device))
+                t, c, out_dim, eps, int(x2.dtype == torch.bfloat16),
+                _build.stream_ptr(x2.device))
     _build.check("ln_matmul", status, "fused_ln_matmul")
     fused_ln_matmul.launches += 1
-    return y.reshape(*lead, out_dim)
+    return y
+
+
+def _ln_mlp_fwd(x2, g, b, w1, b1, w2, b2, eps, residual):
+    name = "fused_ln_mlp_residual" if residual else "fused_ln_mlp"
+    if not _on_card(name, x2):
+        return ln_mlp_plain(x2, g, b, w1, b1, w2, b2, eps, residual)
+    t, c = x2.shape
+    hdim = w1.shape[1]
+    if c % 4:
+        raise ValueError(f"{name} needs C % 4 == 0, got {c}")
+    w1 = w1.to(x2.dtype).contiguous()
+    w2 = w2.to(x2.dtype).contiguous()
+    g = g.float().contiguous()
+    bl = b.float().contiguous()
+    b1 = b1.float().contiguous()
+    b2 = b2.float().contiguous()
+    _check(name, x2, g, bl, w1, b1, w2, b2)
+    y = torch.empty_like(x2)
+    if t == 0:
+        return y
+    fn = _build.function("ln_mlp", "tt_ln_mlp", [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    status = fn(_build.ptr(x2), _build.ptr(g), _build.ptr(bl), _build.ptr(w1),
+                _build.ptr(b1), _build.ptr(w2), _build.ptr(b2), _build.ptr(y),
+                t, c, hdim, eps, int(residual), int(x2.dtype == torch.bfloat16),
+                _build.stream_ptr(x2.device))
+    _build.check("ln_mlp", status, name)
+    (fused_ln_mlp_residual if residual else fused_ln_mlp).launches += 1
+    return y
+
+
+# ---------------------------------------------------------------- backward
+
+
+def _check_bwd(name: str, x2: torch.Tensor, dy: torch.Tensor, width: int) -> None:
+    if x2.shape[1] > _MAX_BWD_WIDTH:
+        raise ValueError(f"{name} takes C up to {_MAX_BWD_WIDTH}, got "
+                         f"{x2.shape[1]}")
+    if dy.dtype != x2.dtype or tuple(dy.shape) != (x2.shape[0], width):
+        raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
+                         f"{x2.dtype} {tuple(x2.shape)}")
+
+
+def fused_ln_matmul_bwd(x2: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+                        dy: torch.Tensor, *, eps: float = LN_EPS):
+    """dX, dγ, dβ of fused_ln_matmul: x2 (T, C), w (C, O) and the output
+    gradient dy (T, O) in the compute dtype → (dX (T, C) in it, dγ (C,),
+    dβ (C,) float32). The kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if not _on_card("fused_ln_matmul_bwd", x2):
+        return ln_matmul_bwd_plain(x2, g, w, dy, eps)
+    t, c = x2.shape
+    out_dim = w.shape[1]
+    _check_bwd("fused_ln_matmul_bwd", x2, dy, out_dim)
+    w = w.to(x2.dtype).contiguous()
+    g = g.float().contiguous()
+    _check("fused_ln_matmul_bwd", x2, g, w, dy)
+    dx = torch.empty_like(x2)
+    dgb = torch.zeros(2, c, dtype=torch.float32, device=x2.device)
+    if t == 0:
+        return dx, dgb[0], dgb[1]
+    partial = torch.empty(_groups("ln_matmul_bwd", "tt_ln_bwd_groups", t), 2, c,
+                          dtype=torch.float32, device=x2.device)
+    fn = _build.function("ln_matmul_bwd", "tt_ln_matmul_bwd",
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    status = fn(_build.ptr(x2), _build.ptr(g), _build.ptr(w), _build.ptr(dy),
+                _build.ptr(dx), _build.ptr(partial), _build.ptr(dgb), t, c,
+                out_dim, eps, int(x2.dtype == torch.bfloat16),
+                _build.stream_ptr(x2.device))
+    _build.check("ln_matmul_bwd", status, "fused_ln_matmul_bwd")
+    fused_ln_matmul_bwd.launches += 1
+    return dx, dgb[0], dgb[1]
+
+
+fused_ln_matmul_bwd.launches = 0
+
+
+def _mlp_bwd_args(name, x2, g, b, w1, b1, w2, dy):
+    _check_bwd(name, x2, dy, x2.shape[1])
+    args = (x2, g.float().contiguous(), b.float().contiguous(),
+            w1.to(x2.dtype).contiguous(), b1.float().contiguous(),
+            w2.to(x2.dtype).contiguous(), dy)
+    _check(name, *args)
+    return args
+
+
+def fused_ln_mlp_bwd_dx(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                        dy: torch.Tensor, *, residual: bool,
+                        eps: float = LN_EPS):
+    """dX, dγ, dβ of the LN + MLP (kernel `_ln_mlp_bwd_dx_kernel` of the
+    JAX package): x2, dy (T, C) in the compute dtype → (dX in it, dγ, dβ
+    float32); with `residual`, dX gains dy. The kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if not _on_card("fused_ln_mlp_bwd_dx", x2):
+        return ln_mlp_bwd_plain(x2, g, b, w1, b1, w2, dy, residual, eps)[:3]
+    args = _mlp_bwd_args("fused_ln_mlp_bwd_dx", x2, g, b, w1, b1, w2, dy)
+    t, c = x2.shape
+    hdim = w1.shape[1]
+    dx = torch.empty_like(x2)
+    dgb = torch.zeros(2, c, dtype=torch.float32, device=x2.device)
+    if t == 0:
+        return dx, dgb[0], dgb[1]
+    partial = torch.empty(_groups("ln_mlp_bwd", "tt_ln_mlp_bwd_dx_groups", t), 2,
+                          c, dtype=torch.float32, device=x2.device)
+    fn = _build.function("ln_mlp_bwd", "tt_ln_mlp_bwd_dx",
+                         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_void_p])
+    status = fn(*(_build.ptr(a) for a in args), _build.ptr(dx),
+                _build.ptr(partial), _build.ptr(dgb), t, c, hdim, eps,
+                int(residual), int(x2.dtype == torch.bfloat16),
+                _build.stream_ptr(x2.device))
+    _build.check("ln_mlp_bwd", status, "fused_ln_mlp_bwd_dx")
+    fused_ln_mlp_bwd_dx.launches += 1
+    return dx, dgb[0], dgb[1]
+
+
+fused_ln_mlp_bwd_dx.launches = 0
+
+
+def fused_ln_mlp_bwd_dw(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                        dy: torch.Tensor, *, eps: float = LN_EPS):
+    """dW1 (C, Hd), db1 (Hd,), dW2 (Hd, C) of the LN + MLP, float32
+    (kernel `_ln_mlp_bwd_dw_kernel` of the JAX package). The kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    if not _on_card("fused_ln_mlp_bwd_dw", x2):
+        return ln_mlp_bwd_plain(x2, g, b, w1, b1, w2, dy, False, eps)[3:]
+    args = _mlp_bwd_args("fused_ln_mlp_bwd_dw", x2, g, b, w1, b1, w2, dy)
+    t, c = x2.shape
+    hdim = w1.shape[1]
+    out = torch.zeros(2 * c * hdim + hdim, dtype=torch.float32, device=x2.device)
+    dw1 = out[:c * hdim].view(c, hdim)
+    dw2 = out[c * hdim:2 * c * hdim].view(hdim, c)
+    db1 = out[2 * c * hdim:]
+    if t == 0:
+        return dw1, db1, dw2
+    groups = _groups("ln_mlp_bwd", "tt_ln_mlp_bwd_dw_groups", t, c, hdim,
+                     int(x2.dtype == torch.bfloat16))
+    if groups < 1:
+        raise RuntimeError("fused_ln_mlp_bwd_dw: the CUDA occupancy query "
+                           "failed")
+    partial = torch.empty(groups, out.numel(), dtype=torch.float32,
+                          device=x2.device)
+    fn = _build.function("ln_mlp_bwd", "tt_ln_mlp_bwd_dw",
+                         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    status = fn(*(_build.ptr(a) for a in args), _build.ptr(partial),
+                _build.ptr(out), t, c, hdim, eps,
+                int(x2.dtype == torch.bfloat16), _build.stream_ptr(x2.device))
+    _build.check("ln_mlp_bwd", status, "fused_ln_mlp_bwd_dw")
+    fused_ln_mlp_bwd_dw.launches += 1
+    return dw1, db1, dw2
+
+
+fused_ln_mlp_bwd_dw.launches = 0
+
+
+def ln_mlp_bwd(x2, g, b, w1, b1, w2, dy, *, residual: bool,
+               eps: float = LN_EPS):
+    """The whole LN + MLP backward → (dX, dγ, dβ, dW1, db1, dW2): both
+    kernels on a CUDA tensor, the plain version once on a CPU tensor."""
+    if not _on_card("ln_mlp_bwd", x2):
+        return ln_mlp_bwd_plain(x2, g, b, w1, b1, w2, dy, residual, eps)
+    return (fused_ln_mlp_bwd_dx(x2, g, b, w1, b1, w2, dy, residual=residual,
+                                eps=eps)
+            + fused_ln_mlp_bwd_dw(x2, g, b, w1, b1, w2, dy, eps=eps))
+
+
+# ---------------------------------------------------------------- autograd
+
+
+class _LnMatmul(torch.autograd.Function):
+    """custom_vjp of the JAX package: the residuals are the inputs; the
+    backward recomputes the LN statistics in its kernel."""
+
+    @staticmethod
+    def forward(ctx, x2, g, b, w, wb, eps):
+        ctx.save_for_backward(x2, g, b, w)
+        ctx.eps = eps
+        ctx.wb_dtype = wb.dtype if wb is not None else None
+        return _ln_matmul_fwd(x2, g, b, w, wb, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x2, g, b, w = ctx.saved_tensors
+        cdt = x2.dtype
+        dy = grad.to(cdt).contiguous()        # rounded as _ln_matmul_ad_bwd does
+        dx, dg, dbl = fused_ln_matmul_bwd(x2, g, w, dy, eps=ctx.eps)
+        # dW = LN(x)ᵀ dY and dwb = ΣdY: plain products, as XLA's in JAX
+        xn = ln_rows(x2.float(), g.float(), b.float(), ctx.eps).to(cdt)
+        dw = xn.float().t() @ dy.float()
+        dwb = grad.float().sum(dim=0).to(ctx.wb_dtype) \
+            if ctx.wb_dtype is not None else None
+        return (dx, dg.to(g.dtype), dbl.to(b.dtype), dw.to(w.dtype), dwb,
+                None)
+
+
+class _LnMlp(torch.autograd.Function):
+    """custom_vjp of the JAX package's LN + MLP, with or without the
+    residual: the residuals are the inputs; both backward kernels rebuild
+    the hidden layer."""
+
+    @staticmethod
+    def forward(ctx, x2, g, b, w1, b1, w2, b2, eps, residual):
+        ctx.save_for_backward(x2, g, b, w1, b1, w2)
+        ctx.eps, ctx.residual, ctx.b2_dtype = eps, residual, b2.dtype
+        return _ln_mlp_fwd(x2, g, b, w1, b1, w2, b2, eps, residual)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x2, g, b, w1, b1, w2 = ctx.saved_tensors
+        dy = grad.to(x2.dtype).contiguous()   # rounded as _ln_mlp_ad_bwd does
+        dx, dg, dbl, dw1, db1, dw2 = ln_mlp_bwd(
+            x2, g, b, w1, b1, w2, dy, residual=ctx.residual, eps=ctx.eps)
+        db2 = dy.float().sum(dim=0)
+        return (dx, dg.to(g.dtype), dbl.to(b.dtype), dw1.to(w1.dtype),
+                db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype),
+                None, None)
+
+
+def fused_ln_matmul(x: torch.Tensor, ln_scale: torch.Tensor,
+                    ln_bias: torch.Tensor, w: torch.Tensor,
+                    b: Optional[torch.Tensor], *,
+                    eps: float = LN_EPS) -> torch.Tensor:
+    """x (..., C) → LN(x) @ w + b, (..., O) in x's dtype; b may be None.
+    Differentiable (dX, dγ, dβ from `fused_ln_matmul_bwd`)."""
+    lead, c = x.shape[:-1], x.shape[-1]
+    out_dim = w.shape[1]
+    if w.shape[0] != c:
+        raise ValueError(f"w {tuple(w.shape)} does not take width {c}")
+    return _LnMatmul.apply(_flat(x), ln_scale, ln_bias, w, b, float(eps)) \
+        .reshape(*lead, out_dim)
 
 
 fused_ln_matmul.launches = 0
+
+
+def _ln_mlp_apply(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, residual):
+    c = x.shape[-1]
+    hdim = w1.shape[1]
+    if w1.shape[0] != c or tuple(w2.shape) != (hdim, c):
+        raise ValueError(f"w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} do "
+                         f"not take width {c}")
+    return _LnMlp.apply(_flat(x), ln_scale, ln_bias, w1, b1, w2, b2,
+                        float(eps), residual).reshape(x.shape)
 
 
 def fused_ln_mlp_residual(x: torch.Tensor, ln_scale: torch.Tensor,
@@ -125,43 +454,21 @@ def fused_ln_mlp_residual(x: torch.Tensor, ln_scale: torch.Tensor,
                           b2: torch.Tensor, *,
                           eps: float = LN_EPS) -> torch.Tensor:
     """x (..., C) → x + fc2(gelu(fc1(LN(x)))) in x's dtype; the 4C hidden
-    layer never leaves the kernel."""
-    refuse_autograd("fused_ln_mlp_residual", _NO_BWD, x, ln_scale, ln_bias,
-                    w1, b1, w2, b2)
-    c = x.shape[-1]
-    hdim = w1.shape[1]
-    if w1.shape[0] != c or tuple(w2.shape) != (hdim, c):
-        raise ValueError(f"w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} do "
-                         f"not take width {c}")
-    x2 = _flat(x)
-    if x.device.type == "cpu":
-        return ln_mlp_residual_plain(x2, ln_scale, ln_bias, w1, b1, w2, b2,
-                                     eps).reshape(x.shape)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if c % 4:
-        raise ValueError(f"fused_ln_mlp_residual needs C % 4 == 0, got {c}")
-    w1 = w1.to(x.dtype).contiguous()
-    w2 = w2.to(x.dtype).contiguous()
-    g = ln_scale.float().contiguous()
-    bl = ln_bias.float().contiguous()
-    b1 = b1.float().contiguous()
-    b2 = b2.float().contiguous()
-    _check("fused_ln_mlp_residual", x2, g, bl, w1, b1, w2, b2)
-    t = x2.shape[0]
-    y = torch.empty_like(x2)
-    if t == 0:
-        return y.reshape(x.shape)
-    fn = _build.function("ln_mlp", "tt_ln_mlp_residual", [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p])
-    status = fn(_build.ptr(x2), _build.ptr(g), _build.ptr(bl), _build.ptr(w1),
-                _build.ptr(b1), _build.ptr(w2), _build.ptr(b2), _build.ptr(y),
-                t, c, hdim, eps, int(x.dtype == torch.bfloat16),
-                _build.stream_ptr(x.device))
-    _build.check("ln_mlp", status, "fused_ln_mlp_residual")
-    fused_ln_mlp_residual.launches += 1
-    return y.reshape(x.shape)
+    layer never leaves the kernel. Differentiable."""
+    return _ln_mlp_apply(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, True)
 
 
 fused_ln_mlp_residual.launches = 0
+
+
+def fused_ln_mlp(x: torch.Tensor, ln_scale: torch.Tensor,
+                 ln_bias: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor, *,
+                 eps: float = LN_EPS) -> torch.Tensor:
+    """The training variant without the residual add: x (..., C) →
+    fc2(gelu(fc1(LN(x)))) in x's dtype, so DropPath and the skip stay
+    outside. Differentiable."""
+    return _ln_mlp_apply(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, False)
+
+
+fused_ln_mlp.launches = 0
