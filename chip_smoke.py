@@ -66,7 +66,32 @@ Phases, each printing its lines before the final one:
    version and library yardstick (torch.autograd.grad through LayerNorm +
    linear (+ GELU + linear)), training images/s at batch 32 and 128 with
    the flag on beside the flag off, and a profile of one flagged train step
-   at batch 32.
+   at batch 32;
+14. depthwise kernel: the stride-1 depthwise kernel (Q2-17) against its
+   plain version at every stride-1 depthwise shape of efficientnet_b0 at
+   batch 32 and 224x224 and of efficientnet_b3 at batch 8 and 300x300 (odd
+   sides), in float32 and bfloat16, and one backward of its autograd
+   Function against autograd through the plain version;
+15. efficientnet slice: with seeded, perturbed weights and running
+   statistics (a train-mode forward's batch statistics, perturbed),
+   InferenceEngine serves efficientnet_b0 (bf16, dw_pallas_conv) on raw
+   512x512 frames at buckets 32 and 128: the depthwise kernel launches 12
+   times and the percentile kernel once per forward; the probabilities
+   agree with the CPU float32 engine, and with the same engine without the
+   flag on the card (no depthwise launch); one float32 train step (batch
+   8, dropout and drop path 0) on the card is held against the CPU (loss,
+   gradients, updated statistics); then Trainer.fit (configs/training/
+   cnn.yaml, the default trainer, the flag on) for one epoch of 256 frames
+   at batch 32 with validation on 64, and test(checkpoint=best): 12
+   depthwise launches per eval forward and none per train step;
+16. efficientnet times: the depthwise kernel's device time per forward at
+   bucket 32 (ten calls in one CUDA graph, replayed between CUDA events;
+   beside it the CUDA-event time of one call, which its host launch
+   dominates) beside its bound, its plain version
+   and cuDNN's depthwise convolution (F.conv2d with groups=C) on the same
+   inputs, images/s of predict at buckets 32 and 128 with the flag on and
+   off, training images/s at batch 32 and 128, and a profile of one predict
+   and one train step at batch 32.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -122,6 +147,12 @@ STATS_RTOL, BILATERAL_TOL = 1e-5, 1e-2
 # differ by the resize's and normalisation's float32 rounding
 QUALITY_PIXEL_SHARE, PREPARE_TOL = 1e-4, 1e-5
 QUALITY_TRAIN_FRAMES = 256
+# the served efficientnet (the registry's b0 with the opt-in depthwise kernel)
+EFFNET_B0 = {"name": "efficientnet_b0", "in_channels": 1, "num_classes": 2,
+             "dtype": "bf16", "dw_pallas_conv": True}
+# updated running statistics of the card's float32 train step against the
+# CPU's: |stats diff| / |stats| over all BatchNorm buffers (global norms)
+STEP_STATS_RTOL = 1e-4
 
 
 def log(*parts) -> None:
@@ -335,17 +366,6 @@ def perturbed_params(config, seed: int = 0):
     from thyroid_tpu_torch.models.from_jax import to_jax_params
 
     model = create_and_init(config, seed=seed, device="cpu")
-
-    def bump(tree):
-        out = {}
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                out[k] = bump(v)
-            else:
-                wave = np.sin(np.arange(v.size, dtype=np.float32) * 0.7)
-                out[k] = v + 0.01 * wave.reshape(v.shape).astype(np.float32)
-        return out
-
     return bump(to_jax_params(model))
 
 
@@ -776,13 +796,16 @@ def phase_train_slice(params):
     return launches, batch, card
 
 
-def train_step_seconds(params, n: int, gen, token: bool = False):
+def train_step_seconds(params, n: int, gen, token: bool = False,
+                       trainer=None):
     """Median wall time of Trainer.train_step at batch n (bf16 swin_tiny,
-    drop path 0.2), 5 steps after 3 warm-up steps, each up to a
-    synchronize; returns it with the trainer and its batch."""
+    drop path 0.2, unless `trainer` is given), 5 steps after 3 warm-up
+    steps, each up to a synchronize; returns it with the trainer and its
+    batch."""
     from thyroid_tpu_torch.training.metrics import zero_metric_state
 
-    trainer = make_trainer(SWIN_TINY, params, "speed", token=token)
+    if trainer is None:
+        trainer = make_trainer(SWIN_TINY, params, "speed", token=token)
     x = torch.randn(n, 224, 224, 1, generator=gen, device="cuda")
     y = torch.arange(n, device="cuda") % 2
     w = torch.ones(n, device="cuda")
@@ -1580,6 +1603,409 @@ def phase_token_times(shapes, launches, params):
     return entries
 
 
+# ---------------------------------------------------------------- efficientnet
+
+
+def dw_inputs(shape, dtype, gen):
+    """Seeded x (B, H, W, C) and weights (C, 1, k, k) on the card."""
+    b, h, w, c, k = shape
+    x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(dtype)
+    wt = (torch.randn(c, 1, k, k, generator=gen, device="cuda") * 0.2).to(dtype)
+    return x, wt
+
+
+def dw_work(shape, dtype):
+    """(bytes, operations, peak operations/s) of one depthwise call: x read
+    and y written once, the weights read once; a float32 multiply and add
+    per tap and output, at the float32 rate."""
+    b, h, w, c, k = shape
+    s = torch.tensor([], dtype=dtype).element_size()
+    n = b * h * w * c
+    return (2 * n + c * k * k) * s, 2 * n * k * k, PEAK_OPS_PER_S[torch.float32]
+
+
+def dw_library(x, w):
+    """cuDNN's depthwise convolution of the same NHWC input, as a
+    channels-last view (what the port runs without dw_pallas_conv); timing
+    only."""
+    import torch.nn.functional as F
+
+    xc, k = x.permute(0, 3, 1, 2), int(w.shape[-1])
+    return lambda: F.conv2d(xc, w, padding=k // 2, groups=x.shape[-1])
+
+
+def dw_compare(got, want, dtype, rtol=RTOL):
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    tol = rtol[dtype] * max(1.0, want.abs().max().item())
+    ok = bool(np.isfinite(err)) and err <= tol and bool(torch.isfinite(got).all())
+    return err, tol, ok
+
+
+def phase_dw_kernels(cases) -> None:
+    """Q2-17 against its plain version at every case, in float32 and
+    bfloat16, then one backward of its autograd Function against autograd
+    through the plain version (float32; dw is a sum over B·H·W, DBIAS_RTOL)."""
+    from thyroid_tpu_torch.ops import depthwise_pallas as dp
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    failed = []
+    for model, shapes in cases.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in shapes:
+                x, w = dw_inputs(shape, dtype, gen)
+                got = dp.depthwise_conv2d_pallas(x, w)
+                want = dp.depthwise_conv2d_plain(x, w)
+                torch.cuda.synchronize()
+                err, tol, ok = dw_compare(got, want, dtype)
+                log(f"[dw-kernels] {model} {str(dtype)[6:]} {shape}: max_abs_err "
+                    f"{err:.3e} tol {tol:.3e} bit-equal {torch.equal(got, want)} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append((model, str(dtype), shape, err))
+                del x, w, got, want
+    shape = (8, 28, 28, 240, 5)
+    x, w = dw_inputs(shape, torch.float32, gen)
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    grads = []
+    for fn in (dp.depthwise_conv2d_pallas, dp.depthwise_conv2d_plain):
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xa, wa).backward(g)
+        grads.append((xa.grad, wa.grad))
+    torch.cuda.synchronize()
+    for name, got, want, rtol in (("dx", grads[0][0], grads[1][0], RTOL),
+                                  ("dw", grads[0][1], grads[1][1], DBIAS_RTOL)):
+        err, tol, ok = dw_compare(got, want, torch.float32, rtol)
+        log(f"[dw-kernels] backward {name} float32 {shape}: Function vs autograd "
+            f"through the plain version, max_abs_err {err:.3e} tol {tol:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(("backward", name, shape, err))
+    if failed:
+        raise AssertionError(f"the depthwise kernel disagrees with its plain "
+                             f"version: {failed}")
+
+
+def bump(tree, scale_var: bool = False):
+    """Each leaf plus 0.01·sin(0.7·i); with scale_var, a leaf named var
+    times (1 + 0.01·sin(0.7·i)) instead, so it stays positive."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = bump(v, scale_var)
+            continue
+        wave = 0.01 * np.sin(np.arange(v.size, dtype=np.float32) * 0.7) \
+            .reshape(v.shape).astype(np.float32)
+        out[k] = v * (1 + wave) if scale_var and k == "var" else v + wave
+    return out
+
+
+def effnet_variables(config, seed: int = 0):
+    """Seeded efficientnet variables as a JAX tree: the port's initial
+    weights bumped by 0.01·sin(0.7·i); running statistics equal to the batch
+    statistics of one float32 train-mode forward on the card (momentum 0)
+    on 32 prepared, standardized raw 512x512 frames, then perturbed likewise.
+    (The initial mean 0, var 1 would make the eval forward all but blind to
+    its input.)"""
+    from thyroid_tpu_torch.data.pipeline import prepare_images
+    from thyroid_tpu_torch.models.base import create_and_init
+    from thyroid_tpu_torch.models.from_jax import (load_jax_variables,
+                                                   to_jax_variables)
+    from thyroid_tpu_torch.models.layers import BatchNorm
+    from thyroid_tpu_torch.ops.image import standardize
+
+    model = create_and_init(dict(config, dtype="f32", dropout_rate=0.0,
+                                 drop_path_rate=0.0), seed=seed)
+    init = to_jax_variables(model)
+    load_jax_variables(model, {"params": bump(init["params"]),
+                               "batch_stats": init["batch_stats"]})
+    rs = np.random.RandomState(seed + 100)
+    raw = torch.from_numpy((rs.rand(BATCH, 512, 512, 1) * 65535)
+                           .astype(np.float32)).cuda()
+    x = standardize(prepare_images(raw, 224), (0.5,), (0.5,))
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.momentum = 0.0
+    with torch.no_grad():
+        model(x, train=True)
+    variables = to_jax_variables(model)
+    variables["batch_stats"] = bump(variables["batch_stats"], scale_var=True)
+    del model, raw, x
+    torch.cuda.empty_cache()
+    return variables
+
+
+def effnet_counters():
+    from thyroid_tpu_torch.ops import depthwise_pallas, percentile
+
+    return {"depthwise": depthwise_pallas.depthwise_conv2d_pallas,
+            "percentile": percentile.fused_percentile_normalize}
+
+
+def effnet_trainer(config, variables, out: str, device=None, epochs: int = 100):
+    """A Trainer of `config` with configs/training/cnn.yaml and the default
+    trainer, from `variables`."""
+    from thyroid_tpu_torch.models.registry import ModelRegistry
+    from thyroid_tpu_torch.training.configs import TRAINER_DEFAULT, TRAINING_CNN
+    from thyroid_tpu_torch.training.engine import Trainer
+
+    return Trainer(ModelRegistry.create_model(config), config,
+                   dict(TRAINING_CNN, epochs=epochs),
+                   dict(TRAINER_DEFAULT, max_epochs=epochs),
+                   steps_per_epoch=TRAIN_FRAMES // BATCH,
+                   output_dir=WORK / out, variables=variables, device=device)
+
+
+def effnet_step(config, variables, batch, device=None):
+    """(loss, {name: float32 CPU gradient}, {name: float32 CPU running
+    statistic after the step's forward}) of one training forward and
+    backward of `config` on `batch` (numpy x, y, w) on `device`."""
+    trainer = effnet_trainer(config, variables, "effnet_step", device)
+    dev = trainer.device
+    loss, _, grads = trainer.loss_and_grads(
+        *(torch.from_numpy(a).to(dev) for a in batch))
+    return float(loss), {n: g.float().cpu() for n, g in grads.items()}, \
+        {n: b.float().cpu() for n, b in trainer.state.batch_stats.items()}
+
+
+def phase_effnet_slice(variables):
+    """Serve efficientnet_b0 with the kernel and check the launches and the
+    probabilities; the card's float32 train step against the CPU's; then
+    Trainer.fit and test(checkpoint=best) with the launches checked.
+    Returns the serving engine, the serving launch counts and the fit's."""
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+    from thyroid_tpu_torch.training.configs import MODEL_EFFICIENTNET_B0
+
+    engine = InferenceEngine(EFFNET_B0, variables=variables)
+    engine.warmup()
+    rs = np.random.RandomState(12)
+    sizes = (8, 32, 40, 136)      # 40 pads into bucket 128; 136 = 128 + 8
+    frames = {n: (rs.rand(n, 512, 512, 1) * 65535).astype(np.float32)
+              for n in sizes}
+    for fn in effnet_counters().values():
+        fn.launches = 0
+    probs = {n: engine.predict(frames[n]) for n in sizes}
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in effnet_counters().items()}
+    forwards = sum(-(-n // engine.buckets[-1]) for n in sizes)
+    log(f"[effnet-slice] efficientnet_b0 bf16 with dw_pallas_conv served N={sizes} "
+        f"in {forwards} forwards; launches {launches}")
+    if launches != {"depthwise": 12 * forwards, "percentile": forwards}:
+        raise AssertionError(f"launches {launches}, expected 12 and 1 per "
+                             f"forward over {forwards} forwards")
+    for n, p in probs.items():
+        if p.shape != (n, 2) or not np.isfinite(p).all() \
+                or np.abs(p.sum(-1) - 1).max() > 1e-3:
+            raise AssertionError(f"N={n}: bad probabilities {p.shape}")
+    f32 = dict(EFFNET_B0, dtype="f32")
+    cpu = InferenceEngine(f32, variables=variables, device="cpu").predict(frames[8])
+    gpu32 = InferenceEngine(f32, variables=variables).predict(frames[8])
+    off = InferenceEngine(dict(EFFNET_B0, dw_pallas_conv=False), variables=variables)
+    effnet_counters()["depthwise"].launches = 0
+    off_probs = off.predict(frames[8])
+    off_launches = effnet_counters()["depthwise"].launches
+    del off
+    spread = float(cpu[:, 0].max() - cpu[:, 0].min())
+    ok = off_launches == 0
+    for name, got, ref, tol in (
+            ("cuda f32 (flag on) vs cpu f32", gpu32, cpu, PROB_TOL[torch.float32]),
+            ("cuda bf16 (flag on) vs cpu f32", probs[8], cpu, PROB_TOL[torch.bfloat16]),
+            ("cuda bf16 (flag off) vs cpu f32", off_probs, cpu, PROB_TOL[torch.bfloat16]),
+            ("cuda bf16, flag on vs off", probs[8], off_probs, PROB_TOL[torch.bfloat16])):
+        err = float(np.abs(got - ref).max())
+        log(f"[effnet-slice] N=8 probabilities, {name}: max_abs_err {err:.3e} "
+            f"tol {tol:.0e} (spread of p0 over the batch {spread:.3e})")
+        ok &= err <= tol
+    log(f"[effnet-slice] the flag-off engine launched the depthwise kernel "
+        f"{off_launches} times")
+    if not ok:
+        raise AssertionError("efficientnet_b0 probabilities disagree")
+
+    # one float32 train step, card against CPU
+    rs = np.random.RandomState(13)
+    batch = (rs.randn(8, 224, 224, 1).astype(np.float32),
+             (np.arange(8) % 2).astype(np.int64), np.ones(8, np.float32))
+    step_cfg = dict(f32, dropout_rate=0.0, drop_path_rate=0.0)
+    cpu_step = effnet_step(step_cfg, variables, batch, "cpu")
+    effnet_counters()["depthwise"].launches = 0
+    card_step = effnet_step(step_cfg, variables, batch)
+    torch.cuda.synchronize()
+    step_dw = effnet_counters()["depthwise"].launches
+    torch.cuda.empty_cache()
+    loss_rel, grad_rel, norm = step_agreement(card_step[:2], cpu_step[:2])
+    sdiff = sum(float(((card_step[2][n] - v) ** 2).sum()) for n, v in cpu_step[2].items())
+    snorm = sum(float((v ** 2).sum()) for v in cpu_step[2].values())
+    stats_rel = (sdiff / snorm) ** 0.5
+    log(f"[effnet-train] efficientnet_b0 f32 step, batch 8, card vs cpu: loss "
+        f"{card_step[0]:.7f} vs {cpu_step[0]:.7f} (relative {loss_rel:.3e}, tol "
+        f"{STEP_LOSS_RTOL:.0e}); |grad diff| / |grad| {grad_rel:.3e} (tol "
+        f"{STEP_GRAD_RTOL:.0e}, |grad| {norm:.4e}); updated running statistics "
+        f"|diff| / |stats| {stats_rel:.3e} (tol {STEP_STATS_RTOL:.0e}); depthwise "
+        f"launches in the step {step_dw}")
+    if not (loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL
+            and stats_rel <= STEP_STATS_RTOL and step_dw == 0):
+        raise AssertionError("the card's efficientnet_b0 train step disagrees "
+                             "with the CPU's")
+
+    rs = np.random.RandomState(14)
+    raw = (rs.rand(TRAIN_FRAMES + VAL_FRAMES, 512, 512, 1) * 65535).astype(np.float32)
+    labels = rs.permutation(np.arange(TRAIN_FRAMES + VAL_FRAMES) % 2)
+    cfg = dict(MODEL_EFFICIENTNET_B0, dw_pallas_conv=True)
+    for fn in effnet_counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train = DevicePipeline(raw[:TRAIN_FRAMES], labels[:TRAIN_FRAMES],
+                           batch_size=BATCH, train=True)
+    val = DevicePipeline(raw[TRAIN_FRAMES:], labels[TRAIN_FRAMES:], batch_size=BATCH)
+    trainer = effnet_trainer(cfg, variables, "effnet_fit", epochs=1)
+    fit = trainer.fit(train, val)
+    after_fit = {k: fn.launches for k, fn in effnet_counters().items()}
+    test = trainer.test(val, checkpoint=fit.best_checkpoint)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fit_launches = {k: fn.launches for k, fn in effnet_counters().items()}
+    steps = train.steps_per_epoch()
+    evals = val.steps_per_epoch()
+    log(f"[effnet-train] Trainer.fit efficientnet_b0 bf16 (cnn.yaml, dropout 0.2, "
+        f"drop path 0.2, dw_pallas_conv): 1 epoch, {steps} steps of {BATCH} + "
+        f"{evals} eval forwards + test ({evals} forwards) in {secs:.2f} s; "
+        f"launches after fit {after_fit}, after test {fit_launches}")
+    want = {"depthwise": 12 * 2 * evals, "percentile": 2}
+    if fit_launches != want or after_fit["depthwise"] != 12 * evals:
+        raise AssertionError(f"launches {fit_launches}, expected {want} "
+                             f"(12 per eval forward, none per train step)")
+    metrics = {**fit.history[-1], **test}
+    log("[effnet-train] " + json.dumps({k: v for k, v in metrics.items()
+                                        if k.startswith(("train_", "val_", "test_"))}))
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad or fit.best_checkpoint is None:
+        raise AssertionError(f"non-finite metrics {bad} or no checkpoint")
+    return engine, launches
+
+
+def device_ms(fn, reps: int = 10, replays: int = 5) -> float:
+    """Device time of one call of fn: `reps` calls captured in one CUDA
+    graph, the graph replayed between CUDA events, the median replay over
+    reps. Unlike median_ms it leaves out the host's time between launches,
+    which a call of a few tens of microseconds on the device does not hide.
+    It reads no torch.profiler trace: the profiler's device activity can
+    come back empty late in a process that has profiled before."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del graph
+    return statistics.median(times) / reps
+
+
+def phase_effnet_times(shapes, launches, engine, variables):
+    from thyroid_tpu_torch.ops import depthwise_pallas as dp
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+    from thyroid_tpu_torch.training.configs import MODEL_EFFICIENTNET_B0
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    dtype = torch.bfloat16
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0}
+    events = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    for shape, count in shapes.items():
+        x, w = dw_inputs(shape, dtype, gen)
+        fns = {"ms": lambda: dp.depthwise_conv2d_pallas(x, w),
+               "plain_ms": lambda: dp.depthwise_conv2d_plain(x, w),
+               "library_ms": dw_library(x, w)}
+        on_host = {k: median_ms(f) if k != "plain_ms" else median_ms(f, reps=5, warm=1)
+                   for k, f in fns.items()}
+        dev = {k: device_ms(f) for k, f in fns.items()}
+        ms, plain_ms, lib_ms = dev["ms"], dev["plain_ms"], dev["library_ms"]
+        err = (dp.depthwise_conv2d_pallas(x, w).float()
+               - dp.depthwise_conv2d_plain(x, w).float()).abs().max().item()
+        nbytes, ops, peak = dw_work(shape, dtype)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / peak * 1e3
+        log(f"[effnet-times] depthwise bf16 {shape} x{count}: device time kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms; one call "
+            f"between CUDA events (host launch included) kernel {on_host['ms']:.4f} ms, "
+            f"plain {on_host['plain_ms']:.4f} ms, cuDNN {on_host['library_ms']:.4f} ms; "
+            f"bound {max(t_bytes, t_ops):.4f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+        for k in events:
+            events[k] += count * on_host[k]
+        tot["ms"] += count * ms
+        tot["plain_ms"] += count * plain_ms
+        tot["library_ms"] += count * lib_ms
+        tot["bound_ms"] += count * max(t_bytes, t_ops)
+        tot["bytes_ms"] += count * t_bytes
+        tot["ops_ms"] += count * t_ops
+        tot["err"] = max(tot["err"], err)
+        del x, w
+    entry = {
+        "name": "depthwise_conv2d_pallas", "route": "cuda",
+        "source": "thyroid_tpu_torch/csrc/depthwise.cu",
+        "replaces": "thyroid_tpu/ops/depthwise_pallas.py:126",
+        "launches": launches["depthwise"], "max_abs_err": tot["err"],
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+        "library_ms": tot["library_ms"]}
+    log(f"[effnet-times] depthwise_conv2d_pallas per forward at bucket {BATCH}, "
+        f"device time: {tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, cuDNN {tot['library_ms']:.4f} ms); one call at "
+        f"a time between CUDA events: kernel {events['ms']:.4f} ms, plain "
+        f"{events['plain_ms']:.4f} ms, cuDNN {events['library_ms']:.4f} ms")
+
+    off = InferenceEngine(dict(EFFNET_B0, dw_pallas_conv=False), variables=variables)
+    rs = np.random.RandomState(16)
+    for n in (32, 128):
+        frames = (rs.rand(n, 512, 512, 1) * 65535).astype(np.float32)
+        for name, eng in (("on", engine), ("off", off), ("on", engine), ("off", off)):
+            eng.predict(frames)
+            secs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                eng.predict(frames)
+                secs.append(time.perf_counter() - t0)
+            med = statistics.median(secs)
+            log(f"[effnet-times] predict efficientnet_b0 bf16, dw_pallas_conv {name}, "
+                f"bucket {n}: median {med * 1e3:.2f} ms over 5, {n / med:.1f} "
+                f"images/s (raw 512x512 frames from host memory)")
+    del off
+    phase_profile(engine, what="efficientnet_b0 predict (dw_pallas_conv)")
+
+    cfg = dict(MODEL_EFFICIENTNET_B0, dw_pallas_conv=True)
+    for n in (BATCH, 128):
+        torch.cuda.reset_peak_memory_stats()
+        trainer = effnet_trainer(cfg, variables, "effnet_speed")
+        med, trainer, batch = train_step_seconds(None, n, gen, trainer=trainer)
+        log(f"[effnet-times] train step efficientnet_b0 batch {n}: median "
+            f"{med * 1e3:.2f} ms over 5, {n / med:.1f} images/s (bf16, cnn.yaml, "
+            f"dropout 0.2, drop path 0.2, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB)")
+        if n == BATCH:
+            phase_train_profile(trainer, *batch, what="efficientnet_b0 train step")
+        del trainer, batch
+        torch.cuda.empty_cache()
+    return [entry]
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1611,6 +2037,15 @@ def main() -> int:
         phase_token_kernels(token_shapes)
         token_launches = phase_token_slice(params, batch, card_step)
         entries += phase_token_times(token_shapes, token_launches, params)
+        torch.cuda.empty_cache()
+        from thyroid_tpu_torch.models.cnn.efficientnet import \
+            stride1_depthwise_shapes
+        dw_shapes = stride1_depthwise_shapes("efficientnet_b0", BATCH, 224)
+        phase_dw_kernels({"efficientnet_b0": dw_shapes,
+                          "efficientnet_b3": stride1_depthwise_shapes("efficientnet_b3", 8, 300)})
+        variables = effnet_variables(EFFNET_B0)
+        e_engine, e_launches = phase_effnet_slice(variables)
+        entries += phase_effnet_times(dw_shapes, e_launches, e_engine, variables)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

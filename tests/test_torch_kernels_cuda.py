@@ -12,13 +12,16 @@ over windows or tokens taken in another order, 1e-4 (float32) and 1e-3
 statistics' quantile, max and min exact, mean and std rtol 1e-5 (float64
 sums against PyTorch's float32 ones); the stencil's median exact and its
 bilateral within 1e-2 grey levels (the JAX kernel test's bound); the CLAHE
-apply exact."""
+apply exact. The depthwise kernel: RTOL (it is bit-equal to its plain
+version by construction); its autograd backward's dw, a sum over B·H·W,
+DBIAS_RTOL."""
 import pytest
 import torch
 
+from thyroid_tpu_torch.models.cnn.efficientnet import stride1_depthwise_shapes
 from thyroid_tpu_torch.models.vit.swin import shift_attention_mask
-from thyroid_tpu_torch.ops import (attention, clahe, percentile, stencil,
-                                   token_fused)
+from thyroid_tpu_torch.ops import (attention, clahe, depthwise_pallas,
+                                   percentile, stencil, token_fused)
 
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 DBIAS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
@@ -362,3 +365,47 @@ def test_quality_wrappers_refuse(gen):
         clahe.apply_luts_dual(x[..., 0], luts, luts, torch.ones(3, dtype=torch.bool,
                                                                 device="cuda"),
                               (4, 4), (4, 4))
+
+
+# every stride-1 depthwise shape of efficientnet_b0 at 224² and of
+# efficientnet_b3 at 300² (sides 75, 19 and 10), batches cut to 2 and 1
+DW_SHAPES = sorted(set(stride1_depthwise_shapes("efficientnet_b0", 2, 224))
+                   | set(stride1_depthwise_shapes("efficientnet_b3", 1, 300)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c,k", DW_SHAPES)
+def test_depthwise(gen, dtype, b, h, w, c, k):
+    """Q2-17 against its plain version, one launch counted, and two runs
+    bit-equal."""
+    x = _rn(gen, b, h, w, c, dtype=dtype)
+    wt = _rn(gen, c, 1, k, k, scale=0.2, dtype=dtype)
+    before = depthwise_pallas.depthwise_conv2d_pallas.launches
+    got = depthwise_pallas.depthwise_conv2d_pallas(x, wt)
+    assert depthwise_pallas.depthwise_conv2d_pallas.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, depthwise_pallas.depthwise_conv2d_plain(x, wt), dtype)
+    assert torch.equal(got, depthwise_pallas.depthwise_conv2d_pallas(x, wt))
+
+
+@pytest.mark.cuda
+def test_depthwise_backward_and_refusals(gen):
+    """Autograd through the wrapper gives the plain version's gradients; a
+    wrong dtype, a non-contiguous input, a kernel size the kernel does not
+    take and a weight of another dtype raise: never the plain version."""
+    x = _rn(gen, 2, 17, 9, 40)
+    wt = _rn(gen, 40, 1, 5, 5, scale=0.2)
+    dy = _rn(gen, 2, 17, 9, 40)
+    grads = []
+    for fn in (depthwise_pallas.depthwise_conv2d_pallas,
+               depthwise_pallas.depthwise_conv2d_plain):
+        xa, wa = x.clone().requires_grad_(), wt.clone().requires_grad_()
+        fn(xa, wa).backward(dy)
+        grads.append((xa.grad, wa.grad))
+    _close(grads[0][0], grads[1][0], torch.float32)
+    _close(grads[0][1], grads[1][1], torch.float32, DBIAS_RTOL)
+    for bad_x, bad_w in ((x.double(), wt.double()), (x.transpose(1, 2), wt),
+                         (x, wt.bfloat16()), (x, _rn(gen, 40, 1, 4, 4))):
+        with pytest.raises((TypeError, ValueError)):
+            depthwise_pallas.depthwise_conv2d_pallas(bad_x, bad_w)

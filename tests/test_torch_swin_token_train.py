@@ -12,7 +12,8 @@ import torch
 
 from tests.torch_parity import (SMALL_F32, SMALL_SWIN, assert_trees_close,
                                 flat_tree, jax_swin, small_batch)
-from thyroid_tpu_torch.models.from_jax import jax_tree, load_jax_params
+from thyroid_tpu_torch.models.from_jax import (jax_layout, jax_tree,
+                                               load_jax_params)
 from thyroid_tpu_torch.models.registry import ModelRegistry
 from thyroid_tpu_torch.models.vit.swin import (SwinBlock, SwinTransformer,
                                                swin_arguments)
@@ -20,6 +21,9 @@ from thyroid_tpu_torch.training import losses as tlosses
 from thyroid_tpu_torch.training import metrics as tmetrics
 from thyroid_tpu_torch.training.configs import TRAINER_DEFAULT, TRAINING_VIT
 from thyroid_tpu_torch.training.engine import Trainer
+
+# the JAX layout of the small Swin's parameters (jax_tree's second argument)
+LAYOUT = jax_layout(ModelRegistry.create_model(SMALL_SWIN))
 
 
 def _jax_model(flag: bool):
@@ -43,7 +47,7 @@ def _port_loss_grads(model, x, y, w):
                                  torch.from_numpy(w))
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(loss, list(model.parameters()))
-    return loss.item(), jax_tree(dict(zip(names, grads)))
+    return loss.item(), jax_tree(dict(zip(names, grads)), LAYOUT)
 
 
 @pytest.fixture(scope="module")
@@ -90,7 +94,8 @@ def test_flag_keeps_the_parameter_tree(params):
     assert [(n, p.shape) for n, p in on.named_parameters()] == \
         [(n, p.shape) for n, p in off.named_parameters()]
     load_jax_params(on, params)
-    assert set(flat_tree(jax_tree(dict(on.named_parameters())))) == \
+    assert set(flat_tree(jax_tree(dict(on.named_parameters()),
+                                  LAYOUT))) == \
         set(flat_tree(params))
 
 
@@ -172,9 +177,10 @@ def test_three_step_token_trajectory_matches_jax(params, tmp_path):
         got = float(tm["loss_sum"]) / float(tm["w_sum"])
         assert abs(got - want) < 1e-5, (step, got, want)
     assert pt.state.step == 3 and int(state.step) == 3
-    assert_trees_close(jax_tree(pt.state.params), state.params,
+    assert_trees_close(jax_tree(pt.state.params, LAYOUT), state.params,
                        atol=1e-6, rtol=1e-5)
-    assert_trees_close(jax_tree(pt.state.ema_params), state.ema_params,
+    assert_trees_close(jax_tree(pt.state.ema_params, LAYOUT),
+                       state.ema_params,
                        atol=1e-6, rtol=1e-5)
-    new, old = flat_tree(jax_tree(pt.state.params)), flat_tree(params)
+    new, old = flat_tree(jax_tree(pt.state.params, LAYOUT)), flat_tree(params)
     assert max(np.abs(new[k] - old[k]).max() for k in old) > 1e-4

@@ -16,7 +16,8 @@ from tests.torch_parity import (SMALL_F32, SMALL_SWIN, assert_trees_close,
                                 flat_tree, jax_swin, small_batch)
 from thyroid_tpu_torch.data.pipeline import DevicePipeline
 from thyroid_tpu_torch.models.base import create_and_init
-from thyroid_tpu_torch.models.from_jax import jax_tree, load_jax_params
+from thyroid_tpu_torch.models.from_jax import (jax_layout, jax_tree,
+                                               load_jax_params)
 from thyroid_tpu_torch.models.layers import DropPath
 from thyroid_tpu_torch.models.registry import ModelRegistry
 from thyroid_tpu_torch.training import checkpoint as tckpt
@@ -28,6 +29,8 @@ from thyroid_tpu_torch.training.configs import (TRAINER_DEFAULT, TRAINING_VIT,
 from thyroid_tpu_torch.training.engine import Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
+# the JAX layout of the small Swin's parameters (jax_tree's second argument)
+LAYOUT = jax_layout(ModelRegistry.create_model(SMALL_SWIN))
 
 
 def _np(tree):
@@ -80,7 +83,7 @@ def test_small_swin_train_grads_match_jax(small):
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(got_loss, list(model.parameters()))
     assert abs(got_loss.item() - float(want_loss)) < 1e-5
-    assert_trees_close(jax_tree(dict(zip(names, grads))), want,
+    assert_trees_close(jax_tree(dict(zip(names, grads)), LAYOUT), want,
                         atol=5e-5, rtol=5e-4)
     assert max(np.abs(v).max() for v in flat_tree(want).values()) > 1e-3
 
@@ -119,7 +122,7 @@ def test_layer_decay_mask_matches_jax():
     from thyroid_tpu.training.schedules import layer_decay_mask
 
     params = _param_tree(0)
-    want = flat_tree(layer_decay_mask(_np(jax_tree(params)), 0.9, 2))
+    want = flat_tree(layer_decay_mask(_np(jax_tree(params, LAYOUT)), 0.9, 2))
     got = tsched.layer_decay_mask(params, 0.9, 2)
     assert {k.replace("patch_embed.weight", "patch_embed.kernel"): v
             for k, v in got.items()} == {k: float(v) for k, v in want.items()}
@@ -146,7 +149,7 @@ def test_optimizer_matches_optax(grad_scale):
     kw = dict(base_lr=1e-2, steps_per_epoch=1, epochs=10, warmup_steps=1)
     okw = dict(weight_decay=0.05, gradient_clip_val=1.0, layer_decay=0.9,
                num_layers=2)
-    jp = _np(jax_tree(params))
+    jp = _np(jax_tree(params, LAYOUT))
     tx = build_optimizer(jp, build_schedule(**kw), **okw)
     ostate = tx.init(jp)
     update = jax.jit(tx.update)
@@ -154,11 +157,11 @@ def test_optimizer_matches_optax(grad_scale):
     pstate = port.init(params)
     tp = {n: p.clone() for n, p in params.items()}
     for g in grads:
-        upd, ostate = update(_np(jax_tree(g)), ostate, jp)
+        upd, ostate = update(_np(jax_tree(g, LAYOUT)), ostate, jp)
         jp = optax.apply_updates(jp, upd)
         tsched.apply_updates(tp, port.update(g, pstate, tp))
     assert pstate.count == 2
-    assert_trees_close(jax_tree(tp), jp, atol=1e-6, rtol=0)
+    assert_trees_close(jax_tree(tp, LAYOUT), jp, atol=1e-6, rtol=0)
     moved = max(float((tp[n] - p).abs().max()) for n, p in params.items())
     assert moved > 1e-3
 
@@ -264,11 +267,12 @@ def test_three_step_trajectory_matches_jax(small, tmp_path):
         got = float(tm["loss_sum"]) / float(tm["w_sum"])
         assert abs(got - want) < 1e-5, (step, got, want)
     assert pt.state.step == 3 and int(state.step) == 3
-    assert_trees_close(jax_tree(pt.state.params), state.params,
+    assert_trees_close(jax_tree(pt.state.params, LAYOUT), state.params,
                         atol=1e-6, rtol=1e-5)
-    assert_trees_close(jax_tree(pt.state.ema_params), state.ema_params,
+    assert_trees_close(jax_tree(pt.state.ema_params, LAYOUT),
+                       state.ema_params,
                         atol=1e-6, rtol=1e-5)
-    new, old = flat_tree(jax_tree(pt.state.params)), flat_tree(params)
+    new, old = flat_tree(jax_tree(pt.state.params, LAYOUT)), flat_tree(params)
     moved = max(np.abs(new[k] - old[k]).max() for k in old)
     assert moved > 1e-4          # two updates at lr 1e-4 moved the weights
 

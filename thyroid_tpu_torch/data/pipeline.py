@@ -82,7 +82,7 @@ class DevicePipeline:
         if augmentation_level != "none":
             raise NotImplementedError(
                 f"augmentation_level={augmentation_level!r}: augmentation is "
-                "not ported (ROADMAP Queue 1 item 6: Augmentation)")
+                "not ported (ROADMAP Queue 1: Augmentation)")
         self.device = resolve_device(device)
         self.batch_size = int(batch_size)
         self.img_size = int(img_size)

@@ -7,7 +7,7 @@ import torch
 
 from ..ops.platform import DeviceLike, resolve_device
 from .registry import ModelRegistry
-from . import vit  # noqa: F401  (registers the Swin family)
+from . import cnn, vit  # noqa: F401  (register the EfficientNet and Swin families)
 
 
 def create_and_init(config: Any, seed: int = 0,

@@ -44,8 +44,8 @@ from ...ops.attention import fused_swin_attention, fused_swin_block_attention
 from ...ops.attention import window_partition, window_reverse  # noqa: F401
 from ...ops.token_fused import (fused_ln_matmul, fused_ln_mlp,
                                 fused_ln_mlp_residual)
-from ..layers import (LN_EPS, DenseParams, DropPath, LNParams, MlpParams,
-                      trunc_normal_)
+from ..layers import (HWIO_TO_OIHW, LN_EPS, DenseParams, DropPath, LNParams,
+                      MlpParams, trunc_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 
 
@@ -243,6 +243,13 @@ class PatchMerging(nn.Module):
                                self.reduction.kernel, None)
 
 
+class PatchEmbed(nn.Conv2d):
+    """The patch-embed convolution: PyTorch's `weight` (OIHW) and `bias`;
+    the JAX leaf `kernel` is its HWIO kernel."""
+
+    jax_layout = {"kernel": ("weight", HWIO_TO_OIHW)}
+
+
 class SwinStage(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int], depth: int,
                  num_heads: int, window_size: int, mlp_ratio: float,
@@ -293,8 +300,8 @@ class SwinTransformer(nn.Module):
         res = img_size // patch_size
         # stochastic-depth rate of each block, rising linearly over the net
         dpr = np.linspace(0.0, drop_path_rate, sum(depths))
-        self.patch_embed = nn.Conv2d(in_channels, embed_dim, patch_size,
-                                     stride=patch_size)
+        self.patch_embed = PatchEmbed(in_channels, embed_dim, patch_size,
+                                      stride=patch_size)
         self.patch_norm = LNParams(embed_dim) if patch_norm else None
         for i in range(self.num_layers):
             self.add_module(f"stage_{i}", SwinStage(
@@ -330,7 +337,7 @@ class SwinTransformer(nn.Module):
         `generator` (on x's device)."""
         if capture:
             raise NotImplementedError(
-                "attention capture is not ported (ROADMAP Queue 1 item 8: "
+                "attention capture is not ported (ROADMAP Queue 1: "
                 "Analysis)")
         b = x.shape[0]
         dt = self.dtype

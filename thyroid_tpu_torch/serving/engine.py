@@ -18,7 +18,7 @@ import torch
 
 from ..data.pipeline import IMAGENET_MEAN, IMAGENET_STD, prepare_images
 from ..models.base import create_and_init
-from ..models.from_jax import load_jax_params
+from ..models.from_jax import load_jax_variables
 from ..models.registry import cfg_get
 from ..ops.image import standardize
 from ..ops.platform import DeviceLike, resolve_device
@@ -30,28 +30,45 @@ RAW_SIDE = 512   # the CARS frame side warmup feeds
 class InferenceEngine:
     """Bucketed batch inference over one model; thread-safe `predict`.
 
-    `params` is a JAX parameter tree (nested dicts of arrays) carried in
-    through `load_jax_params`; None draws random weights from seed 0.
+    `variables` is a JAX variable tree ({"params": …, "batch_stats": …},
+    nested dicts of arrays) carried in through `load_jax_variables`, as the
+    JAX engine takes it; `params` a bare parameter tree, {"params":
+    params}, for a model without BatchNorm statistics; neither draws random
+    weights from seed 0. The frames are resized to the config's `img_size`, else
+    224, as the JAX engine does.
     `quality` runs the quality-aware preprocessing (artifact filters,
     gamma, CLAHE, ops/quality.py) on each request's raw frames before the
     resize, as `scripts/serve.py --quality` does for the JAX engine; the
     frame sides must then be divisible by its 32×32 CLAHE grid.
-    `device` None means the CUDA card, and raises when there is none."""
+    `device` None means the CUDA card, and raises when there is none.
+    int8 serving (`quantize`) and serving on a mesh are not ported."""
 
     def __init__(self, model_config: Any,
                  params: Optional[Mapping[str, Any]] = None,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  quality: bool = False,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 variables: Optional[Mapping[str, Any]] = None,
+                 quantize: Optional[str] = None,
+                 mesh: Any = None):
         if model_config is None:
             raise ValueError("need model_config")
+        if quantize is not None:
+            raise NotImplementedError("int8 serving is not ported (ROADMAP "
+                                      "Queue 1: Serving, the rest)")
+        if mesh is not None:
+            raise NotImplementedError("serving on a mesh is not ported "
+                                      "(ROADMAP Queue 1: Parallelism)")
+        if params is not None and variables is not None:
+            raise ValueError("pass params or variables, not both")
         self.device = resolve_device(device)
         self.model_config = model_config
         self.model = create_and_init(model_config, seed=0, device=self.device)
         if params is not None:
-            load_jax_params(self.model, params)
-        self.img_size = int(cfg_get(model_config, "img_size",
-                                    self.model.img_size))
+            variables = {"params": params}
+        if variables is not None:
+            load_jax_variables(self.model, variables)
+        self.img_size = int(cfg_get(model_config, "img_size", 224))
         self.in_channels = int(cfg_get(model_config, "in_channels", 1))
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.quality = bool(quality)

@@ -3,12 +3,13 @@ thyroid_tpu/training/checkpoint.py).
 
 A checkpoint is a directory, named as in the JAX package, holding
 `state.pt` (written by `torch.save`) and, when given, the `metadata.json`
-sidecar. `state.pt` holds {params, step} and, for an exact resume,
-opt_state and ema_params. params is the JAX parameter tree (the JAX leaf
-names and layouts, conv kernels HWIO) of float32 tensors, so
-`models/from_jax.py:load_jax_params` fills a model from it. The format is
-not orbax's: the JAX package cannot read these checkpoints, nor this one
-the JAX package's.
+sidecar. `state.pt` holds {params, batch_stats, step} (batch_stats empty
+for a model without BatchNorm, as the JAX package stores it) and, for an
+exact resume, opt_state and ema_params. params and batch_stats are JAX
+trees (the JAX leaf names and layouts, conv kernels HWIO) of float32
+tensors, so `models/from_jax.py:load_jax_variables` fills a model from
+them. The format is not orbax's: the JAX package cannot read these
+checkpoints, nor this one the JAX package's.
 """
 from __future__ import annotations
 
@@ -32,15 +33,18 @@ def _cpu(named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def save_checkpoint(path: str | Path, state: Any,
                     metadata: Optional[Dict[str, Any]] = None,
                     include_opt_state: bool = False) -> Path:
-    """Save params and step (+ metadata.json). With `include_opt_state` the
-    optimizer state (count and moments, by port parameter name) and the EMA
-    shadow are stored too, for an exact resume."""
+    """Save params, batch_stats and step (+ metadata.json). With
+    `include_opt_state` the optimizer state (count and moments, by port
+    parameter name) and the EMA shadow are stored too, for an exact
+    resume."""
     path = Path(path).absolute()
     if path.exists():
         shutil.rmtree(path)
     path.mkdir(parents=True)
-    payload: Dict[str, Any] = {"params": jax_tree(state.params),
-                               "step": int(state.step)}
+    payload: Dict[str, Any] = {
+        "params": jax_tree(state.params, state.layout),
+        "batch_stats": jax_tree(state.batch_stats, state.layout),
+        "step": int(state.step)}
     if include_opt_state:
         sd = state.opt_state.state_dict()
         payload["opt_state"] = {"count": sd["count"], "mu": _cpu(sd["mu"]),
@@ -61,12 +65,22 @@ def load_payload(path: str | Path) -> Dict[str, Any]:
 
 
 def load_checkpoint(path: str | Path) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """→ (variables {"params": JAX parameter tree of tensors}, metadata)."""
+    """→ (variables {"params"[, "batch_stats"]: JAX trees of tensors},
+    metadata)."""
     path = Path(path).absolute()
     payload = load_payload(path)
     meta_path = path / "metadata.json"
     metadata = json.loads(meta_path.read_text()) if meta_path.exists() else {}
-    return {"params": payload["params"]}, metadata
+    return variables_of(payload), metadata
+
+
+def variables_of(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX variable tree of a checkpoint's payload: params, and
+    batch_stats where the model has them."""
+    variables = {"params": payload["params"]}
+    if payload.get("batch_stats"):
+        variables["batch_stats"] = payload["batch_stats"]
+    return variables
 
 
 class BestCheckpointManager:

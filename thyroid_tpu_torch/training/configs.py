@@ -19,6 +19,34 @@ TRAINING_VIT = {
     "ema_decay": None,
 }
 
+# configs/training/cnn.yaml
+TRAINING_CNN = {
+    "epochs": 100,
+    "batch_size": 32,
+    "loss": {"name": "cross_entropy", "label_smoothing": 0.0},
+    "optimizer_params": {"name": "adamw", "lr": 1.0e-4, "weight_decay": 1.0e-5},
+    "scheduler_params": {"name": "cosine", "eta_min": 0.0, "warmup_epochs": 5},
+    "monitor_metric": "val_acc",
+    "monitor_mode": "max",
+    "early_stopping_patience": 10,
+    "save_top_k": 3,
+    "save_last": True,
+    "layer_decay": None,
+    "ema_decay": None,
+}
+
+# configs/model/cnn/efficientnet_b0.yaml
+MODEL_EFFICIENTNET_B0 = {
+    "name": "efficientnet_b0",
+    "architecture": "cnn",
+    "pretrained": False,
+    "num_classes": 2,
+    "in_channels": 1,
+    "img_size": 224,
+    "params": {"width_mult": 1.0, "depth_mult": 1.0, "dropout_rate": 0.2,
+               "drop_path_rate": 0.2},
+}
+
 # configs/trainer/default.yaml
 TRAINER_DEFAULT = {
     "max_epochs": 150,

@@ -4,23 +4,26 @@ mode "ce".
 `Trainer(model, model_config, training_config, trainer_config,
 steps_per_epoch).fit(train_pipeline, val_pipeline)` then
 `Trainer.test(pipeline, checkpoint=best)`, as `scripts/train.py` drives the
-JAX engine. A train step is: forward with `train=True` (DropPath draws
-from the trainer's generator on the device), cross-entropy with label
+JAX engine. A train step is: forward with `train=True` (DropPath and
+dropout draw from the trainer's generator on the device; BatchNorm
+normalises with the batch's statistics and updates its running ones in
+place, the state JAX installs with the step), cross-entropy with label
 smoothing and sample weights, backward (the Swin attention through its
-backward kernel), clip, AdamW with the schedule and layer decay, EMA, and a
-metric update that stays on the device. Evaluation runs the `train=False`
-(serving) forward under `torch.no_grad`.
+backward kernel), clip, AdamW with the schedule and layer decay, EMA of the
+parameters, and a metric update that stays on the device. Evaluation runs
+the `train=False` (serving) forward under `torch.no_grad` with the
+parameters (or their EMA) and the running statistics.
 
 Differences from the JAX engine: the per-step loop is the only loop
 (`scan_epoch` is accepted; the JAX package documents its epoch scan as
 equal to this loop); the epoch permutation and DropPath draw from
 `torch.Generator`s seeded with `TrainerConfig.seed`, so their random
 streams are not JAX's; the initial weights come from the port's own
-initialisers unless `params` carries a JAX tree in. Distillation, DeiT's
-dual head, Inception's aux head, MixUp/CutMix, meshes and attention-map
-logging raise NotImplementedError; the TrainerConfig fields that only
-those read (mesh axes) and the two the JAX engine never reads
-(`log_every_n_steps`, `deterministic`) are left out.
+initialisers unless `variables` (or `params`) carries a JAX tree in.
+Distillation, DeiT's dual head, Inception's aux head, MixUp/CutMix, meshes
+and attention-map logging raise NotImplementedError; the TrainerConfig
+fields that only those read (mesh axes) and the two the JAX engine never
+reads (`log_every_n_steps`, `deterministic`) are left out.
 """
 from __future__ import annotations
 
@@ -34,13 +37,13 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import torch
 from torch.func import functional_call
 
-from ..models import vit  # noqa: F401  (registers the Swin family)
-from ..models.from_jax import load_jax_params
+from ..models import cnn, vit  # noqa: F401  (register the model families)
+from ..models.from_jax import load_jax_variables
 from ..models.registry import ModelRegistry, cfg_get
 from ..ops.platform import DeviceLike, resolve_device
 from ..utils.observe import MetricLogger, StepTimer
 from .checkpoint import (BestCheckpointManager, load_checkpoint, load_payload,
-                         save_checkpoint)
+                         save_checkpoint, variables_of)
 from .configs import VIT_OPTIMIZER_PARAMS
 from .losses import cross_entropy
 from .metrics import (finalize_metric_state, update_metric_state,
@@ -108,13 +111,16 @@ def _limit_batches(limit, full: int) -> int:
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported (ROADMAP Queue 1 {item})")
+    return NotImplementedError(
+        f"{what} is not ported (ROADMAP Queue 1: {item})")
 
 
 class Trainer:
     """Builds the optimizer and state from the configs and runs
     fit/validate/test on `device` (the card unless the CPU is asked for).
-    `params`, a JAX parameter tree, replaces the seeded initial weights."""
+    `variables`, a JAX variable tree ({"params", "batch_stats"}), or
+    `params`, a bare parameter tree for a model without BatchNorm,
+    replaces the seeded initial weights."""
 
     def __init__(self, model: torch.nn.Module, model_config: Any,
                  training_config: Any, trainer_config: Any = None,
@@ -123,17 +129,20 @@ class Trainer:
                  distillation_config: Any = None,
                  loss_mode: Optional[str] = None, mesh: Any = None,
                  params: Optional[Mapping[str, Any]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 variables: Optional[Mapping[str, Any]] = None):
+        if params is not None and variables is not None:
+            raise ValueError("pass params or variables, not both")
         self.device = resolve_device(device)
         self.model_config = model_config
         self.training_config = training_config
         self.cfg = TrainerConfig.from_config(trainer_config, training_config)
         if teacher_fn is not None or distillation_config is not None:
-            raise _unported("distillation", "item 7: other experiments")
+            raise _unported("distillation", "other experiments")
         if mesh is not None or self.cfg.mesh_shape:
-            raise _unported("training on a mesh", "item 10: Parallelism")
+            raise _unported("training on a mesh", "Parallelism")
         if self.cfg.log_attention_every_n_epochs:
-            raise _unported("attention-map logging", "item 8: Analysis")
+            raise _unported("attention-map logging", "Analysis")
         # trainer.precision drives the compute dtype: rebuild the model in
         # bf16 unless the model config pins a dtype (params stay float32)
         if self.cfg.precision == "bf16" and cfg_get(model_config, "dtype", None) is None:
@@ -149,7 +158,7 @@ class Trainer:
             name = str(cfg_get(model_config, "name", ""))
             loss_mode = "deit" if name.startswith("deit") else "ce"
         if loss_mode != "ce":
-            raise _unported(f"loss mode {loss_mode!r}", "item 5: rest of the zoo")
+            raise _unported(f"loss mode {loss_mode!r}", "rest of the zoo")
         self.loss_mode = loss_mode
         self.label_smoothing = float(
             cfg_get(training_config, "label_smoothing",
@@ -157,7 +166,7 @@ class Trainer:
                             "label_smoothing", 0.0)) or 0.0)
         for key in ("mixup_alpha", "cutmix_alpha"):
             if float(cfg_get(training_config, key, 0.0) or 0.0) > 0:
-                raise _unported("MixUp/CutMix", "item 6: Augmentation")
+                raise _unported("MixUp/CutMix", "Augmentation")
         opt = cfg_get(training_config, "optimizer_params", {}) or {}
         if not opt and str(cfg_get(self.model_config, "architecture", "")) == "vit":
             opt = dict(VIT_OPTIMIZER_PARAMS)
@@ -180,7 +189,9 @@ class Trainer:
         self.model.to("cpu")
         self.model.init_weights(torch.Generator().manual_seed(self.cfg.seed))
         if params is not None:
-            load_jax_params(self.model, params)
+            variables = {"params": params}
+        if variables is not None:
+            load_jax_variables(self.model, variables)
         self.model.to(self.device)
         depth = int(cfg_get(model_config, "depth", 0) or 0) or \
             len(tuple(cfg_get(model_config, "depths", ()) or ())) or 12
@@ -200,7 +211,7 @@ class Trainer:
         ema_decay = cfg_get(training_config, "ema_decay", None)
         self.ema_decay = float(ema_decay) if ema_decay else None
         self.state = TrainState(self.model, tx, ema=self.ema_decay is not None)
-        # the epoch permutations (CPU) and the DropPath draws (device)
+        # the epoch permutations (CPU), the DropPath and dropout draws (device)
         self.perm_generator = torch.Generator().manual_seed(self.cfg.seed)
         self.dropout_generator = torch.Generator(device=self.device) \
             .manual_seed(self.cfg.seed)
@@ -209,11 +220,12 @@ class Trainer:
     # ------------------------------------------------------------------
     def loss_and_grads(self, images: torch.Tensor, labels: torch.Tensor,
                        weights: Optional[torch.Tensor]):
-        """One training forward and backward → (loss, logits, {name: grad})."""
+        """One training forward and backward → (loss, logits, {name: grad});
+        the forward updates the BatchNorm statistics in place."""
         logits = self.model(images, train=True,
                             generator=self.dropout_generator)
         if isinstance(logits, tuple):
-            raise _unported("auxiliary heads", "item 5: rest of the zoo")
+            raise _unported("auxiliary heads", "rest of the zoo")
         loss = cross_entropy(logits, labels, self.label_smoothing, weights)
         names = list(self.state.params)
         grads = torch.autograd.grad(loss, [self.state.params[n] for n in names])
@@ -354,15 +366,15 @@ class Trainer:
         )
 
     def save_state(self, path: str | Path) -> Path:
-        """The full training state (params, opt_state, EMA, step) for an
-        exact resume."""
+        """The full training state (params, batch_stats, opt_state, EMA, step)
+        for an exact resume."""
         return save_checkpoint(path, self.state, include_opt_state=True)
 
     def resume_from(self, path: str | Path) -> None:
         """Restore a state saved by save_state; a plain model checkpoint
-        (no opt_state) warm-starts the parameters only."""
+        (no opt_state) warm-starts the parameters and statistics only."""
         payload = load_payload(path)
-        load_jax_params(self.model, payload["params"])
+        load_jax_variables(self.model, variables_of(payload))
         self.state.step = int(payload.get("step", 0))
         if payload.get("opt_state") is not None:
             self.state.opt_state.load_state_dict(payload["opt_state"])
@@ -377,9 +389,10 @@ class Trainer:
 
     def test(self, pipeline, checkpoint: Optional[str | Path] = None,
              prefix: str = "test_") -> Dict[str, float]:
-        """Evaluate, first loading `checkpoint`'s parameters when given."""
+        """Evaluate, first loading `checkpoint`'s parameters and statistics
+        when given."""
         if checkpoint is not None:
             variables, _ = load_checkpoint(checkpoint)
-            load_jax_params(self.model, variables["params"])
+            load_jax_variables(self.model, variables)
         return self.eval_epoch(pipeline, prefix=prefix,
                                limit_fraction=self.cfg.limit_test_batches)

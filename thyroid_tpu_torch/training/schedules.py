@@ -185,14 +185,14 @@ def build_optimizer(params: Dict[str, torch.Tensor], schedule: Schedule,
     if gradient_clip_val and gradient_clip_algorithm != "norm":
         raise NotImplementedError(
             f"gradient_clip_algorithm={gradient_clip_algorithm!r} is not "
-            "ported (ROADMAP Queue 1 item 7: other experiments); every "
+            "ported (ROADMAP Queue 1: other experiments); every "
             "trainer config in configs/ clips by norm")
     if name == "sgd":
         raise NotImplementedError("the SGD optimizer is not ported (ROADMAP "
-                                  "Queue 1 item 7: other experiments)")
+                                  "Queue 1: other experiments)")
     if accumulate_steps > 1:
         raise NotImplementedError("gradient accumulation is not ported "
-                                  "(ROADMAP Queue 1 item 7: other experiments)")
+                                  "(ROADMAP Queue 1: other experiments)")
     scales = None
     if layer_decay is not None and 0 < layer_decay < 1:
         scales = layer_decay_mask(params, float(layer_decay), num_layers)
