@@ -91,7 +91,34 @@ Phases, each printing its lines before the final one:
    and cuDNN's depthwise convolution (F.conv2d with groups=C) on the same
    inputs, images/s of predict at buckets 32 and 128 with the flag on and
    off, training images/s at batch 32 and 128, and a profile of one predict
-   and one train step at batch 32.
+   and one train step at batch 32;
+17. remaining kernels: LN + QKV + W-MSA (row 7, fused_swin_ln_attention)
+   and the per-window attention (row 8, fused_window_attention) against
+   their plain versions at every swin_tiny serving block shape at batch 32,
+   in float32 (2e-5 of max(1, max|plain|)) and bf16; the fused dual CLAHE
+   apply (row 16) bit-equal to its plain version on phase 8's chunk, with
+   the quality pipeline's per-image flags; WindowAttention(ln_kernel=True)
+   against ln_kernel=False (kernels 2 + 5 + projection) in float32; then
+   the main-path run, counted: the module with ln_kernel on the 12 blocks,
+   the per-window attention on their windows, the CLAHE on the chunk;
+18. swin_tiny as configs/model/vit/swin_tiny.yaml builds it (medical
+   adaptations; bf16; seeded, bumped weights, contrast scales off 1):
+   served at buckets 32 and 128 with 1, 3, 12 and 0 launches of the
+   percentile, LN+matmul, LN+MLP and block-attention kernels per forward,
+   the probabilities held against the CPU float32 engine; a float32 train
+   step (batch 8, drop path 0) against the CPU; Trainer.fit for one epoch
+   of 256 frames with validation on 64 and test(checkpoint=best);
+19. swin_medical.yaml at full depth (2, 2, 18, 2) and 256², padding in
+   every stage and drop_rate 0.05: served at bucket 32 (1, 3, 24 launches
+   per forward) against the CPU, and one bf16 train step at batch 32 with
+   the uncertainty head's output, finite;
+20. times: rows 7 and 8 per swin_tiny forward at bucket 32 and row 16 per
+   chunk (device time from CUDA-graph replays) beside their bounds, plain
+   versions and library calls (LayerNorm + linear + SDPA; SDPA; none), row
+   7 also beside kernels 2 + 5 and row 16 beside clahe_uint16_dual + where;
+   images/s of predict for the YAML swin_tiny beside the registry one at
+   buckets 32 and 128, its training images/s at batch 32 and 128, and a
+   profile of one YAML predict.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -153,6 +180,13 @@ EFFNET_B0 = {"name": "efficientnet_b0", "in_channels": 1, "num_classes": 2,
 # updated running statistics of the card's float32 train step against the
 # CPU's: |stats diff| / |stats| over all BatchNorm buffers (global norms)
 STEP_STATS_RTOL = 1e-4
+# rows 7 and 8 against their plain versions, relative to max(1, max|plain|):
+# float32 2e-5 (the JAX LN-kernel test's bound), bf16 one rounding flip
+ATTN_RTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# the quality pipeline's dual-grid CLAHE parameters (dark: coarse; low
+# contrast: fine)
+DUAL_GRIDS = {"clip_coarse": 2.0, "grid_coarse": (16, 16), "clip_fine": 0.03,
+              "grid_fine": (32, 32)}
 
 
 def log(*parts) -> None:
@@ -2006,6 +2040,605 @@ def phase_effnet_times(shapes, launches, engine, variables):
 
 
 
+# ---------------------------------------------------------------- remaining kernels
+
+
+def ln_attention_inputs(shape, dtype, gen):
+    """Seeded inputs of row 7 at a block shape: x (B, r, r, C), γ, β,
+    W (C, 3C), the QKV bias, the bias (heads, N, N) and the shift mask."""
+    from thyroid_tpu_torch.models.vit.swin import shift_attention_mask
+
+    b, r, c, heads, ws, shift = shape
+    mask = shift_attention_mask(r, r, ws, shift)
+
+    def rn(*s, scale=1.0, dt=torch.float32):
+        return (torch.randn(*s, generator=gen, device="cuda") * scale).to(dt)
+
+    return (rn(b, r, r, c, dt=dtype), 1 + rn(c, scale=0.1), rn(c, scale=0.1),
+            rn(c, 3 * c, scale=c ** -0.5), rn(3 * c, scale=0.1),
+            rn(heads, ws * ws, ws * ws, scale=0.1),
+            torch.from_numpy(mask).cuda() if mask is not None else None)
+
+
+def window_inputs(shape, dtype, gen):
+    """Seeded inputs of row 8 at the same block: q, k, v (B·nW, heads, N,
+    C/heads), the bias and the shift mask (nW, N, N) or None."""
+    from thyroid_tpu_torch.models.vit.swin import shift_attention_mask
+
+    b, r, c, heads, ws, shift = shape
+    n, nw = ws * ws, (r // ws) ** 2
+    mask = shift_attention_mask(r, r, ws, shift)
+    q, k, v = (torch.randn(b * nw, heads, n, c // heads, generator=gen,
+                           device="cuda").to(dtype) for _ in range(3))
+    bias = torch.randn(heads, n, n, generator=gen, device="cuda") * 0.1
+    return q, k, v, bias, torch.from_numpy(mask).cuda() if mask is not None else None
+
+
+def remaining_fns(kernel: str, shape):
+    """(wrapper, plain version) of row 7 or row 8 at a block shape."""
+    from thyroid_tpu_torch.ops import attention
+
+    _, _, c, heads, ws, _ = shape
+    if kernel == "window_attention":
+        return attention.fused_window_attention, attention.window_attention_reference
+    kw = dict(window_size=ws, num_heads=heads, scale=(c // heads) ** -0.5)
+    return (lambda *a: attention.fused_swin_ln_attention(*a, **kw),
+            lambda *a: attention.swin_ln_attention_plain(*a, **kw))
+
+
+def dual_fused_case(frames: np.ndarray):
+    """Row 16's call on the quality chunk: the raw frames on the card, and
+    the per-image flags the quality pipeline gives it, from the CPU's issue
+    masks: the coarse grid for the extremely dark frames, equalisation for
+    the dark and the low-contrast ones."""
+    from thyroid_tpu_torch.ops.image import quality_issue_masks
+
+    x = torch.from_numpy(frames[..., None])
+    masks = quality_issue_masks(x)
+    use_coarse = masks["extreme_dark"]
+    apply = masks["extreme_dark"] | masks["low_contrast"]
+    return x.cuda(), use_coarse.cuda(), apply.cuda()
+
+
+def remaining_counters():
+    from thyroid_tpu_torch.ops import attention, clahe, token_fused
+
+    return {"swin_ln_attention": attention.fused_swin_ln_attention,
+            "window_attention": attention.fused_window_attention,
+            "apply_luts_dual_fused": clahe.apply_luts_dual_fused,
+            "ln_matmul": token_fused.fused_ln_matmul,
+            "swin_attention": attention.fused_swin_attention}
+
+
+def ln_module_pair(shape, gen):
+    """WindowAttention(ln_kernel=True) on the card with seeded weights
+    (kernels N(0, 1/C), biases N(0, 0.1²), a bias table N(0, 0.1²)), and
+    its twin without the flag, which takes kernels 2 + 5 and the
+    projection; γ and β of the block's norm1."""
+    from thyroid_tpu_torch.models.vit.swin import WindowAttention
+
+    _, _, c, heads, ws, _ = shape
+    mod = WindowAttention(c, ws, heads, ln_kernel=True).cuda().eval()
+    with torch.no_grad():
+        for name, t in mod.named_parameters():
+            scale = t.shape[0] ** -0.5 if name.endswith("kernel") else 0.1
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * scale)
+    twin = WindowAttention(c, ws, heads).cuda().eval()
+    twin.load_state_dict(mod.state_dict())
+    ln = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
+          0.1 * torch.randn(c, generator=gen, device="cuda"))
+    return mod, twin, ln
+
+
+def phase_remaining_kernels(attn_shapes, frames):
+    """Rows 7 and 8 against their plain versions at every swin_tiny serving
+    block shape at batch 32, float32 and bf16; row 16 bit-equal on the
+    quality chunk; WindowAttention(ln_kernel=True) against ln_kernel=False
+    in float32. Then the main-path run of the three, counted: the module
+    with ln_kernel serves each of the 12 blocks once, fused_window_attention
+    takes each block's windows once, clahe_uint16_dual_fused the chunk
+    once. Returns its launch counts."""
+    from thyroid_tpu_torch.models.vit.swin import shift_attention_mask
+    from thyroid_tpu_torch.ops import attention, clahe
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    failed = []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            for kernel, make in (("swin_ln_attention", ln_attention_inputs),
+                                 ("window_attention", window_inputs)):
+                for shape in attn_shapes:
+                    args = make(shape, dtype, gen)
+                    fused, plain = remaining_fns(kernel, shape)
+                    got, want = fused(*args).float(), plain(*args).float()
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    tol = ATTN_RTOL[dtype] * max(1.0, want.abs().max().item())
+                    ok = bool(np.isfinite(err)) and err <= tol \
+                        and bool(torch.isfinite(got).all())
+                    log(f"[remaining-kernels] {kernel} {str(dtype)[6:]} {shape}: "
+                        f"max_abs_err {err:.3e} tol {tol:.3e} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failed.append((kernel, str(dtype), shape, err))
+                    del args, got, want
+        x, use_coarse, apply = dual_fused_case(frames)
+        got = clahe.clahe_uint16_dual_fused(x, use_coarse, apply, **DUAL_GRIDS)
+        want = clahe.clahe_uint16_dual_fused_plain(x, use_coarse, apply,
+                                                   **DUAL_GRIDS)
+        torch.cuda.synchronize()
+        diff = int((got != want).sum())
+        err = (got - want).abs().max().item()
+        log(f"[remaining-kernels] apply_luts_dual_fused (clahe_uint16_dual_fused) "
+            f"on {len(frames)} raw 512x512 frames, {int(use_coarse.sum())} coarse, "
+            f"{int(apply.sum())} equalised: {diff} elements differ, max_abs_err "
+            f"{err:.3e} (bit-equal required) {'ok' if diff == 0 else 'FAIL'}")
+        if diff:
+            failed.append(("apply_luts_dual_fused", diff))
+        for shape in attn_shapes:
+            b, r, c, heads, ws, shift = shape
+            mod, twin, ln = ln_module_pair(shape, gen)
+            xs = torch.randn(b, r, r, c, generator=gen, device="cuda")
+            mask = shift_attention_mask(r, r, ws, shift)
+            mask = torch.from_numpy(mask).cuda() if mask is not None else None
+            got = mod(xs, mask, spatial=True, ln=ln)
+            want = twin(xs, mask, spatial=True, ln=ln)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = RTOL[torch.float32] * max(1.0, want.abs().max().item())
+            ok = err <= tol and bool(torch.isfinite(got).all())
+            log(f"[remaining-kernels] WindowAttention float32 {shape}: ln_kernel=True "
+                f"vs False (kernels 2 + 5 + projection) max_abs_err {err:.3e} "
+                f"tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(("WindowAttention ln_kernel", shape, err))
+            del mod, twin, xs, got, want
+    if failed:
+        raise AssertionError(f"rows 7, 8, 16 disagree with their plain "
+                             f"versions: {failed}")
+
+    # the main path of the three, counted
+    blocks = [shape for shape, count in attn_shapes.items() for _ in range(count)]
+    inputs = []
+    for shape in blocks:
+        b, r, c, heads, ws, shift = shape
+        mod, _, ln = ln_module_pair(shape, gen)
+        mask = shift_attention_mask(r, r, ws, shift)
+        inputs.append((mod, ln, torch.randn(b, r, r, c, generator=gen,
+                                            device="cuda").bfloat16(),
+                       torch.from_numpy(mask).cuda() if mask is not None else None,
+                       window_inputs(shape, torch.bfloat16, gen)))
+    for fn in remaining_counters().values():
+        fn.launches = 0
+    with torch.inference_mode():
+        outs = [mod(xs, mask, spatial=True, ln=ln) for mod, ln, xs, mask, _ in inputs]
+        outs += [attention.fused_window_attention(*w) for *_, w in inputs]
+        outs.append(clahe.clahe_uint16_dual_fused(x, use_coarse, apply, **DUAL_GRIDS))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in remaining_counters().items()}
+    want = {"swin_ln_attention": len(blocks), "window_attention": len(blocks),
+            "apply_luts_dual_fused": 1, "ln_matmul": 0, "swin_attention": 0}
+    log(f"[remaining-kernels] main path: WindowAttention(ln_kernel=True) bf16 "
+        f"served on the {len(blocks)} swin_tiny blocks at batch {BATCH}, "
+        f"fused_window_attention on their windows, clahe_uint16_dual_fused on the "
+        f"chunk; launches {launches}")
+    if launches != want or not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"launches {launches}, expected {want}")
+    del inputs, outs
+    return launches
+
+
+# ---------------------------------------------------------------- Swin YAMLs
+
+
+def yaml_config(name: str, **over):
+    """configs/model/vit/<name>.yaml as yaml.safe_load reads it, with
+    `over` on top."""
+    import yaml
+
+    path = Path(__file__).resolve().parent / "configs" / "model" / "vit" / f"{name}.yaml"
+    return dict(yaml.safe_load(path.read_text()), **over)
+
+
+def medical_params(config, seed: int = 0):
+    """perturbed_params of a YAML Swin, every contrast_scale set to
+    1 + 0.3·sin(1.3·i + 0.5) so that the per-head contrast scaling is not
+    near the identity."""
+    def walk(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k == "contrast_scale":
+                tree[k] = (1 + 0.3 * np.sin(np.arange(v.size) * 1.3 + 0.5)) \
+                    .astype(np.float32)
+        return tree
+
+    return walk(perturbed_params(config, seed))
+
+
+def serve_yaml(name: str, config, params, sizes, per_forward, side: int = 512):
+    """Serve `config` (bf16) on raw frames of `sizes`, check the launches
+    per forward and the probabilities against the CPU float32 engine on 8
+    frames (the card in float32 and in bf16). Returns the engine and the
+    launch counts."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    engine = InferenceEngine(config, params=params)
+    engine.warmup()
+    rs = np.random.RandomState(18)
+    frames = {n: (rs.rand(n, side, side, 1) * 65535).astype(np.float32)
+              for n in sizes + (8,)}
+    watched = train_counters()
+    for fn in watched.values():
+        fn.launches = 0
+    probs = {n: engine.predict(frames[n]) for n in sizes}
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in watched.items()}
+    forwards = sum(-(-n // engine.buckets[-1]) for n in sizes)
+    log(f"[{name}] {config['name']} bf16 (medical_adaptations) served N={sizes} "
+        f"in {forwards} forwards; launches {launches}")
+    want = {k: per_forward.get(k, 0) * forwards for k in watched}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    for n, p in probs.items():
+        if p.shape != (n, 2) or not np.isfinite(p).all() \
+                or np.abs(p.sum(-1) - 1).max() > 1e-3:
+            raise AssertionError(f"N={n}: bad probabilities {p.shape}")
+    f32 = dict(config, dtype="f32")
+    cpu = InferenceEngine(f32, params=params, device="cpu").predict(frames[8])
+    gpu32 = InferenceEngine(f32, params=params).predict(frames[8])
+    gpu16 = engine.predict(frames[8])
+    spread = float(cpu[:, 0].max() - cpu[:, 0].min())
+    for what, got, tol in (("cuda f32", gpu32, PROB_TOL[torch.float32]),
+                           ("cuda bf16", gpu16, PROB_TOL[torch.bfloat16])):
+        err = float(np.abs(got - cpu).max())
+        log(f"[{name}] N=8 probabilities, {what} vs cpu f32: max_abs_err {err:.3e} "
+            f"tol {tol:.0e} (spread of p0 over the batch {spread:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"{what} probabilities disagree with the CPU")
+    return engine, launches
+
+
+def phase_yaml_slice():
+    """swin_tiny as configs/model/vit/swin_tiny.yaml builds it: served at
+    buckets 32 and 128, a float32 train step on the card against the CPU,
+    then Trainer.fit for one epoch and test(checkpoint=best), with the
+    launches checked (the windows attention is plain: no attention kernel
+    on either path; PatchMerging's norm + reduction and the MLP take their
+    kernels when serving, none in training)."""
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+
+    cfg = yaml_config("swin_tiny", dtype="bf16")
+    params = medical_params(cfg)
+    engine, _ = serve_yaml("yaml-slice", cfg, params, (32, 128),
+                           {"percentile": 1, "ln_matmul": 3, "ln_mlp_residual": 12})
+
+    rs = np.random.RandomState(19)
+    batch = (rs.randn(8, 224, 224, 1).astype(np.float32),
+             (np.arange(8) % 2).astype(np.int64), np.ones(8, np.float32))
+    f32 = dict(cfg, dtype="f32", drop_path_rate=0.0)
+    cpu = step_loss_grads(f32, params, batch, "cpu")
+    card = step_loss_grads(f32, params, batch)
+    torch.cuda.empty_cache()
+    loss_rel, grad_rel, norm = step_agreement(card, cpu)
+    zero = [n for n in cpu[1] if n.startswith("uncertainty")
+            and (cpu[1][n].abs().max() > 0 or card[1][n].abs().max() > 0)]
+    log(f"[yaml-slice] swin_tiny.yaml f32 step, batch 8, card vs cpu: loss "
+        f"{card[0]:.7f} vs {cpu[0]:.7f} (relative {loss_rel:.3e}, tol "
+        f"{STEP_LOSS_RTOL:.0e}); |grad diff| / |grad| {grad_rel:.3e} (tol "
+        f"{STEP_GRAD_RTOL:.0e}, |grad| {norm:.4e}); uncertainty head gradients "
+        f"zero: {not zero}")
+    if not (loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL) or zero:
+        raise AssertionError("the card's swin_tiny.yaml train step disagrees "
+                             "with the CPU's")
+
+    frames = (rs.rand(TRAIN_FRAMES + VAL_FRAMES, 512, 512, 1) * 65535) \
+        .astype(np.float32)
+    labels = rs.permutation(np.arange(TRAIN_FRAMES + VAL_FRAMES) % 2)
+    reset_train_counts()
+    t0 = time.perf_counter()
+    train = DevicePipeline(frames[:TRAIN_FRAMES], labels[:TRAIN_FRAMES],
+                           batch_size=BATCH, train=True)
+    val = DevicePipeline(frames[TRAIN_FRAMES:], labels[TRAIN_FRAMES:],
+                         batch_size=BATCH)
+    trainer = make_trainer(cfg, params, "yaml_fit", epochs=1)
+    fit = trainer.fit(train, val)
+    test = trainer.test(val, checkpoint=fit.best_checkpoint)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_train_counts()
+    steps = train.steps_per_epoch()
+    forwards = 2 * val.steps_per_epoch()
+    log(f"[yaml-slice] Trainer.fit swin_tiny.yaml bf16 (drop path 0.2): 1 epoch, "
+        f"{steps} steps of {BATCH} + {forwards} eval forwards + test in "
+        f"{secs:.2f} s; launches {launches}")
+    want = {"percentile": 2, "ln_matmul": 3 * forwards,
+            "ln_mlp_residual": 12 * forwards, "swin_block_attention": 0,
+            "swin_attention": 0, "swin_attention_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    metrics = {**fit.history[-1], **test}
+    log("[yaml-slice] " + json.dumps({k: v for k, v in metrics.items()
+                                      if k.startswith(("train_", "val_", "test_"))}))
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad or fit.best_checkpoint is None:
+        raise AssertionError(f"non-finite metrics {bad} or no checkpoint")
+    del trainer, train, val
+    return engine, cfg, params
+
+
+def phase_medical_slice():
+    """swin_medical.yaml at full depth (2, 2, 18, 2) and 256², padding in
+    every stage, drop_rate 0.05: served at bucket 32 against the CPU, then
+    one bf16 train step at batch 32 and the uncertainty head's output,
+    finite."""
+    from thyroid_tpu_torch.training.metrics import zero_metric_state
+
+    cfg = yaml_config("swin_medical", dtype="bf16")
+    params = medical_params(cfg, seed=1)
+    engine, _ = serve_yaml("medical-slice", cfg, params, (32,),
+                           {"percentile": 1, "ln_matmul": 3, "ln_mlp_residual": 24},
+                           side=256)
+    del engine
+    trainer = make_trainer(cfg, params, "medical_step")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    x = torch.randn(BATCH, 256, 256, 1, generator=gen, device="cuda")
+    y = torch.arange(BATCH, device="cuda") % 2
+    w = torch.ones(BATCH, device="cuda")
+    t0 = time.perf_counter()
+    mstate, _ = trainer.train_step(zero_metric_state(device="cuda"), x, y, w)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    loss = float(mstate["loss_sum"]) / float(mstate["w_sum"])
+    with torch.no_grad():
+        logits, u = trainer.model(x[:8], return_uncertainty=True)
+    finite = np.isfinite(loss) and all(bool(torch.isfinite(p).all())
+                                       for p in trainer.state.params.values())
+    log(f"[medical-slice] swin_medical.yaml bf16 train step, batch {BATCH} at 256² "
+        f"(drop 0.05, drop path 0.25): loss {loss:.5f}, {secs * 1e3:.1f} ms with "
+        f"the first call's set-up; parameters finite: {finite}; uncertainty head "
+        f"output {tuple(u.shape)} finite: {bool(torch.isfinite(u).all())}")
+    if not finite or u.shape != (8, 2) or not bool(torch.isfinite(u).all()) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("swin_medical's train step is not finite")
+    del trainer, x
+
+
+def ln_attention_library(shape, args):
+    """F.layer_norm + F.linear + SDPA with the bias (+ mask) as a float
+    attn_mask between window partition and reverse; timing only."""
+    import torch.nn.functional as F
+
+    x, g, beta, w, bq, bias, mask = args
+    b, r, _, c = x.shape
+    _, _, _, heads, ws, _ = shape
+    n, nw, dh = ws * ws, (r // ws) ** 2, c // heads
+    am = bias[None].expand(nw, heads, n, n) if mask is None \
+        else bias[None] + mask[:, None]
+    am = am.to(x.dtype)[None].expand(b, nw, heads, n, n) \
+        .reshape(b * nw, heads, n, n).contiguous()
+    wt, gd, bd, bqd = (w.t().to(x.dtype).contiguous(), g.to(x.dtype),
+                       beta.to(x.dtype), bq.to(x.dtype))
+
+    def run():
+        qkv = F.linear(F.layer_norm(x, (c,), gd, bd, 1e-5), wt, bqd)
+        win = qkv.reshape(b, r // ws, ws, r // ws, ws, 3, heads, dh) \
+            .permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b * nw, heads, n, dh)
+        o = F.scaled_dot_product_attention(win[0], win[1], win[2],
+                                           attn_mask=am, scale=dh ** -0.5)
+        return o.reshape(b, r // ws, r // ws, heads, ws, ws, dh) \
+            .permute(0, 1, 4, 2, 5, 3, 6).reshape(b, r, r, c)
+
+    return run
+
+
+def ln_attention_replaced(shape, args):
+    """What row 7 would replace on the same inputs: kernel 2 (LN + QKV)
+    then kernel 5 (W-MSA)."""
+    from thyroid_tpu_torch.ops import attention, token_fused
+
+    x, g, beta, w, bq, bias, mask = args
+    b, r, _, c = x.shape
+    _, _, _, heads, ws, _ = shape
+    wd = w.to(x.dtype)
+
+    def run():
+        qkv = token_fused.fused_ln_matmul(x, g, beta, wd, bq)
+        return attention.fused_swin_attention(
+            qkv.reshape(b, r, r, 3, c), bias, mask, window_size=ws,
+            num_heads=heads, scale=(c // heads) ** -0.5)
+
+    return run
+
+
+def window_library(args):
+    """SDPA with the bias (+ the window's mask) as a float attn_mask;
+    timing only."""
+    import torch.nn.functional as F
+
+    q, k, v, bias, mask = args
+    bw, heads, n, d = q.shape
+    if mask is None:
+        am = bias[None].expand(bw, heads, n, n)
+    else:
+        nw = mask.shape[0]
+        am = (bias[None] + mask[:, None])[None].expand(bw // nw, nw, heads, n, n) \
+            .reshape(bw, heads, n, n)
+    am = am.to(q.dtype).contiguous()
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                  scale=d ** -0.5)
+
+
+def remaining_work(kernel: str, shape, dtype):
+    """(bytes, operations, peak operations/s) of one row 7 or row 8 call:
+    each input read once, each output written once. Row 7: x, W (3C·C),
+    γ, β, the QKV bias, bias and mask in, the output out; 2·3C·C per token
+    for the projection and 4·N²·C per window for attention. Row 8: q, k, v
+    in and O out, bias and mask; 4·N²·C per window. At the tensor-core
+    rate of the input type."""
+    s = torch.tensor([], dtype=dtype).element_size()
+    b, r, c, heads, ws, shift = shape
+    n, nw = ws * ws, (r // ws) ** 2
+    tokens = b * r * r
+    side = heads * n * n * 4 + (nw * n * n * 4 if shift else 0)
+    attn_ops = b * nw * 4 * n * n * c
+    if kernel == "window_attention":
+        return 4 * tokens * c * s + side, attn_ops, PEAK_OPS_PER_S[dtype]
+    return 2 * tokens * c * s + 3 * c * c * s + (2 * c + 3 * c) * 4 + side, \
+        2 * tokens * c * 3 * c + attn_ops, PEAK_OPS_PER_S[dtype]
+
+
+def phase_remaining_times(attn_shapes, launches, frames):
+    """Rows 7 and 8 per 12-block swin_tiny forward at bucket 32 (bf16) and
+    row 16 per 32-frame chunk: device time (CUDA-graph replays) beside the
+    bound, the plain version and the library call; row 7 also beside
+    kernels 2 + 5 on the same inputs, row 16 beside the composition
+    clahe_uint16_dual + where. Returns their JSON entries."""
+    from thyroid_tpu_torch.ops import clahe
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    dtype = torch.bfloat16
+    meta = {"swin_ln_attention": ("fused_swin_ln_attention", "swin_ln_attention.cu",
+                                  "ops/attention.py:580"),
+            "window_attention": ("fused_window_attention", "window_attention.cu",
+                                 "ops/attention.py:130")}
+    entries = []
+    with torch.inference_mode():
+        for kernel, make in (("swin_ln_attention", ln_attention_inputs),
+                             ("window_attention", window_inputs)):
+            tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                   "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0, "replaced_ms": 0.0}
+            for shape, count in attn_shapes.items():
+                args = make(shape, dtype, gen)
+                fused, plain = remaining_fns(kernel, shape)
+                lib = ln_attention_library(shape, args) \
+                    if kernel == "swin_ln_attention" else window_library(args)
+                ms = device_ms(lambda: fused(*args))
+                plain_ms = device_ms(lambda: plain(*args), reps=3, replays=3)
+                lib_ms = device_ms(lib)
+                replaced = ""
+                if kernel == "swin_ln_attention":
+                    rep_ms = device_ms(ln_attention_replaced(shape, args))
+                    tot["replaced_ms"] += count * rep_ms
+                    replaced = f", kernels 2 + 5 {rep_ms:.4f} ms"
+                err = (fused(*args).float() - plain(*args).float()).abs().max().item()
+                nbytes, ops, peak = remaining_work(kernel, shape, dtype)
+                t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+                t_ops = ops / peak * 1e3
+                log(f"[remaining-times] {kernel} bf16 {shape} x{count}: device time "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                    f"{lib_ms:.4f} ms{replaced}; bound {max(t_bytes, t_ops):.4f} ms "
+                    f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+                tot["ms"] += count * ms
+                tot["plain_ms"] += count * plain_ms
+                tot["library_ms"] += count * lib_ms
+                tot["bound_ms"] += count * max(t_bytes, t_ops)
+                tot["bytes_ms"] += count * t_bytes
+                tot["ops_ms"] += count * t_ops
+                tot["err"] = max(tot["err"], err)
+                del args
+            name, src, replaces = meta[kernel]
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": f"thyroid_tpu_torch/csrc/{src}",
+                "replaces": f"thyroid_tpu/{replaces}",
+                "launches": launches[kernel], "max_abs_err": tot["err"],
+                "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                "bound_ms": tot["bound_ms"],
+                "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                else "operations",
+                "library_ms": tot["library_ms"]})
+            log(f"[remaining-times] {name} per swin_tiny forward at bucket {BATCH}, "
+                f"device time: {tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms, "
+                f"plain {tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms"
+                + (f", kernels 2 + 5 {tot['replaced_ms']:.4f} ms"
+                   if kernel == "swin_ln_attention" else "") + ")")
+
+        # row 16: the kernel on the wrapper's own inputs, per chunk
+        x, use_coarse, apply = dual_fused_case(frames)
+        img, lo, span, x8 = clahe._to_8bit(x)
+        luts_c, luts_f = clahe._dual_luts(x8, **DUAL_GRIDS)
+        kargs = (x8, img.contiguous(), luts_c, luts_f, use_coarse, apply,
+                 lo.reshape(-1), span.reshape(-1), DUAL_GRIDS["grid_coarse"],
+                 DUAL_GRIDS["grid_fine"])
+        ms = device_ms(lambda: clahe.apply_luts_dual_fused(*kargs))
+        plain_ms = median_ms(lambda: clahe.apply_luts_dual_fused_plain(*kargs),
+                             reps=5, warm=1)
+        full_ms = median_ms(lambda: clahe.clahe_uint16_dual_fused(
+            x, use_coarse, apply, **DUAL_GRIDS))
+        comp_ms = median_ms(lambda: torch.where(
+            apply.reshape(-1, 1, 1, 1),
+            clahe.clahe_uint16_dual(x, use_coarse, **DUAL_GRIDS), x))
+        err = (clahe.apply_luts_dual_fused(*kargs)
+               - clahe.apply_luts_dual_fused_plain(*kargs)).abs().max().item()
+    b, h, w = x8.shape
+    equalised = apply & (span.reshape(-1) > 0)
+    n_eq = int(equalised.sum())
+    lut_bytes = sum((luts_c[i] if use_coarse[i] else luts_f[i]).numel() * 4
+                    for i in range(b) if equalised[i])
+    # bytes this run's data needs: per pixel one input (x8 where the frame is
+    # equalised, the frame itself elsewhere) and the output, plus the LUTs
+    # of the equalised frames; operations about 20 float32 per equalised
+    # pixel (tile coordinates, three blends, round, scale) and 2 float64
+    nbytes = 2 * b * h * w * 4 + lut_bytes
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = (n_eq * h * w * 20 / PEAK_OPS_PER_S[torch.float32]
+             + n_eq * h * w * 2 / PEAK_OPS_PER_S[torch.float64]) * 1e3
+    log(f"[remaining-times] apply_luts_dual_fused per {b}-frame chunk of 512x512 "
+        f"({n_eq} equalised): device time kernel {ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms (CUDA events, its host copies included); library none; "
+        f"clahe_uint16_dual_fused whole {full_ms:.4f} ms beside the composition "
+        f"clahe_uint16_dual + where {comp_ms:.4f} ms (CUDA events, histogram/LUT "
+        f"chain included); bound {max(t_bytes, t_ops):.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    entries.append({
+        "name": "apply_luts_dual_fused", "route": "cuda",
+        "source": "thyroid_tpu_torch/csrc/clahe.cu",
+        "replaces": "thyroid_tpu/ops/clahe.py:540",
+        "launches": launches["apply_luts_dual_fused"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None})
+    return entries
+
+
+def phase_yaml_times(engine, cfg, params, registry_params):
+    """images/s of predict for the YAML swin_tiny beside the registry
+    swin_tiny (with `registry_params`) at buckets 32 and 128 (in turns),
+    training images/s of the YAML swin_tiny at batch 32 and 128, and a
+    profile of one YAML predict."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    registry = InferenceEngine(SWIN_TINY, params=registry_params)
+    rs = np.random.RandomState(22)
+    for n in (32, 128):
+        frames = (rs.rand(n, 512, 512, 1) * 65535).astype(np.float32)
+        for name, eng in (("swin_tiny.yaml", engine), ("registry swin_tiny", registry),
+                          ("swin_tiny.yaml", engine), ("registry swin_tiny", registry)):
+            eng.predict(frames)
+            secs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                eng.predict(frames)
+                secs.append(time.perf_counter() - t0)
+            med = statistics.median(secs)
+            log(f"[yaml-times] predict {name} bf16 bucket {n}: median "
+                f"{med * 1e3:.2f} ms over 5, {n / med:.1f} images/s (raw 512x512 "
+                f"frames from host memory)")
+    del registry
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for n in (BATCH, 128):
+        torch.cuda.reset_peak_memory_stats()
+        trainer = make_trainer(cfg, params, "yaml_speed")
+        med, trainer, batch = train_step_seconds(None, n, gen, trainer=trainer)
+        log(f"[yaml-times] train step swin_tiny.yaml batch {n}: median "
+            f"{med * 1e3:.2f} ms over 5, {n / med:.1f} images/s (bf16, drop path "
+            f"0.2, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB)")
+        del trainer, batch
+        torch.cuda.empty_cache()
+    phase_profile(engine, what="swin_tiny.yaml predict")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2046,6 +2679,15 @@ def main() -> int:
         variables = effnet_variables(EFFNET_B0)
         e_engine, e_launches = phase_effnet_slice(variables)
         entries += phase_effnet_times(dw_shapes, e_launches, e_engine, variables)
+        del e_engine, variables
+        torch.cuda.empty_cache()
+        attn_shapes = shapes["swin_block_attention"]
+        r_launches = phase_remaining_kernels(attn_shapes, frames)
+        y_engine, y_cfg, y_params = phase_yaml_slice()
+        phase_medical_slice()
+        torch.cuda.empty_cache()
+        entries += phase_remaining_times(attn_shapes, r_launches, frames)
+        phase_yaml_times(y_engine, y_cfg, y_params, params)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

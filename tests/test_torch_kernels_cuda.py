@@ -409,3 +409,73 @@ def test_depthwise_backward_and_refusals(gen):
                          (x, wt.bfloat16()), (x, _rn(gen, 40, 1, 4, 4))):
         with pytest.raises((TypeError, ValueError)):
             depthwise_pallas.depthwise_conv2d_pallas(bad_x, bad_w)
+
+
+# rows 7 and 8 in float32: within 2e-5 of max(1, max|plain|) (the JAX
+# LN-kernel test's bound; sums over C up to 768 in another order)
+ATTN_RTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bw,heads,n,d,nw", [(8, 3, 49, 32, 4), (6, 2, 16, 24, 1),
+                                             (5, 1, 64, 40, 0)])
+def test_window_attention(gen, dtype, bw, heads, n, d, nw):
+    """Row 8 against its plain version: ragged N (49), a head width that is
+    not a multiple of 32, no mask; one launch counted."""
+    q, k, v = (_rn(gen, bw, heads, n, d, dtype=dtype) for _ in range(3))
+    bias = _rn(gen, heads, n, n, scale=0.1)
+    mask = torch.where(torch.rand(nw, n, n, generator=gen, device="cuda") > 0.8,
+                       -100.0, 0.0) if nw else None
+    before = attention.fused_window_attention.launches
+    got = attention.fused_window_attention(q, k, v, bias, mask)
+    assert attention.fused_window_attention.launches == before + 1
+    assert got.dtype == dtype
+    _close(got, attention.window_attention_reference(q, k, v, bias, mask), dtype,
+           ATTN_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,r,c,heads,ws,shift,qkv_bias", [
+    (2, 16, 96, 3, 4, 2, True), (1, 14, 384, 12, 7, 3, False),
+    (3, 7, 768, 24, 7, 0, True), (1, 8, 40, 1, 8, 0, True)])
+def test_swin_ln_attention(gen, dtype, b, r, c, heads, ws, shift, qkv_bias):
+    """Row 7 against its plain version at shifted and unshifted maps, widths
+    96-768, a 3·dh of 120 columns (one partial projection tile) and no QKV
+    bias; one launch counted; forward only."""
+    n = ws * ws
+    mask = shift_attention_mask(r, r, ws, shift)
+    args = (_rn(gen, b, r, r, c, dtype=dtype), 1 + _rn(gen, c, scale=0.1),
+            _rn(gen, c, scale=0.1), _rn(gen, c, 3 * c, scale=c ** -0.5),
+            _rn(gen, 3 * c, scale=0.1) if qkv_bias else None,
+            _rn(gen, heads, n, n, scale=0.1),
+            torch.from_numpy(mask).cuda() if mask is not None else None)
+    kw = dict(window_size=ws, num_heads=heads, scale=(c // heads) ** -0.5)
+    before = attention.fused_swin_ln_attention.launches
+    got = attention.fused_swin_ln_attention(*args, **kw)
+    assert attention.fused_swin_ln_attention.launches == before + 1
+    _close(got, attention.swin_ln_attention_plain(*args, **kw), dtype, ATTN_RTOL)
+    with pytest.raises(ValueError):
+        attention.fused_swin_ln_attention(args[0].transpose(1, 2), *args[1:], **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,grids", [(512, ((16, 16), (32, 32))),
+                                     (90, ((3, 5), (6, 10)))])
+def test_clahe_uint16_dual_fused(gen, h, grids):
+    """Row 16 bit-equal to its plain version: mixed grid and apply flags, a
+    flat frame (span 0, floored) and an untouched one (passed through)."""
+    x = torch.rand(5, h, h, 1, generator=gen, device="cuda") * 65535
+    x[3] = 1234.5
+    sel = torch.tensor([True, False, False, True, False], device="cuda")
+    app = torch.tensor([True, True, False, True, True], device="cuda")
+    kw = dict(clip_coarse=2.0, grid_coarse=grids[0], clip_fine=0.03,
+              grid_fine=grids[1])
+    before = clahe.apply_luts_dual_fused.launches
+    got = clahe.clahe_uint16_dual_fused(x, sel, app, **kw)
+    assert clahe.apply_luts_dual_fused.launches == before + 1
+    want = clahe.clahe_uint16_dual_fused_plain(x, sel, app, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[2], x[2]) and torch.equal(got[3], torch.floor(x[3]))

@@ -99,15 +99,36 @@ def test_small_swin_matches_jax(use_pallas):
 @pytest.mark.unit
 @pytest.mark.parametrize("flag", ["medical_adaptations", "contrast_adaptive",
                                   "quality_guided", "uncertainty_head", "ape"])
-def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        ModelRegistry.create_model(dict(SMALL_SWIN, **{flag: True}))
+def test_swin_option_matches_jax(flag):
+    """Each Swin option alone on the small Swin, float32, against JAX's
+    fused path (use_pallas_attention, Pallas in interpret mode): logits
+    within 1e-5, and with the uncertainty head its output too."""
+    from thyroid_tpu.models.registry import ModelRegistry as JaxRegistry
+
+    cfg = dict(SMALL_SWIN, **{flag: True})
+    _, params = jax_swin(cfg)
+    x = np.random.RandomState(6).randn(2, 64, 64, 1).astype(np.float32)
+    jmodel = JaxRegistry.create_model(dict(cfg, use_pallas_attention=True))
+    want = jmodel.apply({"params": params}, jnp.asarray(x), train=False,
+                        return_uncertainty=True)
+    model = create_and_init(cfg, device="cpu")
+    load_jax_params(model, params)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x), return_uncertainty=True)
+    heads = flag in ("medical_adaptations", "uncertainty_head")
+    assert isinstance(got, tuple) == heads == isinstance(want, tuple)
+    for g, w in zip(got, want) if heads else ((got, want),):
+        assert np.abs(g.numpy() - np.asarray(w)).max() < 1e-5, flag
+    logits = np.asarray(want[0] if heads else want)
+    assert np.ptp(logits[:, 0]) > 1e-3     # the comparison is not vacuous
 
 
 @pytest.mark.unit
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="padding"):
-        ModelRegistry.create_model(dict(SMALL_SWIN, img_size=80))
+    # window padding and swin_medical build now
+    padded = ModelRegistry.create_model(dict(SMALL_SWIN, img_size=80))
+    assert not padded.stage_0.block_0.padded           # 20x20 maps, window 4
+    assert padded.stage_1.block_0.pad == (2, 2)        # 10x10 maps
     model = create_and_init(SMALL_SWIN, device="cpu")
     x = torch.zeros(1, 64, 64, 1)
     for kw in ({"capture": True}, {"capture": True, "train": True}):
@@ -118,8 +139,9 @@ def test_unported_modes_raise():
         model(x, train=True)
     out = model(x, train=True, generator=torch.Generator().manual_seed(0))
     assert out.shape == (1, 2) and out.requires_grad
-    with pytest.raises(NotImplementedError):
-        ModelRegistry.create_model({"name": "swin_medical"})
+    medical = ModelRegistry.create_model({"name": "swin_medical"})
+    assert medical.img_size == 256 and medical.uncertainty_1 is not None
+    assert medical.stage_0.block_0.pad == (6, 6)       # 64x64 maps, window 7
 
 
 @pytest.mark.unit

@@ -395,14 +395,28 @@ def test_drop_path():
 @pytest.mark.unit
 def test_swin_training_options():
     """build_swin reads drop_path_rate (SWIN_PARAMS default 0.2 for
-    swin_tiny), rising linearly over the blocks; dropout rates raise."""
+    swin_tiny), rising linearly over the blocks, and the dropout rates:
+    drop_rate reaches the embedding, the MLP and the attention's
+    projection, attn_drop_rate the attention probabilities."""
     model = ModelRegistry.create_model(SMALL_SWIN)
     rates = [getattr(getattr(model, f"stage_{s}"), f"block_{b}").drop_path.rate
              for s in range(2) for b in range(2)]
     assert rates == pytest.approx(list(np.linspace(0, 0.2, 4)))
-    for key in ("drop_rate", "attn_drop_rate"):
-        with pytest.raises(NotImplementedError, match=key):
-            ModelRegistry.create_model(dict(SMALL_SWIN, **{key: 0.1}))
+    model = create_and_init(dict(SMALL_SWIN, drop_rate=0.1, attn_drop_rate=0.2),
+                            device="cpu")
+    blocks = [getattr(getattr(model, f"stage_{s}"), f"block_{b}")
+              for s in range(2) for b in range(2)]
+    assert model.drop_rate == 0.1
+    assert {b.drop_rate for b in blocks} == {b.attn.proj_drop_rate
+                                             for b in blocks} == {0.1}
+    assert {b.attn.attn_drop_rate for b in blocks} == {0.2}
+    # the training forward draws them (the windows path: attention dropout
+    # takes the block off the fused kernels); the serving forward does not
+    x = torch.from_numpy(small_batch(3)[0][:2])
+    outs = [model(x, train=True, generator=torch.Generator().manual_seed(s))
+            for s in (0, 0, 1)]
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
 
 
 @pytest.mark.unit

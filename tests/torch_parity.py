@@ -13,6 +13,14 @@ SMALL_SWIN = {"name": "swin_tiny", "img_size": 64, "embed_dim": 32,
 # its float32 training configuration without DropPath (the two frameworks
 # draw DropPath from different random streams)
 SMALL_F32 = dict(SMALL_SWIN, dtype="f32", drop_path_rate=0.0)
+# a narrow Swin as the YAML keys build it, medical adaptations on: 40² input,
+# so that both stages pad their maps to the window (10 → 12, 5 → 8), with
+# the absolute position embedding and the uncertainty head
+MEDICAL_SWIN = {"name": "swin_tiny", "img_size": 40, "embed_dim": 16,
+                "depths": (1, 1), "num_heads": (2, 2), "window_size": 4,
+                "in_channels": 1, "num_classes": 2,
+                "medical_adaptations": True, "ape": True,
+                "uncertainty_head": True}
 
 
 def perturb(tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -33,7 +41,8 @@ def jax_swin(config: Dict[str, Any], seed: int = 0):
     """(JAX module, bumped params as numpy) for a Swin config. The tree's
     structure and shapes come from the JAX module's own init (traced with
     jax.eval_shape, not run); the values are drawn with numpy: unit
-    LayerNorm scales, zero biases, N(0, 0.02²) elsewhere."""
+    LayerNorm scales, zero biases, per-head contrast scales 1 + N(0, 0.5²),
+    N(0, 0.02²) elsewhere."""
     import jax
     import jax.numpy as jnp
 
@@ -55,6 +64,8 @@ def jax_swin(config: Dict[str, Any], seed: int = 0):
                 out[k] = np.ones(v.shape, np.float32)
             elif k == "bias":
                 out[k] = np.zeros(v.shape, np.float32)
+            elif k == "contrast_scale":
+                out[k] = (1 + 0.5 * rs.randn(*v.shape)).astype(np.float32)
             else:
                 out[k] = (0.02 * rs.randn(*v.shape)).astype(np.float32)
         return out

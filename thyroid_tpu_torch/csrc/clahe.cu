@@ -1,11 +1,15 @@
 // CLAHE LUT apply: each pixel blends the LUTs of its four neighbouring tiles.
 //
-// Two entries sharing one device function:
+// Three entries sharing one device function:
 // - tt_apply_luts replaces the TPU kernel thyroid_tpu/ops/clahe.py
 //   _quadrant_apply_kernel (pallas_call in _interp_luts_pallas): one grid;
 // - tt_apply_luts_dual replaces _quadrant_apply_dual_kernel (pallas_call in
 //   _interp_luts_pallas_dual): each image takes the coarse or the fine
-//   grid's LUTs, as its use_coarse flag says.
+//   grid's LUTs, as its use_coarse flag says;
+// - tt_apply_luts_dual_fused replaces _quadrant_apply_dual_fused_kernel
+//   (pallas_call in _interp_luts_pallas_dual_fused): the dual apply with
+//   the uint16 round trip's way back and the per-image branch select as
+//   its epilogue (see its entry below).
 //
 // What it computes, per pixel (y, x) of image b with v = clip(x8, 0, 255):
 // cv2's tile coordinate f = p / t - 0.5 along each axis (float32 division),
@@ -31,7 +35,10 @@
 // bit-select tree and expansion matmul, which existed only because the
 // TPU's vector unit has no gather. Left for a later PR: each band reloads
 // its LUT rows from L2 (about twice the LUT bytes over the whole chunk),
-// and the float32 LUTs are converted to bytes in every block.
+// and the float32 LUTs are converted to bytes in every block. The fused
+// entry also reads the frame itself (12 bytes per pixel, 96 MiB per chunk,
+// about 30 us); a block of a frame that takes no equalisation copies its
+// rows and loads no LUTs.
 #include "common.cuh"
 
 #include <algorithm>
@@ -60,9 +67,11 @@ __device__ __forceinline__ float blend(float a, float b, float wgt) {
   return __fadd_rn(__fmul_rn(a, __fsub_rn(1.f, wgt)), __fmul_rn(b, wgt));
 }
 
-// Rows [y_begin, y_begin + kBand) of image b, with grid g's LUTs.
-__device__ void apply_band(const float* __restrict__ x8, float* __restrict__ out, const Grid& g,
-                           int b, int y_begin, int h, int w, unsigned char* s_lut) {
+// Rows [y_begin, y_begin + kBand) of image b, with grid g's LUTs: the blend
+// of pixel p (flat index into (B, H, W)) goes to store(p, blend).
+template <typename Store>
+__device__ void apply_band(const float* __restrict__ x8, const Grid& g, int b, int y_begin,
+                           int h, int w, unsigned char* s_lut, Store store) {
   const int y_end = min(y_begin + kBand, h);
   float wgt;
   int ya, yb, unused;
@@ -88,14 +97,15 @@ __device__ void apply_band(const float* __restrict__ x8, float* __restrict__ out
     const unsigned char* r1 = s_lut + (y1 - ya) * row + v;
     const float top = blend(r0[x0 * 256], r0[x1 * 256], wx);
     const float bot = blend(r1[x0 * 256], r1[x1 * 256], wx);
-    out[p] = blend(top, bot, wy);
+    store(p, blend(top, bot, wy));
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 apply_luts_kernel(const float* __restrict__ x8, float* __restrict__ out, int h, int w, Grid g) {
   extern __shared__ unsigned char s_lut[];
-  apply_band(x8, out, g, blockIdx.y, blockIdx.x * kBand, h, w, s_lut);
+  apply_band(x8, g, blockIdx.y, blockIdx.x * kBand, h, w, s_lut,
+             [&](size_t p, float v) { out[p] = v; });
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -103,7 +113,43 @@ apply_luts_dual_kernel(const float* __restrict__ x8, const int* __restrict__ use
                        float* __restrict__ out, int h, int w, Grid coarse, Grid fine) {
   extern __shared__ unsigned char s_lut[];
   const int b = blockIdx.y;
-  apply_band(x8, out, use_coarse[b] ? coarse : fine, b, blockIdx.x * kBand, h, w, s_lut);
+  apply_band(x8, use_coarse[b] ? coarse : fine, b, blockIdx.x * kBand, h, w, s_lut,
+             [&](size_t p, float v) { out[p] = v; });
+}
+
+// The dual apply with the round trip's way back and the branch select, per
+// image b with lo = min and span = max - min of its frame:
+//   apply[b] and span > 0: eq = rint(blend) (half to even),
+//     q = eq * float32(1/255), o = float32(double(q) * span + lo) (a double
+//     product and a double sum, each rounded, as ops/clahe.py
+//     _uint16_roundtrip computes them), out = floor(clamp(o, 0, 65535));
+//   apply[b] and span <= 0 (a flat frame): out = floor(orig);
+//   otherwise (an untouched frame): out = orig.
+__global__ void __launch_bounds__(kThreads)
+apply_luts_dual_fused_kernel(const float* __restrict__ x8, const float* __restrict__ orig,
+                             const int* __restrict__ use_coarse, const int* __restrict__ apply,
+                             const float* __restrict__ lo, const float* __restrict__ span,
+                             float* __restrict__ out, int h, int w, Grid coarse, Grid fine) {
+  extern __shared__ unsigned char s_lut[];
+  const int b = blockIdx.y, y_begin = blockIdx.x * kBand;
+  const float lo_b = lo[b], span_b = span[b];
+  if (apply[b] == 0 || !(span_b > 0.f)) {
+    const bool flat = apply[b] != 0;
+    const size_t base = (static_cast<size_t>(b) * h + y_begin) * w;
+    const int count = (min(y_begin + kBand, h) - y_begin) * w;
+    for (int i = threadIdx.x; i < count; i += kThreads) {
+      out[base + i] = flat ? floorf(orig[base + i]) : orig[base + i];
+    }
+    return;
+  }
+  apply_band(x8, use_coarse[b] ? coarse : fine, b, y_begin, h, w, s_lut,
+             [&](size_t p, float v) {
+               const float q = __fmul_rn(rintf(v), 1.0f / 255.0f);
+               const double o = __dadd_rn(__dmul_rn(static_cast<double>(q),
+                                                    static_cast<double>(span_b)),
+                                          static_cast<double>(lo_b));
+               out[p] = floorf(fminf(fmaxf(__double2float_rn(o), 0.f), 65535.f));
+             });
 }
 
 // Shared memory of the most tile rows a band of one grid can blend.
@@ -145,5 +191,29 @@ TT_EXPORT int tt_apply_luts_dual(const void* x8, const void* use_coarse, void* o
   apply_luts_dual_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x8), static_cast<const int*>(use_coarse),
       static_cast<float*>(out), h, w, c, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x8, orig, out: (b, h, w) float32 (x8 the 8-bit bins, orig the frame on
+// the uint16 scale); use_coarse, apply: (b,) int32; lo, span: (b,) float32;
+// the grids as tt_apply_luts_dual takes them.
+TT_EXPORT int tt_apply_luts_dual_fused(const void* x8, const void* orig, const void* use_coarse,
+                                       const void* apply, const void* lo, const void* span,
+                                       void* out, int b, int h, int w, const void* luts_c,
+                                       int gch, int gcw, int tch, int tcw, const void* luts_f,
+                                       int gfh, int gfw, int tfh, int tfw, void* stream) {
+  const Grid c{static_cast<const float*>(luts_c), gch, gcw, tch, tcw};
+  const Grid f{static_cast<const float*>(luts_f), gfh, gfw, tfh, tfw};
+  const size_t smem = std::max(lut_bytes(c), lut_bytes(f));
+  cudaError_t err = cudaFuncSetAttribute(apply_luts_dual_fused_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((h + kBand - 1) / kBand, b);
+  apply_luts_dual_fused_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x8), static_cast<const float*>(orig),
+      static_cast<const int*>(use_coarse), static_cast<const int*>(apply),
+      static_cast<const float*>(lo), static_cast<const float*>(span), static_cast<float*>(out),
+      h, w, c, f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -70,6 +70,18 @@ class DenseParams(nn.Module):
                 self.bias.zero_()
 
 
+class LecunDense(DenseParams):
+    """Dense parameters that flax's nn.Dense initialises by its defaults:
+    lecun_normal kernel over the fan-in, zero bias (Swin's quality gates,
+    quality-aware merge weights and uncertainty head)."""
+
+    def init_(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            lecun_normal_(self.kernel, self.kernel.shape[0], generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+
 class ConvParams(nn.Module):
     """flax nn.Conv parameters: `kernel` in PyTorch's (out, in / groups,
     kh, kw) layout and an optional `bias` (out,). The JAX leaf is the HWIO

@@ -9,11 +9,16 @@
   kernel (`csrc/swin_attention.cu`) with a backward kernel
   (`csrc/swin_attention_bwd.cu`) that recomputes the softmax from the saved
   inputs, as the JAX custom_vjp does.
+- `fused_swin_ln_attention` is the LN + QKV + shifted W-MSA serving
+  variant on the raw stream (`csrc/swin_ln_attention.cu`), forward only;
+  `WindowAttention(ln_kernel=True)` reaches it.
+- `fused_window_attention` is the per-window MSA on separate q/k/v
+  (`csrc/window_attention.cu`), forward only.
 
 Each runs its CUDA kernel on CUDA tensors and its plain PyTorch version
 (`swin_block_attention_plain`, `swin_attention_plain`,
-`swin_attention_bwd_plain`) on CPU tensors. `window_attention_reference`
-is the per-window reference the tests use.
+`swin_attention_bwd_plain`, `swin_ln_attention_plain`,
+`window_attention_reference`) on CPU tensors.
 """
 from __future__ import annotations
 
@@ -33,8 +38,10 @@ def window_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, bias: torch.Tensor,
                                mask: Optional[torch.Tensor] = None,
                                scale: Optional[float] = None) -> torch.Tensor:
-    """q/k/v (BW, h, N, d), bias (h, N, N), mask (nW, N, N) or None →
-    (BW, h, N, d) in q's dtype, computed in float32."""
+    """q/k/v (BW, h, N, d), bias (h, N, N), mask (nW, N, N) or None, window
+    b taking mask[b % nW] → (BW, h, N, d) in q's dtype, computed in
+    float32: q·scale, scores + bias (+ mask), e = exp(s − max),
+    P = e / Σe, P v. The plain version of fused_window_attention."""
     bw, h, n, d = q.shape
     if scale is None:
         scale = d ** -0.5
@@ -44,8 +51,60 @@ def window_attention_reference(q: torch.Tensor, k: torch.Tensor,
         nw = mask.shape[0]
         scores = (scores.reshape(bw // nw, nw, h, n, n)
                   + mask[None, :, None].float()).reshape(bw, h, n, n)
-    probs = torch.softmax(scores, dim=-1)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None,
+                           scale: Optional[float] = None,
+                           window_tile: int = 16) -> torch.Tensor:
+    """Per-window MSA: q/k/v (BW, h, N, d), bias (h, N, N), mask (nW, N, N)
+    additive or None (BW % nW == 0; window b takes mask[b % nW]) →
+    (BW, h, N, d) in q's dtype. N ≤ 64 on the card. Forward only.
+    `window_tile` is accepted and ignored: it tiled the TPU grid."""
+    del window_tile
+    refuse_autograd("fused_window_attention", "the JAX kernel has no "
+                    "autodiff either", q, k, v, bias, mask)
+    bw, h, n, d = q.shape
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} does not "
+                             f"match q {q.dtype} {tuple(q.shape)}")
+    if tuple(bias.shape) != (h, n, n):
+        raise ValueError(f"bias {tuple(bias.shape)} is not {(h, n, n)}")
+    if mask is not None and (mask.dim() != 3 or mask.shape[1:] != (n, n)
+                             or bw % mask.shape[0]):
+        raise ValueError(f"mask {tuple(mask.shape)} is not (nW, {n}, {n}) "
+                         f"with nW dividing {bw}")
+    if scale is None:
+        scale = d ** -0.5
+    if q.device.type == "cpu":
+        return window_attention_reference(q, k, v, bias, mask, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    bias_f = bias.float().contiguous()
+    mask_f = mask.float().contiguous() if mask is not None else None
+    _check_cuda("fused_window_attention", q, n, k, v, bias_f, mask_f)
+    out = torch.empty_like(q)
+    if bw == 0:
+        return out
+    fn = _build.function("window_attention", "tt_window_attention",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    status = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias_f),
+                _build.ptr(mask_f) if mask_f is not None else None,
+                _build.ptr(out), bw, h, n, d,
+                mask.shape[0] if mask is not None else 1, float(scale),
+                int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+    _build.check("window_attention", status, "fused_window_attention")
+    fused_window_attention.launches += 1
+    return out
+
+
+fused_window_attention.launches = 0
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -374,3 +433,99 @@ def fused_swin_block_attention(qkv: torch.Tensor, residual: torch.Tensor,
 
 
 fused_swin_block_attention.launches = 0
+
+
+def swin_ln_attention_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                            ln_bias: torch.Tensor, qkv_kernel: torch.Tensor,
+                            qkv_bias: Optional[torch.Tensor],
+                            bias: torch.Tensor,
+                            mask: Optional[torch.Tensor], *,
+                            window_size: int, num_heads: int, scale: float,
+                            eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of fused_swin_ln_attention, in the JAX kernel's order:
+    LayerNorm in float32 with the fast variance max(0, E[x²] − μ²),
+    (x − μ)·rsqrt(var + eps)·γ + β, rounded to x's dtype; q/k/v = xn W
+    accumulated in float32 (W rounded to x's dtype) plus the float32 QKV
+    bias; q·scale in float32; W-MSA in float32 (softmax e / Σe); the
+    output (B, H, W, C) in x's dtype."""
+    b, hh, ww, c = x.shape
+    ws, cdt = window_size, x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    xn = (xf - mu) * torch.rsqrt(var + eps)
+    xn = (xn * ln_scale.float() + ln_bias.float()).to(cdt).float()
+    qkv = xn @ qkv_kernel.to(cdt).float()
+    if qkv_bias is not None:
+        qkv = qkv + qkv_bias.float()
+    q, k, v = (_window_heads(qkv[..., i * c:(i + 1) * c], ws, num_heads)
+               for i in range(3))
+    o = window_attention_reference(q * scale, k, v, bias, mask, scale=1.0)
+    return _heads_window(o, ws, hh, ww).to(cdt)
+
+
+def fused_swin_ln_attention(x: torch.Tensor, ln_scale: torch.Tensor,
+                            ln_bias: torch.Tensor, qkv_kernel: torch.Tensor,
+                            qkv_bias: Optional[torch.Tensor],
+                            bias: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None, *,
+                            window_size: int, num_heads: int,
+                            scale: Optional[float] = None,
+                            eps: float = 1e-5) -> torch.Tensor:
+    """LN + QKV + W-MSA in one serving kernel: x (B, H, W, C) the raw
+    residual stream, already rolled if shifted; ln_scale, ln_bias (C,);
+    qkv_kernel (C, 3C); qkv_bias (3C,) or None; bias (heads, N, N) the
+    gathered relative-position bias; mask (nW, N, N) or None → (B, H, W, C)
+    attention output before the out-projection, in x's dtype. Forward
+    only: training keeps fused_swin_attention, as in the JAX package."""
+    refuse_autograd("fused_swin_ln_attention", "training uses "
+                    "fused_swin_attention, as in the JAX package", x,
+                    ln_scale, ln_bias, qkv_kernel, qkv_bias, bias)
+    b, hh, ww, c = x.shape
+    ws, n = window_size, window_size * window_size
+    if hh % ws or ww % ws or c % num_heads:
+        raise ValueError(f"({hh}, {ww}, {c}) does not tile into {ws}x{ws} "
+                         f"windows of {num_heads} heads")
+    if tuple(qkv_kernel.shape) != (c, 3 * c):
+        raise ValueError(f"qkv_kernel {tuple(qkv_kernel.shape)} is not "
+                         f"{(c, 3 * c)}")
+    nw = (hh // ws) * (ww // ws)
+    if tuple(bias.shape) != (num_heads, n, n):
+        raise ValueError(f"bias {tuple(bias.shape)} is not {(num_heads, n, n)}")
+    if mask is not None and tuple(mask.shape) != (nw, n, n):
+        raise ValueError(f"mask {tuple(mask.shape)} is not {(nw, n, n)}")
+    if scale is None:
+        scale = (c // num_heads) ** -0.5
+    kw = dict(window_size=ws, num_heads=num_heads, scale=float(scale),
+              eps=float(eps))
+    if x.device.type == "cpu":
+        return swin_ln_attention_plain(x, ln_scale, ln_bias, qkv_kernel,
+                                       qkv_bias, bias, mask, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    g = ln_scale.float().contiguous()
+    beta = ln_bias.float().contiguous()
+    w = qkv_kernel.to(x.dtype).contiguous()
+    bq = qkv_bias.float().contiguous() if qkv_bias is not None else None
+    bias_f = bias.float().contiguous()
+    mask_f = mask.float().contiguous() if mask is not None else None
+    _check_cuda("fused_swin_ln_attention", x, n, g, beta, w, bq, bias_f, mask_f)
+    out = torch.empty_like(x)
+    if b == 0:
+        return out
+    fn = _build.function("swin_ln_attention", "tt_swin_ln_attention",
+                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                            ctypes.c_void_p])
+    status = fn(_build.ptr(x), _build.ptr(g), _build.ptr(beta), _build.ptr(w),
+                _build.ptr(bq) if bq is not None else None, _build.ptr(bias_f),
+                _build.ptr(mask_f) if mask_f is not None else None,
+                _build.ptr(out), b, hh, ww, c, num_heads, ws, float(scale),
+                float(eps), int(x.dtype == torch.bfloat16),
+                _build.stream_ptr(x.device))
+    _build.check("swin_ln_attention", status, "fused_swin_ln_attention")
+    fused_swin_ln_attention.launches += 1
+    return out
+
+
+fused_swin_ln_attention.launches = 0

@@ -15,14 +15,20 @@ apply is the kernel:
   one grid's LUTs;
 - `apply_luts_dual` (csrc/clahe.cu `tt_apply_luts_dual`; plain: both
   grids through `_interp_luts` and a per-image select), each image taking
-  the coarse or the fine grid's LUTs.
+  the coarse or the fine grid's LUTs;
+- `apply_luts_dual_fused` (csrc/clahe.cu `tt_apply_luts_dual_fused`;
+  plain: `apply_luts_dual_fused_plain`), the dual apply with the uint16
+  round trip's way back and the per-image apply/pass-through select in one
+  pass, which `clahe_uint16_dual_fused` (plain:
+  `clahe_uint16_dual_fused_plain`, JAX's own definition) runs. The quality
+  pipeline does not call it, as in the JAX package.
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version.
 Tiles need not have even sides.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -209,32 +215,45 @@ def clahe_8bit(x8: torch.Tensor, clip_limit: float = 2.0,
     return apply_luts(x8, luts, grid)
 
 
+def _to_8bit(x: torch.Tensor):
+    """The round trip's way there: x (B, H, W, 1) → (img (B, H, W), lo,
+    span (B, 1, 1) each, x8 = floor((img − lo) / (span + 1e-8) · 255), the
+    uint8 cast)."""
+    b = x.shape[0]
+    img = x[..., 0]
+    flat = img.reshape(b, -1)
+    lo = flat.amin(dim=1).reshape(b, 1, 1)
+    span = flat.amax(dim=1).reshape(b, 1, 1) - lo
+    return img, lo, span, torch.floor((img - lo) / (span + 1e-8) * 255.0)
+
+
+def _from_8bit(eq: torch.Tensor, img: torch.Tensor, lo: torch.Tensor,
+               span: torch.Tensor) -> torch.Tensor:
+    """The round trip's way back: the rounded 8-bit eq (B, H, W) → floor of
+    eq/255·span + lo clamped to [0, 65535]; a flat image (span ≤ 0) keeps
+    img, floored.
+
+    Computed as the JAX package's compiled program computes it: q =
+    eq·float32(1/255) (XLA turns the division by a constant into that
+    product), then one rounding of q·span + lo (a fused multiply-add). The
+    product and the sum are exact in float64, so one rounding from float64
+    is the fused result on every device."""
+    out = ((eq * (1.0 / 255.0)).double() * span.double() + lo.double()) \
+        .to(torch.float32)
+    out = torch.clamp(out, 0.0, 65535.0)
+    out = torch.where(span <= 0, img, out)                  # flat: identity
+    return torch.floor(out)
+
+
 def _uint16_roundtrip(x: torch.Tensor,
                       eq_fn: Callable[[torch.Tensor], torch.Tensor]
                       ) -> torch.Tensor:
     """Range-preserving uint16 round trip (reference
     quality_preprocessing.py:125-147): per-image [min, max] → 8 bit →
     `eq_fn` → round (cv2's saturate_cast) → back to [min, max], floored
-    (the uint16 cast). Flat images pass through. x (B, H, W, 1).
-
-    The way back is computed as the JAX package's compiled program
-    computes it: q = eq·float32(1/255) (XLA turns the division by a
-    constant into that product), then one rounding of q·span + lo (a fused
-    multiply-add). The product and the sum are exact in float64, so one
-    rounding from float64 is the fused result on every device."""
-    b = x.shape[0]
-    img = x[..., 0]
-    flat = img.reshape(b, -1)
-    lo = flat.amin(dim=1).reshape(b, 1, 1)
-    hi = flat.amax(dim=1).reshape(b, 1, 1)
-    span = hi - lo
-    x8 = torch.floor((img - lo) / (span + 1e-8) * 255.0)   # uint8 cast
-    eq = torch.round(eq_fn(x8))
-    out = ((eq * (1.0 / 255.0)).double() * span.double() + lo.double()) \
-        .to(torch.float32)
-    out = torch.clamp(out, 0.0, 65535.0)
-    out = torch.where(span <= 0, img, out)                  # flat: identity
-    return torch.floor(out)[..., None]
+    (the uint16 cast). Flat images pass through. x (B, H, W, 1)."""
+    img, lo, span, x8 = _to_8bit(x)
+    return _from_8bit(torch.round(eq_fn(x8)), img, lo, span)[..., None]
 
 
 def clahe_uint16(x: torch.Tensor, clip_limit: float = 2.0,
@@ -290,3 +309,117 @@ def clahe_uint16_dual(x: torch.Tensor, use_coarse: torch.Tensor,
     return _uint16_roundtrip(
         x, lambda x8: clahe_8bit_dual(x8, use_coarse, clip_coarse,
                                       grid_coarse, clip_fine, grid_fine))
+
+
+def _blend_dual(x8: torch.Tensor, luts_c: torch.Tensor, luts_f: torch.Tensor,
+                use_coarse: torch.Tensor, grid_c: Grid, grid_f: Grid) -> torch.Tensor:
+    """Plain dual-grid blend: both grids through `_interp_luts` and a
+    per-image select."""
+    return torch.where(use_coarse.reshape(x8.shape[0], 1, 1),
+                       _interp_luts(x8, luts_c, grid_c),
+                       _interp_luts(x8, luts_f, grid_f))
+
+
+def apply_luts_dual_fused_plain(x8: torch.Tensor, img: torch.Tensor,
+                                luts_c: torch.Tensor, luts_f: torch.Tensor,
+                                use_coarse: torch.Tensor, apply: torch.Tensor,
+                                lo: torch.Tensor, span: torch.Tensor,
+                                grid_c: Grid, grid_f: Grid) -> torch.Tensor:
+    """Plain version of apply_luts_dual_fused: the dual blend, rounded,
+    taken back to the uint16 scale where apply, img elsewhere."""
+    b = x8.shape[0]
+    eq = torch.round(_blend_dual(torch.clamp(x8, 0, 255), luts_c, luts_f,
+                                 use_coarse, grid_c, grid_f))
+    back = _from_8bit(eq, img, lo.reshape(b, 1, 1), span.reshape(b, 1, 1))
+    return torch.where(apply.reshape(b, 1, 1), back, img)
+
+
+def apply_luts_dual_fused(x8: torch.Tensor, img: torch.Tensor,
+                          luts_c: torch.Tensor, luts_f: torch.Tensor,
+                          use_coarse: torch.Tensor, apply: torch.Tensor,
+                          lo: torch.Tensor, span: torch.Tensor,
+                          grid_c: Grid, grid_f: Grid) -> torch.Tensor:
+    """The dual apply with the round trip's way back and the branch select
+    in one pass: x8 (B, H, W) float32 bins, img (B, H, W) float32 the frames
+    on the uint16 scale, the two grids' LUTs, use_coarse and apply (B,)
+    bool, lo and span (B,) float32 → (B, H, W) float32: where apply, the
+    equalised frame back on [lo, lo + span], floored (a flat frame: img
+    floored); elsewhere img."""
+    if x8.device.type == "cpu":
+        return apply_luts_dual_fused_plain(x8, img, luts_c, luts_f, use_coarse,
+                                           apply, lo, span, grid_c, grid_f)
+    if x8.device.type != "cuda":
+        raise ValueError(f"unsupported device {x8.device}")
+    b, h, w = x8.shape
+    _check_apply("apply_luts_dual_fused", x8, img, luts_c, luts_f, lo, span)
+    if img.shape != x8.shape or lo.shape != (b,) or span.shape != (b,):
+        raise ValueError(f"img {tuple(img.shape)}, lo {tuple(lo.shape)} and "
+                         f"span {tuple(span.shape)} do not match x8 "
+                         f"{tuple(x8.shape)}")
+    for name, flag in (("use_coarse", use_coarse), ("apply", apply)):
+        if flag.shape != (b,) or flag.device != x8.device:
+            raise ValueError(f"{name} must be a (B,) tensor on x8's device")
+    sel = use_coarse.to(torch.int32).contiguous()
+    take = apply.to(torch.int32).contiguous()
+    out = torch.empty_like(img)
+    if b == 0:
+        return out
+    fn = _build.function("clahe", "tt_apply_luts_dual_fused", [
+        *[ctypes.c_void_p] * 7, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        *_GRID_ARGS, *_GRID_ARGS, ctypes.c_void_p])
+    status = fn(_build.ptr(x8), _build.ptr(img), _build.ptr(sel),
+                _build.ptr(take), _build.ptr(lo), _build.ptr(span),
+                _build.ptr(out), b, h, w, *_lut_args(luts_c, b, grid_c, h, w),
+                *_lut_args(luts_f, b, grid_f, h, w), _build.stream_ptr(x8.device))
+    _build.check("clahe", status, "apply_luts_dual_fused")
+    apply_luts_dual_fused.launches += 1
+    return out
+
+
+apply_luts_dual_fused.launches = 0
+
+
+def clahe_uint16_dual_fused_plain(x: torch.Tensor, use_coarse: torch.Tensor,
+                                  apply: torch.Tensor, clip_coarse: float,
+                                  grid_coarse: Grid, clip_fine: float,
+                                  grid_fine: Grid) -> torch.Tensor:
+    """Plain version of clahe_uint16_dual_fused, the JAX package's own
+    definition of it: where(apply, clahe_uint16_dual(x, …), x), with the
+    dual apply in plain PyTorch."""
+    def eq_fn(x8):
+        luts_c, luts_f = _dual_luts(x8, clip_coarse, grid_coarse, clip_fine,
+                                    grid_fine)
+        return _blend_dual(torch.clamp(x8, 0, 255), luts_c, luts_f,
+                           use_coarse, grid_coarse, grid_fine)
+
+    return torch.where(apply.reshape(-1, 1, 1, 1), _uint16_roundtrip(x, eq_fn), x)
+
+
+def clahe_uint16_dual_fused(x: torch.Tensor, use_coarse: torch.Tensor,
+                            apply: torch.Tensor, clip_coarse: float,
+                            grid_coarse: Grid, clip_fine: float,
+                            grid_fine: Grid,
+                            method: Optional[str] = None) -> torch.Tensor:
+    """The dual-grid uint16 CLAHE with the round trip's way back and the
+    pipeline's per-image branch select in the apply kernel
+    (apply_luts_dual_fused): equal to
+
+        where(apply, clahe_uint16_dual(x, use_coarse, …), x)
+
+    x (B, H, W, 1) float32 on the uint16 scale; use_coarse, apply (B,)
+    bool. The way there and the histogram and LUT chain stay plain
+    PyTorch, as in clahe_uint16_dual. `method` is accepted for the JAX
+    signature and has no effect, but "pallas" keeps the JAX package's
+    refusal of odd tile sides."""
+    h, w = x.shape[1], x.shape[2]
+    _check_dual(h, w, grid_coarse, grid_fine)
+    if method == "pallas" and ((h // grid_fine[0]) % 2 or (w // grid_fine[1]) % 2):
+        raise ValueError(f"quadrant CLAHE needs even tile sides, got "
+                         f"{h // grid_fine[0]}x{w // grid_fine[1]}")
+    img, lo, span, x8 = _to_8bit(x)
+    luts_c, luts_f = _dual_luts(x8, clip_coarse, grid_coarse, clip_fine,
+                                grid_fine)
+    return apply_luts_dual_fused(x8, img.contiguous(), luts_c, luts_f,
+                                 use_coarse, apply, lo.reshape(-1),
+                                 span.reshape(-1), grid_coarse,
+                                 grid_fine)[..., None]

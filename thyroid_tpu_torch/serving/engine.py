@@ -63,9 +63,11 @@ class InferenceEngine:
             raise ValueError("pass params or variables, not both")
         self.device = resolve_device(device)
         self.model_config = model_config
-        self.model = create_and_init(model_config, seed=0, device=self.device)
         if params is not None:
             variables = {"params": params}
+        # as the JAX engine: the config's warm start only without weights
+        self.model = create_and_init(model_config, seed=0, device=self.device,
+                                     pretrained=variables is None)
         if variables is not None:
             load_jax_variables(self.model, variables)
         self.img_size = int(cfg_get(model_config, "img_size", 224))

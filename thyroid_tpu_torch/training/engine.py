@@ -38,6 +38,7 @@ import torch
 from torch.func import functional_call
 
 from ..models import cnn, vit  # noqa: F401  (register the model families)
+from ..models.base import check_pretrained
 from ..models.from_jax import load_jax_variables
 from ..models.registry import ModelRegistry, cfg_get
 from ..ops.platform import DeviceLike, resolve_device
@@ -120,7 +121,10 @@ class Trainer:
     fit/validate/test on `device` (the card unless the CPU is asked for).
     `variables`, a JAX variable tree ({"params", "batch_stats"}), or
     `params`, a bare parameter tree for a model without BatchNorm,
-    replaces the seeded initial weights."""
+    replaces the seeded initial weights; without either, the model
+    config's `pretrained` / `pretrained_path` go through
+    models.base.check_pretrained, as the JAX Trainer's create_and_init
+    reads them."""
 
     def __init__(self, model: torch.nn.Module, model_config: Any,
                  training_config: Any, trainer_config: Any = None,
@@ -185,6 +189,8 @@ class Trainer:
             gamma=cfg_get(sched, "gamma", None),
         )
 
+        if params is None and variables is None:
+            check_pretrained(self.model_config)
         # weights drawn on the CPU, so a seed gives the same model anywhere
         self.model.to("cpu")
         self.model.init_weights(torch.Generator().manual_seed(self.cfg.seed))
@@ -228,7 +234,13 @@ class Trainer:
             raise _unported("auxiliary heads", "rest of the zoo")
         loss = cross_entropy(logits, labels, self.label_smoothing, weights)
         names = list(self.state.params)
-        grads = torch.autograd.grad(loss, [self.state.params[n] for n in names])
+        params = [self.state.params[n] for n in names]
+        # a parameter outside the loss (Swin's uncertainty head) gets a zero
+        # gradient, as jax.grad gives it: it still moves Adam's moments and
+        # the decoupled weight decay
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
         return loss.detach(), logits.detach(), dict(zip(names, grads))
 
     def train_step(self, mstate: Dict[str, torch.Tensor], images: torch.Tensor,
