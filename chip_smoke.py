@@ -5,8 +5,10 @@
 
 Phases, each printing its lines before the final one:
 1. build: compile every kernel of thyroid_tpu_torch/csrc with nvcc for
-   sm_90a (one nvcc per source, in parallel) and print the card's name and
-   power limit as nvidia-smi reports them;
+   sm_90a (one nvcc per source, in parallel; each source's nvcc time is
+   printed), count the wgmma (HGMMA) instructions of the ln_mlp and
+   ln_mlp_bwd libraries in cuobjdump's SASS (the phase fails at 0), and
+   print the card's name and power limit as nvidia-smi reports them;
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs, at every shape the swin_tiny forward gives it at batch 32,
    in float32 (TF32 off for matmuls and convolutions) and in bfloat16;
@@ -64,7 +66,9 @@ Phases, each printing its lines before the final one:
 13. token train times: each token backward kernel's and each token
    training forward's median time per train step beside its bound, plain
    version and library yardstick (torch.autograd.grad through LayerNorm +
-   linear (+ GELU + linear)), training images/s at batch 32 and 128 with
+   linear (+ GELU + linear); for the LN + MLP dX kernel the device time of
+   that backward, from CUDA-graph replays of forward + backward less the
+   forward), training images/s at batch 32 and 128 with
    the flag on beside the flag off, and a profile of one flagged train step
    at batch 32;
 14. depthwise kernel: the stride-1 depthwise kernel (Q2-17) against its
@@ -118,7 +122,13 @@ Phases, each printing its lines before the final one:
    7 also beside kernels 2 + 5 and row 16 beside clahe_uint16_dual + where;
    images/s of predict for the YAML swin_tiny beside the registry one at
    buckets 32 and 128, its training images/s at batch 32 and 128, and a
-   profile of one YAML predict.
+   profile of one YAML predict;
+21. tensor-core kernels: the wgmma LN + MLP forward (row 3) against its
+   plain version at swin_medical.yaml's 256² shapes (float32 and bf16) and
+   at the swin_base / swin_large widths 512-1536 (bf16; float32 up to
+   1024, where the scalar float32 kernel's shared memory ends), the wgmma
+   LN + MLP dX (row 10) at width 512, and row 3's time per swin_medical
+   forward at bucket 32 beside the library composition's device time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -187,6 +197,10 @@ ATTN_RTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # contrast: fine)
 DUAL_GRIDS = {"clip_coarse": 2.0, "grid_coarse": (16, 16), "clip_fine": 0.03,
               "grid_fine": (32, 32)}
+
+
+# the libraries whose bf16 kernels run on wgmma (kernels 3 and 10)
+TENSOR_CORE_LIBS = ("ln_mlp", "ln_mlp_bwd")
 
 
 def log(*parts) -> None:
@@ -268,13 +282,35 @@ def kernel_fns(kernel: str, shape):
             lambda *a: attention.swin_block_attention_plain(*a, **kw))
 
 
+def quantile_normalize_library(x):
+    """Row 1's yardstick: each image clipped to its exact 1st and 99th
+    percentiles (torch.quantile, a sort) and scaled to [0, 1]."""
+    xf = x.float().reshape(x.shape[0], -1)
+    q = torch.tensor([0.01, 0.99], device=x.device)
+
+    def run():
+        lo, hi = torch.quantile(xf, q, dim=1)[:, :, None]
+        return ((torch.minimum(torch.maximum(xf, lo), hi) - lo)
+                / (hi - lo + 1e-8)).to(x.dtype)
+
+    return run
+
+
+def stats_quantile_library(x, q: float):
+    """Row 12's yardstick: each image's mean, population std, max, min and
+    exact quantile q (torch.quantile, a sort)."""
+    xf = x.reshape(x.shape[0], -1)
+    return lambda: (xf.mean(dim=1), xf.std(dim=1, correction=0), xf.amax(dim=1),
+                    xf.amin(dim=1), torch.quantile(xf, q, dim=1))
+
+
 def library_fn(kernel: str, shape, args):
     """One PyTorch library composition of the same function, for timing
     only (the port never calls it), or None where there is none."""
     import torch.nn.functional as F
 
     if kernel == "percentile":
-        return None
+        return quantile_normalize_library(args[0])
     if kernel == "ln_matmul":
         x, g, b, w, wb = args
         wt, gd, bd = w.t().contiguous(), g.to(x.dtype), b.to(x.dtype)
@@ -349,9 +385,20 @@ def phase_build() -> str:
     log(f"[build] {len(logs)} CUDA sources compiled in "
         f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, text in sorted(logs.items()):
+        log(f"[build] {name}.cu: nvcc {_build.BUILD_SECONDS[name]:.1f} s")
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in TENSOR_CORE_LIBS:
+        path = _build.library_path(name)
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        count = sass.count("HGMMA")
+        log(f"[build] {path.name}: {count} HGMMA instructions")
+        if count == 0:
+            raise AssertionError(f"{path.name} holds no wgmma (HGMMA) instruction")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1244,18 +1291,26 @@ def phase_quality_times(cases, launches, engine, params, frames):
             "apply_luts": ("apply_luts", "clahe.cu", "ops/clahe.py:268"),
             "apply_luts_dual": ("apply_luts_dual", "clahe.cu", "ops/clahe.py:473")}
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-               "ops_ms": 0.0, "err": 0.0} for k in meta}
+               "ops_ms": 0.0, "err": 0.0, "library_ms": None} for k in meta}
+    chunk = torch.from_numpy(frames[..., None]).cuda()
+    libraries = {"stats_quantile": stats_quantile_library(chunk, 0.999)}
     for kernel, label, fused, plain, (nbytes, f32_ops, f64_ops) in cases:
         ms = median_ms(fused)
         plain_ms = median_ms(plain, reps=5, warm=1)
+        lib_ms = median_ms(libraries[kernel]) if kernel in libraries else None
         err = compare_quality(kernel, fused(), plain())[0]
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = (f32_ops / PEAK_OPS_PER_S[torch.float32]
                  + f64_ops / PEAK_OPS_PER_S[torch.float64]) * 1e3
+        lib_text = f"{lib_ms:.4f} ms" if lib_ms is not None else \
+            "none (no PyTorch call computes it)"
         log(f"[quality-times] {kernel} {label}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library none, bound {max(t_bytes, t_ops):.4f} ms "
+            f"{plain_ms:.4f} ms, library {lib_text}, bound "
+            f"{max(t_bytes, t_ops):.4f} ms "
             f"({'bytes' if t_bytes >= t_ops else 'operations'})")
         t = tot[kernel]
+        if lib_ms is not None:
+            t["library_ms"] = (t["library_ms"] or 0.0) + lib_ms
         t["ms"] += ms
         t["plain_ms"] += plain_ms
         t["bound_ms"] += max(t_bytes, t_ops)
@@ -1272,7 +1327,7 @@ def phase_quality_times(cases, launches, engine, params, frames):
             "launches": launches[kernel], "max_abs_err": t["err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
-            "library_ms": None})
+            "library_ms": t["library_ms"]})
         log(f"[quality-times] {name} per 32-frame chunk: {t['ms']:.4f} ms "
             f"(bound {t['bound_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms)")
 
@@ -1424,6 +1479,27 @@ def token_library_fn(kernel: str, args):
     if kernel == "ln_mlp":
         return mlp
     return grad_of(mlp(), (xr, gd, bd) if need_x else (w1t, b1d, w2t), args[6])
+
+
+def mlp_dx_library_device_ms(args) -> float:
+    """Device time of autograd's LN + MLP backward to x, γ and β (row 10's
+    yardstick): CUDA-graph replays of forward + backward less those of the
+    forward, since a backward of a forward run outside the capture cannot
+    be captured."""
+    import torch.nn.functional as F
+
+    x, g, b, w1, b1, w2, dy = args
+    c = x.shape[1]
+    xr = x.detach().requires_grad_()
+    gd, bd = g.to(x.dtype).requires_grad_(), b.to(x.dtype).requires_grad_()
+    w1t, b1d, w2t = w1.t().contiguous(), b1.to(x.dtype), w2.t().contiguous()
+
+    def forward():
+        return F.linear(F.gelu(F.linear(F.layer_norm(xr, (c,), gd, bd, 1e-5),
+                                        w1t, b1d)), w2t)
+
+    both = device_ms(lambda: torch.autograd.grad(forward(), (xr, gd, bd), dy))
+    return both - device_ms(forward)
 
 
 def token_work(kernel: str, shape, dtype):
@@ -1585,14 +1661,19 @@ def phase_token_times(shapes, launches, params):
             fused, plain = token_fns(kernel)
             ms = median_ms(lambda: fused(*args))
             plain_ms = median_ms(lambda: plain(*args), reps=5, warm=1)
-            lib_ms = median_ms(token_library_fn(kernel, args))
+            # row 10's yardstick is device time, so that the host's launches
+            # of autograd do not set it; rows 9 and 11 keep CUDA events
+            # around the host's launches, which move with the host
+            lib_ms = mlp_dx_library_device_ms(args) if kernel == "ln_mlp_bwd_dx" \
+                else median_ms(token_library_fn(kernel, args))
             err = max(row[1] for row in compare_token(
                 kernel, fused(*args), plain(*args), dtype))
             nbytes, ops, peak = token_work(kernel, shape, dtype)
             t_bytes = nbytes / H100_BYTES_PER_S * 1e3
             t_ops = ops / peak * 1e3
             log(f"[token-times] {kernel} bf16 {shape} x{count}: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+                f"({'device' if kernel == 'ln_mlp_bwd_dx' else 'events'}), "
                 f"bound {max(t_bytes, t_ops):.4f} ms "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'})")
             tot["ms"] += count * ms
@@ -2602,6 +2683,78 @@ def phase_remaining_times(attn_shapes, launches, frames):
     return entries
 
 
+def medical_mlp_shapes(batch: int):
+    """{(T, C, Hd): launches per forward} of the LN + MLP kernel in
+    swin_medical.yaml's forward at 256²: maps 64, 32, 16, 8 (the MLP runs
+    on the unpadded tokens), depths (2, 2, 18, 2)."""
+    return {(batch * (64 // 2 ** i) ** 2, 96 * 2 ** i, 384 * 2 ** i): depth
+            for i, depth in enumerate((2, 2, 18, 2))}
+
+
+# widths of swin_base (128·2^k) and swin_large (192·2^k) at their last two
+# stages' tokens at bucket 32: kernel 3 takes them in bf16 (the scalar
+# float32 kernel's shared memory stops below 1536)
+WIDE_MLP_SHAPES = ((6272, 512, 2048), (1568, 1024, 4096), (6272, 768, 3072),
+                   (1568, 1536, 6144))
+
+
+def phase_tensor_core():
+    """Kernels 3 and 10 (the wgmma LN + MLP forward and backward dX)
+    against their plain versions at the shapes phases 2 and 11 do not
+    take: swin_medical.yaml's 256² forward, and the swin_base and
+    swin_large widths up to 1536 (kernel 3) and 768 (kernel 10); then
+    kernel 3's time per swin_medical forward."""
+    from thyroid_tpu_torch.ops import token_fused as tf
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    failed = []
+    med = medical_mlp_shapes(BATCH)
+    cases = [(shape, dt) for shape in med for dt in (torch.float32, torch.bfloat16)]
+    cases += [(shape, torch.bfloat16) for shape in WIDE_MLP_SHAPES]
+    cases += [(shape, torch.float32) for shape in WIDE_MLP_SHAPES if shape[1] <= 1024]
+    for shape, dtype in cases:
+        args = make_inputs("ln_mlp_residual", shape, dtype, gen)
+        got = tf.fused_ln_mlp_residual(*args).float()
+        want = tf.ln_mlp_residual_plain(*args).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = RTOL[dtype] * max(1.0, want.abs().max().item())
+        ok = bool(np.isfinite(err)) and err <= tol and bool(torch.isfinite(got).all())
+        log(f"[tensor-core] ln_mlp_residual {str(dtype)[6:]} {shape}: max_abs_err "
+            f"{err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(("ln_mlp_residual", str(dtype), shape, err))
+        del args, got, want
+    for dtype in (torch.float32, torch.bfloat16):
+        shape = (6272, 512)                         # swin_base stage 3
+        args = make_token_inputs("ln_mlp_bwd_dx", shape, dtype, gen)
+        fused, plain = token_fns("ln_mlp_bwd_dx")
+        for name, err, tol, ok in compare_token("ln_mlp_bwd_dx", fused(*args),
+                                                plain(*args), dtype):
+            log(f"[tensor-core] ln_mlp_bwd_dx {str(dtype)[6:]} {shape} {name}: "
+                f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(("ln_mlp_bwd_dx", str(dtype), shape, name, err))
+        del args
+    if failed:
+        raise AssertionError(f"tensor-core kernels disagree: {failed}")
+    tot = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for shape, count in med.items():
+        args = make_inputs("ln_mlp_residual", shape, torch.bfloat16, gen)
+        ms = median_ms(lambda: tf.fused_ln_mlp_residual(*args))
+        lib_ms = device_ms(library_fn("ln_mlp_residual", shape, args))
+        nbytes, ops, peak = work("ln_mlp_residual", shape, torch.bfloat16)
+        bound = max(nbytes / H100_BYTES_PER_S, ops / peak) * 1e3
+        log(f"[tensor-core] ln_mlp_residual bf16 {shape} x{count}: kernel {ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms (device), bound {bound:.4f} ms")
+        for k, v in (("ms", ms), ("library_ms", lib_ms), ("bound_ms", bound)):
+            tot[k] += count * v
+        del args
+    log(f"[tensor-core] ln_mlp_residual per swin_medical forward at bucket {BATCH}: "
+        f"{tot['ms']:.4f} ms (library {tot['library_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms)")
+
+
 def phase_yaml_times(engine, cfg, params, registry_params):
     """images/s of predict for the YAML swin_tiny beside the registry
     swin_tiny (with `registry_params`) at buckets 32 and 128 (in turns),
@@ -2686,6 +2839,7 @@ def main() -> int:
         y_engine, y_cfg, y_params = phase_yaml_slice()
         phase_medical_slice()
         torch.cuda.empty_cache()
+        phase_tensor_core()
         entries += phase_remaining_times(attn_shapes, r_launches, frames)
         phase_yaml_times(y_engine, y_cfg, y_params, params)
     finally:

@@ -244,13 +244,16 @@ def _x8_luts(b, h, w, grid):
 @pytest.mark.parametrize("h,w,grid", [(64, 64, (8, 8)), (56, 70, (8, 7)),
                                       (64, 48, (4, 6)), (60, 60, (4, 4))])
 def test_interp_luts_exact(h, w, grid):
-    """The gather formulation, bit-equal, at even and odd tile sides."""
+    """The gather formulation, bit-equal at even and odd tile sides to JAX's
+    as every caller in the JAX package runs it: compiled under jit, where
+    XLA rounds the tile coordinates and the blend otherwise than eager
+    operations do (see ops/clahe.py `_blend_coords` and `_lerp`)."""
     x8, luts = _x8_luts(2, h, w, grid)
     got = tclahe.apply_luts(_t(x8), _t(luts), grid).numpy()
     np.testing.assert_array_equal(got, tclahe._interp_luts(_t(x8), _t(luts),
                                                            grid).numpy())
-    want = np.asarray(jclahe._interp_luts(jnp.asarray(x8), jnp.asarray(luts),
-                                          grid))
+    want = np.asarray(jax.jit(jclahe._interp_luts, static_argnames="grid")(
+        jnp.asarray(x8), jnp.asarray(luts), grid))
     np.testing.assert_array_equal(got, want)
 
 
@@ -303,8 +306,11 @@ def test_hists_and_luts(grid, clip):
 @pytest.mark.unit
 def test_clahe_uint16_and_dual():
     """The uint16 round trip, single grid and dual, including a flat frame
-    (span 0, pass-through) and a frame spanning the whole uint16 range."""
-    x = (RS.rand(4, 64, 64, 1) * 65535).astype(np.float32)
+    (span 0, pass-through) and a frame spanning the whole uint16 range. Its
+    own RandomState: its frames do not depend on which tests ran before it
+    in the process."""
+    x = (np.random.RandomState(33).rand(4, 64, 64, 1) * 65535) \
+        .astype(np.float32)
     x[1] = 1234.0
     x[2, 0, 0], x[2, 1, 1] = 0.0, 65535.0
     x = np.floor(x)

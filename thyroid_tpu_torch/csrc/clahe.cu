@@ -12,15 +12,18 @@
 //   its epilogue (see its entry below).
 //
 // What it computes, per pixel (y, x) of image b with v = clip(x8, 0, 255):
-// cv2's tile coordinate f = p / t - 0.5 along each axis (float32 division),
-// weight f - floor(f), neighbour tiles clamp(floor(f)) and
-// clamp(floor(f) + 1) into the grid; then
+// cv2's tile coordinate f = p / t - 0.5 along each axis, weight
+// f - floor(f), neighbour tiles clamp(floor(f)) and clamp(floor(f) + 1)
+// into the grid; then
 //   top = f00 * (1 - wx) + f01 * wx,  bot = f10 * (1 - wx) + f11 * wx,
 //   out = top * (1 - wy) + bot * wy,
-// with fij = lut[b, yi, xj, v], each operation a separately rounded float32
-// one, exactly as ops/clahe.py _interp_luts (the plain version) computes it:
-// the quality pipeline rounds the blend to 8 bit and scales it by about
-// 257, so a last-bit difference at .5 would move a pixel by a grey level.
+// with fij = lut[b, yi, xj, v]. Every step is rounded as the JAX package's
+// compiled program rounds it, and as ops/clahe.py _interp_luts (the plain
+// version) repeats it: f = fma(p, float32(1/t), -0.5) (XLA's reciprocal
+// product, fused with the -0.5), and each blend a * (1 - w) + b * w as
+// fma(a, 1 - w, round(b * w)); the quality pipeline rounds the blend to
+// 8 bit and scales it by about 257, so a last-bit difference at .5 would
+// move a pixel by a grey level.
 // Tiles need not have even sides.
 //
 // Bound on the H100: one read of x8 and one write of the output (8 bytes
@@ -55,7 +58,7 @@ struct Grid {
 
 // cv2's tile coordinate of pixel p along an axis with tiles of t and g tiles.
 __device__ __forceinline__ void tile_coord(int p, int t, int g, float& wgt, int& i0, int& i1) {
-  const float f = __fsub_rn(__fdiv_rn(static_cast<float>(p), static_cast<float>(t)), 0.5f);
+  const float f = __fmaf_rn(static_cast<float>(p), __frcp_rn(static_cast<float>(t)), -0.5f);
   const float fl = floorf(f);
   wgt = __fsub_rn(f, fl);
   const int k = static_cast<int>(fl);
@@ -64,7 +67,7 @@ __device__ __forceinline__ void tile_coord(int p, int t, int g, float& wgt, int&
 }
 
 __device__ __forceinline__ float blend(float a, float b, float wgt) {
-  return __fadd_rn(__fmul_rn(a, __fsub_rn(1.f, wgt)), __fmul_rn(b, wgt));
+  return __fmaf_rn(a, __fsub_rn(1.f, wgt), __fmul_rn(b, wgt));
 }
 
 // Rows [y_begin, y_begin + kBand) of image b, with grid g's LUTs: the blend
@@ -120,9 +123,9 @@ apply_luts_dual_kernel(const float* __restrict__ x8, const int* __restrict__ use
 // The dual apply with the round trip's way back and the branch select, per
 // image b with lo = min and span = max - min of its frame:
 //   apply[b] and span > 0: eq = rint(blend) (half to even),
-//     q = eq * float32(1/255), o = float32(double(q) * span + lo) (a double
-//     product and a double sum, each rounded, as ops/clahe.py
-//     _uint16_roundtrip computes them), out = floor(clamp(o, 0, 65535));
+//     o = fma(eq, float32(span * float32(1/255)), lo) (XLA's reassociated
+//     eq * (span / 255) and the fused + lo, as ops/clahe.py _from_8bit
+//     computes it), out = floor(clamp(o, 0, 65535));
 //   apply[b] and span <= 0 (a flat frame): out = floor(orig);
 //   otherwise (an untouched frame): out = orig.
 __global__ void __launch_bounds__(kThreads)
@@ -133,6 +136,7 @@ apply_luts_dual_fused_kernel(const float* __restrict__ x8, const float* __restri
   extern __shared__ unsigned char s_lut[];
   const int b = blockIdx.y, y_begin = blockIdx.x * kBand;
   const float lo_b = lo[b], span_b = span[b];
+  const float scale = __fmul_rn(span_b, 1.0f / 255.0f);
   if (apply[b] == 0 || !(span_b > 0.f)) {
     const bool flat = apply[b] != 0;
     const size_t base = (static_cast<size_t>(b) * h + y_begin) * w;
@@ -144,11 +148,8 @@ apply_luts_dual_fused_kernel(const float* __restrict__ x8, const float* __restri
   }
   apply_band(x8, use_coarse[b] ? coarse : fine, b, y_begin, h, w, s_lut,
              [&](size_t p, float v) {
-               const float q = __fmul_rn(rintf(v), 1.0f / 255.0f);
-               const double o = __dadd_rn(__dmul_rn(static_cast<double>(q),
-                                                    static_cast<double>(span_b)),
-                                          static_cast<double>(lo_b));
-               out[p] = floorf(fminf(fmaxf(__double2float_rn(o), 0.f), 65535.f));
+               const float o = __fmaf_rn(rintf(v), scale, lo_b);
+               out[p] = floorf(fminf(fmaxf(o, 0.f), 65535.f));
              });
 }
 

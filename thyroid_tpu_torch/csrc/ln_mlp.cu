@@ -12,20 +12,45 @@
 // normalised row rounded to the compute type; per hidden unit
 // h = xn . W1 + b1 (f32 accumulation) rounded to the compute type, exact
 // erf GELU in f32, rounded again; then acc = h . W2 in f32, and
-// y = acc + b2 (+ x with the residual) stored in the compute type.
+// y = acc + b2 (+ x with the residual) stored in the compute type, one
+// rounding from the full f32 sum.
 //
-// Bound on the H100: 4*C*Hd operations per row for 2*C elements moved, so
-// bound by operations. Design (simple first): a block owns 32 rows and up
-// to 768 output columns (more columns take more blocks along y, each
-// recomputing the hidden layer). The normalised rows stay in shared memory;
-// the hidden layer is produced 128 units at a time into shared memory and
-// consumed at once into per-thread f32 register accumulators (2 rows x 48
-// columns a thread), so the 4C-wide hidden tensor never reaches global
-// memory. W1 and W2 are streamed through shared memory in chunks. Scalar
-// f32 FMAs; tensor-core tiles are later work. The f32 accumulator of a
-// 64 x 768 tile would not fit beside the normalised rows in shared memory,
-// which is why it lives in registers.
-#include "common.cuh"
+// Bound on the H100: 4*C*Hd operations per row for 2*C elements moved
+// (177.6 GFLOP per swin_tiny forward at bucket 32, 0.18 ms of dense bf16),
+// so bound by operations: the bf16 path runs on the tensor cores.
+//
+// bf16 (the served path): mlp_tc.cuh's wgmma core. A pass writes the
+// normalised rows xn (bf16) to the workspace; then a CTA of 64 rows x at
+// most 512 output columns has one producer thread load 64-deep tiles of
+// xn, W1 and W2 by TMA into a ring of stages (mbarriers), while its
+// consumer warpgroups compute each hidden chunk (64 units per warpgroup)
+// with wgmma m64n64k16 into registers, apply + b1, round, GELU, round
+// there and store it (bf16, swizzled) as the A operand of fc2, which
+// accumulates with wgmma m64nNk16 (N = 64-256 columns per warpgroup) into
+// an f32 register tile. Shapes by width: C <= 256 one consumer warpgroup
+// (C = 96: N = 128, a quarter of fc2 on zero columns); C = 384 two of 192
+// columns; C = 768 two column blocks of 384 (each recomputes fc1: stage 4
+// does 1.5x the operations); C = 1536 three blocks of 512 (two warpgroups
+// of 256). Budget at C = 768: 4 stages of 48 KB + the 64 x 128 hidden
+// chunk (16 KB) = 209 KB of shared memory, one CTA of 288 threads per SM,
+// 96 + 32 f32 accumulator registers a thread (159 in all, no spill); at
+// C = 1536: 3 stages of 64 KB (209 KB), 128 + 32 accumulators, and the
+// 168 registers a thread that nine warps leave (two consumer warps and
+// the producer's on each of the SM's four schedulers) spill 512 bytes.
+// One consumer warpgroup (C <= 256) keeps to 106 KB, so that two CTAs
+// share an SM. Where the row tiles x column blocks would not fill two
+// waves of the 132 SMs (swin_tiny stages 3 and 4: 98 and 50 CTAs), the
+// hidden axis is split over CTAs into f32 partials that a second pass
+// adds in split order with b2 and the residual.
+//
+// float32 (the card-vs-CPU parity path) stays on the scalar kernel below:
+// TF32 tensor cores keep 10 mantissa bits and would not hold the 1e-4
+// float32 checks. A block owns 32 rows and up to 768 output columns (more
+// columns take more blocks along y, each recomputing the hidden layer);
+// the normalised rows stay in shared memory; the hidden layer is produced
+// 128 units at a time into shared memory and consumed at once into
+// per-thread f32 register accumulators (2 rows x 48 columns a thread).
+#include "mlp_tc.cuh"
 
 namespace {
 
@@ -37,10 +62,6 @@ constexpr int kBK2 = 16;       // K chunk of fc2
 constexpr int kGroups = 12;    // 64-column groups a block owns
 constexpr int kCols = 64 * kGroups;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -132,7 +153,7 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
         const int jj = (e < 4 ? tx * 4 + e : 64 + tx * 4 + e - 4);
         const int hj = h0 + jj;
         float v = 0.f;
-        if (hj < hdim) v = round_to<T>(gelu_erf(round_to<T>(hacc[i][e] + b1[hj])));
+        if (hj < hdim) v = round_to<T>(tokbwd::gelu(round_to<T>(hacc[i][e] + b1[hj])));
         Hs[(ty + 16 * i) * kLdH + jj] = v;
       }
     }
@@ -196,34 +217,224 @@ size_t smem_bytes(int c) {
                           static_cast<size_t>(kBK2) * ncol_pad);
 }
 
-template <typename T>
-int launch(const void* x, const float* g, const float* b, const void* w1, const float* b1,
-           const void* w2, const float* b2, void* y, int t, int c, int hdim, float eps,
-           int residual, cudaStream_t s) {
+int launch_f32(const void* x, const float* g, const float* b, const void* w1, const float* b1,
+               const void* w2, const float* b2, void* y, int t, int c, int hdim, float eps,
+               int residual, cudaStream_t s) {
   const size_t smem = smem_bytes(c);
-  cudaError_t err = cudaFuncSetAttribute(ln_mlp_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_kernel<float>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t + kBM - 1) / kBM, (c + kCols - 1) / kCols);
-  ln_mlp_kernel<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(x), g, b, static_cast<const T*>(w1), b1, static_cast<const T*>(w2),
-      b2, static_cast<T*>(y), t, c, hdim, eps, residual);
+  ln_mlp_kernel<float><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(x), g, b, static_cast<const float*>(w1), b1,
+      static_cast<const float*>(w2), b2, static_cast<float*>(y), t, c, hdim, eps, residual);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- bf16: the tensor-core kernel -----------------------------------------
+
+using mlptc::bf16;
+using mlptc::kTile;
+
+// One CTA: rows [64 x, +64), output columns [cblock y, +cblock) (capped at
+// C), hidden chunks [cps z, +cps) of 64 NW units. Warpgroups 0..NW - 1
+// multiply; the first thread after them loads. part ==
+// nullptr: the epilogue stores y; otherwise the f32 partial of split z.
+template <int NW, int NWC>
+__global__ void __launch_bounds__(mlptc::threads(NW), 1)
+ln_mlp_tc_kernel(const __grid_constant__ CUtensorMap m_xn,
+                 const __grid_constant__ CUtensorMap m_w1,
+                 const __grid_constant__ CUtensorMap m_w2, const bf16* __restrict__ x,
+                 const float* __restrict__ b1, const float* __restrict__ b2,
+                 bf16* __restrict__ y, float* __restrict__ part, int t, int c, int hdim,
+                 int cblock, int cps, int nchunks, int residual) {
+  constexpr int kStage = mlptc::stage_bytes(NW, NWC), kStages = mlptc::stages(NW, NWC);
+  constexpr int kFc2Blocks = NW * NWC / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (wg::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t hbuf = base + kStages * kStage;  // the hidden chunk, 64 x 64 NW
+  const uint32_t bars = hbuf + kTile * NW;        // kStages full, then kStages empty
+  // the warpgroup index through a shuffle, so that the compiler sees it
+  // warp-uniform and keeps the wgmma descriptors in uniform registers
+  const int tid = threadIdx.x, wgi = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int row0 = blockIdx.x * mlptc::kRows;
+  const int c0 = blockIdx.y * cblock, ccap = min(c, c0 + cblock);
+  const int ch0 = blockIdx.z * cps, nch = min(nchunks, ch0 + cps) - ch0;
+  const int nk1 = (c + 63) / 64, tpc = nk1 + NW, ntiles = nch * tpc;
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      wg::mbar_init(bars + 8 * i, 1);
+      wg::mbar_init(bars + 8 * (kStages + i), NW);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the producer: k-tile g is xn[:, 64 r..] and W1[64 r.., chunk] for
+  // r < nk1, else W2[chunk's 64 (r - nk1).., columns]
+  if (wgi == NW) {
+    if (tid == NW * 128) {
+      for (int g = 0; g < ntiles; ++g) {
+        const int s = g % kStages, h0 = (ch0 + g / tpc) * 64 * NW, r = g % tpc;
+        const uint32_t st = base + s * kStage, full = bars + 8 * s;
+        wg::mbar_wait(bars + 8 * (kStages + s), ((g / kStages) & 1) ^ 1);
+        if (r < nk1) {
+          wg::mbar_expect_tx(full, kTile * (1 + NW));
+          wg::tma_load(st, &m_xn, 64 * r, row0, full);
+#pragma unroll
+          for (int b = 0; b < NW; ++b)
+            wg::tma_load(st + kTile * (1 + b), &m_w1, h0 + 64 * b, 64 * r, full);
+        } else {
+          wg::mbar_expect_tx(full, kTile * kFc2Blocks);
+#pragma unroll
+          for (int b = 0; b < kFc2Blocks; ++b)
+            wg::tma_load(st + kTile * b, &m_w2, c0 + 64 * b, h0 + 64 * (r - nk1), full);
+        }
+      }
+    }
+  } else {  // the consumers
+    const int cw = wgi;
+    // k-tile g of the ring, as the producer counts them: wait for it, then
+    // hand its stage back once this warpgroup's wgmma on it is done
+    auto take = [&](int g) {
+      wg::mbar_wait(bars + 8 * (g % kStages), (g / kStages) & 1);
+      return base + (g % kStages) * kStage;
+    };
+    auto release = [&](int g) {
+      wg::wait<0>();
+      if ((tid & 127) == 0) wg::mbar_arrive(bars + 8 * (kStages + g % kStages));
+    };
+    float acc[NWC / 2], hid[32];
+#pragma unroll
+    for (int i = 0; i < NWC / 2; ++i) acc[i] = 0.f;
+    int g = 0;
+    for (int ch = 0; ch < nch; ++ch) {
+      for (int k = 0; k < nk1; ++k, ++g) {  // fc1: this warpgroup's 64 units
+        const uint32_t st = take(g);
+        if (k == 0) mlptc::mma_tile<64, 1, true>(hid, st, st + kTile * (1 + cw));
+        else mlptc::mma_tile<64, 1>(hid, st, st + kTile * (1 + cw));
+        release(g);
+      }
+      wg::fence_regs(hid);
+      const int h0 = (ch0 + ch) * 64 * NW + 64 * cw;
+      wg::bar_sync(1, NW * 128);  // every fc2 of the last chunk is done with hbuf
+      mlptc::store_hidden(hid, hbuf + kTile * cw, h0, [&](float v, int hj) {
+        return hj < hdim ? round_to<bf16>(tokbwd::gelu(round_to<bf16>(v + b1[hj]))) : 0.f;
+      });
+      wg::bar_sync(1, NW * 128);
+      for (int k = 0; k < NW; ++k, ++g) {  // fc2 over the chunk's 64 NW units
+        const uint32_t st = take(g);
+        mlptc::mma_tile<NWC, 1>(acc, hbuf + kTile * k, st + kTile * (NWC / 64) * cw);
+        release(g);
+      }
+    }
+    wg::fence_regs(acc);
+
+    const size_t split_off = static_cast<size_t>(blockIdx.z) * t * c;
+    mlptc::for_each_acc<NWC>(acc, row0, c0 + NWC * cw, [&](int row, int col, float v) {
+      if (row < t && col < ccap) {
+        const size_t off = static_cast<size_t>(row) * c + col;
+        if (part != nullptr) {
+          part[split_off + off] = v;
+        } else {
+          v += b2[col];
+          y[off] = __float2bfloat16_rn(residual ? v + to_f32(x[off]) : v);
+        }
+      }
+    });
+  }
+}
+
+// y = sum over splits, in order, of the partials + b2 (+ x), rounded once.
+__global__ void __launch_bounds__(256)
+ln_mlp_sum_kernel(const float* __restrict__ part, const bf16* __restrict__ x,
+                  const float* __restrict__ b2, bf16* __restrict__ y, int splits, size_t n,
+                  int c, int residual) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= n) return;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += part[static_cast<size_t>(s) * n + i];
+  v += b2[i % c];
+  y[i] = __float2bfloat16_rn(residual ? v + to_f32(x[i]) : v);
+}
+
+template <int NW, int NWC>
+int launch_tc_kernel(const mlptc::Plan& p, const CUtensorMap (&maps)[3], const void* x,
+                     const float* b1, const float* b2, void* y, float* part, int t, int c,
+                     int hdim, int residual, cudaStream_t s) {
+  constexpr int smem = mlptc::smem_bytes(NW, NWC);
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_tc_kernel<NW, NWC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.row_tiles, p.nblk, p.splits);
+  ln_mlp_tc_kernel<NW, NWC><<<grid, mlptc::threads(NW), smem, s>>>(
+      maps[0], maps[1], maps[2], static_cast<const bf16*>(x), b1, b2, static_cast<bf16*>(y),
+      part, t, c, hdim, p.cblock, p.cps, p.nchunks, residual);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(const void* x, const float* g, const float* b, const void* w1, const float* b1,
+                const void* w2, const float* b2, void* y, void* workspace, int t, int c,
+                int hdim, float eps, int residual, cudaStream_t s) {
+  const mlptc::Plan p = mlptc::make_plan(t, c, hdim, false);
+  const int cp = mlptc::round8(c), hp = mlptc::round8(hdim);
+  char* ws = static_cast<char*>(workspace);
+  bf16* xn = reinterpret_cast<bf16*>(ws);
+  float* part = p.part_bytes ? reinterpret_cast<float*>(ws + p.xn_bytes) : nullptr;
+  cudaError_t err = mlptc::ln_rows(x, g, b, xn, t, c, cp, eps, 0, s);
+  if (err == cudaSuccess && p.staged) {  // zero-padded copies of the weights
+    void* w1p = ws + p.xn_bytes + p.part_bytes;
+    void* w2p = static_cast<char*>(w1p) + p.w1_bytes;
+    err = cudaMemsetAsync(w1p, 0, p.w1_bytes + p.w2_bytes, s);
+    if (err == cudaSuccess) err = mlptc::pad_copy(w1, w1p, c, hdim, hp, s);
+    if (err == cudaSuccess) err = mlptc::pad_copy(w2, w2p, hdim, c, cp, s);
+    w1 = w1p;
+    w2 = w2p;
+  }
+  CUtensorMap maps[3];
+  if (err == cudaSuccess) err = mlptc::make_map(&maps[0], xn, t, c, cp);
+  if (err == cudaSuccess) err = mlptc::make_map(&maps[1], w1, c, hdim, p.staged ? hp : hdim);
+  if (err == cudaSuccess) err = mlptc::make_map(&maps[2], w2, hdim, c, p.staged ? cp : c);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int status;
+  const auto args = [&](auto launch) {
+    return launch(p, maps, x, b1, b2, y, part, t, c, hdim, residual, s);
+  };
+  if (p.nw == 1 && p.nwc == 64) status = args(launch_tc_kernel<1, 64>);
+  else if (p.nw == 1 && p.nwc == 128) status = args(launch_tc_kernel<1, 128>);
+  else if (p.nw == 1 && p.nwc == 192) status = args(launch_tc_kernel<1, 192>);
+  else if (p.nw == 1 && p.nwc == 256) status = args(launch_tc_kernel<1, 256>);
+  else if (p.nw == 2 && p.nwc == 192) status = args(launch_tc_kernel<2, 192>);
+  else if (p.nw == 2 && p.nwc == 256) status = args(launch_tc_kernel<2, 256>);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  if (status != 0 || part == nullptr) return status;
+  const size_t n = static_cast<size_t>(t) * c;
+  ln_mlp_sum_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+      part, static_cast<const bf16*>(x), b2, static_cast<bf16*>(y), p.splits, n, c, residual);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Bytes of workspace tt_ln_mlp needs (0 in float32): the normalised rows in
+// bf16 and, where the hidden axis is split, the f32 partials.
+TT_EXPORT long long tt_ln_mlp_workspace(int t, int c, int hdim, int is_bf16) {
+  if (!is_bf16) return 0;
+  return static_cast<long long>(mlptc::make_plan(t, c, hdim, false).total());
+}
+
 // residual = 1: y = x + MLP(LN(x)) (fused_ln_mlp_residual); 0: y = MLP(LN(x)).
 TT_EXPORT int tt_ln_mlp(const void* x, const void* gamma, const void* beta, const void* w1,
-                        const void* b1, const void* w2, const void* b2, void* y, int t, int c,
-                        int hdim, float eps, int residual, int is_bf16, void* stream) {
+                        const void* b1, const void* w2, const void* b2, void* y, void* workspace,
+                        int t, int c, int hdim, float eps, int residual, int is_bf16,
+                        void* stream) {
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
   const float* bb1 = static_cast<const float*>(b1);
   const float* bb2 = static_cast<const float*>(b2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-             ? launch<__nv_bfloat16>(x, g, b, w1, bb1, w2, bb2, y, t, c, hdim, eps, residual, s)
-             : launch<float>(x, g, b, w1, bb1, w2, bb2, y, t, c, hdim, eps, residual, s);
+  return is_bf16 ? launch_bf16(x, g, b, w1, bb1, w2, bb2, y, workspace, t, c, hdim, eps,
+                               residual, s)
+                 : launch_f32(x, g, b, w1, bb1, w2, bb2, y, t, c, hdim, eps, residual, s);
 }

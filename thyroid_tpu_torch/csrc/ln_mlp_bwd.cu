@@ -23,26 +23,37 @@
 // kernel rebuilds the hidden layer one chunk at a time in shared memory.
 // Sums over tokens are deterministic (token_bwd.cuh).
 //
-// Bound on the H100: dx does three products of 2*C*Hd operations per row,
-// dw four, for about 3*C elements moved per row: bound by operations.
-// Design (simple first, scalar f32 FMAs; tensor-core tiles are later work;
-// C up to 768):
-// - dx: a persistent grid of one 256-thread block per SM walks row blocks of
-//   32 rows. The normalised rows stay in shared memory; per chunk of 128
-//   hidden units the block recomputes hr (2 rows x 8 units a thread, W1
-//   streamed), then dA from dY and W2 streamed in chunks, forms dH in
-//   shared memory and adds dH W1^T into a 32 x C register tile (2 rows x 48
-//   columns a thread, as the forward). The tile then goes to shared memory
-//   for the LN backward (token_bwd.cuh).
-// - dw: the grid is (chunks of 16 hidden units) x (token groups). A block
-//   keeps its chunk of W1 and W2 in shared memory and walks its token
-//   group 16 rows at a time: xn and dY rows into shared memory, each thread
-//   one (row, unit) of hr, dA, dH and a, then each thread adds 16 rows into
-//   its register sums (one hidden unit, every 16th column of dW1 and
-//   dW2). The groups' sums are partials, added in group order. A thread
-//   keeps 6, 12, 24 or 48 column sums of each, by the width, and the grid
-//   holds about two waves of the blocks the card fits at once.
-#include "token_bwd.cuh"
+// Bound on the H100: dx does three products of 2*C*Hd operations per row
+// (6*C*Hd), dw four, for about 3*C elements moved per row: bound by
+// operations.
+//
+// dx in bf16 (the flagged training step): mlp_tc.cuh's wgmma core. A pass
+// writes xn = round(x_hat * gamma + beta) (bf16) to the workspace; a CTA of
+// 64 rows x at most 512 dX columns (two consumer warpgroups of 192 at C =
+// 384 and 768, one of 64-256 below) walks its hidden chunks (64 units per
+// warpgroup) while one producer thread loads every operand tile (64 deep)
+// by TMA into a ring of stages: hr = round(xn W1 + b1) with wgmma
+// m64n64k16 (W1 the MN-major B), kept in registers packed as bf16 pairs;
+// dA = dY W2^T with W2 as the K-major B; dH = round(dA * gelu'(hr)) goes
+// to shared memory in bf16 as the A operand of dXn += dH W1^T (W1 the
+// K-major B, wgmma m64nNk16), an f32 register tile. Budget at C = 768 (two
+// column blocks of 384, each recomputing hr and dA: stage 4 does 1.67x
+// the operations): 4 stages of 48 KB + dH (16 KB) = 209 KB of shared
+// memory, 96 + 32 + 32 accumulator registers a thread, of which the 168
+// a thread that nine warps leave spill 712 bytes (ptxas). C = 1536 is not
+// taken: the backward kernels stop at 768 (kMaxC). dXn goes to the
+// workspace as f32 partials over hidden splits (the hidden axis is split
+// where the CTAs would not fill two waves); ln_bwd_tc_kernel adds them in
+// split order into 32-row blocks in shared memory and runs the LN backward
+// of token_bwd.cuh (deterministic dgamma/dbeta partials, summed in block
+// order).
+//
+// float32 (the card-vs-CPU parity step) keeps the scalar dx kernel below:
+// TF32 tensor cores would not hold the 1e-4 float32 checks. dw (kernel 11)
+// is scalar in both types.
+//
+// Scalar design (C up to 768):
+#include "mlp_tc.cuh"
 
 namespace {
 
@@ -407,19 +418,274 @@ int dw_groups(int t, int c, int hdim, int* groups) {
   return 0;
 }
 
-template <typename T>
-int launch_dx(const void* x, const float* g, const float* b, const void* w1, const float* b1,
-              const void* w2, const void* dy, void* dx, float* partial, float* dgb, int t, int c,
-              int hdim, float eps, int residual, cudaStream_t s) {
+int launch_dx_f32(const void* x, const float* g, const float* b, const void* w1,
+                  const float* b1, const void* w2, const void* dy, void* dx, float* partial,
+                  float* dgb, int t, int c, int hdim, float eps, int residual, cudaStream_t s) {
   const size_t smem = dx_smem_bytes(c);
-  cudaError_t err = cudaFuncSetAttribute(ln_mlp_bwd_dx_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_bwd_dx_kernel<float>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int groups = row_groups(t);
-  ln_mlp_bwd_dx_kernel<T><<<groups, kThreads, smem, s>>>(
-      static_cast<const T*>(x), g, b, static_cast<const T*>(w1), b1, static_cast<const T*>(w2),
-      static_cast<const T*>(dy), static_cast<T*>(dx), partial, t, c, hdim, eps, residual);
+  ln_mlp_bwd_dx_kernel<float><<<groups, kThreads, smem, s>>>(
+      static_cast<const float*>(x), g, b, static_cast<const float*>(w1), b1,
+      static_cast<const float*>(w2), static_cast<const float*>(dy), static_cast<float*>(dx),
+      partial, t, c, hdim, eps, residual);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(sum_partials(partial, dgb, groups, 2 * static_cast<size_t>(c), s));
+}
+
+// ---- dx in bf16: the tensor-core kernel ------------------------------------
+
+using mlptc::bf16;
+using mlptc::kTile;
+
+// One CTA: rows [64 x, +64), dX columns [cblock y, +cblock) (capped at C),
+// hidden chunks [cps z, +cps) of 64 NW units; writes its dXn as the f32
+// partial of split z. Warpgroups 0..NW - 1 multiply; the first thread
+// after them loads.
+template <int NW, int NWC>
+__global__ void __launch_bounds__(mlptc::threads(NW), 1)
+ln_mlp_dx_tc_kernel(const __grid_constant__ CUtensorMap m_xn,
+                    const __grid_constant__ CUtensorMap m_dy,
+                    const __grid_constant__ CUtensorMap m_w1,
+                    const __grid_constant__ CUtensorMap m_w2, const float* __restrict__ b1,
+                    float* __restrict__ part, int t, int c, int hdim, int cblock, int cps,
+                    int nchunks) {
+  constexpr int kStage = mlptc::stage_bytes(NW, NWC), kStages = mlptc::stages(NW, NWC);
+  constexpr int kDxBlocks = NW * NWC / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (wg::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t hbuf = base + kStages * kStage;  // dH of the chunk, 64 x 64 NW
+  const uint32_t bars = hbuf + kTile * NW;        // kStages full, then kStages empty
+  // the warpgroup index through a shuffle, so that the compiler sees it
+  // warp-uniform and keeps the wgmma descriptors in uniform registers
+  const int tid = threadIdx.x, wgi = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int row0 = blockIdx.x * mlptc::kRows;
+  const int c0 = blockIdx.y * cblock, ccap = min(c, c0 + cblock);
+  const int ch0 = blockIdx.z * cps, nch = min(nchunks, ch0 + cps) - ch0;
+  const int nk1 = (c + 63) / 64, tpc = 2 * nk1 + NW, ntiles = nch * tpc;
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      wg::mbar_init(bars + 8 * i, 1);
+      wg::mbar_init(bars + 8 * (kStages + i), NW);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the producer: k-tile g is xn[:, 64 r..] and W1[64 r.., chunk] (hr) for
+  // r < nk1; dY[:, 64 k..] and W2[chunk, 64 k..] (dA, k = r - nk1) for
+  // r < 2 nk1; else W1[columns, chunk's 64 k..] (dXn, k = r - 2 nk1)
+  if (wgi == NW) {
+    if (tid == NW * 128) {
+      for (int g = 0; g < ntiles; ++g) {
+        const int s = g % kStages, h0 = (ch0 + g / tpc) * 64 * NW, r = g % tpc;
+        const uint32_t st = base + s * kStage, full = bars + 8 * s;
+        wg::mbar_wait(bars + 8 * (kStages + s), ((g / kStages) & 1) ^ 1);
+        if (r < 2 * nk1) {
+          const bool fc1 = r < nk1;
+          const int k = 64 * (fc1 ? r : r - nk1);
+          wg::mbar_expect_tx(full, kTile * (1 + NW));
+          wg::tma_load(st, fc1 ? &m_xn : &m_dy, k, row0, full);
+#pragma unroll
+          for (int b = 0; b < NW; ++b) {
+            if (fc1) wg::tma_load(st + kTile * (1 + b), &m_w1, h0 + 64 * b, k, full);
+            else wg::tma_load(st + kTile * (1 + b), &m_w2, k, h0 + 64 * b, full);
+          }
+        } else {
+          wg::mbar_expect_tx(full, kTile * kDxBlocks);
+#pragma unroll
+          for (int b = 0; b < kDxBlocks; ++b)
+            wg::tma_load(st + kTile * b, &m_w1, h0 + 64 * (r - 2 * nk1), c0 + 64 * b, full);
+        }
+      }
+    }
+  } else {  // the consumers
+    const int cw = wgi, lane = tid & 3;
+    // k-tile g of the ring, as the producer counts them: wait for it, then
+    // hand its stage back once this warpgroup's wgmma on it is done
+    auto take = [&](int g) {
+      wg::mbar_wait(bars + 8 * (g % kStages), (g / kStages) & 1);
+      return base + (g % kStages) * kStage;
+    };
+    auto release = [&](int g) {
+      wg::wait<0>();
+      if ((tid & 127) == 0) wg::mbar_arrive(bars + 8 * (kStages + g % kStages));
+    };
+    float acc[NWC / 2], hr[32], da[32];
+    __nv_bfloat162 hrp[16];  // hr, rounded to bf16 (exact) and packed
+#pragma unroll
+    for (int i = 0; i < NWC / 2; ++i) acc[i] = 0.f;
+    int g = 0;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int h0 = (ch0 + ch) * 64 * NW + 64 * cw;  // this warpgroup's units
+      for (int k = 0; k < nk1; ++k, ++g) {  // hr = xn W1
+        const uint32_t st = take(g);
+        if (k == 0) mlptc::mma_tile<64, 1, true>(hr, st, st + kTile * (1 + cw));
+        else mlptc::mma_tile<64, 1>(hr, st, st + kTile * (1 + cw));
+        release(g);
+      }
+      wg::fence_regs(hr);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // hr = round(xn W1 + b1)
+          const int hj = h0 + 8 * j + 2 * lane;
+          hrp[2 * j + i] = __floats2bfloat162_rn(
+              hj < hdim ? hr[4 * j + 2 * i] + b1[hj] : 0.f,
+              hj + 1 < hdim ? hr[4 * j + 2 * i + 1] + b1[hj + 1] : 0.f);
+        }
+      for (int k = 0; k < nk1; ++k, ++g) {  // dA = dY W2^T
+        const uint32_t st = take(g);
+        if (k == 0) mlptc::mma_tile<64, 0, true>(da, st, st + kTile * (1 + cw));
+        else mlptc::mma_tile<64, 0>(da, st, st + kTile * (1 + cw));
+        release(g);
+      }
+      wg::fence_regs(da);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          da[4 * j + 2 * i] *= tokbwd::gelu_grad(__low2float(hrp[2 * j + i]));
+          da[4 * j + 2 * i + 1] *= tokbwd::gelu_grad(__high2float(hrp[2 * j + i]));
+        }
+      wg::bar_sync(1, NW * 128);  // every dXn of the last chunk is done with hbuf
+      mlptc::store_hidden(da, hbuf + kTile * cw, h0,
+                          [&](float v, int hj) { return hj < hdim ? v : 0.f; });
+      wg::bar_sync(1, NW * 128);
+      for (int k = 0; k < NW; ++k, ++g) {  // dXn += dH W1^T
+        const uint32_t st = take(g);
+        mlptc::mma_tile<NWC, 0>(acc, hbuf + kTile * k, st + NWC * 128 * cw);
+        release(g);
+      }
+    }
+    wg::fence_regs(acc);
+
+    float* out = part + static_cast<size_t>(blockIdx.z) * t * c;
+    mlptc::for_each_acc<NWC>(acc, row0, c0 + NWC * cw, [&](int row, int col, float v) {
+      if (row < t && col < ccap) out[static_cast<size_t>(row) * c + col] = v;
+    });
+  }
+}
+
+// The LN backward of dXn = the sum over splits, in order, of the partials:
+// a persistent grid walks 32-row blocks as the scalar dx kernel does, with
+// the same token_bwd.cuh epilogue and dgamma/dbeta partials per block.
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_tc_kernel(const float* __restrict__ part, int splits, const bf16* __restrict__ x,
+                 const float* __restrict__ gamma, const bf16* __restrict__ dy,
+                 bf16* __restrict__ dx, float* __restrict__ partial, int t, int c, float eps,
+                 int residual) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, ldx = c + 4;
+  float* Ds = smem;               // kBM x ldx: dXn
+  float* accg = Ds + kBM * ldx;
+  float* accb = accg + c;
+  float* s_mu = accb + c;
+  float* s_r = s_mu + kBM;
+  for (int k = tid; k < c; k += kThreads) accg[k] = accb[k] = 0.f;
+  const size_t n = static_cast<size_t>(t) * c;
+  const int nblocks = (t + kBM - 1) / kBM;
+  for (int rb = blockIdx.x; rb < nblocks; rb += gridDim.x) {
+    const int row0 = rb * kBM;
+    for (int r = warp; r < kBM; r += kWarps) {
+      const int row = row0 + r;
+      float mu = 0.f, rs = 0.f;
+      if (row < t) {
+        row_stats(x + static_cast<size_t>(row) * c, c, eps, mu, rs);
+        for (int k = lane; k < c; k += 32) {
+          float v = 0.f;
+          for (int sp = 0; sp < splits; ++sp) v += part[sp * n + static_cast<size_t>(row) * c + k];
+          Ds[r * ldx + k] = v;
+        }
+      }
+      if (lane == 0) {
+        s_mu[r] = mu;
+        s_r[r] = rs;
+      }
+    }
+    __syncthreads();
+    ln_backward_rows<bf16>(Ds, ldx, x, residual ? dy : nullptr, gamma, dx, s_mu, s_r, accg,
+                           accb, row0, t, c);
+    __syncthreads();
+  }
+  float* out = partial + static_cast<size_t>(blockIdx.x) * 2 * c;
+  for (int k = tid; k < c; k += kThreads) {
+    out[k] = accg[k];
+    out[c + k] = accb[k];
+  }
+}
+
+// Blocks of ln_bwd_tc_kernel: up to four an SM (its loads are latency-bound,
+// one block an SM left most of the SM idle), fewer for short inputs.
+inline int epilogue_groups(int t) {
+  const int blocks = (t + kBM - 1) / kBM, most = 4 * kSMs;
+  return blocks < 1 ? 1 : (blocks < most ? blocks : most);
+}
+
+template <int NW, int NWC>
+int launch_dx_tc_kernel(const mlptc::Plan& p, const CUtensorMap (&maps)[4], const float* b1,
+                        float* part, int t, int c, int hdim, cudaStream_t s) {
+  constexpr int smem = mlptc::smem_bytes(NW, NWC);
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_dx_tc_kernel<NW, NWC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.row_tiles, p.nblk, p.splits);
+  ln_mlp_dx_tc_kernel<NW, NWC><<<grid, mlptc::threads(NW), smem, s>>>(
+      maps[0], maps[1], maps[2], maps[3], b1, part, t, c, hdim, p.cblock, p.cps, p.nchunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dx_bf16(const void* x, const float* g, const float* b, const void* w1,
+                   const float* b1, const void* w2, const void* dy, void* dx, float* partial,
+                   float* dgb, void* workspace, int t, int c, int hdim, float eps, int residual,
+                   cudaStream_t s) {
+  const mlptc::Plan p = mlptc::make_plan(t, c, hdim, true);
+  const int cp = mlptc::round8(c), hp = mlptc::round8(hdim);
+  char* ws = static_cast<char*>(workspace);
+  bf16* xn = reinterpret_cast<bf16*>(ws);
+  float* part = reinterpret_cast<float*>(ws + p.xn_bytes);
+  cudaError_t err = mlptc::ln_rows(x, g, b, xn, t, c, cp, eps, 1, s);
+  const void* dyk = dy;
+  if (err == cudaSuccess && p.staged) {  // zero-padded copies of W1, W2 and dY
+    void* w1p = ws + p.xn_bytes + p.part_bytes;
+    void* w2p = static_cast<char*>(w1p) + p.w1_bytes;
+    void* dyp = static_cast<char*>(w2p) + p.w2_bytes;
+    err = cudaMemsetAsync(w1p, 0, p.w1_bytes + p.w2_bytes + p.dy_bytes, s);
+    if (err == cudaSuccess) err = mlptc::pad_copy(w1, w1p, c, hdim, hp, s);
+    if (err == cudaSuccess) err = mlptc::pad_copy(w2, w2p, hdim, c, cp, s);
+    if (err == cudaSuccess) err = mlptc::pad_copy(dy, dyp, t, c, cp, s);
+    w1 = w1p;
+    w2 = w2p;
+    dyk = dyp;
+  }
+  const int lc = p.staged ? cp : c, lh = p.staged ? hp : hdim;
+  CUtensorMap maps[4];
+  if (err == cudaSuccess) err = mlptc::make_map(&maps[0], xn, t, c, cp);
+  if (err == cudaSuccess) err = mlptc::make_map(&maps[1], dyk, t, c, lc);
+  if (err == cudaSuccess) err = mlptc::make_map(&maps[2], w1, c, hdim, lh);
+  if (err == cudaSuccess) err = mlptc::make_map(&maps[3], w2, hdim, c, lc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int status;
+  const auto args = [&](auto launch) { return launch(p, maps, b1, part, t, c, hdim, s); };
+  if (p.nw == 1 && p.nwc == 64) status = args(launch_dx_tc_kernel<1, 64>);
+  else if (p.nw == 1 && p.nwc == 128) status = args(launch_dx_tc_kernel<1, 128>);
+  else if (p.nw == 1 && p.nwc == 192) status = args(launch_dx_tc_kernel<1, 192>);
+  else if (p.nw == 1 && p.nwc == 256) status = args(launch_dx_tc_kernel<1, 256>);
+  else if (p.nw == 2 && p.nwc == 192) status = args(launch_dx_tc_kernel<2, 192>);
+  else if (p.nw == 2 && p.nwc == 256) status = args(launch_dx_tc_kernel<2, 256>);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  if (status != 0) return status;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(kBM) * (c + 4) + 2 * c + 2 * kBM);
+  err = cudaFuncSetAttribute(ln_bwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int groups = epilogue_groups(t);
+  ln_bwd_tc_kernel<<<groups, kThreads, smem, s>>>(
+      part, p.splits, static_cast<const bf16*>(x), g, static_cast<const bf16*>(dy),
+      static_cast<bf16*>(dx), partial, t, c, eps, residual);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sum_partials(partial, dgb, groups, 2 * static_cast<size_t>(c), s));
@@ -444,9 +710,12 @@ int launch_dw(const void* x, const float* g, const float* b, const void* w1, con
 
 }  // namespace
 
-// Blocks of the dx grid and token groups of the dw grid: the wrapper sizes
+// Blocks of the dx grid (bf16: of its LN-backward pass) and token groups of
+// the dw grid: the wrapper sizes
 // the partials with them (groups x 2 x C, and groups x (2 C Hd + Hd), f32).
-TT_EXPORT int tt_ln_mlp_bwd_dx_groups(int t) { return row_groups(t); }
+TT_EXPORT int tt_ln_mlp_bwd_dx_groups(int t, int is_bf16) {
+  return is_bf16 ? epilogue_groups(t) : row_groups(t);
+}
 // tt_ln_mlp_bwd_dw_groups returns the group count, or -1 when the occupancy
 // query fails (the launch then reports the error).
 TT_EXPORT int tt_ln_mlp_bwd_dw_groups(int t, int c, int hdim, int is_bf16) {
@@ -456,11 +725,19 @@ TT_EXPORT int tt_ln_mlp_bwd_dw_groups(int t, int c, int hdim, int is_bf16) {
   return status == 0 ? groups : -1;
 }
 
+// Bytes of workspace tt_ln_mlp_bwd_dx needs (0 in float32): xn in bf16, the
+// f32 dXn partials and, for widths that are not multiples of 8, padded
+// copies of W1, W2 and dY.
+TT_EXPORT long long tt_ln_mlp_bwd_dx_workspace(int t, int c, int hdim, int is_bf16) {
+  if (!is_bf16) return 0;
+  return static_cast<long long>(mlptc::make_plan(t, c, hdim, true).total());
+}
+
 // dgb receives [dgamma | dbeta] (2 x C f32); residual adds dY to dX.
 TT_EXPORT int tt_ln_mlp_bwd_dx(const void* x, const void* gamma, const void* beta,
                                const void* w1, const void* b1, const void* w2, const void* dy,
-                               void* dx, void* partial, void* dgb, int t, int c, int hdim,
-                               float eps, int residual, int is_bf16, void* stream) {
+                               void* dx, void* partial, void* dgb, void* workspace, int t, int c,
+                               int hdim, float eps, int residual, int is_bf16, void* stream) {
   if (c > kMaxC || c < 1) return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
@@ -468,10 +745,10 @@ TT_EXPORT int tt_ln_mlp_bwd_dx(const void* x, const void* gamma, const void* bet
   float* part = static_cast<float*>(partial);
   float* out = static_cast<float*>(dgb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dx<__nv_bfloat16>(x, g, b, w1, bb1, w2, dy, dx, part, out, t, c, hdim,
-                                            eps, residual, s)
-                 : launch_dx<float>(x, g, b, w1, bb1, w2, dy, dx, part, out, t, c, hdim, eps,
-                                    residual, s);
+  return is_bf16 ? launch_dx_bf16(x, g, b, w1, bb1, w2, dy, dx, part, out, workspace, t, c, hdim,
+                                  eps, residual, s)
+                 : launch_dx_f32(x, g, b, w1, bb1, w2, dy, dx, part, out, t, c, hdim, eps,
+                                 residual, s);
 }
 
 // out receives [dW1 (C x Hd) | dW2 (Hd x C) | db1 (Hd)], f32.

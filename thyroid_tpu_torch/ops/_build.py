@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -26,6 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# wall seconds of each source's nvcc in the last build_all, by name
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -49,30 +52,46 @@ def _target(src: Path) -> Path:
 def build_all() -> Dict[str, str]:
     """Compile every source whose library is missing, all at once. Returns
     {name: compiler log} for the sources compiled by this call (the log
-    holds ptxas's register, shared-memory and spill report)."""
+    holds ptxas's register, shared-memory and spill report) and records in
+    BUILD_SECONDS each one's seconds from the common start to the end of
+    its nvcc (the builds run side by side)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    BUILD_SECONDS.clear()
     procs = {}
+    start = time.perf_counter()
     for src in sorted(CSRC.glob("*.cu")):
         out = _target(src)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[src.stem] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, out)
+        log = out.with_suffix(f".{os.getpid()}.log")
+        with open(log, "w") as sink:
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                    stdout=sink, stderr=subprocess.STDOUT)
+        procs[src.stem] = (proc, tmp, out, log)
+    while any(proc.poll() is None for proc, *_ in procs.values()):
+        for name, (proc, *_rest) in procs.items():
+            if name not in BUILD_SECONDS and proc.poll() is not None:
+                BUILD_SECONDS[name] = time.perf_counter() - start
+        time.sleep(0.05)
     logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
+    for name, (proc, tmp, out, log) in procs.items():
+        BUILD_SECONDS.setdefault(name, time.perf_counter() - start)
+        logs[name] = log.read_text()
+        log.unlink()
         if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{log}")
+            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{logs[name]}")
         else:
             tmp.replace(out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def library_path(name: str) -> Path:
+    """Where the library of `csrc/<name>.cu` is (or will be) built."""
+    return _target(CSRC / f"{name}.cu")
 
 
 def library(name: str) -> ctypes.CDLL:

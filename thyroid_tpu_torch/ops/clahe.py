@@ -76,17 +76,46 @@ def _luts_from_hists(hist: torch.Tensor, area: int,
     return torch.clamp(torch.round(cdf * (255.0 / area)), 0.0, 255.0)
 
 
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c of float32 tensors with one rounding to float32, as a fused
+    multiply-add gives it. The float64 product is exact (24 + 24 bits); the
+    float64 sum is rounded to odd (an inexact sum whose last bit is even
+    moves one step towards the exact value, by TwoSum's error term), so
+    that the final rounding to float32 equals the single rounding of the
+    exact a·b + c."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
 def _blend_coords(n: int, t: int, g: int, device):
     """cv2's tile coordinates along one axis of n pixels, tiles of t:
-    f = p/t − 0.5 in float32, weight f − floor(f), neighbours
-    clamp(floor(f)) and clamp(floor(f) + 1) to [0, g − 1]. Computed with
-    numpy's float32 division, which csrc/clahe.cu repeats."""
-    f = np.arange(n, dtype=np.float32) / np.float32(t) - np.float32(0.5)
-    fl = np.floor(f)
-    i0 = np.clip(fl, 0, g - 1).astype(np.int64)
-    i1 = np.clip(fl + 1, 0, g - 1).astype(np.int64)
-    return (torch.from_numpy(f - fl).to(device), torch.from_numpy(i0).to(device),
-            torch.from_numpy(i1).to(device))
+    f = p/t − 0.5, weight f − floor(f), neighbours clamp(floor(f)) and
+    clamp(floor(f) + 1) to [0, g − 1]. Rounded as the JAX package's
+    compiled program rounds it: XLA turns the division by the constant t
+    into a product by float32(1/t), and the CPU's code generator fuses the
+    product and the −0.5 into one multiply-add, so f = fma(p,
+    float32(1/t), −0.5) with one rounding; csrc/clahe.cu repeats it."""
+    p = torch.arange(n, dtype=torch.float32)
+    f = _fma32(p, torch.tensor(np.float32(1.0) / np.float32(t)),
+               torch.tensor(-0.5))
+    fl = torch.floor(f)
+    i0 = torch.clamp(fl, 0, g - 1).to(torch.int64)
+    i1 = torch.clamp(fl + 1, 0, g - 1).to(torch.int64)
+    return (f - fl).to(device), i0.to(device), i1.to(device)
+
+
+def _lerp(a: torch.Tensor, b: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+    """a·(1 − w) + b·w rounded as the compiled JAX program rounds it: the
+    product b·w rounded to float32, then the first product and the sum in
+    one multiply-add (the code generator fuses the sum's first operand)."""
+    return _fma32(a, 1 - wgt, b * wgt)
 
 
 def _interp_luts(x8: torch.Tensor, luts: torch.Tensor,
@@ -94,7 +123,7 @@ def _interp_luts(x8: torch.Tensor, luts: torch.Tensor,
     """Bilinear blend of the 4 neighbouring tile LUTs at each pixel's
     value (the gather formulation): x8 (B, H, W), luts (B, gh, gw, 256) →
     (B, H, W) float32, top = f00·(1 − wx) + f01·wx, bottom likewise,
-    out = top·(1 − wy) + bottom·wy."""
+    out = top·(1 − wy) + bottom·wy, each through `_lerp`'s roundings."""
     b, h, w = x8.shape
     gh, gw = grid
     wy, y0, y1 = _blend_coords(h, h // gh, gh, x8.device)
@@ -109,9 +138,9 @@ def _interp_luts(x8: torch.Tensor, luts: torch.Tensor,
             * 256 + v
         return flat[idx]
 
-    top = gather(y0, x0) * (1 - wx) + gather(y0, x1) * wx
-    bot = gather(y1, x0) * (1 - wx) + gather(y1, x1) * wx
-    return top * (1 - wy) + bot * wy
+    top = _lerp(gather(y0, x0), gather(y0, x1), wx)
+    bot = _lerp(gather(y1, x0), gather(y1, x1), wx)
+    return _lerp(top, bot, wy)
 
 
 def _check_apply(name: str, x8: torch.Tensor, *luts: torch.Tensor) -> None:
@@ -233,13 +262,13 @@ def _from_8bit(eq: torch.Tensor, img: torch.Tensor, lo: torch.Tensor,
     eq/255·span + lo clamped to [0, 65535]; a flat image (span ≤ 0) keeps
     img, floored.
 
-    Computed as the JAX package's compiled program computes it: q =
-    eq·float32(1/255) (XLA turns the division by a constant into that
-    product), then one rounding of q·span + lo (a fused multiply-add). The
-    product and the sum are exact in float64, so one rounding from float64
-    is the fused result on every device."""
-    out = ((eq * (1.0 / 255.0)).double() * span.double() + lo.double()) \
-        .to(torch.float32)
+    Computed as the JAX package's compiled program computes it: XLA turns
+    eq / 255 · span into eq · (span · float32(1/255)), the per-image scale
+    rounded to float32 once, and the CPU's code generator fuses the product
+    by eq and the + lo into one multiply-add, rounded once:
+    fma(eq, float32(span · float32(1/255)), lo)."""
+    scale = span * torch.tensor(np.float32(1.0 / 255.0))
+    out = _fma32(eq, scale, lo)
     out = torch.clamp(out, 0.0, 65535.0)
     out = torch.where(span <= 0, img, out)                  # flat: identity
     return torch.floor(out)

@@ -1,7 +1,8 @@
 """Token-major fused LN kernels (counterpart of thyroid_tpu/ops/token_fused.py).
 
 - `fused_ln_matmul`:        y = LN(x) @ W + b              (csrc/ln_matmul.cu)
-- `fused_ln_mlp_residual`:  y = x + fc2(gelu(fc1(LN(x))))  (csrc/ln_mlp.cu)
+- `fused_ln_mlp_residual`:  y = x + fc2(gelu(fc1(LN(x))))  (csrc/ln_mlp.cu;
+                            bf16 on wgmma tensor cores, csrc/mlp_tc.cuh)
 - `fused_ln_mlp`:           y = fc2(gelu(fc1(LN(x))))      (training: DropPath
                             and the skip stay outside; the same kernel)
 
@@ -11,7 +12,8 @@ LN statistics (and, for the MLP, the 4C hidden layer) in the backward
 kernels, so neither direction keeps a hidden tensor in global memory:
 - `fused_ln_matmul_bwd`: dX, dγ, dβ of LN + matmul (csrc/ln_matmul_bwd.cu);
   dW = LN(x)ᵀ dY and db = ΣdY are plain products, as JAX leaves them to XLA;
-- `fused_ln_mlp_bwd_dx`: dX, dγ, dβ of LN + MLP (csrc/ln_mlp_bwd.cu);
+- `fused_ln_mlp_bwd_dx`: dX, dγ, dβ of LN + MLP (csrc/ln_mlp_bwd.cu; bf16
+  on wgmma tensor cores);
 - `fused_ln_mlp_bwd_dw`: dW1, db1, dW2 of LN + MLP (csrc/ln_mlp_bwd.cu);
   db2 = ΣdY is a plain sum, as in JAX.
 
@@ -169,6 +171,17 @@ def _groups(lib: str, symbol: str, *sizes: int) -> int:
     return fn(*sizes)
 
 
+def _workspace(lib: str, symbol: str, device, *sizes: int) -> torch.Tensor:
+    """The scratch bytes a tensor-core launch asks for (the normalised rows
+    in bf16, f32 partials over hidden splits and, for widths that are not
+    multiples of 8, zero-padded operand copies; none in float32)."""
+    fn = getattr(_build.library(lib), symbol)
+    fn.argtypes = [ctypes.c_int] * len(sizes)
+    fn.restype = ctypes.c_longlong
+    return torch.empty(max(int(fn(*sizes)), 1), dtype=torch.uint8,
+                       device=device)
+
+
 # ---------------------------------------------------------------- forward
 
 
@@ -215,12 +228,15 @@ def _ln_mlp_fwd(x2, g, b, w1, b1, w2, b2, eps, residual):
     y = torch.empty_like(x2)
     if t == 0:
         return y
-    fn = _build.function("ln_mlp", "tt_ln_mlp", [ctypes.c_void_p] * 8 + [
+    is_bf16 = int(x2.dtype == torch.bfloat16)
+    ws = _workspace("ln_mlp", "tt_ln_mlp_workspace", x2.device, t, c, hdim,
+                    is_bf16)
+    fn = _build.function("ln_mlp", "tt_ln_mlp", [ctypes.c_void_p] * 9 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     status = fn(_build.ptr(x2), _build.ptr(g), _build.ptr(bl), _build.ptr(w1),
                 _build.ptr(b1), _build.ptr(w2), _build.ptr(b2), _build.ptr(y),
-                t, c, hdim, eps, int(residual), int(x2.dtype == torch.bfloat16),
+                _build.ptr(ws), t, c, hdim, eps, int(residual), is_bf16,
                 _build.stream_ptr(x2.device))
     _build.check("ln_mlp", status, name)
     (fused_ln_mlp_residual if residual else fused_ln_mlp).launches += 1
@@ -300,16 +316,19 @@ def fused_ln_mlp_bwd_dx(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     dgb = torch.zeros(2, c, dtype=torch.float32, device=x2.device)
     if t == 0:
         return dx, dgb[0], dgb[1]
-    partial = torch.empty(_groups("ln_mlp_bwd", "tt_ln_mlp_bwd_dx_groups", t), 2,
-                          c, dtype=torch.float32, device=x2.device)
+    is_bf16 = int(x2.dtype == torch.bfloat16)
+    partial = torch.empty(_groups("ln_mlp_bwd", "tt_ln_mlp_bwd_dx_groups", t,
+                                  is_bf16), 2, c, dtype=torch.float32,
+                          device=x2.device)
+    ws = _workspace("ln_mlp_bwd", "tt_ln_mlp_bwd_dx_workspace", x2.device, t,
+                    c, hdim, is_bf16)
     fn = _build.function("ln_mlp_bwd", "tt_ln_mlp_bwd_dx",
-                         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                             ctypes.c_void_p])
     status = fn(*(_build.ptr(a) for a in args), _build.ptr(dx),
-                _build.ptr(partial), _build.ptr(dgb), t, c, hdim, eps,
-                int(residual), int(x2.dtype == torch.bfloat16),
-                _build.stream_ptr(x2.device))
+                _build.ptr(partial), _build.ptr(dgb), _build.ptr(ws), t, c,
+                hdim, eps, int(residual), is_bf16, _build.stream_ptr(x2.device))
     _build.check("ln_mlp_bwd", status, "fused_ln_mlp_bwd_dx")
     fused_ln_mlp_bwd_dx.launches += 1
     return dx, dgb[0], dgb[1]
