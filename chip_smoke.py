@@ -6,9 +6,11 @@
 Phases, each printing its lines before the final one:
 1. build: compile every kernel of thyroid_tpu_torch/csrc with nvcc for
    sm_90a (one nvcc per source, in parallel; each source's nvcc time is
-   printed), count the wgmma (HGMMA) instructions of the ln_mlp and
-   ln_mlp_bwd libraries in cuobjdump's SASS (the phase fails at 0), and
-   print the card's name and power limit as nvidia-smi reports them;
+   printed), count the wgmma (HGMMA) instructions of the ln_mlp,
+   ln_mlp_bwd and ln_matmul libraries in cuobjdump's SASS, and inside each
+   tensor-core kernel's own functions (the LN + MLP forward, its dX and
+   dW, the LN + matmul; the phase fails at 0 in any of them), and print
+   the card's name and power limit as nvidia-smi reports them;
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs, at every shape the swin_tiny forward gives it at batch 32,
    in float32 (TF32 off for matmuls and convolutions) and in bfloat16;
@@ -17,7 +19,8 @@ Phases, each printing its lines before the final one:
    must move by 1, 15, 12 and 12 per forward, and the probabilities must
    agree with the same engine on the CPU in float32;
 4. times: each kernel's median time per forward at bucket 32 beside its
-   bound, its plain version and a library yardstick, and end-to-end
+   bound, its plain version and a library yardstick (the LN + matmul and
+   its yardstick in device time, from CUDA-graph replays), and end-to-end
    images/s of predict at buckets 32 and 128; a profile of one predict;
 5. train kernels: the training attention's forward and backward kernels
    against their plain versions (output, dqkv, dbias) at every shape a
@@ -66,9 +69,9 @@ Phases, each printing its lines before the final one:
 13. token train times: each token backward kernel's and each token
    training forward's median time per train step beside its bound, plain
    version and library yardstick (torch.autograd.grad through LayerNorm +
-   linear (+ GELU + linear); for the LN + MLP dX kernel the device time of
-   that backward, from CUDA-graph replays of forward + backward less the
-   forward), training images/s at batch 32 and 128 with
+   linear (+ GELU + linear); the backward kernels and their yardsticks in
+   device time, from CUDA-graph replays: for a yardstick, of forward +
+   backward less the forward), training images/s at batch 32 and 128 with
    the flag on beside the flag off, and a profile of one flagged train step
    at batch 32;
 14. depthwise kernel: the stride-1 depthwise kernel (Q2-17) against its
@@ -127,8 +130,12 @@ Phases, each printing its lines before the final one:
    plain version at swin_medical.yaml's 256² shapes (float32 and bf16) and
    at the swin_base / swin_large widths 512-1536 (bf16; float32 up to
    1024, where the scalar float32 kernel's shared memory ends), the wgmma
-   LN + MLP dX (row 10) at width 512, and row 3's time per swin_medical
-   forward at bucket 32 beside the library composition's device time.
+   LN + MLP dX (row 10) at width 512, the LN + matmul (row 2) at
+   swin_medical's 256² merges and swin_base's and swin_large's widest QKV
+   and merges, and the LN + MLP weight gradients (row 11) at swin_base's
+   widths 128-512 (float32 and bf16 each), and row 3's time per
+   swin_medical forward at bucket 32 beside the library composition's
+   device time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -199,8 +206,13 @@ DUAL_GRIDS = {"clip_coarse": 2.0, "grid_coarse": (16, 16), "clip_fine": 0.03,
               "grid_fine": (32, 32)}
 
 
-# the libraries whose bf16 kernels run on wgmma (kernels 3 and 10)
-TENSOR_CORE_LIBS = ("ln_mlp", "ln_mlp_bwd")
+# the libraries whose bf16 kernels run on wgmma (kernels 2, 3, 10 and 11),
+# each with the kernel functions that must hold HGMMA instructions in every
+# instantiation
+TENSOR_CORE_LIBS = ("ln_mlp", "ln_mlp_bwd", "ln_matmul")
+TENSOR_CORE_FUNCTIONS = {"ln_mlp": ("ln_mlp_tc_kernel",),
+                         "ln_mlp_bwd": ("ln_mlp_dx_tc_kernel", "ln_mlp_dw_tc_kernel"),
+                         "ln_matmul": ("ln_matmul_tc_kernel",)}
 
 
 def log(*parts) -> None:
@@ -377,6 +389,12 @@ def work(kernel: str, shape, dtype):
 # ---------------------------------------------------------------- phases
 
 
+def sass_functions(sass: str):
+    """{function name: HGMMA instructions in it} of cuobjdump's SASS dump."""
+    parts = sass.split("Function : ")[1:]
+    return {part.split("\n", 1)[0].strip(): part.count("HGMMA") for part in parts}
+
+
 def phase_build() -> str:
     from thyroid_tpu_torch.ops import _build
 
@@ -399,6 +417,14 @@ def phase_build() -> str:
         log(f"[build] {path.name}: {count} HGMMA instructions")
         if count == 0:
             raise AssertionError(f"{path.name} holds no wgmma (HGMMA) instruction")
+        functions = sass_functions(sass)
+        for kernel in TENSOR_CORE_FUNCTIONS[name]:
+            counts = {f: n for f, n in functions.items() if kernel in f}
+            log(f"[build] {path.name}: {kernel}: HGMMA per instantiation "
+                f"{sorted(counts.values())}")
+            if not counts or min(counts.values()) == 0:
+                raise AssertionError(f"{kernel} in {path.name} runs without wgmma "
+                                     f"(HGMMA counts {counts})")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -518,6 +544,12 @@ def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+# kernels whose time and library time per call are device times (CUDA-graph
+# replays, device_ms): a call of a few tens of microseconds on the device,
+# whose host launches CUDA events around one call would measure instead
+DEVICE_TIMED = ("ln_matmul", "ln_matmul_bwd", "ln_mlp_bwd_dx", "ln_mlp_bwd_dw")
+
+
 def phase_times(shapes, engine, launches):
     gen = torch.Generator(device="cuda").manual_seed(1)
     dtype = torch.bfloat16
@@ -540,13 +572,17 @@ def phase_times(shapes, engine, launches):
             plain_ms = median_ms(lambda: plain(*args), reps=5, warm=1)
             lib = library_fn(kernel, shape, args)
             lib_ms = median_ms(lib) if lib is not None else None
+            timing = "events"
+            if kernel in DEVICE_TIMED:
+                timing = f"device; events {ms:.4f} and {lib_ms:.4f}"
+                ms, lib_ms = device_ms(lambda: fused(*args)), device_ms(lib)
             err = (fused(*args).float() - plain(*args).float()).abs().max().item()
             nbytes, ops, peak = work(kernel, shape, dtype)
             t_bytes = nbytes / H100_BYTES_PER_S * 1e3
             t_ops = ops / peak * 1e3
             log(f"[times] {kernel} bf16 {shape} x{count}: kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, library "
-                f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+                f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} ({timing}), bound "
                 f"{max(t_bytes, t_ops):.4f} ms "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'})")
             tot["ms"] += count * ms
@@ -1440,27 +1476,23 @@ def token_fns(kernel: str):
             lambda *a: (tf.ln_matmul_plain(*a),))
 
 
-def token_library_fn(kernel: str, args):
-    """One PyTorch library composition of the same function, for timing
-    only (the port never calls it): LayerNorm + linear (+ GELU + linear),
-    and for a backward torch.autograd.grad through it to the same inputs
-    (x, γ, β for dX; W1, b1, W2 for the weight gradients)."""
+def token_library_parts(kernel: str, args):
+    """(forward, inputs, dY) of one PyTorch library composition of the same
+    function, for timing only (the port never calls it): LayerNorm + linear
+    (+ GELU + linear) as `forward`; a backward kernel's yardstick is
+    torch.autograd.grad of it to the same `inputs` (x, γ, β for dX; W1, b1,
+    W2 for the weight gradients) with the output gradient dY."""
     import torch.nn.functional as F
 
-    if kernel == "ln_matmul_train":
-        return library_fn("ln_matmul", None, args)
     x, c = args[0], args[0].shape[1]
-
-    def grad_of(out, inputs, dy):
-        return lambda: torch.autograd.grad(out, inputs, dy, retain_graph=True)
-
     if kernel == "ln_matmul_bwd":
         _, g, w, dy = args
         xr = x.detach().requires_grad_()
         gd, bd = g.to(x.dtype).requires_grad_(), torch.zeros_like(
             g, dtype=x.dtype).requires_grad_()
-        out = F.linear(F.layer_norm(xr, (c,), gd, bd, 1e-5), w.t().contiguous())
-        return grad_of(out, (xr, gd, bd), dy)
+        wt = w.t().contiguous()
+        return (lambda: F.linear(F.layer_norm(xr, (c,), gd, bd, 1e-5), wt),
+                (xr, gd, bd), dy)
     _, g, b, w1, b1, w2 = args[:6]
     need_x = kernel == "ln_mlp_bwd_dx"
     xr = x.detach().requires_grad_(need_x)
@@ -1476,29 +1508,24 @@ def token_library_fn(kernel: str, args):
         return F.linear(F.gelu(F.linear(F.layer_norm(xr, (c,), gd, bd, 1e-5),
                                         w1t, b1d)), w2t, b2d)
 
-    if kernel == "ln_mlp":
-        return mlp
-    return grad_of(mlp(), (xr, gd, bd) if need_x else (w1t, b1d, w2t), args[6])
+    return mlp, (xr, gd, bd) if need_x else (w1t, b1d, w2t), args[6]
 
 
-def mlp_dx_library_device_ms(args) -> float:
-    """Device time of autograd's LN + MLP backward to x, γ and β (row 10's
-    yardstick): CUDA-graph replays of forward + backward less those of the
-    forward, since a backward of a forward run outside the capture cannot
-    be captured."""
-    import torch.nn.functional as F
+def token_library_fn(kernel: str, args):
+    """The library composition of a token training forward (kernels 2 and
+    3 without the residual), as a function of nothing."""
+    if kernel == "ln_matmul_train":
+        return library_fn("ln_matmul", None, args)
+    return token_library_parts(kernel, args)[0]
 
-    x, g, b, w1, b1, w2, dy = args
-    c = x.shape[1]
-    xr = x.detach().requires_grad_()
-    gd, bd = g.to(x.dtype).requires_grad_(), b.to(x.dtype).requires_grad_()
-    w1t, b1d, w2t = w1.t().contiguous(), b1.to(x.dtype), w2.t().contiguous()
 
-    def forward():
-        return F.linear(F.gelu(F.linear(F.layer_norm(xr, (c,), gd, bd, 1e-5),
-                                        w1t, b1d)), w2t)
-
-    both = device_ms(lambda: torch.autograd.grad(forward(), (xr, gd, bd), dy))
+def token_library_device_ms(kernel: str, args) -> float:
+    """Device time of autograd's backward of a token backward kernel's
+    library composition (rows 9-11's yardstick): CUDA-graph replays of
+    forward + backward less those of the forward, since a backward of a
+    forward run outside the capture cannot be captured."""
+    forward, inputs, dy = token_library_parts(kernel, args)
+    both = device_ms(lambda: torch.autograd.grad(forward(), inputs, dy))
     return both - device_ms(forward)
 
 
@@ -1661,11 +1688,15 @@ def phase_token_times(shapes, launches, params):
             fused, plain = token_fns(kernel)
             ms = median_ms(lambda: fused(*args))
             plain_ms = median_ms(lambda: plain(*args), reps=5, warm=1)
-            # row 10's yardstick is device time, so that the host's launches
-            # of autograd do not set it; rows 9 and 11 keep CUDA events
-            # around the host's launches, which move with the host
-            lib_ms = mlp_dx_library_device_ms(args) if kernel == "ln_mlp_bwd_dx" \
-                else median_ms(token_library_fn(kernel, args))
+            # the backward kernels and their yardsticks in device time, so
+            # that the host's launches (autograd's above all) do not set them
+            timing = "events"
+            if kernel in DEVICE_TIMED:
+                timing = f"device; kernel events {ms:.4f}"
+                ms = device_ms(lambda: fused(*args))
+                lib_ms = token_library_device_ms(kernel, args)
+            else:
+                lib_ms = median_ms(token_library_fn(kernel, args))
             err = max(row[1] for row in compare_token(
                 kernel, fused(*args), plain(*args), dtype))
             nbytes, ops, peak = token_work(kernel, shape, dtype)
@@ -1673,8 +1704,7 @@ def phase_token_times(shapes, launches, params):
             t_ops = ops / peak * 1e3
             log(f"[token-times] {kernel} bf16 {shape} x{count}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
-                f"({'device' if kernel == 'ln_mlp_bwd_dx' else 'events'}), "
-                f"bound {max(t_bytes, t_ops):.4f} ms "
+                f"({timing}), bound {max(t_bytes, t_ops):.4f} ms "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'})")
             tot["ms"] += count * ms
             tot["plain_ms"] += count * plain_ms
@@ -2698,12 +2728,28 @@ WIDE_MLP_SHAPES = ((6272, 512, 2048), (1568, 1024, 4096), (6272, 768, 3072),
                    (1568, 1536, 6144))
 
 
+# (T, C, O, bias) of the LN + matmul kernel that phase 2 does not reach:
+# swin_medical.yaml's merges at 256² and bucket 32 (maps 64, 32, 16 halved),
+# and at bucket 32 and 224² swin_base's (embed 128) and swin_large's (embed
+# 192) widest QKV and last merge
+MEDICAL_MERGE_SHAPES = ((32768, 384, 192, False), (8192, 768, 384, False),
+                        (2048, 1536, 768, False))
+WIDE_LN_MATMUL_SHAPES = ((1568, 1024, 3072, True), (1568, 1536, 4608, True),
+                         (1568, 2048, 1024, False), (1568, 3072, 1536, False))
+# (T, C) of swin_base's first three stages at batch 32: the LN + MLP
+# backward's widths 128-512 (it takes C up to 768)
+SWIN_BASE_TOKEN_SHAPES = ((100352, 128), (25088, 256), (6272, 512))
+
+
 def phase_tensor_core():
-    """Kernels 3 and 10 (the wgmma LN + MLP forward and backward dX)
-    against their plain versions at the shapes phases 2 and 11 do not
-    take: swin_medical.yaml's 256² forward, and the swin_base and
-    swin_large widths up to 1536 (kernel 3) and 768 (kernel 10); then
-    kernel 3's time per swin_medical forward."""
+    """The wgmma kernels against their plain versions at the shapes phases
+    2 and 11 do not take: kernel 3 (LN + MLP forward) at swin_medical.yaml's
+    256² forward and the swin_base and swin_large widths up to 1536, kernel
+    10 (its dX) at width 512, kernel 2 (LN + matmul) at swin_medical's
+    merges and swin_base's and swin_large's widest QKV and merges (C up to
+    3072, O up to 4608), kernel 11 (the LN + MLP weight gradients) at
+    swin_base's widths 128-512; then kernel 3's time per swin_medical
+    forward."""
     from thyroid_tpu_torch.ops import token_fused as tf
 
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -2712,19 +2758,21 @@ def phase_tensor_core():
     cases = [(shape, dt) for shape in med for dt in (torch.float32, torch.bfloat16)]
     cases += [(shape, torch.bfloat16) for shape in WIDE_MLP_SHAPES]
     cases += [(shape, torch.float32) for shape in WIDE_MLP_SHAPES if shape[1] <= 1024]
-    for shape, dtype in cases:
-        args = make_inputs("ln_mlp_residual", shape, dtype, gen)
-        got = tf.fused_ln_mlp_residual(*args).float()
-        want = tf.ln_mlp_residual_plain(*args).float()
+    def hold(kernel, fused, plain, shape, dtype):
+        args = make_inputs(kernel, shape, dtype, gen)
+        got, want = fused(*args).float(), plain(*args).float()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         tol = RTOL[dtype] * max(1.0, want.abs().max().item())
         ok = bool(np.isfinite(err)) and err <= tol and bool(torch.isfinite(got).all())
-        log(f"[tensor-core] ln_mlp_residual {str(dtype)[6:]} {shape}: max_abs_err "
+        log(f"[tensor-core] {kernel} {str(dtype)[6:]} {shape}: max_abs_err "
             f"{err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
-            failed.append(("ln_mlp_residual", str(dtype), shape, err))
-        del args, got, want
+            failed.append((kernel, str(dtype), shape, err))
+
+    for shape, dtype in cases:
+        hold("ln_mlp_residual", tf.fused_ln_mlp_residual, tf.ln_mlp_residual_plain,
+             shape, dtype)
     for dtype in (torch.float32, torch.bfloat16):
         shape = (6272, 512)                         # swin_base stage 3
         args = make_token_inputs("ln_mlp_bwd_dx", shape, dtype, gen)
@@ -2736,6 +2784,20 @@ def phase_tensor_core():
             if not ok:
                 failed.append(("ln_mlp_bwd_dx", str(dtype), shape, name, err))
         del args
+    for shape in MEDICAL_MERGE_SHAPES + WIDE_LN_MATMUL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            hold("ln_matmul", tf.fused_ln_matmul, tf.ln_matmul_plain, shape, dtype)
+    for shape in SWIN_BASE_TOKEN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = make_token_inputs("ln_mlp_bwd_dw", shape, dtype, gen)
+            fused, plain = token_fns("ln_mlp_bwd_dw")
+            for name, err, tol, ok in compare_token("ln_mlp_bwd_dw", fused(*args),
+                                                    plain(*args), dtype):
+                log(f"[tensor-core] ln_mlp_bwd_dw {str(dtype)[6:]} {shape} {name}: "
+                    f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append(("ln_mlp_bwd_dw", str(dtype), shape, name, err))
+            del args
     if failed:
         raise AssertionError(f"tensor-core kernels disagree: {failed}")
     tot = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}

@@ -64,7 +64,7 @@ def test_percentile(gen, dtype, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t,c,o,bias", [(70, 96, 288, True), (33, 40, 20, False),
-                                        (130, 1536, 768, False)])
+                                        (130, 1536, 768, False), (130, 96, 288, True)])
 def test_ln_matmul(gen, dtype, t, c, o, bias):
     args = (_rn(gen, t, c, dtype=dtype), 1 + _rn(gen, c, scale=0.1),
             _rn(gen, c, scale=0.1), _rn(gen, c, o, scale=c ** -0.5, dtype=dtype),

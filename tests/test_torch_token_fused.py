@@ -41,6 +41,15 @@ def _cast(a, dtype):
     ((2, 16, 16), 96, 288, True, "f32"),
     ((4, 64), 128, 384, False, "f32"),
     ((2, 16, 16), 96, 288, True, "bf16"),
+    # 130 rows: two 64-row tiles of the card's kernel and two rows more
+    ((130,), 96, 288, True, "f32"),
+    ((130,), 96, 288, True, "bf16"),
+    # PatchMerging's reduction 4C -> 2C, without a bias
+    ((2, 33), 384, 192, False, "f32"),
+    ((2, 33), 384, 192, False, "bf16"),
+    # widths that are not multiples of 8
+    ((33,), 40, 20, True, "f32"),
+    ((33,), 40, 20, False, "bf16"),
 ])
 def test_fused_ln_matmul(lead, c, out_dim, use_bias, dtype):
     x = _f32(*lead, c)

@@ -108,6 +108,38 @@ def test_ln_mlp_grads_match_jax(residual, hidden, dtype):
 
 
 @pytest.mark.unit
+@pytest.mark.parametrize("t,c,hidden,dtype", [
+    (130, 96, 384, "bf16"),
+    # widths that are not multiples of 8 (the card stages padded copies)
+    (130, 40, 160, "f32"),
+    (130, 40, 160, "bf16"),
+])
+def test_ln_mlp_weight_grads_match_jax_call(t, c, hidden, dtype):
+    """dW1, db1, dW2 of fused_ln_mlp_bwd_dw against the JAX backward call
+    (_ln_mlp_bwd_call, its Pallas dw kernel in interpret mode) on the same
+    x and dY, 130 tokens (two 64-row tiles and two rows): 2e-4 (float32)
+    or 2^-6 (bfloat16) relative to max(1, max|want|)."""
+    x, dy = _f32(t, c), _f32(t, c)
+    g, b, w1, b1, w2, _ = _mlp_args(c, hidden)
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    want = jtf._ln_mlp_bwd_call(
+        jnp.asarray(x, jdt), jnp.asarray(g), jnp.asarray(b),
+        jnp.asarray(w1, jdt), jnp.asarray(b1), jnp.asarray(w2, jdt),
+        jnp.asarray(dy, jdt), residual=False, eps=1e-5, interpret=True)[3:]
+    before = ttf.fused_ln_mlp_bwd_dw.launches
+    got = ttf.fused_ln_mlp_bwd_dw(
+        torch.from_numpy(x).to(tdt), *map(torch.from_numpy, (g, b, w1, b1, w2)),
+        torch.from_numpy(dy).to(tdt))
+    assert ttf.fused_ln_mlp_bwd_dw.launches == before
+    tol = 2e-4 if dtype == "f32" else BF16_TOL
+    for name, gv, wv in zip(["w1", "b1", "w2"], got, want):
+        assert gv.dtype == torch.float32
+        wv = np.asarray(jnp.asarray(wv, jnp.float32)).reshape(gv.shape)
+        assert _rel(gv, wv) < tol, (name, _rel(gv, wv))
+
+
+@pytest.mark.unit
 def test_prime_token_grads_match_jax():
     """2·197 tokens (the JAX kernel pads them to its block), loss sum(y²)
     of the residual MLP, every gradient within 2e-4."""

@@ -24,8 +24,9 @@
 // Sums over tokens are deterministic (token_bwd.cuh).
 //
 // Bound on the H100: dx does three products of 2*C*Hd operations per row
-// (6*C*Hd), dw four, for about 3*C elements moved per row: bound by
-// operations.
+// (6*C*Hd), dw four (8*C*Hd), for about 3*C elements moved per row: bound by
+// operations at every Swin width (8*C*Hd / (4*C) bytes = 2*Hd = 768
+// operations per byte at C = 96, against the card's ~295).
 //
 // dx in bf16 (the flagged training step): mlp_tc.cuh's wgmma core. A pass
 // writes xn = round(x_hat * gamma + beta) (bf16) to the workspace; a CTA of
@@ -48,11 +49,51 @@
 // of token_bwd.cuh (deterministic dgamma/dbeta partials, summed in block
 // order).
 //
-// float32 (the card-vs-CPU parity step) keeps the scalar dx kernel below:
-// TF32 tensor cores would not hold the 1e-4 float32 checks. dw (kernel 11)
-// is scalar in both types.
+// dw in bf16 (kernel 11, the flagged training step) also runs on wgmma. The
+// same LN pass writes xn; a CTA owns one hidden chunk j (64 units), one dW
+// column block (N = 64, 96, 128 or 192 columns of C: C = 96 one block of
+// 96, 192 one of 192, 384 two and 768 four of 192) and one token split,
+// and walks the split's 64-row token tiles. Per tile, one producer thread
+// loads by TMA C / 64 stages of {xn, W1[k, j], dY, W2[j, k]} (64 x 64 bf16
+// tiles, 128-byte swizzle) and then one of {xn, dY}[:, block], into a ring
+// of 4-6 stages (mbarriers, 32-48 KB each). Two consumer warpgroups split
+// the work evenly:
+// - warpgroup 0: hr = xn W1[:, j] (wgmma m64n64k16, W1 the MN-major B), +
+//   b1, rounded; hands hr (bf16, 8 KB) to warpgroup 1 through shared memory
+//   between two named barriers; a = round(gelu(hr)) stored transposed
+//   (64 units x 64 tokens, swizzled: the K-major A of a product over
+//   tokens); dW2[j, block] += a^T dY[:, block] (wgmma m64nNk16, the dY tile
+//   read as the MN-major B);
+// - warpgroup 1: dA = dY W2[j, :]^T (W2 the K-major B); dH = round(dA *
+//   gelu'(hr)) stored transposed; dW1^T[j, block] += dH^T xn[:, block]; db1
+//   from the stored dH^T (each thread half a unit's 64 tokens, in f32)
+//   while that product runs.
+// imm-trans-a stays 0: the transposed stores make dH^T and a^T K-major
+// (one shuffle pairs neighbouring tokens into 32-bit stores), and the token
+// tiles that were the first products' K-major A serve the weight products
+// as the MN-major B. Each k-tile of hr and dA is its own wgmma group, added
+// in f32 on the CUDA cores (summed inside wgmma across k-tiles, their dW
+// was 2-5x as far from float64 products as cuBLAS's float32 one at C =
+// 768). The dW accumulators stay in registers over the split, N / 2 a
+// thread beside 32 of hr or dA and 32 of a k-tile's product: at C = 768,
+// 96 + 64 in the 168 a thread that nine warps leave, with 98 bytes
+// spilled (ptxas; 8 at N = 128, none below); 4 stages of 48 KB + 24 KB (a^T,
+// dH^T, the hr hand-over) = 218 KB of shared memory, one CTA an SM. Each
+// column block recomputes hr and dA: the tensor cores do 8*C*Hd operations
+// a row at C = 192, 12*C*Hd (1.5x) at 384, 20*C*Hd (2.5x) at 768, and at C
+// = 96 9.3*C*Hd (the first products run 128 deep, 32 of them on zeros).
+// The grid is chunks x column blocks x token splits, the splits enough for
+// two waves of the 132 SMs, more where whole waves then cost fewer tiles
+// (stage 1 of the flagged step: 6 x 1 x 44 CTAs; stage 3: 24 x 2 x 11,
+// four full waves; stage 4: 48 x 4 x 2); each split writes [dW1 | dW2 |
+// db1] as an f32 partial that sum_partials adds in split order:
+// deterministic, no atomics.
+// Widths that are not multiples of 8 read W1, W2 and dY from zero-padded
+// copies in the workspace.
 //
-// Scalar design (C up to 768):
+// float32 (the card-vs-CPU parity step) keeps the scalar dx and dw kernels
+// below: TF32 tensor cores keep 10 mantissa bits and would not hold the
+// 1e-4 float32 checks.
 #include "mlp_tc.cuh"
 
 namespace {
@@ -691,38 +732,370 @@ int launch_dx_bf16(const void* x, const float* g, const float* b, const void* w1
   return static_cast<int>(sum_partials(partial, dgb, groups, 2 * static_cast<size_t>(c), s));
 }
 
-template <typename T>
-int launch_dw(const void* x, const float* g, const float* b, const void* w1, const float* b1,
-              const void* w2, const void* dy, float* partial, float* out, int t, int c, int hdim,
-              float eps, cudaStream_t s) {
+int launch_dw_f32(const void* x, const float* g, const float* b, const void* w1, const float* b1,
+                  const void* w2, const void* dy, float* partial, float* out, int t, int c,
+                  int hdim, float eps, cudaStream_t s) {
   int groups = 0;
-  const int status = dw_groups<T>(t, c, hdim, &groups);
+  const int status = dw_groups<float>(t, c, hdim, &groups);
   if (status != 0) return status;
   const dim3 grid((hdim + kHW - 1) / kHW, groups);
-  dw_kernel<T>(c)<<<grid, kThreads, dw_smem_bytes(c), s>>>(
-      static_cast<const T*>(x), g, b, static_cast<const T*>(w1), b1, static_cast<const T*>(w2),
-      static_cast<const T*>(dy), partial, t, c, hdim, eps);
+  dw_kernel<float>(c)<<<grid, kThreads, dw_smem_bytes(c), s>>>(
+      static_cast<const float*>(x), g, b, static_cast<const float*>(w1), b1,
+      static_cast<const float*>(w2), static_cast<const float*>(dy), partial, t, c, hdim, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = 2 * static_cast<size_t>(c) * hdim + hdim;
   return static_cast<int>(sum_partials(partial, out, groups, n, s));
 }
 
+// ---- dw in bf16: the tensor-core kernel ------------------------------------
+
+// A CTA's tiles: hidden chunk j (64 units), dW column block cb (N columns
+// of C), token split z (tps tiles of 64 rows). Per token tile, nk k-tiles
+// of {xn, W1[k, chunk], dY, W2[chunk, k]} (the first products), then one of
+// {xn[:, block], dY[:, block]} (the weight products).
+struct DwPlan {
+  int n, nblk;                // dW columns of a CTA (64, 96, 128 or 192); column blocks
+  int chunks, tiles, tps, splits;
+  bool staged;                // C or Hd not a multiple of 8: padded copies
+  // workspace, in this order: xn (T x round8(C) bf16) and, when staged, the
+  // padded W1 (C x round8(Hd)), W2 (Hd x round8(C)) and dY (T x round8(C))
+  size_t xn_bytes, w1_bytes, w2_bytes, dy_bytes;
+  size_t total() const { return xn_bytes + w1_bytes + w2_bytes + dy_bytes; }
+};
+
+inline DwPlan dw_plan(int t, int c, int hdim) {
+  DwPlan p;
+  p.nblk = (c + 191) / 192;
+  const int per = (c + p.nblk - 1) / p.nblk;
+  p.n = per <= 64 ? 64 : per <= 96 ? 96 : per <= 128 ? 128 : 192;
+  p.chunks = (hdim + 63) / 64;
+  p.tiles = (t + 63) / 64;
+  // token splits: at least two waves of one CTA an SM, then up to four
+  // times that many where whole waves take fewer modelled tile times (a
+  // tile's four products at the 1.6 TFLOP/s a CTA reached at C = 384 on the
+  // H100) plus the split's partial, written and read back at 3.35 TB/s
+  const int base = p.chunks * p.nblk, nk = (c + 63) / 64;
+  const double tile_s = 4.0 * 64 * 64 * (64.0 * nk + p.n) / 1.6e12;
+  const double split_s = (2.0 * c * hdim + hdim) * 8 / 3.35e12;
+  int s0 = (2 * kSMs + base - 1) / base;
+  s0 = s0 < 1 ? 1 : (s0 > p.tiles ? p.tiles : s0);
+  int sp = s0;
+  double best = 0;
+  for (int s = s0; s <= 4 * s0 && s <= p.tiles; ++s) {
+    const double cost = static_cast<double>((base * s + kSMs - 1) / kSMs) *
+                            ((p.tiles + s - 1) / s) * tile_s + s * split_s;
+    if (s == s0 || cost < best) {
+      best = cost;
+      sp = s;
+    }
+  }
+  p.tps = (p.tiles + sp - 1) / sp;
+  p.splits = (p.tiles + p.tps - 1) / p.tps;
+  p.staged = c % 8 != 0 || hdim % 8 != 0;
+  const int cp = mlptc::round8(c), hp = mlptc::round8(hdim);
+  p.xn_bytes = mlptc::round256(static_cast<size_t>(t) * cp * sizeof(bf16));
+  p.w1_bytes = p.staged ? mlptc::round256(static_cast<size_t>(c) * hp * sizeof(bf16)) : 0;
+  p.w2_bytes = p.staged ? mlptc::round256(static_cast<size_t>(hdim) * cp * sizeof(bf16)) : 0;
+  p.dy_bytes = p.staged ? mlptc::round256(static_cast<size_t>(t) * cp * sizeof(bf16)) : 0;
+  return p;
+}
+
+__host__ __device__ constexpr int dw_stage_bytes(int n) {
+  return 2 * ((n + 63) / 64) > 4 ? 2 * ((n + 63) / 64) * kTile : 4 * kTile;
+}
+// the ring, then a^T, dH^T and the hr hand-over (8 KB each), then the mbarriers
+__host__ __device__ constexpr int dw_stages(int n) {
+  return (mlptc::kMaxSmem - 3 * kTile - 2048) / dw_stage_bytes(n) < 8
+             ? (mlptc::kMaxSmem - 3 * kTile - 2048) / dw_stage_bytes(n)
+             : 8;
+}
+__host__ __device__ constexpr int dw_tc_smem_bytes(int n) {
+  return dw_stages(n) * dw_stage_bytes(n) + 3 * kTile + 2048;
+}
+
+// Stores a 64 token x 64 hidden fragment (f(j, i, e), already rounded, of
+// accumulator 4 j + 2 i + e) transposed, as bf16, into the swizzled block
+// at shared address blk: rows are hidden units, columns tokens, the K-major
+// A operand of a product over tokens. Lanes l and l ^ 4 hold neighbouring
+// tokens of the same units; one shuffle pairs them into a 32-bit store.
+template <typename F>
+__device__ __forceinline__ void store_transposed(uint32_t blk, F f) {
+  const int lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
+  const int odd = (lane >> 2) & 1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float v0 = f(j, i, 0), v1 = f(j, i, 1);
+      const float other = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+      const int tok = (warp * 16 + (lane >> 2) + 8 * i) & ~1;
+      const int hid = 8 * j + 2 * (lane & 3) + odd;
+      const __nv_bfloat162 v = odd ? __floats2bfloat162_rn(other, v1)
+                                   : __floats2bfloat162_rn(v0, other);
+      wg::st_shared_b32(blk + wg::swz(hid, tok >> 3) + (tok & 7) * 2,
+                        *reinterpret_cast<const uint32_t*>(&v));
+    }
+  wg::fence_proxy();
+}
+
+struct DwArgs {
+  uint32_t base, at, dt, hx, bars;
+  const float* b1;
+  float* part;  // this split's [dW1 | dW2 | db1]
+  int c, hdim, h0, c0, cb, ntile, nk;
+};
+
+// One consumer warpgroup of the dW kernel, over the CTA's token tiles.
+// ROLE 0: hr = xn W1 (W1 the MN-major B), a = round(gelu(hr)), hands hr to
+// warpgroup 1, dW2[chunk, block] += a^T dY[:, block]. ROLE 1: dA = dY W2^T
+// (W2 the K-major B), dH = round(dA gelu'(hr)), dW1^T[chunk, block] +=
+// dH^T xn[:, block], and db1. Both release every stage of the ring.
+template <int N, int ROLE, int kStages, int kStage>
+__device__ __forceinline__ void dw_consumer(const DwArgs& a) {
+  constexpr int kB = (N + 63) / 64;
+  const int lt = threadIdx.x & 127, lane = lt & 31;
+  auto take = [&](int g) {
+    wg::mbar_wait(a.bars + 8 * (g % kStages), (g / kStages) & 1);
+    return a.base + (g % kStages) * kStage;
+  };
+  auto release = [&](int g) {
+    wg::wait<0>();
+    if (lt == 0) wg::mbar_arrive(a.bars + 8 * (kStages + g % kStages));
+  };
+  float acc[N / 2], hd[32];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  float db = 0.f;  // ROLE 1: sum of dH over tokens, unit lt / 2, tokens of half lt % 2
+  int g = 0;
+  for (int it = 0; it < a.ntile; ++it) {
+    for (int k = 0; k < a.nk; ++k, ++g) {
+      float part[32];  // this k-tile's product, added in f32 (see the header)
+      const uint32_t st = take(g);
+      if constexpr (ROLE == 0) mlptc::mma_tile<64, 1, true>(part, st, st + kTile);
+      else mlptc::mma_tile<64, 0, true>(part, st + 2 * kTile, st + 3 * kTile);
+      release(g);
+      wg::fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) hd[i] = k == 0 ? part[i] : hd[i] + part[i];
+    }
+    uint32_t hp[16];  // hr = round(xn W1 + b1) as bf16 pairs, in fragment order
+    if constexpr (ROLE == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int hj = a.h0 + 8 * j + 2 * (lane & 3);
+          const __nv_bfloat162 v = __floats2bfloat162_rn(
+              hj < a.hdim ? hd[4 * j + 2 * i] + a.b1[hj] : 0.f,
+              hj + 1 < a.hdim ? hd[4 * j + 2 * i + 1] + a.b1[hj + 1] : 0.f);
+          hp[2 * j + i] = *reinterpret_cast<const uint32_t*>(&v);
+        }
+      if (it > 0) wg::bar_sync(2, 256);  // warpgroup 1 has read the last tile's hr
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        wg::st_shared_v4(a.hx + (q * 128 + lt) * 16,
+                         make_uint4(hp[4 * q], hp[4 * q + 1], hp[4 * q + 2], hp[4 * q + 3]));
+      __threadfence_block();
+      wg::bar_arrive(1, 256);
+      store_transposed(a.at, [&](int j, int i, int e) {
+        const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hp[2 * j + i]);
+        return round_to<bf16>(tokbwd::gelu(e ? __high2float(h) : __low2float(h)));
+      });
+      wg::bar_sync(3, 128);  // a^T is complete
+      const uint32_t st = take(g);
+      mlptc::mma_tile<N, 1>(acc, a.at, st + kB * kTile);
+      release(g);
+      ++g;
+    } else {
+      wg::bar_sync(1, 256);  // hr of this tile has been handed over
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 v = wg::ld_shared_v4(a.hx + (q * 128 + lt) * 16);
+        hp[4 * q] = v.x;
+        hp[4 * q + 1] = v.y;
+        hp[4 * q + 2] = v.z;
+        hp[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hp[2 * j + i]);
+          hd[4 * j + 2 * i] = round_to<bf16>(hd[4 * j + 2 * i] * tokbwd::gelu_grad(__low2float(h)));
+          hd[4 * j + 2 * i + 1] =
+              round_to<bf16>(hd[4 * j + 2 * i + 1] * tokbwd::gelu_grad(__high2float(h)));
+        }
+      if (it + 1 < a.ntile) wg::bar_arrive(2, 256);  // hr is read
+      store_transposed(a.dt, [&](int j, int i, int e) { return hd[4 * j + 2 * i + e]; });
+      wg::bar_sync(4, 128);  // dH^T is complete
+      const uint32_t st = take(g);
+      mlptc::mma_tile<N, 1>(acc, a.dt, st);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // db1, while the product runs
+        const uint4 v = wg::ld_shared_v4(a.dt + wg::swz(lt >> 1, (lt & 1) * 4 + q));
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
+          db += __low2float(h) + __high2float(h);
+        }
+      }
+      release(g);
+      ++g;
+    }
+  }
+  wg::fence_regs(acc);
+  float* dw1 = a.part;
+  float* dw2 = a.part + static_cast<size_t>(a.c) * a.hdim;
+  mlptc::for_each_acc<N>(acc, 0, a.c0, [&](int row, int col, float v) {
+    const int hj = a.h0 + row;
+    if (hj >= a.hdim || col >= a.c) return;
+    if constexpr (ROLE == 0) dw2[static_cast<size_t>(hj) * a.c + col] = v;
+    else dw1[static_cast<size_t>(col) * a.hdim + hj] = v;
+  });
+  if constexpr (ROLE == 1) {
+    db += __shfl_xor_sync(0xffffffffu, db, 1);
+    const int hj = a.h0 + (lt >> 1);
+    if (a.cb == 0 && (lt & 1) == 0 && hj < a.hdim)
+      a.part[2 * static_cast<size_t>(a.c) * a.hdim + hj] = db;
+  }
+}
+
+// One CTA: hidden chunk x / nblk, column block x % nblk, token split y;
+// writes its [dW1 | dW2 | db1] region of split y's f32 partial. Warpgroups
+// 0 and 1 consume; the first thread after them loads.
+template <int N>
+__global__ void __launch_bounds__(mlptc::threads(2), 1)
+ln_mlp_dw_tc_kernel(const __grid_constant__ CUtensorMap m_xn,
+                    const __grid_constant__ CUtensorMap m_dy,
+                    const __grid_constant__ CUtensorMap m_w1,
+                    const __grid_constant__ CUtensorMap m_w2, const float* __restrict__ b1,
+                    float* __restrict__ part, int t, int c, int hdim, int nblk, int tps,
+                    int tiles) {
+  constexpr int kB = (N + 63) / 64, kStage = dw_stage_bytes(N), kStages = dw_stages(N);
+  static_assert(kStages >= 2, "the ring holds at least two stages");
+  extern __shared__ unsigned char smem_raw[];
+  DwArgs a;
+  a.base = (wg::smem_addr(smem_raw) + 1023) & ~1023u;
+  a.at = a.base + kStages * kStage;
+  a.dt = a.at + kTile;
+  a.hx = a.dt + kTile;
+  a.bars = a.hx + kTile;  // kStages full, then kStages empty
+  const int tid = threadIdx.x, wgi = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  a.cb = blockIdx.x % nblk;
+  a.h0 = 64 * (blockIdx.x / nblk);
+  a.c0 = N * a.cb;
+  const int tile0 = blockIdx.y * tps;
+  a.ntile = min(tiles, tile0 + tps) - tile0;
+  a.nk = (c + 63) / 64;
+  a.b1 = b1;
+  a.part = part + static_cast<size_t>(blockIdx.y) * (2 * static_cast<size_t>(c) * hdim + hdim);
+  a.c = c;
+  a.hdim = hdim;
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      wg::mbar_init(a.bars + 8 * i, 1);
+      wg::mbar_init(a.bars + 8 * (kStages + i), 2);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == 2) {  // the producer
+    if (tid == 256) {
+      const int tpt = a.nk + 1, ntiles = a.ntile * tpt;
+      for (int g = 0; g < ntiles; ++g) {
+        const int s = g % kStages, row0 = 64 * (tile0 + g / tpt), r = g % tpt;
+        const uint32_t st = a.base + s * kStage, full = a.bars + 8 * s;
+        wg::mbar_wait(a.bars + 8 * (kStages + s), ((g / kStages) & 1) ^ 1);
+        if (r < a.nk) {
+          wg::mbar_expect_tx(full, 4 * kTile);
+          wg::tma_load(st, &m_xn, 64 * r, row0, full);
+          wg::tma_load(st + kTile, &m_w1, a.h0, 64 * r, full);
+          wg::tma_load(st + 2 * kTile, &m_dy, 64 * r, row0, full);
+          wg::tma_load(st + 3 * kTile, &m_w2, 64 * r, a.h0, full);
+        } else {
+          wg::mbar_expect_tx(full, 2 * kB * kTile);
+#pragma unroll
+          for (int b = 0; b < kB; ++b) {
+            wg::tma_load(st + kTile * b, &m_xn, a.c0 + 64 * b, row0, full);
+            wg::tma_load(st + kTile * (kB + b), &m_dy, a.c0 + 64 * b, row0, full);
+          }
+        }
+      }
+    }
+    return;
+  }
+  if (wgi == 0) dw_consumer<N, 0, kStages, kStage>(a);
+  else dw_consumer<N, 1, kStages, kStage>(a);
+}
+
+template <int N>
+int launch_dw_tc_kernel(const DwPlan& p, const CUtensorMap (&maps)[4], const float* b1,
+                        float* part, int t, int c, int hdim, cudaStream_t s) {
+  constexpr int smem = dw_tc_smem_bytes(N);
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_dw_tc_kernel<N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.chunks * p.nblk, p.splits);
+  ln_mlp_dw_tc_kernel<N><<<grid, mlptc::threads(2), smem, s>>>(
+      maps[0], maps[1], maps[2], maps[3], b1, part, t, c, hdim, p.nblk, p.tps, p.tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dw_bf16(const void* x, const float* g, const float* b, const void* w1,
+                   const float* b1, const void* w2, const void* dy, float* partial, float* out,
+                   void* workspace, int t, int c, int hdim, float eps, cudaStream_t s) {
+  const DwPlan p = dw_plan(t, c, hdim);
+  const int cp = mlptc::round8(c), hp = mlptc::round8(hdim);
+  char* ws = static_cast<char*>(workspace);
+  bf16* xn = reinterpret_cast<bf16*>(ws);
+  cudaError_t err = mlptc::ln_rows(x, g, b, xn, t, c, cp, eps, 1, s);
+  if (err == cudaSuccess && p.staged) {  // zero-padded copies of W1, W2 and dY
+    void* w1p = ws + p.xn_bytes;
+    void* w2p = static_cast<char*>(w1p) + p.w1_bytes;
+    void* dyp = static_cast<char*>(w2p) + p.w2_bytes;
+    err = cudaMemsetAsync(w1p, 0, p.w1_bytes + p.w2_bytes + p.dy_bytes, s);
+    if (err == cudaSuccess) err = mlptc::pad_copy(w1, w1p, c, hdim, hp, s);
+    if (err == cudaSuccess) err = mlptc::pad_copy(w2, w2p, hdim, c, cp, s);
+    if (err == cudaSuccess) err = mlptc::pad_copy(dy, dyp, t, c, cp, s);
+    w1 = w1p;
+    w2 = w2p;
+    dy = dyp;
+  }
+  const int lc = p.staged ? cp : c, lh = p.staged ? hp : hdim;
+  CUtensorMap maps[4];
+  if (err == cudaSuccess) err = mlptc::make_map(&maps[0], xn, t, c, cp);
+  if (err == cudaSuccess) err = mlptc::make_map(&maps[1], dy, t, c, lc);
+  if (err == cudaSuccess) err = mlptc::make_map(&maps[2], w1, c, hdim, lh);
+  if (err == cudaSuccess) err = mlptc::make_map(&maps[3], w2, hdim, c, lc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto args = [&](auto launch) { return launch(p, maps, b1, partial, t, c, hdim, s); };
+  int status;
+  if (p.n == 64) status = args(launch_dw_tc_kernel<64>);
+  else if (p.n == 96) status = args(launch_dw_tc_kernel<96>);
+  else if (p.n == 128) status = args(launch_dw_tc_kernel<128>);
+  else status = args(launch_dw_tc_kernel<192>);
+  if (status != 0) return status;
+  const size_t n = 2 * static_cast<size_t>(c) * hdim + hdim;
+  return static_cast<int>(sum_partials(partial, out, p.splits, n, s));
+}
+
 }  // namespace
 
 // Blocks of the dx grid (bf16: of its LN-backward pass) and token groups of
-// the dw grid: the wrapper sizes
-// the partials with them (groups x 2 x C, and groups x (2 C Hd + Hd), f32).
+// the dw grid (bf16: token splits): the wrapper sizes the partials with them
+// (groups x 2 x C, and groups x (2 C Hd + Hd), f32).
 TT_EXPORT int tt_ln_mlp_bwd_dx_groups(int t, int is_bf16) {
   return is_bf16 ? epilogue_groups(t) : row_groups(t);
 }
-// tt_ln_mlp_bwd_dw_groups returns the group count, or -1 when the occupancy
-// query fails (the launch then reports the error).
+// tt_ln_mlp_bwd_dw_groups returns the group count, or -1 when the float32
+// occupancy query fails (the launch then reports the error).
 TT_EXPORT int tt_ln_mlp_bwd_dw_groups(int t, int c, int hdim, int is_bf16) {
+  if (is_bf16) return dw_plan(t, c, hdim).splits;
   int groups = 0;
-  const int status = is_bf16 ? dw_groups<__nv_bfloat16>(t, c, hdim, &groups)
-                             : dw_groups<float>(t, c, hdim, &groups);
-  return status == 0 ? groups : -1;
+  return dw_groups<float>(t, c, hdim, &groups) == 0 ? groups : -1;
 }
 
 // Bytes of workspace tt_ln_mlp_bwd_dx needs (0 in float32): xn in bf16, the
@@ -731,6 +1104,13 @@ TT_EXPORT int tt_ln_mlp_bwd_dw_groups(int t, int c, int hdim, int is_bf16) {
 TT_EXPORT long long tt_ln_mlp_bwd_dx_workspace(int t, int c, int hdim, int is_bf16) {
   if (!is_bf16) return 0;
   return static_cast<long long>(mlptc::make_plan(t, c, hdim, true).total());
+}
+
+// Bytes of workspace tt_ln_mlp_bwd_dw needs (0 in float32): xn in bf16 and,
+// for widths that are not multiples of 8, padded copies of W1, W2 and dY.
+TT_EXPORT long long tt_ln_mlp_bwd_dw_workspace(int t, int c, int hdim, int is_bf16) {
+  if (!is_bf16) return 0;
+  return static_cast<long long>(dw_plan(t, c, hdim).total());
 }
 
 // dgb receives [dgamma | dbeta] (2 x C f32); residual adds dY to dX.
@@ -754,8 +1134,8 @@ TT_EXPORT int tt_ln_mlp_bwd_dx(const void* x, const void* gamma, const void* bet
 // out receives [dW1 (C x Hd) | dW2 (Hd x C) | db1 (Hd)], f32.
 TT_EXPORT int tt_ln_mlp_bwd_dw(const void* x, const void* gamma, const void* beta,
                                const void* w1, const void* b1, const void* w2, const void* dy,
-                               void* partial, void* out, int t, int c, int hdim, float eps,
-                               int is_bf16, void* stream) {
+                               void* partial, void* out, void* workspace, int t, int c, int hdim,
+                               float eps, int is_bf16, void* stream) {
   if (c > kMaxC || c < 1) return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
@@ -763,6 +1143,6 @@ TT_EXPORT int tt_ln_mlp_bwd_dw(const void* x, const void* gamma, const void* bet
   float* part = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dw<__nv_bfloat16>(x, g, b, w1, bb1, w2, dy, part, o, t, c, hdim, eps, s)
-                 : launch_dw<float>(x, g, b, w1, bb1, w2, dy, part, o, t, c, hdim, eps, s);
+  return is_bf16 ? launch_dw_bf16(x, g, b, w1, bb1, w2, dy, part, o, workspace, t, c, hdim, eps, s)
+                 : launch_dw_f32(x, g, b, w1, bb1, w2, dy, part, o, t, c, hdim, eps, s);
 }

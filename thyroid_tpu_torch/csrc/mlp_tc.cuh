@@ -1,6 +1,9 @@
 // The tensor-core core of the bf16 LN + MLP kernels: ln_mlp.cu (kernel 3,
 // the forward) and ln_mlp_bwd.cu (kernel 10, the backward's dX). float32
-// stays on those files' scalar kernels.
+// stays on those files' scalar kernels. Its pieces (the LN pass, tensor
+// maps, staged copies, mma_tile) also serve the LN + matmul forward
+// (ln_matmul.cu, kernel 2) and the LN + MLP weight gradients (kernel 11 in
+// ln_mlp_bwd.cu), which lay out their own CTAs.
 //
 // Both products of a hidden chunk run on wgmma (wgmma.cuh) over a CTA of
 // 64 token rows (wgmma's M) and a block of output columns:
@@ -197,6 +200,7 @@ inline cudaError_t ln_rows(const void* x, const float* g, const float* b, bf16* 
 template <int N, int TB>
 __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
   if constexpr (N == 64) wg::mma_m64n64k16<TB>(d, a, b, scale_d);
+  else if constexpr (N == 96) wg::mma_m64n96k16<TB>(d, a, b, scale_d);
   else if constexpr (N == 128) wg::mma_m64n128k16<TB>(d, a, b, scale_d);
   else if constexpr (N == 192) wg::mma_m64n192k16<TB>(d, a, b, scale_d);
   else wg::mma_m64n256k16<TB>(d, a, b, scale_d);
@@ -246,9 +250,8 @@ __device__ __forceinline__ void store_hidden(const float (&d)[32], uint32_t blk,
       const int r = warp * 16 + (lane >> 2) + 8 * i, cc = 8 * j + 2 * (lane & 3);
       const __nv_bfloat162 v = __floats2bfloat162_rn(f(d[4 * j + 2 * i], h_first + cc),
                                                      f(d[4 * j + 2 * i + 1], h_first + cc + 1));
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(blk + wg::swz(r, j) + (cc & 7) * 2),
-                   "r"(*reinterpret_cast<const uint32_t*>(&v))
-                   : "memory");
+      wg::st_shared_b32(blk + wg::swz(r, j) + (cc & 7) * 2,
+                        *reinterpret_cast<const uint32_t*>(&v));
     }
   wg::fence_proxy();
 }

@@ -1,6 +1,7 @@
 """Token-major fused LN kernels (counterpart of thyroid_tpu/ops/token_fused.py).
 
-- `fused_ln_matmul`:        y = LN(x) @ W + b              (csrc/ln_matmul.cu)
+- `fused_ln_matmul`:        y = LN(x) @ W + b              (csrc/ln_matmul.cu;
+                            bf16 on wgmma tensor cores)
 - `fused_ln_mlp_residual`:  y = x + fc2(gelu(fc1(LN(x))))  (csrc/ln_mlp.cu;
                             bf16 on wgmma tensor cores, csrc/mlp_tc.cuh)
 - `fused_ln_mlp`:           y = fc2(gelu(fc1(LN(x))))      (training: DropPath
@@ -14,8 +15,8 @@ kernels, so neither direction keeps a hidden tensor in global memory:
   dW = LN(x)ᵀ dY and db = ΣdY are plain products, as JAX leaves them to XLA;
 - `fused_ln_mlp_bwd_dx`: dX, dγ, dβ of LN + MLP (csrc/ln_mlp_bwd.cu; bf16
   on wgmma tensor cores);
-- `fused_ln_mlp_bwd_dw`: dW1, db1, dW2 of LN + MLP (csrc/ln_mlp_bwd.cu);
-  db2 = ΣdY is a plain sum, as in JAX.
+- `fused_ln_mlp_bwd_dw`: dW1, db1, dW2 of LN + MLP (csrc/ln_mlp_bwd.cu; bf16
+  on wgmma tensor cores); db2 = ΣdY is a plain sum, as in JAX.
 
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
 PyTorch version (`ln_matmul_plain`, `ln_mlp_plain`, `ln_matmul_bwd_plain`,
@@ -198,12 +199,15 @@ def _ln_matmul_fwd(x2, g, b, w, wb, eps):
     y = torch.empty(t, out_dim, dtype=x2.dtype, device=x2.device)
     if t == 0:
         return y
-    fn = _build.function("ln_matmul", "tt_ln_matmul", [ctypes.c_void_p] * 6 + [
+    is_bf16 = int(x2.dtype == torch.bfloat16)
+    ws = _workspace("ln_matmul", "tt_ln_matmul_workspace", x2.device, t, c,
+                    out_dim, is_bf16)
+    fn = _build.function("ln_matmul", "tt_ln_matmul", [ctypes.c_void_p] * 7 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_void_p])
     status = fn(_build.ptr(x2), _build.ptr(g), _build.ptr(bl), _build.ptr(w),
                 _build.ptr(wb) if wb is not None else None, _build.ptr(y),
-                t, c, out_dim, eps, int(x2.dtype == torch.bfloat16),
+                _build.ptr(ws), t, c, out_dim, eps, is_bf16,
                 _build.stream_ptr(x2.device))
     _build.check("ln_matmul", status, "fused_ln_matmul")
     fused_ln_matmul.launches += 1
@@ -354,19 +358,22 @@ def fused_ln_mlp_bwd_dw(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     db1 = out[2 * c * hdim:]
     if t == 0:
         return dw1, db1, dw2
+    is_bf16 = int(x2.dtype == torch.bfloat16)
     groups = _groups("ln_mlp_bwd", "tt_ln_mlp_bwd_dw_groups", t, c, hdim,
-                     int(x2.dtype == torch.bfloat16))
+                     is_bf16)
     if groups < 1:
         raise RuntimeError("fused_ln_mlp_bwd_dw: the CUDA occupancy query "
                            "failed")
     partial = torch.empty(groups, out.numel(), dtype=torch.float32,
                           device=x2.device)
+    ws = _workspace("ln_mlp_bwd", "tt_ln_mlp_bwd_dw_workspace", x2.device, t,
+                    c, hdim, is_bf16)
     fn = _build.function("ln_mlp_bwd", "tt_ln_mlp_bwd_dw",
-                         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     status = fn(*(_build.ptr(a) for a in args), _build.ptr(partial),
-                _build.ptr(out), t, c, hdim, eps,
-                int(x2.dtype == torch.bfloat16), _build.stream_ptr(x2.device))
+                _build.ptr(out), _build.ptr(ws), t, c, hdim, eps, is_bf16,
+                _build.stream_ptr(x2.device))
     _build.check("ln_mlp_bwd", status, "fused_ln_mlp_bwd_dw")
     fused_ln_mlp_bwd_dw.launches += 1
     return dw1, db1, dw2
