@@ -206,13 +206,18 @@ DUAL_GRIDS = {"clip_coarse": 2.0, "grid_coarse": (16, 16), "clip_fine": 0.03,
               "grid_fine": (32, 32)}
 
 
-# the libraries whose bf16 kernels run on wgmma (kernels 2, 3, 10 and 11),
-# each with the kernel functions that must hold HGMMA instructions in every
-# instantiation
-TENSOR_CORE_LIBS = ("ln_mlp", "ln_mlp_bwd", "ln_matmul")
+# the libraries whose bf16 kernels run on wgmma (kernels 2, 3, 7, 9, 10 and
+# 11), each with the kernel functions that must hold HGMMA instructions in
+# every instantiation; kernel 7's attention core must also hold TF32 HMMA
+# (mma.sync) instructions
+TENSOR_CORE_LIBS = ("ln_mlp", "ln_mlp_bwd", "ln_matmul", "ln_matmul_bwd",
+                    "swin_ln_attention")
 TENSOR_CORE_FUNCTIONS = {"ln_mlp": ("ln_mlp_tc_kernel",),
                          "ln_mlp_bwd": ("ln_mlp_dx_tc_kernel", "ln_mlp_dw_tc_kernel"),
-                         "ln_matmul": ("ln_matmul_tc_kernel",)}
+                         "ln_matmul": ("ln_matmul_tc_kernel",),
+                         "ln_matmul_bwd": ("ln_matmul_dxn_tc_kernel",),
+                         "swin_ln_attention": ("swin_ln_attention_tc_kernel",)}
+TF32_MMA_FUNCTIONS = {"swin_ln_attention": ("swin_ln_attention_tc_kernel",)}
 
 
 def log(*parts) -> None:
@@ -390,9 +395,13 @@ def work(kernel: str, shape, dtype):
 
 
 def sass_functions(sass: str):
-    """{function name: HGMMA instructions in it} of cuobjdump's SASS dump."""
+    """{function name: (HGMMA instructions, TF32 HMMA instructions) in it}
+    of cuobjdump's SASS dump."""
     parts = sass.split("Function : ")[1:]
-    return {part.split("\n", 1)[0].strip(): part.count("HGMMA") for part in parts}
+    return {part.split("\n", 1)[0].strip():
+            (part.count("HGMMA"), sum(1 for line in part.splitlines()
+                                      if "HMMA" in line and "TF32" in line))
+            for part in parts}
 
 
 def phase_build() -> str:
@@ -419,12 +428,19 @@ def phase_build() -> str:
             raise AssertionError(f"{path.name} holds no wgmma (HGMMA) instruction")
         functions = sass_functions(sass)
         for kernel in TENSOR_CORE_FUNCTIONS[name]:
-            counts = {f: n for f, n in functions.items() if kernel in f}
+            counts = {f: n[0] for f, n in functions.items() if kernel in f}
             log(f"[build] {path.name}: {kernel}: HGMMA per instantiation "
                 f"{sorted(counts.values())}")
             if not counts or min(counts.values()) == 0:
                 raise AssertionError(f"{kernel} in {path.name} runs without wgmma "
                                      f"(HGMMA counts {counts})")
+        for kernel in TF32_MMA_FUNCTIONS.get(name, ()):
+            counts = {f: n[1] for f, n in functions.items() if kernel in f}
+            log(f"[build] {path.name}: {kernel}: TF32 HMMA per instantiation "
+                f"{sorted(counts.values())}")
+            if not counts or min(counts.values()) == 0:
+                raise AssertionError(f"{kernel} in {path.name} runs its attention "
+                                     f"without TF32 mma.sync (HMMA counts {counts})")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -547,7 +563,8 @@ def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
 # kernels whose time and library time per call are device times (CUDA-graph
 # replays, device_ms): a call of a few tens of microseconds on the device,
 # whose host launches CUDA events around one call would measure instead
-DEVICE_TIMED = ("ln_matmul", "ln_matmul_bwd", "ln_mlp_bwd_dx", "ln_mlp_bwd_dw")
+DEVICE_TIMED = ("ln_matmul", "ln_mlp_residual", "swin_block_attention",
+                "ln_matmul_bwd", "ln_mlp_bwd_dx", "ln_mlp_bwd_dw")
 
 
 def phase_times(shapes, engine, launches):
@@ -709,10 +726,24 @@ def train_kernel_fns(shape):
     }
 
 
+def train_library_device_ms(kernel: str, shape, args) -> float:
+    """Device time of rows 5-6's yardstick (train_library_fn): the forward
+    composition's CUDA-graph replays; for the backward, replays of forward +
+    torch.autograd.grad less those of the forward, since a backward of a
+    forward run outside the capture cannot be captured."""
+    forward, inputs, dout = train_library_fn(kernel, shape, args)
+    if inputs is None:
+        return device_ms(forward)
+    both = device_ms(lambda: torch.autograd.grad(forward(), inputs, dout))
+    return both - device_ms(forward)
+
+
 def train_library_fn(kernel: str, shape, args):
-    """SDPA with the bias (+ mask) as attn_mask between window partition and
-    reverse; for the backward, torch.autograd.grad through that composition
-    to qkv and bias. Timing only: the port never calls it."""
+    """(forward, inputs, dout): SDPA with the bias (+ mask) as attn_mask
+    between window partition and reverse, as a function of nothing; for the
+    backward, the leaves qkv and bias that torch.autograd.grad takes the
+    gradient to with the output gradient dout (None for the forward).
+    Timing only: the port never calls it."""
     import torch.nn.functional as F
 
     qkv, bias, mask = args[0], args[-2], args[-1]
@@ -733,11 +764,10 @@ def train_library_fn(kernel: str, shape, args):
             .permute(0, 1, 4, 2, 5, 3, 6).reshape(b, r, r, c)
 
     if kernel == "swin_attention":
-        return lambda: attend(qkv, bias)
+        return lambda: attend(qkv, bias), None, None
     q = qkv.detach().requires_grad_()
     bb = bias.detach().requires_grad_()
-    out = attend(q, bb)
-    return lambda: torch.autograd.grad(out, (q, bb), args[1], retain_graph=True)
+    return lambda: attend(q, bb), (q, bb), args[1]
 
 
 def train_work(kernel: str, shape, dtype):
@@ -957,16 +987,19 @@ def phase_train_times(train_shapes, launches, params):
         for shape, count in cases.items():
             args = make_train_inputs(kernel, shape, dtype, gen)
             fused, plain = train_kernel_fns(shape)[kernel]
-            ms = median_ms(lambda: fused(*args))
+            events_ms = median_ms(lambda: fused(*args))
             plain_ms = median_ms(lambda: plain(*args), reps=5, warm=1)
-            lib_ms = median_ms(train_library_fn(kernel, shape, args))
+            # kernel and yardstick in device time, as rows 2 and 7-11
+            ms = device_ms(lambda: fused(*args))
+            lib_ms = train_library_device_ms(kernel, shape, args)
             err = max(row[1] for row in compare_train(
                 kernel, fused(*args), plain(*args), dtype))
             nbytes, ops, peak = train_work(kernel, shape, dtype)
             t_bytes = nbytes / H100_BYTES_PER_S * 1e3
             t_ops = ops / peak * 1e3
             log(f"[train-times] {kernel} bf16 {shape} x{count}: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+                f"(device; kernel events {events_ms:.4f}), "
                 f"bound {max(t_bytes, t_ops):.4f} ms "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'})")
             tot["ms"] += count * ms
@@ -1583,6 +1616,14 @@ def phase_token_kernels(shapes) -> None:
                         f"{'ok' if ok else 'FAIL'}")
                     if not ok:
                         failed.append((kernel, name, str(dtype), shape, err))
+                if kernel != "ln_mlp":  # the backward kernels: sums without atomics
+                    again = fused(*args)
+                    equal = all(torch.equal(a, b) for a, b in zip(got, again))
+                    log(f"[token-kernels] {kernel} {str(dtype)[6:]} {shape}: a "
+                        f"second run {'bit-equal' if equal else 'DIFFERS'}")
+                    if not equal:
+                        failed.append((kernel, "rerun", str(dtype), shape))
+                    del again
                 del args, got, want
     if failed:
         raise AssertionError(f"token kernels disagree with their plain "
@@ -2741,6 +2782,12 @@ WIDE_LN_MATMUL_SHAPES = ((1568, 1024, 3072, True), (1568, 1536, 4608, True),
 SWIN_BASE_TOKEN_SHAPES = ((100352, 128), (25088, 256), (6272, 512))
 
 
+def medical_token_shapes(batch: int):
+    """(T, C) of swin_medical.yaml's four stages at 256² and `batch` (maps
+    64, 32, 16, 8): kernel 9's step shapes beyond swin_tiny's."""
+    return tuple((batch * (64 // 2 ** i) ** 2, 96 * 2 ** i) for i in range(4))
+
+
 def phase_tensor_core():
     """The wgmma kernels against their plain versions at the shapes phases
     2 and 11 do not take: kernel 3 (LN + MLP forward) at swin_medical.yaml's
@@ -2748,7 +2795,8 @@ def phase_tensor_core():
     10 (its dX) at width 512, kernel 2 (LN + matmul) at swin_medical's
     merges and swin_base's and swin_large's widest QKV and merges (C up to
     3072, O up to 4608), kernel 11 (the LN + MLP weight gradients) at
-    swin_base's widths 128-512; then kernel 3's time per swin_medical
+    swin_base's widths 128-512, kernel 9 (the LN + QKV backward) at
+    swin_medical's 256² step; then kernel 3's time per swin_medical
     forward."""
     from thyroid_tpu_torch.ops import token_fused as tf
 
@@ -2787,17 +2835,19 @@ def phase_tensor_core():
     for shape in MEDICAL_MERGE_SHAPES + WIDE_LN_MATMUL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             hold("ln_matmul", tf.fused_ln_matmul, tf.ln_matmul_plain, shape, dtype)
-    for shape in SWIN_BASE_TOKEN_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            args = make_token_inputs("ln_mlp_bwd_dw", shape, dtype, gen)
-            fused, plain = token_fns("ln_mlp_bwd_dw")
-            for name, err, tol, ok in compare_token("ln_mlp_bwd_dw", fused(*args),
-                                                    plain(*args), dtype):
-                log(f"[tensor-core] ln_mlp_bwd_dw {str(dtype)[6:]} {shape} {name}: "
-                    f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failed.append(("ln_mlp_bwd_dw", str(dtype), shape, name, err))
-            del args
+    for kernel, shapes in (("ln_mlp_bwd_dw", SWIN_BASE_TOKEN_SHAPES),
+                           ("ln_matmul_bwd", medical_token_shapes(BATCH))):
+        for shape in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                args = make_token_inputs(kernel, shape, dtype, gen)
+                fused, plain = token_fns(kernel)
+                for name, err, tol, ok in compare_token(kernel, fused(*args),
+                                                        plain(*args), dtype):
+                    log(f"[tensor-core] {kernel} {str(dtype)[6:]} {shape} {name}: "
+                        f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failed.append((kernel, str(dtype), shape, name, err))
+                del args
     if failed:
         raise AssertionError(f"tensor-core kernels disagree: {failed}")
     tot = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}

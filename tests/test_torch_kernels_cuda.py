@@ -122,9 +122,15 @@ def _close_all(got, want, dtype, sums):
         _close(g, w, dtype, DBIAS_RTOL if i in sums else RTOL)
 
 
+# kernel 9's own cases: the token cases (h as the output width O) and the
+# QKV shapes O = 3C, up to swin_tiny's last stage, and a ragged C = 40
+LN_MATMUL_BWD_CASES = TOKEN_BWD_CASES + [(100, 96, 288), (70, 384, 1152),
+                                         (130, 768, 2304), (45, 40, 120)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("t,c,h", TOKEN_BWD_CASES)
+@pytest.mark.parametrize("t,c,h", LN_MATMUL_BWD_CASES)
 def test_ln_matmul_bwd(gen, dtype, t, c, h):
     """Kernel 9 against its plain version (dX; dγ, dβ as sums over tokens),
     and two runs bit-equal (no atomics)."""
@@ -439,11 +445,15 @@ def test_window_attention(gen, dtype, bw, heads, n, d, nw):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,r,c,heads,ws,shift,qkv_bias", [
     (2, 16, 96, 3, 4, 2, True), (1, 14, 384, 12, 7, 3, False),
-    (3, 7, 768, 24, 7, 0, True), (1, 8, 40, 1, 8, 0, True)])
+    (3, 7, 768, 24, 7, 0, True), (1, 8, 40, 1, 8, 0, True),
+    (4, 56, 96, 3, 7, 3, True), (2, 14, 384, 12, 7, 3, True),
+    (3, 63, 96, 3, 7, 0, False)])
 def test_swin_ln_attention(gen, dtype, b, r, c, heads, ws, shift, qkv_bias):
     """Row 7 against its plain version at shifted and unshifted maps, widths
     96-768, a 3·dh of 120 columns (one partial projection tile) and no QKV
-    bias; one launch counted; forward only."""
+    bias; in bf16 two windows a CTA where the windows are many (256 windows
+    of paired heads; 243, an odd count, whose last CTA has one); one launch
+    counted; forward only."""
     n = ws * ws
     mask = shift_attention_mask(r, r, ws, shift)
     args = (_rn(gen, b, r, r, c, dtype=dtype), 1 + _rn(gen, c, scale=0.1),
@@ -458,6 +468,24 @@ def test_swin_ln_attention(gen, dtype, b, r, c, heads, ws, shift, qkv_bias):
     _close(got, attention.swin_ln_attention_plain(*args, **kw), dtype, ATTN_RTOL)
     with pytest.raises(ValueError):
         attention.fused_swin_ln_attention(args[0].transpose(1, 2), *args[1:], **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(40, 2), (1088, 34)])
+def test_swin_ln_attention_bf16_widths(gen, c, heads):
+    """The bf16 kernel takes C up to 1024 and head widths that are multiples
+    of 8 up to 64, and raises on others (a head width of 20; C = 1088);
+    float32 takes them. It never falls back."""
+    ws = 4
+    args = (_rn(gen, 1, 8, 8, c), 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1),
+            _rn(gen, c, 3 * c, scale=c ** -0.5), None, _rn(gen, heads, 16, 16, scale=0.1),
+            None)
+    kw = dict(window_size=ws, num_heads=heads, scale=(c // heads) ** -0.5)
+    if c <= 768:  # float32's shared memory stops below C = 900
+        _close(attention.fused_swin_ln_attention(*args, **kw),
+               attention.swin_ln_attention_plain(*args, **kw), torch.float32, ATTN_RTOL)
+    with pytest.raises(ValueError, match="head width"):
+        attention.fused_swin_ln_attention(args[0].bfloat16(), *args[1:], **kw)
 
 
 @pytest.mark.cuda

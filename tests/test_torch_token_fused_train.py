@@ -64,9 +64,14 @@ def _grads_both(jfn, tfn, x, params, cot, dtype, loss="dot"):
 
 
 @pytest.mark.unit
+@pytest.mark.parametrize("lead,c,out_dim", [
+    ((2, 24), 96, 288),
+    # swin_tiny's last-stage QKV width: the dX product over O = 2304 and the
+    # dγ/dβ sums over rows at C = 768
+    ((70,), 768, 2304),
+])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_ln_matmul_grads_match_jax(dtype):
-    lead, c, out_dim = (2, 24), 96, 288
+def test_ln_matmul_grads_match_jax(dtype, lead, c, out_dim):
     x = _f32(*lead, c)
     params = (_f32(c, scale=0.1, shift=1.0), _f32(c, scale=0.1),
               _f32(c, out_dim, scale=c ** -0.5), _f32(out_dim, scale=0.1))

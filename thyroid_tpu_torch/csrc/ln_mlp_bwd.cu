@@ -44,10 +44,9 @@
 // a thread that nine warps leave spill 712 bytes (ptxas). C = 1536 is not
 // taken: the backward kernels stop at 768 (kMaxC). dXn goes to the
 // workspace as f32 partials over hidden splits (the hidden axis is split
-// where the CTAs would not fill two waves); ln_bwd_tc_kernel adds them in
-// split order into 32-row blocks in shared memory and runs the LN backward
-// of token_bwd.cuh (deterministic dgamma/dbeta partials, summed in block
-// order).
+// where the CTAs would not fill two waves); token_bwd.cuh's ln_bwd_pass,
+// which kernel 9 shares, adds them in split order and runs the LN backward
+// (deterministic dgamma/dbeta partials, summed in block order).
 //
 // dw in bf16 (kernel 11, the flagged training step) also runs on wgmma. The
 // same LN pass writes xn; a CTA owns one hidden chunk j (64 units), one dW
@@ -611,61 +610,6 @@ ln_mlp_dx_tc_kernel(const __grid_constant__ CUtensorMap m_xn,
   }
 }
 
-// The LN backward of dXn = the sum over splits, in order, of the partials:
-// a persistent grid walks 32-row blocks as the scalar dx kernel does, with
-// the same token_bwd.cuh epilogue and dgamma/dbeta partials per block.
-__global__ void __launch_bounds__(kThreads)
-ln_bwd_tc_kernel(const float* __restrict__ part, int splits, const bf16* __restrict__ x,
-                 const float* __restrict__ gamma, const bf16* __restrict__ dy,
-                 bf16* __restrict__ dx, float* __restrict__ partial, int t, int c, float eps,
-                 int residual) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, ldx = c + 4;
-  float* Ds = smem;               // kBM x ldx: dXn
-  float* accg = Ds + kBM * ldx;
-  float* accb = accg + c;
-  float* s_mu = accb + c;
-  float* s_r = s_mu + kBM;
-  for (int k = tid; k < c; k += kThreads) accg[k] = accb[k] = 0.f;
-  const size_t n = static_cast<size_t>(t) * c;
-  const int nblocks = (t + kBM - 1) / kBM;
-  for (int rb = blockIdx.x; rb < nblocks; rb += gridDim.x) {
-    const int row0 = rb * kBM;
-    for (int r = warp; r < kBM; r += kWarps) {
-      const int row = row0 + r;
-      float mu = 0.f, rs = 0.f;
-      if (row < t) {
-        row_stats(x + static_cast<size_t>(row) * c, c, eps, mu, rs);
-        for (int k = lane; k < c; k += 32) {
-          float v = 0.f;
-          for (int sp = 0; sp < splits; ++sp) v += part[sp * n + static_cast<size_t>(row) * c + k];
-          Ds[r * ldx + k] = v;
-        }
-      }
-      if (lane == 0) {
-        s_mu[r] = mu;
-        s_r[r] = rs;
-      }
-    }
-    __syncthreads();
-    ln_backward_rows<bf16>(Ds, ldx, x, residual ? dy : nullptr, gamma, dx, s_mu, s_r, accg,
-                           accb, row0, t, c);
-    __syncthreads();
-  }
-  float* out = partial + static_cast<size_t>(blockIdx.x) * 2 * c;
-  for (int k = tid; k < c; k += kThreads) {
-    out[k] = accg[k];
-    out[c + k] = accb[k];
-  }
-}
-
-// Blocks of ln_bwd_tc_kernel: up to four an SM (its loads are latency-bound,
-// one block an SM left most of the SM idle), fewer for short inputs.
-inline int epilogue_groups(int t) {
-  const int blocks = (t + kBM - 1) / kBM, most = 4 * kSMs;
-  return blocks < 1 ? 1 : (blocks < most ? blocks : most);
-}
-
 template <int NW, int NWC>
 int launch_dx_tc_kernel(const mlptc::Plan& p, const CUtensorMap (&maps)[4], const float* b1,
                         float* part, int t, int c, int hdim, cudaStream_t s) {
@@ -719,17 +663,8 @@ int launch_dx_bf16(const void* x, const float* g, const float* b, const void* w1
   else if (p.nw == 2 && p.nwc == 256) status = args(launch_dx_tc_kernel<2, 256>);
   else return static_cast<int>(cudaErrorInvalidValue);
   if (status != 0) return status;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kBM) * (c + 4) + 2 * c + 2 * kBM);
-  err = cudaFuncSetAttribute(ln_bwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int groups = epilogue_groups(t);
-  ln_bwd_tc_kernel<<<groups, kThreads, smem, s>>>(
-      part, p.splits, static_cast<const bf16*>(x), g, static_cast<const bf16*>(dy),
-      static_cast<bf16*>(dx), partial, t, c, eps, residual);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(sum_partials(partial, dgb, groups, 2 * static_cast<size_t>(c), s));
+  return static_cast<int>(
+      ln_bwd_pass(part, p.splits, x, g, dy, dx, partial, dgb, t, c, eps, residual, s));
 }
 
 int launch_dw_f32(const void* x, const float* g, const float* b, const void* w1, const float* b1,
@@ -1088,7 +1023,7 @@ int launch_dw_bf16(const void* x, const float* g, const float* b, const void* w1
 // the dw grid (bf16: token splits): the wrapper sizes the partials with them
 // (groups x 2 x C, and groups x (2 C Hd + Hd), f32).
 TT_EXPORT int tt_ln_mlp_bwd_dx_groups(int t, int is_bf16) {
-  return is_bf16 ? epilogue_groups(t) : row_groups(t);
+  return is_bf16 ? pass_groups(t) : row_groups(t);
 }
 // tt_ln_mlp_bwd_dw_groups returns the group count, or -1 when the float32
 // occupancy query fails (the launch then reports the error).

@@ -1,7 +1,9 @@
 // Pieces shared by the token backward kernels (ln_matmul_bwd.cu: kernel 9,
 // ln_mlp_bwd.cu: kernels 10 and 11): GELU and its derivative, the LayerNorm
 // statistics of a row, the LayerNorm backward of a row block whose dXn sits
-// in shared memory, and the fixed-order sum of per-block partials.
+// in shared memory (the float32 kernels), the LayerNorm backward pass of the
+// bf16 tensor-core kernels, which read dXn as f32 partials from global
+// memory (ln_bwd_pass), and the fixed-order sum of per-block partials.
 //
 // Sums over tokens (dgamma, dbeta, dW1, db1, dW2) are deterministic: each
 // block owns a fixed, strided set of row blocks and keeps its own sums, a
@@ -137,6 +139,144 @@ inline cudaError_t sum_partials(const float* partial, float* out, int groups, si
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   sum_partials_kernel<<<blocks, kThreads, 0, s>>>(partial, out, groups, n);
   return cudaGetLastError();
+}
+
+// ---- the LayerNorm backward pass of the bf16 tensor-core kernels ----------
+//
+// Kernels 9 and 10 in bf16 write dXn (T x C) as f32 partials, one per split
+// of their contraction (part[sp * T * C + row * C + k]); this pass adds them
+// in split order and applies the LayerNorm backward of token_bwd's float32
+// kernels with the same formulas and per-lane summation order: one warp a
+// row, lane l taking columns l, l + 32, ... (EPL of them, held in
+// registers: x loaded once, every load of the row in flight together), the
+// row statistics again, m1 = mean(dXh), m2 = mean(dXh x_hat) by warp sums,
+// dX = rstd (dXh - m1 - x_hat m2) (+ dY with the residual) in bf16. Each
+// lane keeps its columns' dgamma / dbeta sums over the warp's rows (rows
+// warp, warp + 8 G, ... of block b's warp: fixed by T); the block adds its
+// eight warps' in warp order and writes one partial, which sum_partials adds
+// in block order. Deterministic, no atomics.
+
+constexpr int kPassBlocks = 4 * kSMs;  // most blocks of the pass
+
+// Blocks of ln_bwd_pass_kernel: a warp a row, at most kPassBlocks.
+inline int pass_groups(int t) {
+  const int blocks = (t + kWarps - 1) / kWarps;
+  return blocks < 1 ? 1 : (blocks < kPassBlocks ? blocks : kPassBlocks);
+}
+
+template <int EPL>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_pass_kernel(const float* __restrict__ part, int splits,
+                   const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
+                   const __nv_bfloat16* __restrict__ dy, __nv_bfloat16* __restrict__ dx,
+                   float* __restrict__ partial, int t, int c, float eps, int residual) {
+  extern __shared__ __align__(16) float red[];  // kWarps x 2C: each warp's sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float cf = static_cast<float>(c);
+  const size_t n = static_cast<size_t>(t) * c;
+  float g[EPL], accg[EPL], accb[EPL];
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) {
+    const int k = lane + 32 * i;
+    g[i] = k < c ? gamma[k] : 0.f;
+    accg[i] = accb[i] = 0.f;
+  }
+  for (int row = blockIdx.x * kWarps + warp; row < t; row += gridDim.x * kWarps) {
+    const size_t base = static_cast<size_t>(row) * c;
+    float xh[EPL], d[EPL];
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) {
+      const int k = lane + 32 * i;
+      xh[i] = k < c ? to_f32(x[base + k]) : 0.f;
+      d[i] = 0.f;
+    }
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* p = part + sp * n + base;
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) {
+        const int k = lane + 32 * i;
+        if (k < c) d[i] += p[k];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) {
+      if (lane + 32 * i < c) {
+        s += xh[i];
+        ss += xh[i] * xh[i];
+      }
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / cf;
+    const float rs = rsqrtf(fmaxf(0.f, ss / cf - mu * mu) + eps);
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) {
+      if (lane + 32 * i < c) {
+        xh[i] = xhat(xh[i], mu, rs);
+        const float dxh = d[i] * g[i];
+        m1 += dxh;
+        m2 += dxh * xh[i];
+      }
+    }
+    m1 = warp_sum(m1) / cf;
+    m2 = warp_sum(m2) / cf;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) {
+      const int k = lane + 32 * i;
+      if (k < c) {
+        float v = rs * (d[i] * g[i] - m1 - xh[i] * m2);
+        if (residual) v += to_f32(dy[base + k]);
+        dx[base + k] = __float2bfloat16_rn(v);
+        accg[i] += d[i] * xh[i];
+        accb[i] += d[i];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) {
+    const int k = lane + 32 * i;
+    if (k < c) {
+      red[warp * 2 * c + k] = accg[i];
+      red[warp * 2 * c + c + k] = accb[i];
+    }
+  }
+  __syncthreads();
+  float* out = partial + static_cast<size_t>(blockIdx.x) * 2 * c;
+  for (int k = threadIdx.x; k < 2 * c; k += kThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += red[w * 2 * c + k];
+    out[k] = v;
+  }
+}
+
+// The pass over dXn's `splits` partials (f32, T x C each), then the sum of
+// its block partials (pass_groups(t) x 2C f32) into dgb = [dgamma | dbeta].
+inline cudaError_t ln_bwd_pass(const float* part, int splits, const void* x, const float* gamma,
+                               const void* dy, void* dx, float* partial, float* dgb, int t,
+                               int c, float eps, int residual, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  using Pass = void (*)(const float*, int, const bf16*, const float*, const bf16*, bf16*, float*,
+                        int, int, float, int);
+  const int epl = (c + 31) / 32;
+  const Pass kernel = epl <= 4    ? ln_bwd_pass_kernel<4>
+                      : epl <= 8  ? ln_bwd_pass_kernel<8>
+                      : epl <= 12 ? ln_bwd_pass_kernel<12>
+                      : epl <= 16 ? ln_bwd_pass_kernel<16>
+                                  : ln_bwd_pass_kernel<kMaxC / 32>;
+  const int smem = static_cast<int>(sizeof(float) * kWarps * 2 * c);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int groups = pass_groups(t);
+  kernel<<<groups, kThreads, smem, s>>>(part, splits, static_cast<const bf16*>(x), gamma,
+                                        static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
+                                        partial, t, c, eps, residual);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_partials(partial, dgb, groups, 2 * static_cast<size_t>(c), s);
 }
 
 }  // namespace tokbwd

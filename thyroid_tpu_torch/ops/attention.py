@@ -10,7 +10,8 @@
   (`csrc/swin_attention_bwd.cu`) that recomputes the softmax from the saved
   inputs, as the JAX custom_vjp does.
 - `fused_swin_ln_attention` is the LN + QKV + shifted W-MSA serving
-  variant on the raw stream (`csrc/swin_ln_attention.cu`), forward only;
+  variant on the raw stream (`csrc/swin_ln_attention.cu`; bf16 projection
+  on wgmma and attention on TF32 tensor cores), forward only;
   `WindowAttention(ln_kernel=True)` reaches it.
 - `fused_window_attention` is the per-window MSA on separate q/k/v
   (`csrc/window_attention.cu`), forward only.
@@ -32,6 +33,7 @@ from .platform import refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_TOKENS = 64   # the kernel's row layout covers windows up to 8 x 8
+_MAX_LN_WIDTH = 1024  # the bf16 LN + QKV + W-MSA kernel's widest row
 
 
 def window_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -503,6 +505,11 @@ def fused_swin_ln_attention(x: torch.Tensor, ln_scale: torch.Tensor,
                                        qkv_bias, bias, mask, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    dh = c // num_heads
+    if x.dtype == torch.bfloat16 and (dh % 8 or dh > 64 or c > _MAX_LN_WIDTH):
+        raise ValueError(f"width {c}, head width {dh}: the bf16 kernel takes C "
+                         f"up to {_MAX_LN_WIDTH} and head widths that are "
+                         f"multiples of 8 up to 64")
     g = ln_scale.float().contiguous()
     beta = ln_bias.float().contiguous()
     w = qkv_kernel.to(x.dtype).contiguous()

@@ -11,8 +11,9 @@ All three are differentiable, as the JAX custom_vjps are: a
 `torch.autograd.Function` saves the inputs, and its backward recomputes the
 LN statistics (and, for the MLP, the 4C hidden layer) in the backward
 kernels, so neither direction keeps a hidden tensor in global memory:
-- `fused_ln_matmul_bwd`: dX, dγ, dβ of LN + matmul (csrc/ln_matmul_bwd.cu);
-  dW = LN(x)ᵀ dY and db = ΣdY are plain products, as JAX leaves them to XLA;
+- `fused_ln_matmul_bwd`: dX, dγ, dβ of LN + matmul (csrc/ln_matmul_bwd.cu;
+  bf16 on wgmma tensor cores); dW = LN(x)ᵀ dY and db = ΣdY are plain
+  products, as JAX leaves them to XLA;
 - `fused_ln_mlp_bwd_dx`: dX, dγ, dβ of LN + MLP (csrc/ln_mlp_bwd.cu; bf16
   on wgmma tensor cores);
 - `fused_ln_mlp_bwd_dw`: dW1, db1, dW2 of LN + MLP (csrc/ln_mlp_bwd.cu; bf16
@@ -277,14 +278,18 @@ def fused_ln_matmul_bwd(x2: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
     dgb = torch.zeros(2, c, dtype=torch.float32, device=x2.device)
     if t == 0:
         return dx, dgb[0], dgb[1]
-    partial = torch.empty(_groups("ln_matmul_bwd", "tt_ln_bwd_groups", t), 2, c,
-                          dtype=torch.float32, device=x2.device)
+    is_bf16 = int(x2.dtype == torch.bfloat16)
+    partial = torch.empty(_groups("ln_matmul_bwd", "tt_ln_bwd_groups", t,
+                                  is_bf16), 2, c, dtype=torch.float32,
+                          device=x2.device)
+    ws = _workspace("ln_matmul_bwd", "tt_ln_matmul_bwd_workspace", x2.device,
+                    t, c, out_dim, is_bf16)
     fn = _build.function("ln_matmul_bwd", "tt_ln_matmul_bwd",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     status = fn(_build.ptr(x2), _build.ptr(g), _build.ptr(w), _build.ptr(dy),
-                _build.ptr(dx), _build.ptr(partial), _build.ptr(dgb), t, c,
-                out_dim, eps, int(x2.dtype == torch.bfloat16),
+                _build.ptr(dx), _build.ptr(partial), _build.ptr(dgb),
+                _build.ptr(ws), t, c, out_dim, eps, is_bf16,
                 _build.stream_ptr(x2.device))
     _build.check("ln_matmul_bwd", status, "fused_ln_matmul_bwd")
     fused_ln_matmul_bwd.launches += 1
