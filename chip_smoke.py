@@ -6,14 +6,17 @@
 Phases, each printing its lines before the final one:
 1. build: compile every kernel of thyroid_tpu_torch/csrc with nvcc for
    sm_90a (one nvcc per source, in parallel; each source's nvcc time is
-   printed), count the wgmma (HGMMA) instructions of the ln_mlp,
-   ln_mlp_bwd and ln_matmul libraries in cuobjdump's SASS, and inside each
-   tensor-core kernel's own functions (the LN + MLP forward, its dX and
-   dW, the LN + matmul; the phase fails at 0 in any of them), and print
-   the card's name and power limit as nvidia-smi reports them;
+   printed), count the wgmma (HGMMA) instructions of the tensor-core
+   libraries in cuobjdump's SASS and inside each tensor-core kernel's own
+   functions (kernels 2, 3, 4, 7, 9, 10, 11), the TF32 mma.sync (HMMA)
+   instructions of kernels 4's and 7's attention cores, and the async
+   copies (LDGSTS) of the depthwise kernel (17); the phase fails at 0 in
+   any instantiation; then print the card's name and power limit as
+   nvidia-smi reports them;
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs, at every shape the swin_tiny forward gives it at batch 32,
-   in float32 (TF32 off for matmuls and convolutions) and in bfloat16;
+   in float32 (TF32 off for matmuls and convolutions) and in bfloat16; the
+   block attention's two runs bit-equal;
 3. slice: InferenceEngine serves swin_tiny (bf16, full width and depth,
    seeded and perturbed weights) on raw 512x512 frames; the launch counters
    must move by 1, 15, 12 and 12 per forward, and the probabilities must
@@ -77,8 +80,8 @@ Phases, each printing its lines before the final one:
 14. depthwise kernel: the stride-1 depthwise kernel (Q2-17) against its
    plain version at every stride-1 depthwise shape of efficientnet_b0 at
    batch 32 and 224x224 and of efficientnet_b3 at batch 8 and 300x300 (odd
-   sides), in float32 and bfloat16, and one backward of its autograd
-   Function against autograd through the plain version;
+   sides), in float32 and bfloat16, bit-equal, and one backward of its
+   autograd Function against autograd through the plain version;
 15. efficientnet slice: with seeded, perturbed weights and running
    statistics (a train-mode forward's batch statistics, perturbed),
    InferenceEngine serves efficientnet_b0 (bf16, dw_pallas_conv) on raw
@@ -133,9 +136,10 @@ Phases, each printing its lines before the final one:
    LN + MLP dX (row 10) at width 512, the LN + matmul (row 2) at
    swin_medical's 256² merges and swin_base's and swin_large's widest QKV
    and merges, and the LN + MLP weight gradients (row 11) at swin_base's
-   widths 128-512 (float32 and bf16 each), and row 3's time per
-   swin_medical forward at bucket 32 beside the library composition's
-   device time.
+   widths 128-512 (float32 and bf16 each), the block attention (row 4) in
+   bf16 at swin_base's and swin_large's four stage shapes (widths up to
+   1536; two runs bit-equal), and row 3's time per swin_medical forward at
+   bucket 32 beside the library composition's device time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -144,6 +148,7 @@ before that line is printed. Needs one CUDA card; exits nonzero without one.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -206,18 +211,22 @@ DUAL_GRIDS = {"clip_coarse": 2.0, "grid_coarse": (16, 16), "clip_fine": 0.03,
               "grid_fine": (32, 32)}
 
 
-# the libraries whose bf16 kernels run on wgmma (kernels 2, 3, 7, 9, 10 and
-# 11), each with the kernel functions that must hold HGMMA instructions in
-# every instantiation; kernel 7's attention core must also hold TF32 HMMA
-# (mma.sync) instructions
+# the libraries whose bf16 kernels run on wgmma (kernels 2, 3, 4, 7, 9, 10
+# and 11), each with the kernel functions that must hold HGMMA instructions
+# in every instantiation; kernels 4's and 7's attention cores must also
+# hold TF32 HMMA (mma.sync) instructions; the depthwise kernel (17) must
+# hold async copies (LDGSTS, cp.async) in every instantiation
 TENSOR_CORE_LIBS = ("ln_mlp", "ln_mlp_bwd", "ln_matmul", "ln_matmul_bwd",
-                    "swin_ln_attention")
+                    "swin_ln_attention", "swin_attention")
 TENSOR_CORE_FUNCTIONS = {"ln_mlp": ("ln_mlp_tc_kernel",),
                          "ln_mlp_bwd": ("ln_mlp_dx_tc_kernel", "ln_mlp_dw_tc_kernel"),
                          "ln_matmul": ("ln_matmul_tc_kernel",),
                          "ln_matmul_bwd": ("ln_matmul_dxn_tc_kernel",),
-                         "swin_ln_attention": ("swin_ln_attention_tc_kernel",)}
-TF32_MMA_FUNCTIONS = {"swin_ln_attention": ("swin_ln_attention_tc_kernel",)}
+                         "swin_ln_attention": ("swin_ln_attention_tc_kernel",),
+                         "swin_attention": ("swin_block_attention_tc_kernel",)}
+TF32_MMA_FUNCTIONS = {"swin_ln_attention": ("swin_ln_attention_tc_kernel",),
+                      "swin_attention": ("swin_block_attention_tc_kernel",)}
+ASYNC_COPY_FUNCTIONS = {"depthwise": ("depthwise_kernel",)}
 
 
 def log(*parts) -> None:
@@ -395,13 +404,43 @@ def work(kernel: str, shape, dtype):
 
 
 def sass_functions(sass: str):
-    """{function name: (HGMMA instructions, TF32 HMMA instructions) in it}
-    of cuobjdump's SASS dump."""
+    """{function name: (HGMMA instructions, TF32 HMMA instructions, async
+    copies: LDGSTS (cp.async) and UTMALDG (TMA loads)) in it} of
+    cuobjdump's SASS dump."""
     parts = sass.split("Function : ")[1:]
     return {part.split("\n", 1)[0].strip():
             (part.count("HGMMA"), sum(1 for line in part.splitlines()
-                                      if "HMMA" in line and "TF32" in line))
+                                      if "HMMA" in line and "TF32" in line),
+             part.count("LDGSTS") + part.count("UTMALDG"))
             for part in parts}
+
+
+def ptxas_report(text: str):
+    """[(kernel<template arguments>, registers, spill store bytes)] of each
+    entry function in ptxas's -v report, names cut from their mangling."""
+    out, fn, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            name = re.search(r"\d([a-z_]+kernel)(I(.*?)E)?E", fn)
+            if name is None:
+                out.append((fn, int(m.group(1)), spill))
+            else:
+                args = [{"f": "float", "13__nv_bfloat16": "bf16"}.get(t.group(0), t.group(1))
+                        for t in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f",
+                                             (name.group(3) or "") + "E")]
+                out.append((name.group(1) + (f"<{','.join(args)}>" if args else ""),
+                            int(m.group(1)), spill))
+            fn = None
+    return out
 
 
 def phase_build() -> str:
@@ -413,20 +452,31 @@ def phase_build() -> str:
         f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, text in sorted(logs.items()):
         log(f"[build] {name}.cu: nvcc {_build.BUILD_SECONDS[name]:.1f} s")
+        for fn, regs, spill in ptxas_report(text):
+            log(f"[build] {name}: {fn}: {regs} registers, {spill} bytes spill stores")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "error" in line:
                 log(f"[build] {name}: {line.strip()}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in TENSOR_CORE_LIBS:
+    for name in TENSOR_CORE_LIBS + tuple(ASYNC_COPY_FUNCTIONS):
         path = _build.library_path(name)
         sass = subprocess.run([cuobjdump, "--dump-sass", str(path)],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
+        functions = sass_functions(sass)
+        for kernel in ASYNC_COPY_FUNCTIONS.get(name, ()):
+            counts = {f: n[2] for f, n in functions.items() if kernel in f}
+            log(f"[build] {path.name}: {kernel}: async copies (LDGSTS, UTMALDG) "
+                f"per instantiation {sorted(counts.values())}")
+            if not counts or min(counts.values()) == 0:
+                raise AssertionError(f"{kernel} in {path.name} stages its input "
+                                     f"without async copies (counts {counts})")
+        if name not in TENSOR_CORE_LIBS:
+            continue
         count = sass.count("HGMMA")
         log(f"[build] {path.name}: {count} HGMMA instructions")
         if count == 0:
             raise AssertionError(f"{path.name} holds no wgmma (HGMMA) instruction")
-        functions = sass_functions(sass)
         for kernel in TENSOR_CORE_FUNCTIONS[name]:
             counts = {f: n[0] for f, n in functions.items() if kernel in f}
             log(f"[build] {path.name}: {kernel}: HGMMA per instantiation "
@@ -463,6 +513,10 @@ def phase_kernels(shapes) -> None:
                 fused, plain = kernel_fns(kernel, shape)
                 got = fused(*args).float()
                 want = plain(*args).float()
+                # the block attention (kernel 4) is deterministic: a second
+                # run is bit-equal
+                same = kernel != "swin_block_attention" \
+                    or torch.equal(fused(*args).float(), got)
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
                 if kernel == "percentile":
@@ -470,9 +524,10 @@ def phase_kernels(shapes) -> None:
                 else:
                     tol = RTOL[dtype] * max(1.0, want.abs().max().item())
                 ok = bool(np.isfinite(err)) and err <= tol \
-                    and bool(torch.isfinite(got).all())
+                    and bool(torch.isfinite(got).all()) and same
                 log(f"[kernels] {kernel} {str(dtype)[6:]} {shape}: "
-                    f"max_abs_err {err:.3e} tol {tol:.3e} "
+                    f"max_abs_err {err:.3e} tol {tol:.3e}"
+                    f"{'' if kernel != 'swin_block_attention' else f' two runs bit-equal {same}'} "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     failed.append((kernel, str(dtype), shape, err))
@@ -1830,7 +1885,7 @@ def dw_compare(got, want, dtype, rtol=RTOL):
 
 def phase_dw_kernels(cases) -> None:
     """Q2-17 against its plain version at every case, in float32 and
-    bfloat16, then one backward of its autograd Function against autograd
+    bfloat16, bit-equal (its stated contract), then one backward of its autograd Function against autograd
     through the plain version (float32; dw is a sum over B·H·W, DBIAS_RTOL)."""
     from thyroid_tpu_torch.ops import depthwise_pallas as dp
 
@@ -1844,9 +1899,10 @@ def phase_dw_kernels(cases) -> None:
                 want = dp.depthwise_conv2d_plain(x, w)
                 torch.cuda.synchronize()
                 err, tol, ok = dw_compare(got, want, dtype)
+                equal = torch.equal(got, want)
+                ok = ok and equal
                 log(f"[dw-kernels] {model} {str(dtype)[6:]} {shape}: max_abs_err "
-                    f"{err:.3e} tol {tol:.3e} bit-equal {torch.equal(got, want)} "
-                    f"{'ok' if ok else 'FAIL'}")
+                    f"{err:.3e} bit-equal {equal} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     failed.append((model, str(dtype), shape, err))
                 del x, w, got, want
@@ -2777,6 +2833,13 @@ MEDICAL_MERGE_SHAPES = ((32768, 384, 192, False), (8192, 768, 384, False),
                         (2048, 1536, 768, False))
 WIDE_LN_MATMUL_SHAPES = ((1568, 1024, 3072, True), (1568, 1536, 4608, True),
                          (1568, 2048, 1024, False), (1568, 3072, 1536, False))
+# (B, H, C, heads, ws, shift) of the block attention (kernel 4) at
+# swin_base's (embed 128, heads 4-32) and swin_large's (embed 192, heads
+# 6-48) four stages at batch 32 and 224², shifted where the map allows:
+# widths up to 1536, which the bf16 kernel takes in column blocks
+WIDE_BLOCK_ATTENTION_SHAPES = tuple(
+    (BATCH, 56 // 2 ** i, embed * 2 ** i, heads * 2 ** i, 7, 3 if i < 3 else 0)
+    for embed, heads in ((128, 4), (192, 6)) for i in range(4))
 # (T, C) of swin_base's first three stages at batch 32: the LN + MLP
 # backward's widths 128-512 (it takes C up to 768)
 SWIN_BASE_TOKEN_SHAPES = ((100352, 128), (25088, 256), (6272, 512))
@@ -2796,8 +2859,9 @@ def phase_tensor_core():
     merges and swin_base's and swin_large's widest QKV and merges (C up to
     3072, O up to 4608), kernel 11 (the LN + MLP weight gradients) at
     swin_base's widths 128-512, kernel 9 (the LN + QKV backward) at
-    swin_medical's 256² step; then kernel 3's time per swin_medical
-    forward."""
+    swin_medical's 256² step, kernel 4 (the block attention) in bf16 at
+    swin_base's and swin_large's stage shapes (two runs bit-equal); then
+    kernel 3's time per swin_medical forward."""
     from thyroid_tpu_torch.ops import token_fused as tf
 
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -2848,6 +2912,21 @@ def phase_tensor_core():
                     if not ok:
                         failed.append((kernel, str(dtype), shape, name, err))
                 del args
+    for shape in WIDE_BLOCK_ATTENTION_SHAPES:
+        args = make_inputs("swin_block_attention", shape, torch.bfloat16, gen)
+        fused, plain = kernel_fns("swin_block_attention", shape)
+        got, again = fused(*args), fused(*args)
+        want = plain(*args).float()
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        tol = RTOL[torch.bfloat16] * max(1.0, want.abs().max().item())
+        same = torch.equal(got, again)
+        ok = bool(np.isfinite(err)) and err <= tol and same
+        log(f"[tensor-core] swin_block_attention bfloat16 {shape}: max_abs_err "
+            f"{err:.3e} tol {tol:.3e} two runs bit-equal {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(("swin_block_attention", shape, err, same))
+        del args, got, again, want
     if failed:
         raise AssertionError(f"tensor-core kernels disagree: {failed}")
     tot = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}

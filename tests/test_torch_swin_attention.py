@@ -21,6 +21,8 @@ RS = np.random.RandomState(7)
     (2, 16, 16, 192, 6, 4, 2),     # 6 heads: uneven TPU lane groups (4, 2)
     (2, 14, 14, 384, 12, 7, 3),
     (6, 7, 7, 768, 24, 7, 0),      # one window per image
+    (2, 14, 14, 96, 3, 7, 3),      # Swin's ws = 7, shifted, at stage 1's width
+    (1, 7, 7, 1536, 48, 7, 0),     # swin_large's widest stage
 ])
 def test_fused_swin_block_attention(B, H, W, C, heads, ws, shift):
     n = ws * ws

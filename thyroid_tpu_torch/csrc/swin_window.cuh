@@ -1,5 +1,6 @@
 // Window-attention core shared by the Swin attention kernels
-// (swin_attention.cu: the serving half-block and the training forward;
+// (swin_attention.cu: the serving half-block in float32, whose bf16 path
+// runs window_tc.cuh instead, and the training forward in both types;
 // swin_attention_bwd.cu: the backward, which recomputes the softmax with
 // exactly these instructions, so its P is bit-equal to the forward's;
 // window_attention.cu and swin_ln_attention.cu, which fill Qs/Ks/Vs their

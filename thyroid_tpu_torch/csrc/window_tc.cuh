@@ -1,7 +1,8 @@
 // Window-attention core on the tensor cores (TF32 mma.sync), for a warp's
-// 16 query rows of one head and one window of n <= 64 keys: the kernel of
-// swin_ln_attention.cu (kernel 7, bf16) uses it; swin_window.cuh keeps the
-// scalar core that kernels 4, 5, 6 and 8 share.
+// 16 query rows of one head and one window of n <= 64 keys: the bf16
+// kernels of swin_ln_attention.cu (kernel 7) and swin_attention.cu (kernel
+// 4, the serving half-block) use it; swin_window.cuh keeps the scalar core
+// that kernel 4's float32 path and kernels 5, 6 and 8 share.
 //
 // Numbers: q (already scaled), k, v, the scores, the softmax and O stay in
 // f32 as the JAX kernel and the plain version keep them; the two products
@@ -54,8 +55,10 @@ __device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1, uin
 // + 8 for one head: q[kc] the scaled q's accumulator fragments (columns 8 kc
 // + 2t + e of the head), Ks / Vs the head's first column of K and V in
 // shared memory (rows = keys, every row below 8 * ceil(n / 8) finite),
-// side(r, j) the bias (+ mask) of row r and key j for r, j < n.
-template <int DH, typename Side>
+// side(r, j) the bias (+ mask) of row r and key j for r, j < n. FAST takes
+// e^x as __expf (ex2.approx) and a row's 1 / sum once, in place of expf and
+// a division per key (kernel 4; kernel 7 keeps the exact forms).
+template <int DH, bool FAST = false, typename Side>
 __device__ __forceinline__ void attend(const float (&q)[DH / 8][4], const float* Ks,
                                        const float* Vs, int n, int row0, Side side,
                                        float (&o)[DH / 8][4]) {
@@ -100,16 +103,20 @@ __device__ __forceinline__ void attend(const float (&q)[DH / 8][4], const float*
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float ev = expf(s[nt][2 * i + e] - m);
+        const float ev = FAST ? __expf(s[nt][2 * i + e] - m) : expf(s[nt][2 * i + e] - m);
         s[nt][2 * i + e] = ev;
         sum += ev;
       }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = FAST ? __frcp_rn(sum) : 0.f;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) s[nt][2 * i + e] /= sum;
+      for (int e = 0; e < 2; ++e) {
+        if constexpr (FAST) s[nt][2 * i + e] *= inv;
+        else s[nt][2 * i + e] /= sum;
+      }
   }
 
 #pragma unroll

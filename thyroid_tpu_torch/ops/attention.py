@@ -3,7 +3,8 @@
 - `fused_swin_block_attention` is the serving half-block — window
   partition, W-MSA with relative-position bias and shift mask, window
   reverse, out-projection, bias and residual — in one CUDA kernel
-  (`csrc/swin_attention.cu`), forward only.
+  (`csrc/swin_attention.cu`; in bf16 the attention on TF32 tensor cores
+  and the projection on wgmma), forward only.
 - `fused_swin_attention` is the training (and eval) W-MSA without the
   projection, differentiable: a `torch.autograd.Function` pairs the forward
   kernel (`csrc/swin_attention.cu`) with a backward kernel
@@ -410,6 +411,10 @@ def fused_swin_block_attention(qkv: torch.Tensor, residual: torch.Tensor,
         raise ValueError(f"unsupported device {qkv.device}")
     if residual.dtype != qkv.dtype:
         raise TypeError(f"residual {residual.dtype} != qkv {qkv.dtype}")
+    dh = c // num_heads
+    if qkv.dtype == torch.bfloat16 and (dh % 8 or dh > 64):
+        raise ValueError(f"head width {dh}: the bf16 kernel takes head widths "
+                         f"that are multiples of 8 up to 64")
     wp = proj_kernel.to(qkv.dtype).contiguous()
     bp = (proj_bias.float() if proj_bias is not None
           else torch.zeros(c, dtype=torch.float32, device=qkv.device)).contiguous()

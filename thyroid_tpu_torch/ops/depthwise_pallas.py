@@ -71,6 +71,9 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("depthwise_conv2d_pallas needs contiguous x and w")
     if w.device != x.device:
         raise ValueError("x and w must lie on one device")
+    if x.data_ptr() % 16:
+        raise ValueError("depthwise_conv2d_pallas copies x in 16-byte pieces: "
+                         "x must start 16-byte aligned")
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
