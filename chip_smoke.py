@@ -9,7 +9,8 @@ Phases, each printing its lines before the final one:
    printed), count the wgmma (HGMMA) instructions of the tensor-core
    libraries in cuobjdump's SASS and inside each tensor-core kernel's own
    functions (kernels 2, 3, 4, 7, 9, 10, 11), the TF32 mma.sync (HMMA)
-   instructions of kernels 4's and 7's attention cores, and the async
+   instructions of kernels 4's and 7's attention cores and of kernels 5
+   and 6 (the training attention), and the async
    copies (LDGSTS) of the depthwise kernel (17); the phase fails at 0 in
    any instantiation; then print the card's name and power limit as
    nvidia-smi reports them;
@@ -131,15 +132,24 @@ Phases, each printing its lines before the final one:
    profile of one YAML predict;
 21. tensor-core kernels: the wgmma LN + MLP forward (row 3) against its
    plain version at swin_medical.yaml's 256² shapes (float32 and bf16) and
-   at the swin_base / swin_large widths 512-1536 (bf16; float32 up to
-   1024, where the scalar float32 kernel's shared memory ends), the wgmma
-   LN + MLP dX (row 10) at width 512, the LN + matmul (row 2) at
+   at the swin_base / swin_large widths 512-1536 (float32 and bf16), the
+   wgmma LN + MLP dX (row 10) at width 512, the LN + matmul (row 2) at
    swin_medical's 256² merges and swin_base's and swin_large's widest QKV
    and merges, and the LN + MLP weight gradients (row 11) at swin_base's
    widths 128-512 (float32 and bf16 each), the block attention (row 4) in
    bf16 at swin_base's and swin_large's four stage shapes (widths up to
-   1536; two runs bit-equal), and row 3's time per swin_medical forward at
-   bucket 32 beside the library composition's device time.
+   1536; two runs bit-equal) and in float32 at their last two stages
+   (widths 512-1536), the training attention forward and backward (rows 5
+   and 6) in bf16 at the same eight stage shapes (two runs bit-equal in
+   out, dqkv and dbias), and row 3's time per swin_medical forward at
+   bucket 32 beside the library composition's device time;
+22. swin_large in float32 ({"name": "swin_large"}: no dtype, as the
+   registry resolves it; stage 4 at C = 1536): InferenceEngine serves it
+   on the card at bucket 4 on raw 512x512 frames with seeded, perturbed
+   weights; the counters, set to 0 just before, must move by 1, 27, 24
+   and 24 (percentile, LN + matmul, LN + MLP, block attention) per
+   forward, and the probabilities must agree with the CPU float32 engine
+   on the same weights and frames.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -213,9 +223,10 @@ DUAL_GRIDS = {"clip_coarse": 2.0, "grid_coarse": (16, 16), "clip_fine": 0.03,
 
 # the libraries whose bf16 kernels run on wgmma (kernels 2, 3, 4, 7, 9, 10
 # and 11), each with the kernel functions that must hold HGMMA instructions
-# in every instantiation; kernels 4's and 7's attention cores must also
-# hold TF32 HMMA (mma.sync) instructions; the depthwise kernel (17) must
-# hold async copies (LDGSTS, cp.async) in every instantiation
+# in every instantiation; kernels 4's and 7's attention cores and kernels 5
+# and 6 (the training attention, forward and backward) must hold TF32 HMMA
+# (mma.sync) instructions; the depthwise kernel (17) must hold async copies
+# (LDGSTS, cp.async) in every instantiation
 TENSOR_CORE_LIBS = ("ln_mlp", "ln_mlp_bwd", "ln_matmul", "ln_matmul_bwd",
                     "swin_ln_attention", "swin_attention")
 TENSOR_CORE_FUNCTIONS = {"ln_mlp": ("ln_mlp_tc_kernel",),
@@ -225,7 +236,9 @@ TENSOR_CORE_FUNCTIONS = {"ln_mlp": ("ln_mlp_tc_kernel",),
                          "swin_ln_attention": ("swin_ln_attention_tc_kernel",),
                          "swin_attention": ("swin_block_attention_tc_kernel",)}
 TF32_MMA_FUNCTIONS = {"swin_ln_attention": ("swin_ln_attention_tc_kernel",),
-                      "swin_attention": ("swin_block_attention_tc_kernel",)}
+                      "swin_attention": ("swin_block_attention_tc_kernel",
+                                         "swin_attention_tc_kernel"),
+                      "swin_attention_bwd": ("swin_attention_bwd_tc_kernel",)}
 ASYNC_COPY_FUNCTIONS = {"depthwise": ("depthwise_kernel",)}
 
 
@@ -458,7 +471,9 @@ def phase_build() -> str:
             if "error" in line:
                 log(f"[build] {name}: {line.strip()}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in TENSOR_CORE_LIBS + tuple(ASYNC_COPY_FUNCTIONS):
+    dumped = dict.fromkeys(TENSOR_CORE_LIBS + tuple(TF32_MMA_FUNCTIONS)
+                           + tuple(ASYNC_COPY_FUNCTIONS))
+    for name in dumped:
         path = _build.library_path(name)
         sass = subprocess.run([cuobjdump, "--dump-sass", str(path)],
                               capture_output=True, text=True, check=True,
@@ -471,13 +486,12 @@ def phase_build() -> str:
             if not counts or min(counts.values()) == 0:
                 raise AssertionError(f"{kernel} in {path.name} stages its input "
                                      f"without async copies (counts {counts})")
-        if name not in TENSOR_CORE_LIBS:
-            continue
-        count = sass.count("HGMMA")
-        log(f"[build] {path.name}: {count} HGMMA instructions")
-        if count == 0:
-            raise AssertionError(f"{path.name} holds no wgmma (HGMMA) instruction")
-        for kernel in TENSOR_CORE_FUNCTIONS[name]:
+        if name in TENSOR_CORE_LIBS:
+            count = sass.count("HGMMA")
+            log(f"[build] {path.name}: {count} HGMMA instructions")
+            if count == 0:
+                raise AssertionError(f"{path.name} holds no wgmma (HGMMA) instruction")
+        for kernel in TENSOR_CORE_FUNCTIONS.get(name, ()):
             counts = {f: n[0] for f, n in functions.items() if kernel in f}
             log(f"[build] {path.name}: {kernel}: HGMMA per instantiation "
                 f"{sorted(counts.values())}")
@@ -2819,8 +2833,8 @@ def medical_mlp_shapes(batch: int):
 
 
 # widths of swin_base (128·2^k) and swin_large (192·2^k) at their last two
-# stages' tokens at bucket 32: kernel 3 takes them in bf16 (the scalar
-# float32 kernel's shared memory stops below 1536)
+# stages' tokens at bucket 32: kernel 3 takes them in both types (the
+# scalar float32 kernel in blocks of 16 rows above C = 1024)
 WIDE_MLP_SHAPES = ((6272, 512, 2048), (1568, 1024, 4096), (6272, 768, 3072),
                    (1568, 1536, 6144))
 
@@ -2860,16 +2874,18 @@ def phase_tensor_core():
     3072, O up to 4608), kernel 11 (the LN + MLP weight gradients) at
     swin_base's widths 128-512, kernel 9 (the LN + QKV backward) at
     swin_medical's 256² step, kernel 4 (the block attention) in bf16 at
-    swin_base's and swin_large's stage shapes (two runs bit-equal); then
-    kernel 3's time per swin_medical forward."""
+    swin_base's and swin_large's stage shapes (two runs bit-equal) and in
+    float32 at their last two, kernels 5 and 6 (the training attention) in
+    bf16 at the same stage shapes (two runs bit-equal); then kernel 3's
+    time per swin_medical forward."""
     from thyroid_tpu_torch.ops import token_fused as tf
 
     gen = torch.Generator(device="cuda").manual_seed(21)
     failed = []
     med = medical_mlp_shapes(BATCH)
     cases = [(shape, dt) for shape in med for dt in (torch.float32, torch.bfloat16)]
-    cases += [(shape, torch.bfloat16) for shape in WIDE_MLP_SHAPES]
-    cases += [(shape, torch.float32) for shape in WIDE_MLP_SHAPES if shape[1] <= 1024]
+    cases += [(shape, dt) for shape in WIDE_MLP_SHAPES
+              for dt in (torch.float32, torch.bfloat16)]
     def hold(kernel, fused, plain, shape, dtype):
         args = make_inputs(kernel, shape, dtype, gen)
         got, want = fused(*args).float(), plain(*args).float()
@@ -2927,6 +2943,24 @@ def phase_tensor_core():
         if not ok:
             failed.append(("swin_block_attention", shape, err, same))
         del args, got, again, want
+    for shape in WIDE_BLOCK_ATTENTION_SHAPES:
+        if shape[2] >= 512:   # the last two stages: C = 512-1536
+            fused, plain = kernel_fns("swin_block_attention", shape)
+            hold("swin_block_attention", fused, plain, shape, torch.float32)
+        for kernel in ("swin_attention", "swin_attention_bwd"):
+            args = make_train_inputs(kernel, shape, torch.bfloat16, gen)
+            fused, plain = train_kernel_fns(shape)[kernel]
+            got, again = fused(*args), fused(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            for name, err, tol, ok in compare_train(kernel, got, want, torch.bfloat16):
+                log(f"[tensor-core] {kernel} {name} bfloat16 {shape}: max_abs_err "
+                    f"{err:.3e} tol {tol:.3e} two runs bit-equal {same} "
+                    f"{'ok' if ok and same else 'FAIL'}")
+                if not (ok and same):
+                    failed.append((kernel, name, shape, err, same))
+            del args, got, again, want
     if failed:
         raise AssertionError(f"tensor-core kernels disagree: {failed}")
     tot = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
@@ -2944,6 +2978,57 @@ def phase_tensor_core():
     log(f"[tensor-core] ln_mlp_residual per swin_medical forward at bucket {BATCH}: "
         f"{tot['ms']:.4f} ms (library {tot['library_ms']:.4f} ms, bound "
         f"{tot['bound_ms']:.4f} ms)")
+
+
+# the registry's swin_large with no dtype: float32 (embed 192, depths (2,
+# 2, 18, 2), heads (6, 12, 24, 48); stage 4 at C = 1536)
+SWIN_LARGE_F32 = {"name": "swin_large", "in_channels": 1, "num_classes": 2}
+
+
+def phase_large_f32() -> None:
+    """swin_large in float32 served on the card at bucket 4: the launches
+    per forward (1 percentile, 24 QKV + 3 merges LN + matmul, 24 LN + MLP,
+    24 block attention) and the probabilities against the CPU float32
+    engine on the same weights and frames; then predict's median time."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    params = perturbed_params(SWIN_LARGE_F32)
+    engine = InferenceEngine(SWIN_LARGE_F32, params=params, buckets=(4,))
+    frames = (np.random.RandomState(24).rand(4, 512, 512, 1) * 65535) \
+        .astype(np.float32)
+    for fn in counters().values():
+        fn.launches = 0
+    probs = engine.predict(frames)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    want = {"percentile": 1, "ln_matmul": 27, "ln_mlp_residual": 24,
+            "swin_block_attention": 24}
+    log(f"[large-f32] swin_large float32 served N=4 in one forward; "
+        f"launches {launches}")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if probs.shape != (4, 2) or not np.isfinite(probs).all() \
+            or np.abs(probs.sum(-1) - 1).max() > 1e-3:
+        raise AssertionError(f"bad probabilities {probs.shape}")
+    cpu = InferenceEngine(SWIN_LARGE_F32, params=params, buckets=(4,),
+                          device="cpu").predict(frames)
+    err = float(np.abs(probs - cpu).max())
+    tol = PROB_TOL[torch.float32]
+    log(f"[large-f32] N=4 probabilities, cuda f32 vs cpu f32: max_abs_err "
+        f"{err:.3e} tol {tol:.0e} (spread of p0 over the batch "
+        f"{float(cpu[:, 0].max() - cpu[:, 0].min()):.3e})")
+    if not err <= tol:
+        raise AssertionError("swin_large float32 probabilities disagree with "
+                             "the CPU")
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.predict(frames)
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    log(f"[large-f32] predict swin_large float32 bucket 4: median "
+        f"{med * 1e3:.2f} ms over 3, {4 / med:.1f} images/s (raw 512x512 "
+        f"frames from host memory)")
 
 
 def phase_yaml_times(engine, cfg, params, registry_params):
@@ -3033,6 +3118,9 @@ def main() -> int:
         phase_tensor_core()
         entries += phase_remaining_times(attn_shapes, r_launches, frames)
         phase_yaml_times(y_engine, y_cfg, y_params, params)
+        del y_engine
+        torch.cuda.empty_cache()
+        phase_large_f32()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

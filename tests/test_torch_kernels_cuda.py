@@ -76,8 +76,11 @@ def test_ln_matmul(gen, dtype, t, c, o, bias):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t,c,h", [(45, 96, 384), (33, 100, 200),
-                                   (40, 1024, 4096)])
+                                   (40, 1024, 4096), (200, 1536, 6144)])
 def test_ln_mlp_residual(gen, dtype, t, c, h):
+    """Ragged rows and widths, and swin_base's and swin_large's last stages
+    (C = 1024, 1536): in float32 the scalar kernel takes 16 rows a block
+    above C = 1024, where 32 rows do not fit in shared memory."""
     args = (_rn(gen, t, c, dtype=dtype), 1 + _rn(gen, c, scale=0.1),
             _rn(gen, c, scale=0.1), _rn(gen, c, h, scale=c ** -0.5, dtype=dtype),
             _rn(gen, h, scale=0.1), _rn(gen, h, c, scale=h ** -0.5, dtype=dtype),
@@ -96,9 +99,9 @@ def test_swin_block_attention(gen, dtype, b, r, c, heads, ws, shift):
     """Kernel 4 against its plain version and two runs bit-equal: in bf16
     the tensor-core kernel, with CTAs of two windows and paired heads
     (stage 1 at batch 4), swin_base's and swin_large's last stages (C =
-    1024, 1536: column blocks); in float32 the scalar kernel, whose N x C
-    float32 tile does not fit in shared memory at C = 1536, so the launch
-    is refused there."""
+    1024, 1536: column blocks); in float32 the scalar attention into a
+    float32 workspace and the scalar projection, at every width up to
+    swin_large's 1536."""
     n = ws * ws
     mask = shift_attention_mask(r, r, ws, shift)
     args = (_rn(gen, b, r, r, 3, c, dtype=dtype), _rn(gen, b, r, r, c, dtype=dtype),
@@ -106,10 +109,6 @@ def test_swin_block_attention(gen, dtype, b, r, c, heads, ws, shift):
             _rn(gen, heads, n, n, scale=0.1),
             torch.from_numpy(mask).cuda() if mask is not None else None)
     kw = dict(window_size=ws, num_heads=heads, scale=(c // heads) ** -0.5)
-    if dtype == torch.float32 and c > 1024:
-        with pytest.raises(RuntimeError):
-            attention.fused_swin_block_attention(*args, **kw)
-        return
     got = attention.fused_swin_block_attention(*args, **kw)
     _close(got, attention.swin_block_attention_plain(*args, **kw), dtype)
     assert torch.equal(got, attention.fused_swin_block_attention(*args, **kw))
@@ -237,10 +236,14 @@ def test_token_bwd_refuses(gen):
         token_fused.fused_ln_matmul_bwd(x, g, w1, dy.to(torch.bfloat16))
 
 
+# (B, H, C, heads, ws, shift): the bf16 kernels' work items of one head
+# (C = 32, 64) and of a pair and a single (3 heads), windows of 16, 49 and
+# 64 tokens, two windows a CTA walks in turn (B = 2 at stage 1's width),
+# and swin_large's last stage (C = 1536, 48 heads)
 SWIN_TRAIN_CASES = [
     (1, 8, 32, 1, 4, 0), (1, 16, 96, 3, 4, 2), (1, 14, 192, 6, 7, 0),
     (1, 14, 384, 12, 7, 3), (1, 7, 768, 24, 7, 0), (1, 16, 64, 1, 8, 4),
-    (1, 16, 128, 4, 8, 0)]
+    (1, 16, 128, 4, 8, 0), (2, 14, 96, 3, 7, 3), (1, 7, 1536, 48, 7, 0)]
 
 
 @pytest.mark.cuda
@@ -287,6 +290,44 @@ def test_swin_attention_backward(gen, dtype, b, r, c, heads, ws, shift):
             attention.fused_swin_attention.bwd_launches) == (fwd + 1, bwd + 1)
     torch.cuda.synchronize()
     assert torch.equal(tq.grad, dq) and torch.equal(tb.grad, db)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,c,heads,ws,shift", [
+    (2, 14, 96, 3, 7, 3), (4, 28, 192, 6, 7, 3), (1, 7, 1536, 48, 7, 0)])
+def test_swin_attention_bf16_deterministic(gen, b, r, c, heads, ws, shift):
+    """The bf16 backward keeps per-CTA dbias sums added in a fixed order
+    (no atomics): two runs are bit-equal in dqkv and dbias, and so are two
+    runs of the forward."""
+    n = ws * ws
+    mask = shift_attention_mask(r, r, ws, shift)
+    qkv = _rn(gen, b, r, r, 3, c, dtype=torch.bfloat16)
+    bias = _rn(gen, heads, n, n, scale=0.1)
+    m = torch.from_numpy(mask).cuda() if mask is not None else None
+    dout = _rn(gen, b, r, r, c, dtype=torch.bfloat16)
+    kw = dict(window_size=ws, num_heads=heads, scale=(c // heads) ** -0.5)
+    dq, db = attention.fused_swin_attention_bwd(qkv, dout, bias, m, **kw)
+    dq2, db2 = attention.fused_swin_attention_bwd(qkv, dout, bias, m, **kw)
+    out = attention.fused_swin_attention(qkv, bias, m, **kw)
+    out2 = attention.fused_swin_attention(qkv, bias, m, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2) and torch.equal(db, db2)
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.cuda
+def test_swin_attention_bf16_refuses(gen):
+    """A bf16 head width the tensor-core kernels do not take (12: not a
+    multiple of 8) raises from the launch, forward and backward; it is
+    never sent to the scalar float32 kernels."""
+    qkv = _rn(gen, 1, 8, 8, 3, 36, dtype=torch.bfloat16)
+    bias = _rn(gen, 3, 16, 16, scale=0.1)
+    kw = dict(window_size=4, num_heads=3, scale=12 ** -0.5)
+    with pytest.raises(RuntimeError):
+        attention.fused_swin_attention(qkv, bias, None, **kw)
+    with pytest.raises(RuntimeError):
+        attention.fused_swin_attention_bwd(
+            qkv, _rn(gen, 1, 8, 8, 36, dtype=torch.bfloat16), bias, None, **kw)
 
 
 @pytest.mark.cuda

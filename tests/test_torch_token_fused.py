@@ -76,6 +76,8 @@ def test_fused_ln_matmul(lead, c, out_dim, use_bias, dtype):
     # across two sequential chunks
     ((2, 64), 128, 1024, "f32"),
     ((2, 8, 8), 96, 384, "bf16"),
+    # swin_large's last stage (C = 1536, hidden 6144), a few dozen rows
+    ((2, 16), 1536, 6144, "f32"),
 ])
 def test_fused_ln_mlp_residual(lead, c, hidden, dtype):
     x = _f32(*lead, c)

@@ -43,18 +43,25 @@
 // hidden axis is split over CTAs into f32 partials that a second pass
 // adds in split order with b2 and the residual.
 //
-// float32 (the card-vs-CPU parity path) stays on the scalar kernel below:
-// TF32 tensor cores keep 10 mantissa bits and would not hold the 1e-4
-// float32 checks. A block owns 32 rows and up to 768 output columns (more
-// columns take more blocks along y, each recomputing the hidden layer);
-// the normalised rows stay in shared memory; the hidden layer is produced
-// 128 units at a time into shared memory and consumed at once into
-// per-thread f32 register accumulators (2 rows x 48 columns a thread).
+// float32 (the card-vs-CPU parity path) stays on the scalar kernel below
+// (scalar f32 FMAs, no tensor core): TF32 tensor cores keep 10 mantissa
+// bits and would not hold the 1e-4 float32 checks. A block owns BM rows
+// and up to 768 output columns (more columns take more blocks along y,
+// each recomputing the hidden layer); the normalised rows stay in shared
+// memory; the hidden layer is produced 128 units at a time into shared
+// memory and consumed at once into per-thread f32 register accumulators
+// (BM / 16 rows x 48 columns a thread). The rows of a block follow from
+// C: BM = 32 while its shared memory fits, 4 (32 (C + 4) + 32 x 132 +
+// 32 x 128 + 16 x 768) bytes = 214,016 at C = 1024, and BM = 16 above,
+// 172,544 bytes at swin_large's C = 1536 (32 rows would take 279,552, more
+// than the 232,448 a block may use); 16 rows fit up to C = 2472. Every
+// output element is one thread's: the same LN, the same fc1 sum in k
+// order and fc2 sum in hidden order whatever BM, so the numbers do not
+// depend on it.
 #include "mlp_tc.cuh"
 
 namespace {
 
-constexpr int kBM = 32;        // rows per block
 constexpr int kHC = 128;       // hidden units per chunk
 constexpr int kLdH = kHC + 4;  // padded row of the hidden tile
 constexpr int kBK1 = 32;       // K chunk of fc1
@@ -63,7 +70,7 @@ constexpr int kGroups = 12;    // 64-column groups a block owns
 constexpr int kCols = 64 * kGroups;
 constexpr int kThreads = 256;
 
-template <typename T>
+template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads, 1)
 ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
               const float* __restrict__ beta, const T* __restrict__ w1,
@@ -72,19 +79,20 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
               float eps, int residual) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * kBM;
+  constexpr int RPT = BM / 16;  // rows a thread: ty + 16 i
+  const int row0 = blockIdx.x * BM;
   const int c0 = blockIdx.y * kCols;
   const int ncol = min(kCols, c - c0);
   const int ncol_pad = (ncol + 63) / 64 * 64;
   const int ngroups = ncol_pad / 64;
   const int ldx = c + 4;
-  float* Xs = smem;                 // kBM x ldx      normalised rows
-  float* Hs = Xs + kBM * ldx;       // kBM x kLdH     hidden chunk
-  float* W1s = Hs + kBM * kLdH;     // kBK1 x kHC
+  float* Xs = smem;                 // BM x ldx       normalised rows
+  float* Hs = Xs + BM * ldx;        // BM x kLdH      hidden chunk
+  float* W1s = Hs + BM * kLdH;      // kBK1 x kHC
   float* W2s = W1s + kBK1 * kHC;    // kBK2 x ncol_pad
   const float cf = static_cast<float>(c);
 
-  for (int r = warp; r < kBM; r += kThreads / 32) {
+  for (int r = warp; r < BM; r += kThreads / 32) {
     const int row = row0 + r;
     float* xs = Xs + r * ldx;
     if (row < t) {
@@ -108,20 +116,20 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
   __syncthreads();
 
-  const int ty = tid / 16, tx = tid % 16;  // rows ty, ty + 16
-  float acc[2][kGroups][4];
+  const int ty = tid / 16, tx = tid % 16;  // rows ty + 16 i
+  float acc[RPT][kGroups][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < RPT; ++i)
 #pragma unroll
     for (int g = 0; g < kGroups; ++g)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
 
   for (int h0 = 0; h0 < hdim; h0 += kHC) {
-    // fc1 for hidden units [h0, h0 + kHC): 2 rows x 8 units a thread
-    float hacc[2][8];
+    // fc1 for hidden units [h0, h0 + kHC): RPT rows x 8 units a thread
+    float hacc[RPT][8];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int e = 0; e < 8; ++e) hacc[i][e] = 0.f;
     for (int k0 = 0; k0 < c; k0 += kBK1) {
@@ -133,21 +141,20 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       __syncthreads();
       const int kmax = min(kBK1, c - k0);
       for (int kk = 0; kk < kmax; ++kk) {
-        const float a0 = Xs[ty * ldx + k0 + kk];
-        const float a1 = Xs[(ty + 16) * ldx + k0 + kk];
         const float4 p = *reinterpret_cast<const float4*>(&W1s[kk * kHC + tx * 4]);
         const float4 q = *reinterpret_cast<const float4*>(&W1s[kk * kHC + 64 + tx * 4]);
         const float bv[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          hacc[0][e] = fmaf(a0, bv[e], hacc[0][e]);
-          hacc[1][e] = fmaf(a1, bv[e], hacc[1][e]);
+        for (int i = 0; i < RPT; ++i) {
+          const float a = Xs[(ty + 16 * i) * ldx + k0 + kk];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) hacc[i][e] = fmaf(a, bv[e], hacc[i][e]);
         }
       }
       __syncthreads();
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < RPT; ++i) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const int jj = (e < 4 ? tx * 4 + e : 64 + tx * 4 + e - 4);
@@ -170,20 +177,20 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       __syncthreads();
 #pragma unroll 2
       for (int kk = 0; kk < kBK2; ++kk) {
-        const float a0 = Hs[ty * kLdH + k0 + kk];
-        const float a1 = Hs[(ty + 16) * kLdH + k0 + kk];
+        float a[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) a[i] = Hs[(ty + 16 * i) * kLdH + k0 + kk];
 #pragma unroll
         for (int g = 0; g < kGroups; ++g) {
           if (g < ngroups) {
             const float4 b = *reinterpret_cast<const float4*>(&W2s[kk * ncol_pad + g * 64 + tx * 4]);
-            acc[0][g][0] = fmaf(a0, b.x, acc[0][g][0]);
-            acc[0][g][1] = fmaf(a0, b.y, acc[0][g][1]);
-            acc[0][g][2] = fmaf(a0, b.z, acc[0][g][2]);
-            acc[0][g][3] = fmaf(a0, b.w, acc[0][g][3]);
-            acc[1][g][0] = fmaf(a1, b.x, acc[1][g][0]);
-            acc[1][g][1] = fmaf(a1, b.y, acc[1][g][1]);
-            acc[1][g][2] = fmaf(a1, b.z, acc[1][g][2]);
-            acc[1][g][3] = fmaf(a1, b.w, acc[1][g][3]);
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) {
+              acc[i][g][0] = fmaf(a[i], b.x, acc[i][g][0]);
+              acc[i][g][1] = fmaf(a[i], b.y, acc[i][g][1]);
+              acc[i][g][2] = fmaf(a[i], b.z, acc[i][g][2]);
+              acc[i][g][3] = fmaf(a[i], b.w, acc[i][g][3]);
+            }
           }
         }
       }
@@ -192,7 +199,7 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < RPT; ++i) {
     const int row = row0 + ty + 16 * i;
     if (row >= t) continue;
 #pragma unroll
@@ -211,25 +218,35 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-size_t smem_bytes(int c) {
+size_t smem_bytes(int bm, int c) {
   const int ncol_pad = (min(kCols, c) + 63) / 64 * 64;
-  return sizeof(float) * (static_cast<size_t>(kBM) * (c + 4) + kBM * kLdH + kBK1 * kHC +
+  return sizeof(float) * (static_cast<size_t>(bm) * (c + 4) + bm * kLdH + kBK1 * kHC +
                           static_cast<size_t>(kBK2) * ncol_pad);
 }
 
-int launch_f32(const void* x, const float* g, const float* b, const void* w1, const float* b1,
-               const void* w2, const float* b2, void* y, int t, int c, int hdim, float eps,
-               int residual, cudaStream_t s) {
-  const size_t smem = smem_bytes(c);
-  cudaError_t err = cudaFuncSetAttribute(ln_mlp_kernel<float>,
+template <int BM>
+int launch_f32_rows(const void* x, const float* g, const float* b, const void* w1,
+                    const float* b1, const void* w2, const float* b2, void* y, int t, int c,
+                    int hdim, float eps, int residual, cudaStream_t s) {
+  const size_t smem = smem_bytes(BM, c);
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_kernel<float, BM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t + kBM - 1) / kBM, (c + kCols - 1) / kCols);
-  ln_mlp_kernel<float><<<grid, kThreads, smem, s>>>(
+  const dim3 grid((t + BM - 1) / BM, (c + kCols - 1) / kCols);
+  ln_mlp_kernel<float, BM><<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(x), g, b, static_cast<const float*>(w1), b1,
       static_cast<const float*>(w2), b2, static_cast<float*>(y), t, c, hdim, eps, residual);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 32 rows a block where they fit (C <= 1024), else 16.
+int launch_f32(const void* x, const float* g, const float* b, const void* w1, const float* b1,
+               const void* w2, const float* b2, void* y, int t, int c, int hdim, float eps,
+               int residual, cudaStream_t s) {
+  return smem_bytes(32, c) <= static_cast<size_t>(mlptc::kMaxSmem)
+             ? launch_f32_rows<32>(x, g, b, w1, b1, w2, b2, y, t, c, hdim, eps, residual, s)
+             : launch_f32_rows<16>(x, g, b, w1, b1, w2, b2, y, t, c, hdim, eps, residual, s);
 }
 
 // ---- bf16: the tensor-core kernel -----------------------------------------

@@ -20,10 +20,11 @@
 // copy through global memory. bias is the relative-position bias already
 // gathered to (heads, N, N) f32; mask is the (nW, N, N) f32 shift mask of
 // 0 / -100, or null. The loops run over exactly N = ws*ws keys, no padding.
-// The scalar per-head core (gather, scores, softmax, P v) is
-// swin_window.cuh; the bf16 serving kernel's is window_tc.cuh, whose two
-// products take their operands rounded to TF32 (unit roundoff 2^-11)
-// with f32 accumulation, as kernel 7's.
+// Cores: in bf16 both kernels run window_tc.cuh's TF32 tensor-core core
+// (mma.sync; operands rounded to TF32, unit roundoff 2^-11, f32
+// accumulation, as kernel 7's), the serving half-block's projection runs
+// on wgmma; in float32 both keep swin_window.cuh's scalar f32 core
+// (gather, scores, softmax, P v) and scalar f32 FMAs.
 //
 // Bound on the H100: per window 4*N^2*C operations for attention (and
 // 2*N*C^2 for the projection), on 4*N*C elements moved for the training
@@ -77,16 +78,50 @@
 // to 64 and n <= 64; other bf16 shapes are refused. No atomics: two runs
 // are bit-equal.
 //
+// bf16 training forward (swin_attention_tc_kernel<DH>, kernel 5): kernel
+// 4's attention without the projection. A CTA is one warpgroup (M = 64
+// rows, as above) on one head group (64 / DH heads, two at Swin's DH = 32
+// and one above; two below 32, which keeps kernel 6's per-CTA bias and
+// dbias sums in shared memory), walking windows x, x + gridDim.x, ...:
+// the grid is (train_ctas(windows, head groups), head groups), about 528
+// CTAs (window_tc.cuh), so every stage fills the 132 SMs with no column
+// split. swin_tiny at batch 32: stage 1 (2,048 windows, heads 3: a pair
+// and a single) 264 x 2 CTAs of 7-8 windows; stage 2 (512, 6 heads) 176 x
+// 3 of 2-3; stage 3 (128, 12) 88 x 6 of 1-2; stage 4 (32, 24) 32 x 12 of
+// one. Per window the group's q | k | v columns of the n token rows come
+// by cp.async (16-byte pieces; a head pair is a 128-byte row piece) into
+// one of two bf16 staging buffers (rows past n stay zero), with the
+// window's mask, while the previous window is computed; the group's bias
+// came once. Per head, window_tc.cuh's staged_probs (q * scale in f32,
+// S = q k^T on TF32 mma.sync straight from the bf16 staging, bias and
+// mask from shared memory, softmax on the fragments with e^x as __expf
+// and one reciprocal a row: FAST, chosen for kernels 5 and 6 together)
+// and pv give O, stored in bf16 from the fragments at the head's columns
+// of the window's token rows. Kernel 6 takes its P from the same
+// staged_probs, so it is bit-equal to this one's. Shared memory at n =
+// 49, DH = 32: two stagings of 22,400 bytes, the bias 19,216 and, shifted,
+// two masks of 9,616: 64,016 or 83,248 bytes, two or three CTAs an SM
+// (launch bounds (128, 3)); ptxas gives the DH = 32 instantiation 98
+// registers a thread and no spill (87-123 over DH = 8-64, chip_smoke.py
+// phase 1). Takes DH a multiple of 8 up to 64 and n <= 64; other bf16
+// shapes are refused.
+//
 // float32 (the card-vs-CPU parity path) keeps the scalar kernels: TF32
-// would not hold the 1e-4 float32 checks. One block of 256 threads per
-// window. Per head, q/k/v (N x head_dim) are gathered into shared memory
+// would not hold the 1e-4 float32 checks. The training forward
+// (swin_attention_kernel) takes one block of 256 threads per
+// window; per head, q/k/v (N x head_dim) are gathered into shared memory
 // as f32, scores and softmax (a warp per row, max-shifted) stay in shared
-// memory, and P v goes either straight to global memory (training
-// forward, also in bf16: kernel 6 recomputes its P with the same scalar
-// instructions) or into an N x C f32 tile in shared memory (150 KB at C =
-// 768). The projection then streams Wp through shared memory in 32 x 128
-// tiles into register accumulators of scalar f32 FMAs and adds bias and
-// residual in its epilogue.
+// memory, and P v goes to global memory. The float32 serving half-block
+// is two kernels in one call: that same kernel writes O in f32 to a
+// workspace (B, H, W, C) that the wrapper sizes, then swin_proj_kernel
+// streams 64 token rows of O and 32 x 128 tiles of Wp through shared
+// memory into register accumulators of scalar f32 FMAs in k order and adds
+// bias and residual in its epilogue (each output a chain of FMAs in k
+// order). Not one kernel: an N x C f32 O tile in shared memory would take
+// 301 KB at swin_large's C = 1536, against the 227 KB a block may use.
+// Shared memory does not grow with C: the attention 29,008 bytes at n =
+// 49, DH = 32 (4 (2 n (DH + 1) + n DH + n (n + 1))), the projection
+// 24,832, at every C from 96 to 1536.
 #include "mlp_tc.cuh"
 #include "swin_window.cuh"
 #include "window_tc.cuh"
@@ -94,116 +129,18 @@
 namespace {
 
 using swin::kThreads;
-constexpr int kPCols = 128; // projection column tile
-constexpr int kPBK = 32;    // projection K chunk
+constexpr int kPRows = 64;   // projection row tile (float32)
+constexpr int kPCols = 128;  // projection column tile
+constexpr int kPBK = 32;     // projection K chunk
 
 __host__ __device__ inline size_t align16(size_t v) { return (v + 15) / 16 * 16; }
 
-__host__ __device__ inline size_t attn_work_bytes(int n, int dh) {
-  const size_t attn = sizeof(float) * (2 * static_cast<size_t>(n) * (dh + 1) +
-                                       static_cast<size_t>(n) * dh + static_cast<size_t>(n) * (n + 1));
-  const size_t proj = sizeof(float) * kPBK * kPCols;
-  return attn > proj ? attn : proj;
-}
-
-size_t smem_bytes(int n, int c, int dh) {
-  return align16(sizeof(float) * static_cast<size_t>(n) * c) + attn_work_bytes(n, dh);
-}
-
-// The float32 serving half-block (the bf16 one is the tensor-core kernel below).
+// Training forward in float32, and the first half of the float32 serving
+// half-block: the scalar per-head core, O stored at the window's own
+// positions of (B, H, W, C).
 __global__ void __launch_bounds__(kThreads)
-swin_block_attention_kernel(const float* __restrict__ qkv, const float* __restrict__ xres,
-                            const float* __restrict__ wp, const float* __restrict__ bp,
-                            const float* __restrict__ bias, const float* __restrict__ mask,
-                            float* __restrict__ y, int hh, int ww, int c, int heads, int ws,
-                            float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = ws * ws, dh = c / heads;
-  const swin::Window w = swin::window_of(blockIdx.x, hh, ww, ws);
-  const int tid = threadIdx.x;
-
-  float* Os = reinterpret_cast<float*>(smem_raw);
-  float* work = Os + align16(static_cast<size_t>(n) * c * sizeof(float)) / sizeof(float);
-  float* Qs = work;                 // n x (dh + 1)
-  float* Ks = Qs + n * (dh + 1);    // n x (dh + 1)
-  float* Vs = Ks + n * (dh + 1);    // n x dh
-  float* Ss = Vs + n * dh;          // n x (n + 1)
-  float* Wps = work;                // kPBK x kPCols, after the attention
-
-  for (int h = 0; h < heads; ++h) {
-    swin::head_probs<float>(qkv, bias, mask, w, c, h, dh, scale, Qs, Ks, Vs, dh, Ss);
-    swin::head_pv(Ss, Vs, dh, n, dh, [&](int r, int d, float o) { Os[r * c + h * dh + d] = o; });
-  }
-
-  // out-projection + bias + residual; rows ty + 8*i (n <= 64), columns 4*tx + e
-  const int ty = tid / 32, tx = tid % 32;
-  for (int n0 = 0; n0 < c; n0 += kPCols) {
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-    for (int k0 = 0; k0 < c; k0 += kPBK) {
-      for (int i = tid; i < kPBK * kPCols; i += kThreads) {
-        const int kk = i / kPCols, jj = i % kPCols;
-        const int k = k0 + kk, col = n0 + jj;
-        Wps[i] = (k < c && col < c) ? wp[static_cast<size_t>(k) * c + col] : 0.f;
-      }
-      __syncthreads();
-      const int kmax = min(kPBK, c - k0);
-      for (int kk = 0; kk < kmax; ++kk) {
-        const float4 bv = *reinterpret_cast<const float4*>(&Wps[kk * kPCols + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int r = ty + 8 * i;
-          if (r < n) {
-            const float a = Os[r * c + k0 + kk];
-            acc[i][0] = fmaf(a, bv.x, acc[i][0]);
-            acc[i][1] = fmaf(a, bv.y, acc[i][1]);
-            acc[i][2] = fmaf(a, bv.z, acc[i][2]);
-            acc[i][3] = fmaf(a, bv.w, acc[i][3]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty + 8 * i;
-      if (r >= n) continue;
-      const size_t base = w.token(r) * c;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + tx * 4 + e;
-        if (col < c) y[base + col] = xres[base + col] + (acc[i][e] + bp[col]);
-      }
-    }
-  }
-}
-
-int launch_f32(const void* qkv, const void* xres, const void* wp, const float* bp,
-               const float* bias, const float* mask, void* y, int b, int hh, int ww, int c,
-               int heads, int ws, float scale, cudaStream_t s) {
-  const int n = ws * ws, dh = c / heads;
-  const size_t smem = smem_bytes(n, c, dh);
-  cudaError_t err = cudaFuncSetAttribute(swin_block_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = b * (hh / ws) * (ww / ws);
-  swin_block_attention_kernel<<<blocks, kThreads, smem, s>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(xres),
-      static_cast<const float*>(wp), bp, bias, mask, static_cast<float*>(y), hh, ww, c, heads,
-      ws, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Training forward: the same per-head core, O stored straight into
-// (B, H, W, C) at the window's own positions.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-swin_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                      const float* __restrict__ mask, T* __restrict__ out, int hh, int ww,
+swin_attention_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                      const float* __restrict__ mask, float* __restrict__ out, int hh, int ww,
                       int c, int heads, int ws, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = ws * ws, dh = c / heads;
@@ -213,28 +150,95 @@ swin_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   float* Vs = Ks + n * (dh + 1);                   // n x dh
   float* Ss = Vs + n * dh;                         // n x (n + 1)
   for (int h = 0; h < heads; ++h) {
-    swin::head_probs<T>(qkv, bias, mask, w, c, h, dh, scale, Qs, Ks, Vs, dh, Ss);
-    swin::head_pv(Ss, Vs, dh, n, dh, [&](int r, int d, float o) {
-      out[w.token(r) * c + h * dh + d] = from_f32<T>(o);
-    });
+    swin::head_probs<float>(qkv, bias, mask, w, c, h, dh, scale, Qs, Ks, Vs, dh, Ss);
+    swin::head_pv(Ss, Vs, dh, n, dh,
+                  [&](int r, int d, float o) { out[w.token(r) * c + h * dh + d] = o; });
   }
 }
 
-template <typename T>
 int launch_fwd(const void* qkv, const float* bias, const float* mask, void* out, int b,
                int hh, int ww, int c, int heads, int ws, float scale, cudaStream_t s) {
   const int n = ws * ws, dh = c / heads;
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(n) * (dh + 1) +
                                        static_cast<size_t>(n) * dh +
                                        static_cast<size_t>(n) * (n + 1));
-  cudaError_t err = cudaFuncSetAttribute(swin_attention_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(swin_attention_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = b * (hh / ws) * (ww / ws);
-  swin_attention_kernel<T><<<blocks, kThreads, smem, s>>>(
-      static_cast<const T*>(qkv), bias, mask, static_cast<T*>(out), hh, ww, c, heads, ws,
-      scale);
+  swin_attention_kernel<<<blocks, kThreads, smem, s>>>(
+      static_cast<const float*>(qkv), bias, mask, static_cast<float*>(out), hh, ww, c, heads,
+      ws, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 serving half-block's second half: y = residual + (O Wp + bp)
+// over 64 token rows x 128 columns a block, O (rows, C) f32 as
+// swin_attention_kernel stored it; rows ty + 8 i, columns 4 tx + e
+// a thread, each a chain of scalar f32 FMAs in k order.
+__global__ void __launch_bounds__(kThreads)
+swin_proj_kernel(const float* __restrict__ o, const float* __restrict__ xres,
+                 const float* __restrict__ wp, const float* __restrict__ bp,
+                 float* __restrict__ y, int rows, int c) {
+  __shared__ float As[kPRows][kPBK + 1];
+  __shared__ __align__(16) float Wps[kPBK * kPCols];
+  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
+  const int r0 = blockIdx.x * kPRows, n0 = blockIdx.y * kPCols;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  for (int k0 = 0; k0 < c; k0 += kPBK) {
+    for (int i = tid; i < kPRows * kPBK; i += kThreads) {
+      const int rr = i / kPBK, kk = i % kPBK, row = r0 + rr, k = k0 + kk;
+      As[rr][kk] = (row < rows && k < c) ? o[static_cast<size_t>(row) * c + k] : 0.f;
+    }
+    for (int i = tid; i < kPBK * kPCols; i += kThreads) {
+      const int kk = i / kPCols, jj = i % kPCols, k = k0 + kk, col = n0 + jj;
+      Wps[i] = (k < c && col < c) ? wp[static_cast<size_t>(k) * c + col] : 0.f;
+    }
+    __syncthreads();
+    const int kmax = min(kPBK, c - k0);
+    for (int kk = 0; kk < kmax; ++kk) {
+      const float4 bv = *reinterpret_cast<const float4*>(&Wps[kk * kPCols + tx * 4]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float a = As[ty + 8 * i][kk];
+        acc[i][0] = fmaf(a, bv.x, acc[i][0]);
+        acc[i][1] = fmaf(a, bv.y, acc[i][1]);
+        acc[i][2] = fmaf(a, bv.z, acc[i][2]);
+        acc[i][3] = fmaf(a, bv.w, acc[i][3]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + ty + 8 * i;
+    if (row >= rows) continue;
+    const size_t base = static_cast<size_t>(row) * c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = n0 + tx * 4 + e;
+      if (col < c) y[base + col] = xres[base + col] + (acc[i][e] + bp[col]);
+    }
+  }
+}
+
+// The float32 serving half-block: the attention into the workspace (B, H,
+// W, C) f32, then the projection.
+int launch_f32(const void* qkv, const void* xres, const void* wp, const float* bp,
+               const float* bias, const float* mask, void* y, void* workspace, int b, int hh,
+               int ww, int c, int heads, int ws, float scale, cudaStream_t s) {
+  const int err = launch_fwd(qkv, bias, mask, workspace, b, hh, ww, c, heads, ws, scale, s);
+  if (err != 0) return err;
+  const int rows = b * hh * ww;
+  const dim3 grid((rows + kPRows - 1) / kPRows, (c + kPCols - 1) / kPCols);
+  swin_proj_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(workspace), static_cast<const float*>(xres),
+      static_cast<const float*>(wp), bp, static_cast<float*>(y), rows, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -544,20 +548,154 @@ int launch_bf16(const void* qkv, const void* xres, const void* wp, const float* 
   }
 }
 
+
+// ---- bf16 training forward (kernel 5): TF32 mma.sync, a warpgroup an item ---
+
+// Shared memory of a kernel 5 CTA: two staging buffers of n8 rows x (3 G +
+// 8) bf16 (q | k | v of the item's heads), the head group's bias (HPG n x n
+// f32) and, for a shifted block, two window masks (n x n f32).
+inline int train_fwd_smem(int n, int dh, bool has_mask) {
+  const int hpg = wintc::train_heads(dh), ld = 3 * hpg * dh + 8, n8 = (n + 7) / 8 * 8;
+  return static_cast<int>(2 * align16(static_cast<size_t>(n8) * ld * 2) +
+                          align16(static_cast<size_t>(hpg) * n * n * 4) +
+                          (has_mask ? 2 * align16(static_cast<size_t>(n) * n * 4) : 0));
+}
+
+// One CTA, one warpgroup: head group blockIdx.y (heads HPG y, + HPG), the
+// windows blockIdx.x, + gridDim.x, ... in turn, the next window's q | k | v
+// and mask copied in while this one is computed.
+template <int DH>
+__global__ void __launch_bounds__(wintc::kTrainThreads, 3)
+swin_attention_tc_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                         const float* __restrict__ mask, bf16* __restrict__ out, int windows,
+                         int hh, int ww, int c, int heads, int ws, float scale) {
+  constexpr int HPG = wintc::train_heads(DH), G = HPG * DH, LD = 3 * G + 8;
+  constexpr int kT = wintc::kTrainThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = ws * ws, n8 = (n + 7) / 8 * 8, nn = n * n;
+  const int h0 = blockIdx.y * HPG, nh = min(HPG, heads - h0), col0 = h0 * DH;
+  const int stg = static_cast<int>(align16(static_cast<size_t>(n8) * LD * 2)) / 2;  // bf16
+  bf16* S0 = reinterpret_cast<bf16*>(smem_raw);
+  float* Bs = reinterpret_cast<float*>(S0 + 2 * stg);
+  float* M0 = Bs + align16(static_cast<size_t>(HPG) * nn * 4) / 4;
+  const int mstride = static_cast<int>(align16(static_cast<size_t>(nn) * 4) / 4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+
+  // window bw's q | k | v of the group's heads (16-byte pieces) and its
+  // mask (4-byte pieces: a window's n^2 floats need not be 16-byte
+  // aligned) into buffer buf
+  const auto gather = [&](int bw, int buf) {
+    const swin::Window w = swin::window_of(bw, hh, ww, ws);
+    bf16* S = S0 + buf * stg;
+    const int pieces = nh * DH / 8, per_row = 3 * pieces;
+    for (int idx = tid; idx < n * per_row; idx += kT) {
+      const int r = idx / per_row, sec = (idx % per_row) / pieces, p = idx % pieces;
+      wintc::cp_async16(S + r * LD + sec * G + 8 * p,
+                        qkv + w.token(r) * 3 * c + sec * c + col0 + 8 * p);
+    }
+    if (mask != nullptr) {
+      const float* src = mask + static_cast<size_t>(w.wi) * nn;
+      for (int i = tid; i < nn; i += kT) wintc::cp_async4(M0 + buf * mstride + i, src + i);
+    }
+  };
+
+  // rows n to n8 of both buffers stay zero: the keys past n meet finite values
+  for (int i = tid; i < (n8 - n) * LD; i += kT) {
+    S0[n * LD + i] = __float2bfloat16_rn(0.f);
+    S0[stg + n * LD + i] = __float2bfloat16_rn(0.f);
+  }
+  for (int i = tid; i < nh * nn; i += kT)
+    wintc::cp_async4(Bs + i, bias + static_cast<size_t>(h0) * nn + i);
+  int bw = blockIdx.x;
+  gather(bw, 0);
+  wintc::cp_async_commit();
+  for (int it = 0; bw < windows; bw += gridDim.x, ++it) {
+    const int buf = it & 1;
+    wintc::cp_async_wait_all();
+    __syncthreads();  // buffer buf has landed; every warp is done with buffer buf ^ 1
+    if (bw + static_cast<int>(gridDim.x) < windows) gather(bw + gridDim.x, buf ^ 1);
+    wintc::cp_async_commit();
+    const swin::Window w = swin::window_of(bw, hh, ww, ws);
+    const bf16* S = S0 + buf * stg;
+    const float* mw = mask != nullptr ? M0 + buf * mstride : nullptr;
+#pragma unroll
+    for (int j = 0; j < HPG; ++j) {
+      if (j >= nh) break;
+      float p[8][4], o[DH / 8][4];
+      wintc::staged_probs<DH, G>(S, LD, j, n, warp * 16, scale, Bs + j * nn, mw, p);
+      wintc::pv<DH>(
+          p, [&](int key, int d) { return __bfloat162float(S[key * LD + 2 * G + j * DH + d]); },
+          n, o);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = warp * 16 + g + 8 * i;
+        if (r >= n) continue;
+        bf16* dst = out + w.token(r) * c + col0 + j * DH + 2 * t;
+#pragma unroll
+        for (int dt = 0; dt < DH / 8; ++dt)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * dt) =
+              __floats2bfloat162_rn(o[dt][2 * i], o[dt][2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <int DH>
+int launch_train_tc(const void* qkv, const float* bias, const float* mask, void* out,
+                    int windows, int hh, int ww, int c, int heads, int ws, float scale,
+                    cudaStream_t s) {
+  constexpr int HPG = wintc::train_heads(DH);
+  const int smem = train_fwd_smem(ws * ws, DH, mask != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(swin_attention_tc_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int hgroups = (heads + HPG - 1) / HPG;
+  const dim3 grid(wintc::train_ctas(windows, hgroups), hgroups);
+  swin_attention_tc_kernel<DH><<<grid, wintc::kTrainThreads, smem, s>>>(
+      static_cast<const bf16*>(qkv), bias, mask, static_cast<bf16*>(out), windows, hh, ww, c,
+      heads, ws, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_fwd_bf16(const void* qkv, const float* bias, const float* mask, void* out, int b,
+                    int hh, int ww, int c, int heads, int ws, float scale, cudaStream_t s) {
+  const int n = ws * ws, dh = c / heads;
+  if (n > 64 || dh % 8 != 0 || dh > 64 || dh == 0 || !mlptc::aligned16(qkv) ||
+      (reinterpret_cast<uintptr_t>(out) & 3) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int windows = b * (hh / ws) * (ww / ws);
+  const auto args = [&](auto launch) {
+    return launch(qkv, bias, mask, out, windows, hh, ww, c, heads, ws, scale, s);
+  };
+  switch (dh / 8) {
+    case 1: return args(launch_train_tc<8>);
+    case 2: return args(launch_train_tc<16>);
+    case 3: return args(launch_train_tc<24>);
+    case 4: return args(launch_train_tc<32>);
+    case 5: return args(launch_train_tc<40>);
+    case 6: return args(launch_train_tc<48>);
+    case 7: return args(launch_train_tc<56>);
+    default: return args(launch_train_tc<64>);
+  }
+}
+
 }  // namespace
 
+// workspace: (b, hh, ww, c) f32 for float32 (the attention's output before
+// the projection), unused (null) in bf16.
 TT_EXPORT int tt_swin_block_attention(const void* qkv, const void* xres, const void* wp,
                                       const void* bp, const void* bias, const void* mask,
-                                      void* y, int b, int hh, int ww, int c, int heads, int ws,
-                                      float scale, int is_bf16, void* stream) {
+                                      void* y, void* workspace, int b, int hh, int ww, int c,
+                                      int heads, int ws, float scale, int is_bf16,
+                                      void* stream) {
   const float* fbp = static_cast<const float*>(bp);
   const float* fbias = static_cast<const float*>(bias);
   const float* fmask = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_bf16(qkv, xres, wp, fbp, fbias, fmask, y, b, hh, ww, c, heads, ws,
                                scale, s)
-                 : launch_f32(qkv, xres, wp, fbp, fbias, fmask, y, b, hh, ww, c, heads, ws, scale,
-                              s);
+                 : launch_f32(qkv, xres, wp, fbp, fbias, fmask, y, workspace, b, hh, ww, c,
+                              heads, ws, scale, s);
 }
 
 TT_EXPORT int tt_swin_attention(const void* qkv, const void* bias, const void* mask, void* out,
@@ -566,7 +704,6 @@ TT_EXPORT int tt_swin_attention(const void* qkv, const void* bias, const void* m
   const float* fbias = static_cast<const float*>(bias);
   const float* fmask = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_fwd<__nv_bfloat16>(qkv, fbias, fmask, out, b, hh, ww, c, heads, ws,
-                                             scale, s)
-                 : launch_fwd<float>(qkv, fbias, fmask, out, b, hh, ww, c, heads, ws, scale, s);
+  return is_bf16 ? launch_fwd_bf16(qkv, fbias, fmask, out, b, hh, ww, c, heads, ws, scale, s)
+                 : launch_fwd(qkv, fbias, fmask, out, b, hh, ww, c, heads, ws, scale, s);
 }

@@ -1,10 +1,13 @@
-// Window-attention core shared by the Swin attention kernels
-// (swin_attention.cu: the serving half-block in float32, whose bf16 path
-// runs window_tc.cuh instead, and the training forward in both types;
-// swin_attention_bwd.cu: the backward, which recomputes the softmax with
-// exactly these instructions, so its P is bit-equal to the forward's;
-// window_attention.cu and swin_ln_attention.cu, which fill Qs/Ks/Vs their
-// own way and share scores_softmax and head_pv).
+// Window-attention core shared by the Swin attention kernels' float32
+// paths, all scalar f32 FMAs on shared memory (no tensor core):
+// swin_attention.cu's training forward (kernel 5) and the first half of
+// its serving half-block (kernel 4), swin_attention_bwd.cu's backward
+// (kernel 6), which recomputes the softmax with exactly these
+// instructions, so its P is bit-equal to the forward's, and
+// window_attention.cu (kernel 8, float32 and bf16) and swin_ln_attention.cu
+// (kernel 7's float32 path), which fill Qs/Ks/Vs their own way and share
+// scores_softmax and head_pv. The bf16 paths of kernels 4, 5, 6 and 7 run
+// window_tc.cuh's TF32 tensor-core core instead.
 //
 // A block works on one ws x ws window of one image at a time. Window
 // partition and reverse are index arithmetic: token t of the window lies at

@@ -9,7 +9,7 @@
   projection, differentiable: a `torch.autograd.Function` pairs the forward
   kernel (`csrc/swin_attention.cu`) with a backward kernel
   (`csrc/swin_attention_bwd.cu`) that recomputes the softmax from the saved
-  inputs, as the JAX custom_vjp does.
+  inputs, as the JAX custom_vjp does; in bf16 both on TF32 tensor cores.
 - `fused_swin_ln_attention` is the LN + QKV + shifted W-MSA serving
   variant on the raw stream (`csrc/swin_ln_attention.cu`; bf16 projection
   on wgmma and attention on TF32 tensor cores), forward only;
@@ -281,21 +281,23 @@ def fused_swin_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     dbias = torch.zeros(num_heads, n, n, dtype=torch.float32, device=qkv.device)
     if b == 0:
         return dqkv, dbias
+    is_bf16 = int(qkv.dtype == torch.bfloat16)
     lib = _build.library("swin_attention_bwd")
     groups_fn = lib.tt_swin_bwd_groups
-    groups_fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    groups_fn.argtypes = [ctypes.c_int] * 4
     groups_fn.restype = ctypes.c_int
     windows = b * (hh // window_size) * (ww // window_size)
-    partial = torch.empty(num_heads, groups_fn(windows, num_heads), n, n,
-                          dtype=torch.float32, device=qkv.device)
+    groups = groups_fn(windows, num_heads, c // num_heads, is_bf16)
+    partial = torch.empty(num_heads, groups, n, n, dtype=torch.float32,
+                          device=qkv.device)
     fn = _build.function("swin_attention_bwd", "tt_swin_attention_bwd",
                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     status = fn(_build.ptr(qkv), _build.ptr(dout), _build.ptr(bias_f),
                 _build.ptr(mask_f) if mask_f is not None else None,
                 _build.ptr(dqkv), _build.ptr(dbias), _build.ptr(partial),
-                b, hh, ww, c, num_heads, window_size, float(scale),
-                int(qkv.dtype == torch.bfloat16), _build.stream_ptr(qkv.device))
+                b, hh, ww, c, num_heads, window_size, float(scale), is_bf16,
+                _build.stream_ptr(qkv.device))
     _build.check("swin_attention_bwd", status, "fused_swin_attention backward")
     fused_swin_attention.bwd_launches += 1
     return dqkv, dbias
@@ -426,14 +428,18 @@ def fused_swin_block_attention(qkv: torch.Tensor, residual: torch.Tensor,
     y = torch.empty_like(residual)
     if b == 0:
         return y
+    # float32: the attention's output before the projection
+    work = None if is_bf16 else torch.empty(b, hh, ww, c, dtype=torch.float32,
+                                            device=qkv.device)
     fn = _build.function("swin_attention", "tt_swin_block_attention",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     status = fn(_build.ptr(qkv), _build.ptr(residual), _build.ptr(wp),
                 _build.ptr(bp), _build.ptr(bias),
                 _build.ptr(mask_f) if mask_f is not None else None,
-                _build.ptr(y), b, hh, ww, c, num_heads, ws, float(scale),
-                is_bf16, _build.stream_ptr(qkv.device))
+                _build.ptr(y), _build.ptr(work) if work is not None else None,
+                b, hh, ww, c, num_heads, ws, float(scale), is_bf16,
+                _build.stream_ptr(qkv.device))
     _build.check("swin_attention", status, "fused_swin_block_attention")
     fused_swin_block_attention.launches += 1
     return y
