@@ -10,8 +10,8 @@ Phases, each printing its lines before the final one:
    libraries in cuobjdump's SASS and inside each tensor-core kernel's own
    functions (kernels 2, 3, 4, 7, 9, 10, 11), the TF32 mma.sync (HMMA)
    instructions of kernels 4's and 7's attention cores and of kernels 5
-   and 6 (the training attention), and the async
-   copies (LDGSTS) of the depthwise kernel (17); the phase fails at 0 in
+   and 6 (the training attention), and the async copies (LDGSTS) of the
+   depthwise kernel (17) and the stencil (13); the phase fails at 0 in
    any instantiation; then print the card's name and power limit as
    nvidia-smi reports them;
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
@@ -42,16 +42,25 @@ Phases, each printing its lines before the final one:
 8. quality kernels: the quality pipeline's kernels (statistics, stencil,
    CLAHE apply, dual-grid CLAHE apply) against their plain versions on a
    32-frame chunk of raw 512x512 synthetic frames, at grids 16x16 and
-   32x32, with the dual apply on a mixed per-image grid choice;
+   32x32, with the dual apply on a mixed per-image grid choice; two runs
+   of the statistics and the stencil bit-equal; the SHA-256 of their
+   outputs on the chunk and the launch of each (cluster, shared memory
+   and registers of the statistics kernel; tile, shared memory,
+   registers and grid of the stencil);
 9. quality slice: InferenceEngine(quality=True) serves swin_tiny at buckets
    32 and 128 on frames in which every quality branch fires (counted on
    the CPU); per 32-frame chunk the statistics, stencil, dual apply and
    percentile kernels launch once each and the single apply never; the
    card's quality stage and prepared images, and its probabilities, are
    held against the CPU; quality_preprocess(merged=False) launches the
-   single apply twice and gives the merged path's output;
+   single apply twice and gives the merged path's output; the SHA-256 of
+   the statistics' and the stencil's outputs on the 8 frames held
+   against the CPU, and their launches there;
 10. quality times: each quality kernel's median time per 32-frame chunk
-   beside its bound and its plain version, images/s of predict with and
+   (the statistics and the stencil in device time, from CUDA-graph
+   replays, beside their CUDA-event time; their launches and output
+   hashes on the chunk) beside its bound and its plain version, the
+   statistics also beside its library call (in device time too), images/s of predict with and
    without the quality pipeline at buckets 32 and 128, the time of
    DevicePipeline(quality_preprocessing=True) over 256 frames (its launch
    counts checked) with the histogram/LUT chain timed apart, and a profile
@@ -157,6 +166,7 @@ before that line is printed. Needs one CUDA card; exits nonzero without one.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import shutil
@@ -225,8 +235,8 @@ DUAL_GRIDS = {"clip_coarse": 2.0, "grid_coarse": (16, 16), "clip_fine": 0.03,
 # and 11), each with the kernel functions that must hold HGMMA instructions
 # in every instantiation; kernels 4's and 7's attention cores and kernels 5
 # and 6 (the training attention, forward and backward) must hold TF32 HMMA
-# (mma.sync) instructions; the depthwise kernel (17) must hold async copies
-# (LDGSTS, cp.async) in every instantiation
+# (mma.sync) instructions; the depthwise kernel (17) and the stencil (13)
+# must hold async copies (LDGSTS, cp.async) in every instantiation
 TENSOR_CORE_LIBS = ("ln_mlp", "ln_mlp_bwd", "ln_matmul", "ln_matmul_bwd",
                     "swin_ln_attention", "swin_attention")
 TENSOR_CORE_FUNCTIONS = {"ln_mlp": ("ln_mlp_tc_kernel",),
@@ -239,7 +249,8 @@ TF32_MMA_FUNCTIONS = {"swin_ln_attention": ("swin_ln_attention_tc_kernel",),
                       "swin_attention": ("swin_block_attention_tc_kernel",
                                          "swin_attention_tc_kernel"),
                       "swin_attention_bwd": ("swin_attention_bwd_tc_kernel",)}
-ASYNC_COPY_FUNCTIONS = {"depthwise": ("depthwise_kernel",)}
+ASYNC_COPY_FUNCTIONS = {"depthwise": ("depthwise_kernel",),
+                        "stencil": ("median_bilateral_kernel",)}
 
 
 def log(*parts) -> None:
@@ -1215,8 +1226,9 @@ def quality_cases(frames: np.ndarray):
     artifact frames (stencil), and the 8-bit frames of the CLAHE round trip
     with LUTs from the plain histogram chain at (clip 2.0, 16x16) and
     (clip 0.03, 32x32), the dual apply choosing the coarse grid for every
-    third image. Each case: kernel, label, wrapper and plain calls, and
-    (bytes, float32 operations, float64 operations) of one call: each input
+    third image. Each case: kernel, label, wrapper and plain calls,
+    (bytes, float32 operations, float64 operations) of one call, and the
+    kernel's input tensor. Bytes and operations: each input
     read once, each output written once; the statistics do 3 + 2·22
     float32 and 4 float64 operations per pixel, the stencil 38 (median) +
     6 per bilateral tap in float32 and 3 per tap in float64 (13 taps), the
@@ -1246,24 +1258,24 @@ def quality_cases(frames: np.ndarray):
         ("stats_quantile", "512x512 x32",
          lambda: percentile.fused_stats_quantile(x, 0.999),
          lambda: percentile.stats_quantile_plain(x, 0.999),
-         (n * 4 + 5 * b * 4, n * (3 + 2 * 22), n * 4)),
+         (n * 4 + 5 * b * 4, n * (3 + 2 * 22), n * 4), x),
         ("median_bilateral", "512x512 x32 d=5",
          lambda: stencil.fused_median_bilateral(x8),
          lambda: stencil.median_bilateral_plain(x8),
-         (3 * n * 4, n * (38 + 13 * 6), n * (13 * 3 + 1))),
+         (3 * n * 4, n * (38 + 13 * 6), n * (13 * 3 + 1)), x8),
     ]
     for grid, lut in luts.items():
         cases.append(("apply_luts", f"grid {grid[0]}x{grid[1]}",
                       lambda lut=lut, grid=grid: clahe.apply_luts(x8c, lut, grid),
                       lambda lut=lut, grid=grid: clahe._interp_luts(x8c, lut, grid),
-                      (2 * n * 4 + lut.numel() * 4, n * 20, 0)))
+                      (2 * n * 4 + lut.numel() * 4, n * 20, 0), x8c))
     cases.append((
         "apply_luts_dual", f"grids 16x16 / 32x32, {n_sel} of {b} coarse",
         lambda: clahe.apply_luts_dual(x8c, luts_c, luts_f, sel, (16, 16), (32, 32)),
         lambda: torch.where(sel.reshape(b, 1, 1),
                             clahe._interp_luts(x8c, luts_c, (16, 16)),
                             clahe._interp_luts(x8c, luts_f, (32, 32))),
-        (2 * n * 4 + dual_lut_bytes, n * 20, 0)))
+        (2 * n * 4 + dual_lut_bytes, n * 20, 0), x8c))
     return cases
 
 
@@ -1290,9 +1302,45 @@ def compare_quality(kernel: str, got, want):
     return err, diff, diff == 0, "exact"
 
 
+def output_hashes(x):
+    """SHA-256 of the output bytes of kernels 12 and 13 on the raw frames x
+    (B, H, W, 1) on the card: the statistics' quantile, max and min, their
+    mean and std, and the stencil's median and bilateral of the 8-bit
+    artifact frames cut at that quantile, as the quality pipeline makes
+    them."""
+    from thyroid_tpu_torch.ops import percentile, stencil
+
+    def sha(*ts):
+        return hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes()
+                                       for t in ts)).hexdigest()
+
+    st = percentile.fused_stats_quantile(x, 0.999)
+    x8 = torch.floor(torch.minimum(torch.clamp(x, min=0.0),
+                                   st["quantile"].reshape(-1, 1, 1, 1)) / 256.0)
+    med, bil = stencil.fused_median_bilateral(x8)
+    return {"stats quantile/max/min": sha(st["quantile"], st["max"], st["min"]),
+            "stats mean/std": sha(st["mean"], st["std"]),
+            "stencil median": sha(med), "stencil bilateral": sha(bil)}
+
+
+def log_hashes(tag: str, what: str, x) -> None:
+    for name, digest in output_hashes(x).items():
+        log(f"[{tag}] sha256 {name} on {what}: {digest}")
+
+
+def log_launches(tag: str, x) -> None:
+    """How kernels 12 and 13 launch on the chunk x."""
+    from thyroid_tpu_torch.ops import percentile, stencil
+
+    log(f"[{tag}] fused_stats_quantile launch at {tuple(x.shape)}: "
+        f"{json.dumps(percentile.stats_quantile_launch(x))}")
+    log(f"[{tag}] fused_median_bilateral launch, d=5: "
+        f"{json.dumps(stencil.median_bilateral_launch(5))}")
+
+
 def phase_quality_kernels(cases) -> None:
     failed = []
-    for kernel, label, fused, plain, _ in cases:
+    for kernel, label, fused, plain, *_ in cases:
         got, want = fused(), plain()
         torch.cuda.synchronize()
         err, diff, ok, note = compare_quality(kernel, got, want)
@@ -1301,6 +1349,19 @@ def phase_quality_kernels(cases) -> None:
         if not ok:
             failed.append((kernel, label, err, diff))
         del got, want
+    # kernel 12's sums are combined in a fixed order and kernel 13 has no
+    # sum across threads: two runs give the same bits
+    for kernel, label, fused, *_ in cases[:2]:
+        a, b = fused(), fused()
+        torch.cuda.synchronize()
+        pairs = zip(a.values(), b.values()) if isinstance(a, dict) else zip(a, b)
+        same = all(torch.equal(u, v) for u, v in pairs)
+        log(f"[quality-kernels] {kernel} {label}: two runs bit-equal {same}")
+        if not same:
+            failed.append((kernel, label, "two runs differ"))
+    chunk = cases[0][5]
+    log_hashes("quality-kernels", f"the {chunk.shape[0]}-frame chunk", chunk)
+    log_launches("quality-kernels", chunk)
     if failed:
         raise AssertionError(f"quality kernels disagree with their plain "
                              f"versions: {failed}")
@@ -1414,7 +1475,17 @@ def phase_quality_slice(params, frames: np.ndarray):
                             "percentile": 0} or not same:
         raise AssertionError("the classic quality path disagrees")
     launches["apply_luts"] = classic_launches["apply_luts"]
+    log_hashes("quality-slice", "the 8 frames held against the CPU",
+               torch.from_numpy(frames[:8, ..., None]).cuda())
+    log_launches("quality-slice", torch.from_numpy(frames[:8, ..., None]).cuda())
     return engine, launches
+
+
+# quality kernels timed in device time (CUDA-graph replays, device_ms), and
+# their library calls with them: a call of tens of microseconds whose
+# wrapper's host time CUDA events around one call would add; the CLAHE
+# applies stay on events
+QUALITY_DEVICE_TIMED = ("stats_quantile", "median_bilateral")
 
 
 def phase_quality_times(cases, launches, engine, params, frames):
@@ -1432,18 +1503,28 @@ def phase_quality_times(cases, launches, engine, params, frames):
                "ops_ms": 0.0, "err": 0.0, "library_ms": None} for k in meta}
     chunk = torch.from_numpy(frames[..., None]).cuda()
     libraries = {"stats_quantile": stats_quantile_library(chunk, 0.999)}
-    for kernel, label, fused, plain, (nbytes, f32_ops, f64_ops) in cases:
+    log_launches("quality-times", chunk)
+    log_hashes("quality-times", f"the {len(frames)}-frame chunk", chunk)
+    for kernel, label, fused, plain, (nbytes, f32_ops, f64_ops), _ in cases:
         ms = median_ms(fused)
+        lib = libraries.get(kernel)
+        lib_ms = median_ms(lib) if lib is not None else None
+        timing = "events"
+        if kernel in QUALITY_DEVICE_TIMED:
+            timing = f"device; events {ms:.4f}"
+            ms = device_ms(fused)
+            if lib is not None:
+                timing += f" and {lib_ms:.4f}"
+                lib_ms = device_ms(lib)
         plain_ms = median_ms(plain, reps=5, warm=1)
-        lib_ms = median_ms(libraries[kernel]) if kernel in libraries else None
         err = compare_quality(kernel, fused(), plain())[0]
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = (f32_ops / PEAK_OPS_PER_S[torch.float32]
                  + f64_ops / PEAK_OPS_PER_S[torch.float64]) * 1e3
         lib_text = f"{lib_ms:.4f} ms" if lib_ms is not None else \
             "none (no PyTorch call computes it)"
-        log(f"[quality-times] {kernel} {label}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {lib_text}, bound "
+        log(f"[quality-times] {kernel} {label}: kernel {ms:.4f} ms, library "
+            f"{lib_text} ({timing}), plain {plain_ms:.4f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms "
             f"({'bytes' if t_bytes >= t_ops else 'operations'})")
         t = tot[kernel]
@@ -1505,11 +1586,14 @@ def phase_quality_times(cases, launches, engine, params, frames):
     x8c = torch.floor((x[..., 0] - lo) / (flat.amax(1).reshape(-1, 1, 1) - lo
                                           + 1e-8) * 255.0)
     lut_ms = median_ms(lambda: clahe._dual_luts(x8c, 2.0, (16, 16), 0.03, (32, 32)))
+    k1213 = tot["stats_quantile"]["ms"] + tot["median_bilateral"]["ms"]
     log(f"[quality-times] DevicePipeline(quality_preprocessing=True) over "
         f"{len(raw)} raw 512x512 frames: {secs * 1e3:.2f} ms "
         f"({len(raw) / secs:.1f} frames/s, host->card copy included); "
         f"launches {got}; histogram/LUT chain {lut_ms:.4f} ms per chunk, "
-        f"{chunks * lut_ms:.2f} ms over the {chunks} chunks")
+        f"{chunks * lut_ms:.2f} ms over the {chunks} chunks; kernels 12 + 13 "
+        f"{k1213:.4f} ms of device time per chunk, {chunks * k1213:.3f} ms "
+        f"over the {chunks} chunks")
     if got != want or pipe.cache.shape != (len(raw), 224, 224, 1) \
             or not bool(torch.isfinite(pipe.cache).all()):
         raise AssertionError(f"quality DevicePipeline: launches {got}, "

@@ -330,24 +330,62 @@ def test_swin_attention_bf16_refuses(gen):
             qkv, _rn(gen, 1, 8, 8, 36, dtype=torch.bfloat16), bias, None, **kw)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,offset", [((3, 17, 19, 1), 0), ((4, 512, 512, 1), 0),
-                                          ((1, 1, 7, 1), 0), ((2, 64, 64, 1), 1)])
-def test_stats_quantile(gen, shape, offset):
-    """n % 4 != 0 takes the scalar loads, 512² the float4 ones; a view
-    that starts 4 bytes into its storage takes the scalar loads too."""
+def _stats_input(gen, shape, offset, kind):
+    """A batch of `shape` starting `offset` floats into its storage: random
+    uint16-scale integers, a constant image, or two values."""
     n = torch.Size(shape).numel()
     buf = torch.floor(torch.rand(n + offset, generator=gen, device="cuda") * 65535)
-    x = buf[offset:].reshape(shape)
+    if kind == "constant":
+        buf.fill_(1234.0)
+    elif kind == "two":
+        buf = torch.where(buf < 40000, 17.0, 60000.0)
+    return buf[offset:].reshape(shape)
+
+
+# (shape, offset, kind, iters). The kernel takes an image as a cluster of 16
+# CTAs: 512² is staged in their shared memory; n % 4 != 0, a view 4 bytes
+# into its storage and 1024² (256 KiB a CTA, above its 92 KiB) stream from
+# global memory; n = 7 and n = 12 leave CTAs without pixels; 50x50
+# (625 float4s) does not split evenly; iters 1, 7 and 23 are not multiples
+# of the 8 steps a counting pass settles.
+STATS_CASES = [((3, 17, 19, 1), 0, "random", 22), ((4, 512, 512, 1), 0, "random", 22),
+               ((1, 1, 7, 1), 0, "random", 22), ((2, 64, 64, 1), 1, "random", 22),
+               ((2, 3, 4, 1), 0, "random", 22), ((2, 50, 50, 1), 0, "random", 22),
+               ((1, 1024, 1024, 1), 0, "random", 22), ((2, 512, 512, 1), 0, "constant", 22),
+               ((2, 512, 512, 1), 0, "two", 22), ((2, 64, 64, 1), 0, "two", 22),
+               ((2, 512, 512, 1), 0, "random", 1), ((2, 512, 512, 1), 0, "random", 7),
+               ((2, 512, 512, 1), 0, "random", 23), ((2, 17, 19, 1), 0, "random", 23)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset,kind,iters", STATS_CASES)
+def test_stats_quantile(gen, shape, offset, kind, iters):
+    """The quantile, max and min bit-equal to the plain version, the mean
+    and std within 1e-5, at every path of the kernel (see STATS_CASES)."""
+    x = _stats_input(gen, shape, offset, kind)
     before = percentile.fused_stats_quantile.launches
-    got = percentile.fused_stats_quantile(x, 0.999)
+    got = percentile.fused_stats_quantile(x, 0.999, iters)
     assert percentile.fused_stats_quantile.launches == before + 1
-    want = percentile.stats_quantile_plain(x, 0.999)
+    want = percentile.stats_quantile_plain(x, 0.999, iters)
     torch.cuda.synchronize()
     for k in ("quantile", "max", "min"):
         assert torch.equal(got[k], want[k]), k
     for k in ("mean", "std"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((32, 512, 512, 1), 0), ((2, 1024, 1024, 1), 0),
+                                          ((3, 17, 19, 1), 1)])
+def test_stats_quantile_deterministic(gen, shape, offset):
+    """Two runs give the same bits in all five outputs (the cluster's sums
+    are combined in a fixed order), staged and streamed."""
+    x = _stats_input(gen, shape, offset, "random")
+    a = percentile.fused_stats_quantile(x, 0.999)
+    b = percentile.fused_stats_quantile(x, 0.999)
+    torch.cuda.synchronize()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
 
 
 @pytest.mark.cuda
@@ -364,6 +402,46 @@ def test_median_bilateral(gen, d, shape):
     torch.cuda.synchronize()
     assert torch.equal(med, want_med)
     assert (bil - want_bil).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 5, 7])
+def test_median_bilateral_mixed_tiles(gen, d):
+    """One launch in which some tiles hold only 8-bit integers (the colour
+    table) and others fractional, negative or above-255 values (the
+    per-tap expf): frame 0 integral, frame 1 integral but for a fractional
+    patch, frame 2 integral but for a band outside [0, 255]."""
+    x8 = torch.floor(torch.rand(3, 130, 200, 1, generator=gen, device="cuda") * 256)
+    x8[1, 40:60, 90:150] += 0.25
+    x8[2, 100:104] = x8[2, 100:104] * 1.5 - 20.0
+    med, bil = stencil.fused_median_bilateral(x8, d=d)
+    want_med, want_bil = stencil.median_bilateral_plain(x8, d=d)
+    torch.cuda.synchronize()
+    assert torch.equal(med, want_med)
+    assert (bil - want_bil).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 5, 7])
+@pytest.mark.parametrize("h,w", [(96, 128), (37, 100), (130, 68), (50, 101)])
+def test_median_bilateral_storage_offset(gen, d, h, w):
+    """The same frames at a 16-byte aligned start (16-byte copies inside
+    the frame) and 4 bytes into their storage (4-byte copies only) give the
+    same bits, and the plain version's median; frames whose sides are not
+    multiples of the 64x32 tile put windows past the frame's far edges, and
+    a width that is not a multiple of 4 takes 4-byte copies at any start."""
+    n = 2 * h * w
+    buf = torch.floor(torch.rand(n + 1, generator=gen, device="cuda") * 256)
+    aligned = buf[:n].reshape(2, h, w, 1).clone()
+    shifted = buf[1:].reshape(2, h, w, 1)
+    shifted.copy_(aligned)
+    got_a = stencil.fused_median_bilateral(aligned, d=d)
+    got_s = stencil.fused_median_bilateral(shifted, d=d)
+    want_med, want_bil = stencil.median_bilateral_plain(aligned, d=d)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a[0], got_s[0]) and torch.equal(got_a[1], got_s[1])
+    assert torch.equal(got_a[0], want_med)
+    assert (got_a[1] - want_bil).abs().max().item() <= 1e-2
 
 
 def _luts(gen, b, grid):

@@ -126,6 +126,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Bulk copy of `bytes` (a multiple of 16) from global src to shared address
+// dst, both 16-byte aligned; completion counts its bytes on mbarrier bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // 2D TMA load of the box at (column c0, row r0) of `map` into shared
 // address dst; completion counts its bytes on mbarrier bar. Boxes past the
 // tensor's edge read zeros.

@@ -114,3 +114,19 @@ def fused_stats_quantile(x: torch.Tensor, q: float,
 
 
 fused_stats_quantile.launches = 0
+
+
+def stats_quantile_launch(x: torch.Tensor) -> Dict[str, int]:
+    """How fused_stats_quantile launches on the CUDA tensor x: a cluster of
+    `cluster` CTAs of `threads` threads per image, the image `staged` in
+    the CTAs' shared memory (`stage_bytes` a CTA) or streamed from global
+    memory, the kernel's static shared bytes and registers a thread, and
+    the clusters the card holds at once."""
+    b = x.shape[0]
+    n = x.numel() // b
+    out = (ctypes.c_int * 7)()
+    fn = _build.function("percentile", "tt_stats_quantile_config", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    _build.check("percentile", fn(_build.ptr(x), n, out), "stats_quantile_launch")
+    return dict(zip(("cluster", "threads", "staged", "stage_bytes",
+                     "static_bytes", "registers", "clusters_at_once"), out))

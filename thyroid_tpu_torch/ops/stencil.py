@@ -11,7 +11,7 @@ version's tap order and float32 rounding (see its source note).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -79,3 +79,17 @@ def fused_median_bilateral(x8: torch.Tensor, d: int = 5,
 
 
 fused_median_bilateral.launches = 0
+
+
+def median_bilateral_launch(d: int = 5) -> Dict[str, int]:
+    """How fused_median_bilateral launches at window d: output tiles of
+    `tile_w` x `tile_h`, `threads` a block, `smem_bytes` of dynamic shared
+    memory a block (the colour table, two input windows and the medians),
+    registers a thread, blocks an SM and the blocks of its persistent
+    grid."""
+    out = (ctypes.c_int * 7)()
+    fn = _build.function("stencil", "tt_median_bilateral_config", [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    _build.check("stencil", fn(d // 2, out), "median_bilateral_launch")
+    return dict(zip(("tile_w", "tile_h", "threads", "smem_bytes", "registers",
+                     "blocks_per_sm", "grid"), out))
