@@ -17,15 +17,21 @@ Phases, each printing its lines before the final one:
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs, at every shape the swin_tiny forward gives it at batch 32,
    in float32 (TF32 off for matmuls and convolutions) and in bfloat16; the
-   block attention's two runs bit-equal;
+   block attention's two runs bit-equal, the percentile kernel bit-equal;
 3. slice: InferenceEngine serves swin_tiny (bf16, full width and depth,
    seeded and perturbed weights) on raw 512x512 frames; the launch counters
    must move by 1, 15, 12 and 12 per forward, and the probabilities must
-   agree with the same engine on the CPU in float32;
+   agree with the same engine on the CPU in float32; the percentile
+   kernel's launch (cluster, staging, shared memory, registers) at buckets
+   32 and 128 in float32 and bf16;
 4. times: each kernel's median time per forward at bucket 32 beside its
-   bound, its plain version and a library yardstick (the LN + matmul and
-   its yardstick in device time, from CUDA-graph replays), and end-to-end
-   images/s of predict at buckets 32 and 128; a profile of one predict;
+   bound, its plain version and a library yardstick (in device time, from
+   CUDA-graph replays; the percentile kernel in float32, the type the
+   served path resizes into), the percentile kernel at buckets 32 and 128
+   in float32 and bf16 on fixed seeded batches (device and CUDA-event
+   times, its library's, its launch and the SHA-256 of its output), and
+   end-to-end images/s of predict at buckets 32 and 128; a profile of one
+   predict;
 5. train kernels: the training attention's forward and backward kernels
    against their plain versions (output, dqkv, dbias) at every shape a
    swin_tiny train step gives them at batch 32, in float32 and bfloat16;
@@ -44,9 +50,9 @@ Phases, each printing its lines before the final one:
    32-frame chunk of raw 512x512 synthetic frames, at grids 16x16 and
    32x32, with the dual apply on a mixed per-image grid choice; two runs
    of the statistics and the stencil bit-equal; the SHA-256 of their
-   outputs on the chunk and the launch of each (cluster, shared memory
-   and registers of the statistics kernel; tile, shared memory,
-   registers and grid of the stencil);
+   outputs and of the CLAHE applies' on the chunk and the launch of each
+   (cluster, shared memory and registers of the statistics kernel; tile,
+   shared memory, registers and grid of the stencil);
 9. quality slice: InferenceEngine(quality=True) serves swin_tiny at buckets
    32 and 128 on frames in which every quality branch fires (counted on
    the CPU); per 32-frame chunk the statistics, stencil, dual apply and
@@ -57,9 +63,9 @@ Phases, each printing its lines before the final one:
    the statistics' and the stencil's outputs on the 8 frames held
    against the CPU, and their launches there;
 10. quality times: each quality kernel's median time per 32-frame chunk
-   (the statistics and the stencil in device time, from CUDA-graph
-   replays, beside their CUDA-event time; their launches and output
-   hashes on the chunk) beside its bound and its plain version, the
+   (in device time, from CUDA-graph replays, beside the CUDA-event time;
+   their launches and output hashes on the chunk) beside its bound and
+   its plain version, the
    statistics also beside its library call (in device time too), images/s of predict with and
    without the quality pipeline at buckets 32 and 128, the time of
    DevicePipeline(quality_preprocessing=True) over 256 frames (its launch
@@ -150,8 +156,11 @@ Phases, each printing its lines before the final one:
    1536; two runs bit-equal) and in float32 at their last two stages
    (widths 512-1536), the training attention forward and backward (rows 5
    and 6) in bf16 at the same eight stage shapes (two runs bit-equal in
-   out, dqkv and dbias), and row 3's time per swin_medical forward at
-   bucket 32 beside the library composition's device time;
+   out, dqkv and dbias), LN + QKV + W-MSA (row 7) in bf16 at swin_large's
+   stage 4 (C = 1536, 48 heads, 7x7 maps, batch 32; two runs bit-equal)
+   with its device time and the SHA-256 of its output at swin_tiny's
+   widths, and row 3's time per swin_medical forward at bucket 32 beside
+   the library composition's device time;
 22. swin_large in float32 ({"name": "swin_large"}: no dtype, as the
    registry resolves it; stage 4 at C = 1536): InferenceEngine serves it
    on the card at bucket 4 on raw 512x512 frames with seeded, perturbed
@@ -190,7 +199,6 @@ SWIN_TINY = {"name": "swin_tiny", "in_channels": 1, "num_classes": 2,
 # f32 covers summation order over up to 3072 terms and rsqrtf/expf/erff vs
 # PyTorch's; bf16 covers one rounding flip of a bf16 output (2^-8 relative)
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-PERCENTILE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -8}
 # engine probabilities vs the CPU float32 engine on the same weights
 PROB_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
 # attention backward's dbias, a sum over up to 2048 windows, and the token
@@ -536,30 +544,67 @@ def phase_kernels(shapes) -> None:
             for shape in cases:
                 args = make_inputs(kernel, shape, dtype, gen)
                 fused, plain = kernel_fns(kernel, shape)
-                got = fused(*args).float()
-                want = plain(*args).float()
+                got_t = fused(*args)
+                want_t = plain(*args)
+                got, want = got_t.float(), want_t.float()
                 # the block attention (kernel 4) is deterministic: a second
-                # run is bit-equal
+                # run is bit-equal; kernel 1 is bit-equal to its plain version
                 same = kernel != "swin_block_attention" \
                     or torch.equal(fused(*args).float(), got)
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
+                tol = 0.0 if kernel == "percentile" \
+                    else RTOL[dtype] * max(1.0, want.abs().max().item())
                 if kernel == "percentile":
-                    tol = PERCENTILE_TOL[dtype]
-                else:
-                    tol = RTOL[dtype] * max(1.0, want.abs().max().item())
+                    same = same_bits(got_t, want_t)
                 ok = bool(np.isfinite(err)) and err <= tol \
                     and bool(torch.isfinite(got).all()) and same
+                note = {"swin_block_attention": f" two runs bit-equal {same}",
+                        "percentile": f" bit-equal {same}"}.get(kernel, "")
                 log(f"[kernels] {kernel} {str(dtype)[6:]} {shape}: "
-                    f"max_abs_err {err:.3e} tol {tol:.3e}"
-                    f"{'' if kernel != 'swin_block_attention' else f' two runs bit-equal {same}'} "
+                    f"max_abs_err {err:.3e} tol {tol:.3e}{note} "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     failed.append((kernel, str(dtype), shape, err))
-                del args, got, want
+                del args, got, want, got_t, want_t
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failed}")
+
+
+def same_bits(got, want) -> bool:
+    """Bit-equal tensors, a NaN equal to any NaN."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[got.dtype]
+    eq = (got.view(ints) == want.view(ints)) | (torch.isnan(got) & torch.isnan(want))
+    return got.dtype == want.dtype and got.shape == want.shape and bool(eq.all())
+
+
+# kernel 1's batches: the served bucket of 32 and the largest of 128, in
+# float32 (what prepare_images resizes and normalises in, on the served
+# path and in DevicePipeline) and bf16
+PERCENTILE_CASES = tuple((b, dt) for b in (32, 128) for dt in (torch.float32, torch.bfloat16))
+
+
+def percentile_batch(b: int, dtype):
+    """A fixed seeded batch of b uint16-scale 224x224 images for kernel 1:
+    uniform, but image 0 constant, image 1 two-valued (90% 17, 10% 60000)
+    and one pixel of image 2 +inf."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 + b)
+    x = torch.rand(b, 224, 224, 1, generator=gen, device="cuda") * 65535
+    x[0] = 4321.0
+    x[1] = torch.where(x[1] < 0.9 * 65535, 17.0, 60000.0)
+    x[2, 5, 7] = float("inf")
+    return x.to(dtype)
+
+
+def log_percentile_launches(tag: str) -> None:
+    """How kernel 1 launches on each of PERCENTILE_CASES."""
+    from thyroid_tpu_torch.ops import percentile
+
+    for b, dt in PERCENTILE_CASES:
+        x = torch.empty(b, 224, 224, 1, dtype=dt, device="cuda")
+        log(f"[{tag}] fused_percentile_normalize launch at {tuple(x.shape)} "
+            f"{str(dt)[6:]}: {json.dumps(percentile.percentile_normalize_launch(x))}")
 
 
 def perturbed_params(config, seed: int = 0):
@@ -608,6 +653,7 @@ def phase_slice(params):
         if p.shape != (n, 2) or not np.isfinite(p).all() \
                 or np.abs(p.sum(-1) - 1).max() > 1e-3:
             raise AssertionError(f"N={n}: bad probabilities {p.shape}")
+    log_percentile_launches("slice")
     # agreement: the CPU float32 engine on the same weights and frames
     cpu = InferenceEngine(dict(SWIN_TINY, dtype="f32"), params=params,
                           device="cpu").predict(frames[8])
@@ -643,7 +689,7 @@ def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
 # kernels whose time and library time per call are device times (CUDA-graph
 # replays, device_ms): a call of a few tens of microseconds on the device,
 # whose host launches CUDA events around one call would measure instead
-DEVICE_TIMED = ("ln_matmul", "ln_mlp_residual", "swin_block_attention",
+DEVICE_TIMED = ("percentile", "ln_matmul", "ln_mlp_residual", "swin_block_attention",
                 "ln_matmul_bwd", "ln_mlp_bwd_dx", "ln_mlp_bwd_dw")
 
 
@@ -662,8 +708,10 @@ def phase_times(shapes, engine, launches):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                "bytes_ms": 0.0, "ops_ms": 0.0, "err": 0.0}
         has_lib = True
+        # kernel 1 takes the resized float32 frames on the served path
+        dt = torch.float32 if kernel == "percentile" else dtype
         for shape, count in cases.items():
-            args = make_inputs(kernel, shape, dtype, gen)
+            args = make_inputs(kernel, shape, dt, gen)
             fused, plain = kernel_fns(kernel, shape)
             ms = median_ms(lambda: fused(*args))
             plain_ms = median_ms(lambda: plain(*args), reps=5, warm=1)
@@ -674,10 +722,10 @@ def phase_times(shapes, engine, launches):
                 timing = f"device; events {ms:.4f} and {lib_ms:.4f}"
                 ms, lib_ms = device_ms(lambda: fused(*args)), device_ms(lib)
             err = (fused(*args).float() - plain(*args).float()).abs().max().item()
-            nbytes, ops, peak = work(kernel, shape, dtype)
+            nbytes, ops, peak = work(kernel, shape, dt)
             t_bytes = nbytes / H100_BYTES_PER_S * 1e3
             t_ops = ops / peak * 1e3
-            log(f"[times] {kernel} bf16 {shape} x{count}: kernel {ms:.4f} ms, "
+            log(f"[times] {kernel} {str(dt)[6:]} {shape} x{count}: kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, library "
                 f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} ({timing}), bound "
                 f"{max(t_bytes, t_ops):.4f} ms "
@@ -708,6 +756,7 @@ def phase_times(shapes, engine, launches):
             "library_ms": tot["library_ms"] if has_lib else None})
         log(f"[times] {entries[-1]['name']} per forward at bucket {BATCH}: "
             f"{tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms)")
+    percentile_sweep()
 
     rs = np.random.RandomState(1)
     for n in (32, 128):
@@ -722,6 +771,29 @@ def phase_times(shapes, engine, launches):
         log(f"[times] predict bucket {n}: median {med * 1e3:.2f} ms over 5, "
             f"{n / med:.1f} images/s (raw 512x512 frames from host memory)")
     return entries
+
+
+def percentile_sweep() -> None:
+    """Kernel 1 at each of PERCENTILE_CASES on its fixed seeded batch:
+    device time (CUDA-graph replays) beside the CUDA-event time of one
+    call, the library's (torch.quantile) likewise, the plain version and
+    the bound; its launch and output hash."""
+    from thyroid_tpu_torch.ops import percentile
+
+    log_percentile_launches("times")
+    for (b, dt), digest in zip(PERCENTILE_CASES, percentile_hashes().values()):
+        x = percentile_batch(b, dt)
+        run = lambda: percentile.fused_percentile_normalize(x)  # noqa: E731
+        lib = quantile_normalize_library(x)
+        events, lib_events = median_ms(run), median_ms(lib)
+        ms, lib_ms = device_ms(run), device_ms(lib)
+        plain_ms = median_ms(lambda: percentile.percentile_normalize_plain(x), reps=5, warm=1)
+        nbytes, ops, peak = work("percentile", (b, 224 * 224), dt)
+        bound = max(nbytes / H100_BYTES_PER_S, ops / peak) * 1e3
+        log(f"[times] fused_percentile_normalize {str(dt)[6:]} ({b}, 224, 224, 1): "
+            f"kernel {ms:.5f} ms (device; events {events:.4f}), library {lib_ms:.5f} ms "
+            f"(device; events {lib_events:.4f}), plain {plain_ms:.4f} ms, bound "
+            f"{bound:.5f} ms; sha256 {digest}")
 
 
 def phase_profile(engine, n: int = BATCH, top: int = 12, frames=None,
@@ -1241,17 +1313,7 @@ def quality_cases(frames: np.ndarray):
     q = percentile.stats_quantile_plain(x, 0.999)["quantile"]
     x8 = torch.floor(torch.minimum(torch.clamp(x, min=0.0),
                                    q.reshape(-1, 1, 1, 1)) / 256.0)
-    flat = x[..., 0].reshape(b, -1)
-    lo = flat.amin(1).reshape(b, 1, 1)
-    span = flat.amax(1).reshape(b, 1, 1) - lo
-    x8c = torch.floor((x[..., 0] - lo) / (span + 1e-8) * 255.0)
-    luts = {}
-    for grid, clip in (((16, 16), 2.0), ((32, 32), 0.03)):
-        area = (h // grid[0]) * (w // grid[1])
-        luts[grid] = clahe._luts_from_hists(clahe._tile_hists(x8c, grid),
-                                            area, clip)
-    luts_c, luts_f = clahe._dual_luts(x8c, 2.0, (16, 16), 0.03, (32, 32))
-    sel = torch.arange(b, device="cuda") % 3 == 0
+    x8c, luts, luts_c, luts_f, sel = clahe_inputs(x)
     n_sel = int(sel.sum())
     dual_lut_bytes = (n_sel * luts_c[0].numel() + (b - n_sel) * luts_f[0].numel()) * 4
     cases = [
@@ -1279,6 +1341,27 @@ def quality_cases(frames: np.ndarray):
     return cases
 
 
+def clahe_inputs(x):
+    """The CLAHE applies' inputs on raw frames x (B, H, W, 1) on the card,
+    as the quality pipeline makes them: the 8-bit frames of the round trip,
+    LUTs from the plain histogram chain at (clip 2.0, 16x16) and (clip
+    0.03, 32x32), the dual pair, and the dual apply's choice of the coarse
+    grid for every third image."""
+    from thyroid_tpu_torch.ops import clahe
+
+    b, h, w, _ = x.shape
+    flat = x[..., 0].reshape(b, -1)
+    lo = flat.amin(1).reshape(b, 1, 1)
+    span = flat.amax(1).reshape(b, 1, 1) - lo
+    x8c = torch.floor((x[..., 0] - lo) / (span + 1e-8) * 255.0)
+    luts = {grid: clahe._luts_from_hists(clahe._tile_hists(x8c, grid),
+                                         (h // grid[0]) * (w // grid[1]), clip)
+            for grid, clip in (((16, 16), 2.0), ((32, 32), 0.03))}
+    luts_c, luts_f = clahe._dual_luts(x8c, 2.0, (16, 16), 0.03, (32, 32))
+    sel = torch.arange(b, device=x.device) % 3 == 0
+    return x8c, luts, luts_c, luts_f, sel
+
+
 def compare_quality(kernel: str, got, want):
     """(max error, differing elements, ok, note) of a quality kernel against
     its plain version, with the tolerances above."""
@@ -1302,25 +1385,59 @@ def compare_quality(kernel: str, got, want):
     return err, diff, diff == 0, "exact"
 
 
-def output_hashes(x):
-    """SHA-256 of the output bytes of kernels 12 and 13 on the raw frames x
-    (B, H, W, 1) on the card: the statistics' quantile, max and min, their
-    mean and std, and the stencil's median and bilateral of the 8-bit
-    artifact frames cut at that quantile, as the quality pipeline makes
-    them."""
-    from thyroid_tpu_torch.ops import percentile, stencil
+def sha(*ts) -> str:
+    """SHA-256 of the tensors' bytes."""
+    return hashlib.sha256(b"".join(t.contiguous().cpu().view(torch.uint8).numpy().tobytes()
+                                   for t in ts)).hexdigest()
 
-    def sha(*ts):
-        return hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes()
-                                       for t in ts)).hexdigest()
+
+def output_hashes(x):
+    """SHA-256 of the output bytes of the quality kernels on the raw frames
+    x (B, H, W, 1) on the card: kernel 12's quantile, max and min, its mean
+    and std, kernel 13's median and bilateral of the 8-bit artifact frames
+    cut at that quantile, as the quality pipeline makes them; the CLAHE
+    applies' blends on clahe_inputs(x) (kernel 14 at both grids, kernel 15
+    with its per-image choice) and kernel 16's round trip with the
+    pipeline's flags (dual_fused_case)."""
+    from thyroid_tpu_torch.ops import clahe, percentile, stencil
 
     st = percentile.fused_stats_quantile(x, 0.999)
     x8 = torch.floor(torch.minimum(torch.clamp(x, min=0.0),
                                    st["quantile"].reshape(-1, 1, 1, 1)) / 256.0)
     med, bil = stencil.fused_median_bilateral(x8)
+    x8c, luts, luts_c, luts_f, sel = clahe_inputs(x)
+    xc, use_coarse, apply = dual_fused_case(x[..., 0].cpu().numpy())
     return {"stats quantile/max/min": sha(st["quantile"], st["max"], st["min"]),
             "stats mean/std": sha(st["mean"], st["std"]),
-            "stencil median": sha(med), "stencil bilateral": sha(bil)}
+            "stencil median": sha(med), "stencil bilateral": sha(bil),
+            **{f"apply_luts {g[0]}x{g[1]}": sha(clahe.apply_luts(x8c, lut, g))
+               for g, lut in luts.items()},
+            "apply_luts_dual": sha(clahe.apply_luts_dual(x8c, luts_c, luts_f, sel,
+                                                         (16, 16), (32, 32))),
+            "apply_luts_dual_fused": sha(clahe.clahe_uint16_dual_fused(
+                xc, use_coarse, apply, **DUAL_GRIDS))}
+
+
+def percentile_hashes():
+    """SHA-256 of kernel 1's output on percentile_batch at each of
+    PERCENTILE_CASES."""
+    from thyroid_tpu_torch.ops import percentile
+
+    return {f"percentile {str(dt)[6:]} ({b}, 224, 224, 1)":
+            sha(percentile.fused_percentile_normalize(percentile_batch(b, dt)))
+            for b, dt in PERCENTILE_CASES}
+
+
+def ln_attention_hashes():
+    """SHA-256 of kernel 7's bf16 output at swin_tiny's four block shapes
+    at batch 32, on seeded inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    out = {}
+    for shape in sorted(set(swin_tiny_shapes(BATCH)["swin_block_attention"])):
+        args = ln_attention_inputs(shape, torch.bfloat16, gen)
+        out[f"swin_ln_attention bf16 {shape}"] = sha(remaining_fns("swin_ln_attention",
+                                                                   shape)[0](*args))
+    return out
 
 
 def log_hashes(tag: str, what: str, x) -> None:
@@ -1483,9 +1600,8 @@ def phase_quality_slice(params, frames: np.ndarray):
 
 # quality kernels timed in device time (CUDA-graph replays, device_ms), and
 # their library calls with them: a call of tens of microseconds whose
-# wrapper's host time CUDA events around one call would add; the CLAHE
-# applies stay on events
-QUALITY_DEVICE_TIMED = ("stats_quantile", "median_bilateral")
+# wrapper's host time CUDA events around one call would add
+QUALITY_DEVICE_TIMED = ("stats_quantile", "median_bilateral", "apply_luts", "apply_luts_dual")
 
 
 def phase_quality_times(cases, launches, engine, params, frames):
@@ -2931,6 +3047,10 @@ MEDICAL_MERGE_SHAPES = ((32768, 384, 192, False), (8192, 768, 384, False),
                         (2048, 1536, 768, False))
 WIDE_LN_MATMUL_SHAPES = ((1568, 1024, 3072, True), (1568, 1536, 4608, True),
                          (1568, 2048, 1024, False), (1568, 3072, 1536, False))
+# (B, H, C, heads, ws, shift) of the LN + QKV + W-MSA kernel (row 7) in bf16
+# at swin_large's stage 4 (C = 1536, 48 heads of 32, 7x7 maps) at batch 32,
+# where its normalised rows stream from a workspace
+WIDE_LN_ATTENTION_SHAPE = (BATCH, 7, 1536, 48, 7, 0)
 # (B, H, C, heads, ws, shift) of the block attention (kernel 4) at
 # swin_base's (embed 128, heads 4-32) and swin_large's (embed 192, heads
 # 6-48) four stages at batch 32 and 224², shifted where the map allows:
@@ -2960,8 +3080,10 @@ def phase_tensor_core():
     swin_medical's 256² step, kernel 4 (the block attention) in bf16 at
     swin_base's and swin_large's stage shapes (two runs bit-equal) and in
     float32 at their last two, kernels 5 and 6 (the training attention) in
-    bf16 at the same stage shapes (two runs bit-equal); then kernel 3's
-    time per swin_medical forward."""
+    bf16 at the same stage shapes (two runs bit-equal), kernel 7 (LN + QKV +
+    W-MSA) in bf16 at swin_large's stage 4 (C = 1536; two runs bit-equal;
+    its device time) and the hashes of its output at swin_tiny's widths;
+    then kernel 3's time per swin_medical forward."""
     from thyroid_tpu_torch.ops import token_fused as tf
 
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -3045,6 +3167,27 @@ def phase_tensor_core():
                 if not (ok and same):
                     failed.append((kernel, name, shape, err, same))
             del args, got, again, want
+    shape = WIDE_LN_ATTENTION_SHAPE
+    args = ln_attention_inputs(shape, torch.bfloat16, gen)
+    fused, plain = remaining_fns("swin_ln_attention", shape)
+    got, again = fused(*args), fused(*args)
+    want = plain(*args).float()
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs().max().item()
+    tol = ATTN_RTOL[torch.bfloat16] * max(1.0, want.abs().max().item())
+    same = torch.equal(got, again)
+    ok = bool(np.isfinite(err)) and err <= tol and same and bool(torch.isfinite(got).all())
+    ms, lib_ms = device_ms(lambda: fused(*args)), device_ms(ln_attention_library(shape, args))
+    nbytes, ops, peak = remaining_work("swin_ln_attention", shape, torch.bfloat16)
+    log(f"[tensor-core] swin_ln_attention bfloat16 {shape}: max_abs_err {err:.3e} tol "
+        f"{tol:.3e} two runs bit-equal {same} {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms (device), bound "
+        f"{max(nbytes / H100_BYTES_PER_S, ops / peak) * 1e3:.4f} ms; sha256 {sha(got)}")
+    if not ok:
+        failed.append(("swin_ln_attention", shape, err, same))
+    del args, got, again, want
+    for name, digest in ln_attention_hashes().items():
+        log(f"[tensor-core] sha256 {name}: {digest}")
     if failed:
         raise AssertionError(f"tensor-core kernels disagree: {failed}")
     tot = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}

@@ -1,5 +1,6 @@
-"""The port (thyroid_tpu_torch) and chip_smoke.py import nothing of JAX,
-flax or the JAX package, and every port module imports without them."""
+"""The port (thyroid_tpu_torch) and its card scripts (chip_smoke.py,
+chip_compare.py) import nothing of JAX, flax or the JAX package, and every
+port module imports without them."""
 import ast
 import subprocess
 import sys
@@ -9,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "thyroid_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "thyroid_tpu")
 
 
@@ -30,15 +31,15 @@ def test_no_jax_imports(path):
 
 @pytest.mark.unit
 def test_package_imports_with_jax_blocked():
-    """Every port module and chip_smoke import in a process where importing
-    jax, flax or thyroid_tpu fails."""
+    """Every port module and the card scripts import in a process where
+    importing jax, flax or thyroid_tpu fails."""
     code = (
         "import sys, pkgutil, importlib\n"
         f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
         "import thyroid_tpu_torch as pkg\n"
         "for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(info.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, chip_compare\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")

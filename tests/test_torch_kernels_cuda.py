@@ -61,6 +61,69 @@ def test_percentile(gen, dtype, shape):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+def _same_bits(got, want):
+    """Bit-equal, a NaN equal to any NaN."""
+    torch.cuda.synchronize()
+    ints = torch.int32 if got.dtype == torch.float32 else torch.int16
+    same = (got.view(ints) == want.view(ints)) | (torch.isnan(got) & torch.isnan(want))
+    return got.shape == want.shape and got.dtype == want.dtype and bool(same.all())
+
+
+def _percentile_batch(gen, b, side, dtype, kind):
+    """b uint16-scale images side x side: uniform ("random"), or "mixed":
+    image i constant (i % 4 == 0), two-valued (90% 17, 10% 60000), uniform
+    with a +inf pixel, uniform."""
+    x = torch.rand(b, side, side, 1, generator=gen, device="cuda") * 65535
+    if kind == "mixed":
+        x[0::4] = 4321.0
+        x[1::4] = torch.where(x[1::4] < 0.9 * 65535, 17.0, 60000.0)
+        x[2::4, 5, 7] = float("inf")
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "mixed"])
+@pytest.mark.parametrize("side", [224, 256])
+@pytest.mark.parametrize("b", [1, 3, 32, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_percentile_bit_equal(gen, dtype, b, side, kind):
+    """Kernel 1 bit-equal to percentile_normalize_plain (NaN to NaN) on
+    constant, two-valued and inf-holding images, 1-23 steps, at the served
+    buckets' sizes: each image staged on chip by its cluster, and every
+    cluster in the first wave up to bucket 32 (and at 128 × 224² in bf16);
+    two runs bit-equal."""
+    x = _percentile_batch(gen, b, side, dtype, kind)
+    launch = percentile.percentile_normalize_launch(x)
+    image = x[0].numel() * x.element_size()
+    assert launch["staged"] == 1 and launch["cluster"] in (1, 2, 4, 8), launch
+    assert launch["stage_bytes"] == -(-image // (16 * launch["cluster"])) * 16, launch
+    assert launch["clusters_at_once"] >= (b if b <= 32 or image == 224 * 224 * 2 else 1), launch
+    for iters in (1, 7, 22, 23):
+        got = percentile.fused_percentile_normalize(x, iters=iters)
+        again = percentile.fused_percentile_normalize(x, iters=iters)
+        want = percentile.percentile_normalize_plain(x, iters=iters)
+        assert _same_bits(got, want), iters
+        assert _same_bits(again, got), iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,offset", [((1, 512, 512, 1), 0), ((3, 17, 19, 1), 0),
+                                          ((2, 224, 224, 1), 1)])
+def test_percentile_streamed(gen, dtype, shape, offset):
+    """Kernel 1's streamed slices, bit-equal: a 512² image of one cluster
+    (1 MB in float32: above 8 CTAs' stages), odd sizes (not whole 16-byte
+    units) and a view one element off its storage's start."""
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    base = _percentile_batch(gen, n + offset, 1, dtype, "random").reshape(-1)
+    x = base[offset:].reshape(shape)
+    launch = percentile.percentile_normalize_launch(x)
+    assert launch["staged"] == int(dtype == torch.bfloat16 and shape[1] == 512), launch
+    for iters in (7, 22):
+        got = percentile.fused_percentile_normalize(x, iters=iters)
+        assert _same_bits(got, percentile.percentile_normalize_plain(x, iters=iters))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t,c,o,bias", [(70, 96, 288, True), (33, 40, 20, False),
@@ -482,6 +545,29 @@ def test_apply_luts_dual(gen, h, grids):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,grids", [
+    (4, 512, 512, ((16, 16), (32, 32))), (7, 105, 99, ((3, 3), (6, 6))),
+    (9, 64, 48, ((4, 4), (8, 8))), (2, 37, 41, ((1, 1), (2, 2)))])
+def test_apply_luts_dual_shapes(gen, b, h, w, grids):
+    """Kernel 15 bit-equal to the plain blend at the quality grids on 512²
+    frames, odd tile sides (35 × 33; 17 × 16 with rows and columns past the
+    last whole tile), a width of no whole 16-byte units (99, 41), batches
+    whose rows split unevenly over the persistent blocks, one-tile grids
+    and random coarse/fine selections; kernel 14 likewise on each grid."""
+    x8 = torch.floor(torch.rand(b, h, w, generator=gen, device="cuda") * 300) - 20
+    luts_c, luts_f = _luts(gen, b, grids[0]), _luts(gen, b, grids[1])
+    sel = torch.rand(b, generator=gen, device="cuda") < 0.5
+    sel[0], sel[-1] = True, False
+    got = clahe.apply_luts_dual(x8, luts_c, luts_f, sel, *grids)
+    want = torch.where(sel.reshape(b, 1, 1), clahe._interp_luts(x8, luts_c, grids[0]),
+                       clahe._interp_luts(x8, luts_f, grids[1]))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for lut, grid in ((luts_c, grids[0]), (luts_f, grids[1])):
+        assert torch.equal(clahe.apply_luts(x8, lut, grid), clahe._interp_luts(x8, lut, grid))
+
+
+@pytest.mark.cuda
 def test_quality_wrappers_refuse(gen):
     """A wrong dtype or a non-contiguous input raises; it never falls back
     to the plain version."""
@@ -608,9 +694,10 @@ def test_swin_ln_attention(gen, dtype, b, r, c, heads, ws, shift, qkv_bias):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,heads", [(40, 2), (1088, 34)])
 def test_swin_ln_attention_bf16_widths(gen, c, heads):
-    """The bf16 kernel takes C up to 1024 and head widths that are multiples
-    of 8 up to 64, and raises on others (a head width of 20; C = 1088);
-    float32 takes them. It never falls back."""
+    """The bf16 kernel takes head widths that are multiples of 8 up to 64
+    and C up to 1536 (C = 1088: its normalised rows from a workspace), and
+    raises on a head width of 20; float32 takes both where its shared
+    memory allows. It never falls back."""
     ws = 4
     args = (_rn(gen, 1, 8, 8, c), 1 + _rn(gen, c, scale=0.1), _rn(gen, c, scale=0.1),
             _rn(gen, c, 3 * c, scale=c ** -0.5), None, _rn(gen, heads, 16, 16, scale=0.1),
@@ -619,13 +706,50 @@ def test_swin_ln_attention_bf16_widths(gen, c, heads):
     if c <= 768:  # float32's shared memory stops below C = 900
         _close(attention.fused_swin_ln_attention(*args, **kw),
                attention.swin_ln_attention_plain(*args, **kw), torch.float32, ATTN_RTOL)
-    with pytest.raises(ValueError, match="head width"):
-        attention.fused_swin_ln_attention(args[0].bfloat16(), *args[1:], **kw)
+    xb = args[0].bfloat16()
+    if (c // heads) % 8:
+        with pytest.raises(ValueError, match="head width"):
+            attention.fused_swin_ln_attention(xb, *args[1:], **kw)
+    else:
+        _close(attention.fused_swin_ln_attention(xb, *args[1:], **kw),
+               attention.swin_ln_attention_plain(xb, *args[1:], **kw), torch.bfloat16,
+               ATTN_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,c,heads,shift", [(2, 7, 1088, 34, 0), (1, 14, 1536, 48, 3),
+                                               (32, 7, 1536, 48, 0), (33, 7, 1536, 48, 0)])
+def test_swin_ln_attention_bf16_wide(gen, b, r, c, heads, shift):
+    """bf16 above C = 1024, where the A tiles do not fit beside the ring
+    and the windows' normalised rows stream from a workspace: C = 1088 (17
+    k-tiles), swin_large's stage 4 (C = 1536, 48 heads of 32, 7 × 7 maps:
+    one window a CTA at batch 1, two at batch 32, and at 33 a last CTA with
+    one) and a shifted 14 × 14 map; within the bf16 RTOL of the plain
+    version, two runs bit-equal; C = 1600 still raises."""
+    ws, n = 7, 49
+    mask = shift_attention_mask(r, r, ws, shift)
+    args = (_rn(gen, b, r, r, c, dtype=torch.bfloat16), 1 + _rn(gen, c, scale=0.1),
+            _rn(gen, c, scale=0.1), _rn(gen, c, 3 * c, scale=c ** -0.5),
+            _rn(gen, 3 * c, scale=0.1), _rn(gen, heads, n, n, scale=0.1),
+            torch.from_numpy(mask).cuda() if mask is not None else None)
+    kw = dict(window_size=ws, num_heads=heads, scale=(c // heads) ** -0.5)
+    before = attention.fused_swin_ln_attention.launches
+    got = attention.fused_swin_ln_attention(*args, **kw)
+    again = attention.fused_swin_ln_attention(*args, **kw)
+    assert attention.fused_swin_ln_attention.launches == before + 2
+    _close(got, attention.swin_ln_attention_plain(*args, **kw), torch.bfloat16, ATTN_RTOL)
+    assert torch.equal(got, again)
+    wide = 1600
+    big = (_rn(gen, 1, 7, 7, wide, dtype=torch.bfloat16), 1 + _rn(gen, wide, scale=0.1),
+           _rn(gen, wide, scale=0.1), _rn(gen, wide, 3 * wide, scale=wide ** -0.5), None,
+           _rn(gen, 50, n, n, scale=0.1), None)
+    with pytest.raises(ValueError, match="1536"):
+        attention.fused_swin_ln_attention(*big, window_size=ws, num_heads=50)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,grids", [(512, ((16, 16), (32, 32))),
-                                     (90, ((3, 5), (6, 10)))])
+                                     (90, ((3, 5), (6, 10))), (66, ((3, 3), (6, 6)))])
 def test_clahe_uint16_dual_fused(gen, h, grids):
     """Row 16 bit-equal to its plain version: mixed grid and apply flags, a
     flat frame (span 0, floored) and an untouched one (passed through)."""

@@ -1,7 +1,10 @@
-"""A model of the multi-way bisection of the statistics kernel
-(thyroid_tpu_torch/csrc/percentile.cu, stats_quantile_kernel), held bit-equal
-to the one-step bisection of `per_image_quantile_fast`, in the port and in
-the JAX package. This is the check of the kernel's walk that runs without
+"""A model of the multi-way bisection of the statistics kernel and of the
+percentile kernel (thyroid_tpu_torch/csrc/percentile.cu, stats_quantile_kernel
+and percentile_normalize_kernel), held bit-equal to the one-step bisection
+of `per_image_quantile_fast`, in the port and in the JAX package, and for
+the percentile kernel its clipped and scaled output to
+`percentile_normalize_plain` and to JAX's `fused_percentile_normalize` in
+interpret mode. This is the check of the kernels' walks that runs without
 a card.
 
 What the model repeats of the kernel, in float32 where the kernel rounds:
@@ -12,13 +15,23 @@ What the model repeats of the kernel, in float32 where the kernel rounds:
 - each element's bin (the first candidate >= v, 2^s - 1 for none) is
   estimated from the value (round((v - lo) * scale - 1/2) by the float
   spacing of 1 above 2^23, clamped to [0, k]), checked against its two
-  bounds, and searched for where the estimate missed; after the first pass
+  bounds, and bisected for where the estimate missed; after the first pass
   an element <= lo is bin 0 and one > hi bin k at once;
-- count(v <= candidate j) is the prefix sum of the bins; the walk takes
-  the one-step rule float32(count) <= float32(q (n - 1)) at each node.
+- count(v <= candidate j) is the prefix sum of the bins; the pass's steps
+  settle at once where float32(count) <= float32(q (n - 1)) turns false
+  (the interval the one-step walk down the tree ends in);
+- the percentile kernel walks two brackets (the 1st and the 99th
+  percentile), each settling its own steps: a pass in which they hold the
+  same bits (the first, from [min, max]) bins once for both, every other
+  pass bins each element in each bracket's candidates; after the first
+  pass it keeps the values inside a bracket still settling in a list and
+  counts the others at or below each lo, and a later pass whose
+  candidates lie in its brackets bins the list alone, which the model
+  holds equal to binning every element.
 Every comparison is exact, so the quantile must equal the one-step loop's
 bit for bit; the tests compare the bits (NaN equal to NaN).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,7 +40,9 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from thyroid_tpu.ops import image as jimg
+from thyroid_tpu.ops import percentile as jperc
 from thyroid_tpu_torch.ops import image as timg
+from thyroid_tpu_torch.ops import percentile as tperc
 
 F32 = np.float32
 
@@ -64,19 +79,19 @@ def _bins(v, cand, lo, hi, k, first):
     ext = np.concatenate([[-np.inf], cand, [np.inf]]).astype(F32)
     with np.errstate(invalid="ignore"):
         ok = (v > ext[e]) & (v <= ext[e + 1])
-        miss = ~ok
-        while True:  # while (e > 0 && v <= cand[e - 1]) --e
-            step = miss & (e > 0)
-            step[step] = v[step] <= cand[e[step] - 1]
-            if not step.any():
+        # where the estimate missed, the first candidate >= v by bisection
+        a = np.zeros_like(e)
+        z = np.full_like(e, k)
+        while True:
+            go = ~ok & (a < z)
+            if not go.any():
                 break
-            e[step] -= 1
-        while True:  # while (e < k && !(v <= cand[e])) ++e
-            step = miss & (e < k)
-            step[step] = ~(v[step] <= cand[e[step]])
-            if not step.any():
-                break
-            e[step] += 1
+            m = (a + z) >> 1
+            below = np.zeros_like(go)
+            below[go] = v[go] <= cand[m[go]]
+            z = np.where(go & below, m, z)
+            a = np.where(go & ~below, m + 1, a)
+        e = np.where(ok, e, a)
     inside = k > 0 and lo <= cand[0] and cand[-1] <= hi
     if not first and inside:
         with np.errstate(invalid="ignore"):
@@ -84,43 +99,102 @@ def _bins(v, cand, lo, hi, k, first):
     return e
 
 
-def multiway_quantile(flat, q, iters, m):
-    """The kernel's quantile of one image (1-D float32) with m steps a pass."""
+def _pass_candidates(lo, hi, s):
+    """(s, k, candidates) of one bracket's pass; one step where the
+    candidates are not ascending."""
+    k = (1 << s) - 1
+    cand = np.array([_candidate(lo, hi, s, j) for j in range(k)], F32)
+    with np.errstate(invalid="ignore"):
+        ascending = bool((cand[1:] >= cand[:-1]).all())
+    if not ascending:
+        return 1, 1, np.array([_mid(lo, hi)], F32)
+    return s, k, cand
+
+
+def _counts(flat, cand, lo, hi, k, first):
+    """count(v <= candidate j) for every j: the prefix sums of the bins."""
+    e = _bins(flat, cand, lo, hi, k, first)
+    # against a plain search: the first candidate >= v
+    with np.errstate(invalid="ignore"):
+        want = np.array([np.argmax(x <= cand) if (x <= cand).any() else k
+                         for x in flat]) if flat.size <= 512 else None
+    if want is not None:
+        np.testing.assert_array_equal(e, want)
+    return np.cumsum(np.bincount(e, minlength=k + 1))[:k]
+
+
+def _settle(lo, hi, cand, counts, target):
+    """The pass's s steps at once: the counts ascend, so the one-step walk
+    down the tree ends in the interval where float32(count) <= target turns
+    false; the kernels find it as the one pair of neighbours (j - 1, j),
+    j in [0, k], that holds and fails (outside the candidates: holds left,
+    fails right), and take (cand[j - 1], cand[j]) with the bracket's own
+    ends past them."""
+    k = len(cand)
+    holds = [True] + [F32(c) <= target for c in counts] + [False]
+    flips = [j for j in range(k + 1) if holds[j] and not holds[j + 1]]
+    assert len(flips) == 1, "the counts ascend"
+    j = flips[0]
+    return (cand[j - 1] if j > 0 else lo), (cand[j] if j < k else hi)
+
+
+def _bits(v):
+    return int(np.asarray(v, F32).view(np.int32))
+
+
+def multiway_brackets(flat, qs, iters, m):
+    """The kernels' final brackets' midpoints of one image (1-D float32),
+    one bracket per quantile in qs, m steps a pass: the statistics kernel
+    takes one quantile, the percentile kernel two. Each bracket settles its
+    own steps; a pass where two brackets hold the same bits and steps bins
+    once for both (the percentile kernel's first pass, and every pass of an
+    image whose two quantiles walk alike). Returns the midpoints and the
+    number of passes in which the brackets were binned together."""
     n = flat.size
-    target = F32(q * (n - 1))
+    targets = [F32(q * (n - 1)) for q in qs]
     # the starting bracket as the port takes it (torch's amin and amax:
     # which zero an image of -0 and +0 starts from is theirs)
     t = torch.from_numpy(flat)
-    lo, hi = F32(t.amin().item()), F32(t.amax().item())
-    done, first = 0, True
-    while done < iters:
-        s = min(m, iters - done)
-        k = (1 << s) - 1
-        cand = np.array([_candidate(lo, hi, s, j) for j in range(k)], F32)
-        with np.errstate(invalid="ignore"):
-            ascending = bool((cand[1:] >= cand[:-1]).all())
-        if not ascending:
-            s, k = 1, 1
-            cand = np.array([_mid(lo, hi)], F32)
-        e = _bins(flat, cand, lo, hi, k, first)
-        # against a plain search: the first candidate >= v
-        with np.errstate(invalid="ignore"):
-            want = np.array([np.argmax(x <= cand) if (x <= cand).any() else k
-                             for x in flat]) if flat.size <= 512 else None
-        if want is not None:
-            np.testing.assert_array_equal(e, want)
-        counts = np.cumsum(np.bincount(e, minlength=k + 1))[:k]
-        node = (1 << (s - 1)) - 1
-        for d in range(s):
-            mid = _mid(lo, hi)
-            step = 1 << (s - 2 - d) if d + 1 < s else 0
-            if F32(counts[node]) <= target:
-                lo, node = mid, node + step
+    start = (F32(t.amin().item()), F32(t.amax().item()))
+    br = [list(start) + [0] for _ in qs]     # lo, hi, steps done
+    first, shared, listed = True, 0, None
+    while any(b[2] < iters for b in br):
+        plan = [_pass_candidates(b[0], b[1], min(m, iters - b[2]))
+                if b[2] < iters else (0, 0, None) for b in br]
+        same = len(br) == 2 and plan[0][1] > 0 and plan[0][0] == plan[1][0] \
+            and [_bits(v) for v in br[0][:2]] == [_bits(v) for v in br[1][:2]]
+        shared += same
+        counts = []
+        for i, (b, (s, k, cand)) in enumerate(zip(br, plan)):
+            if k == 0:
+                counts.append(None)
+            elif i == 1 and same:
+                counts.append(counts[0])
             else:
-                hi, node = mid, node - step
-        done += s
+                counts.append(_counts(flat, cand, b[0], b[1], k, first))
+                inside = k > 0 and b[0] <= cand[0] and cand[-1] <= b[1]
+                if listed is not None and inside:
+                    # the percentile kernel's later passes bin the list alone
+                    got = _counts(flat[listed], cand, b[0], b[1], k, False) + base[i]
+                    np.testing.assert_array_equal(got, counts[-1])
+        for b, (s, _, cand), c, target in zip(br, plan, counts, targets):
+            if s:
+                b[0], b[1] = _settle(b[0], b[1], cand, c, target)
+                b[2] += s
+        if first and len(br) == 2:  # the list: the values inside a bracket still settling
+            with np.errstate(invalid="ignore"):
+                listed = np.zeros(flat.shape, bool)
+                for b in br:
+                    if b[2] < iters:
+                        listed |= (flat > b[0]) & (flat <= b[1])
+                base = [int(((flat <= b[0]) & ~listed).sum()) for b in br]
         first = False
-    return _mid(lo, hi)
+    return [_mid(b[0], b[1]) for b in br], shared
+
+
+def multiway_quantile(flat, q, iters, m):
+    """The statistics kernel's quantile of one image (1-D float32)."""
+    return multiway_brackets(flat, (q,), iters, m)[0][0]
 
 
 def _port(x, q, iters):
@@ -222,3 +296,94 @@ def test_multiway_walk_hypothesis(data):
     m = data.draw(st.sampled_from([1, 4, 8]))
     q = data.draw(st.sampled_from([0.0, 0.01, 0.5, 0.999, 1.0]))
     assert _same_bits(_model(x, q, iters, m), _port(x, q, iters))
+
+
+# ---------------------------------------------------------------- the percentile kernel
+
+EPS = F32(1e-8)
+PERCENTILES = (1.0, 99.0)
+
+
+def _model_normalize(x, iters, m, percentiles=PERCENTILES):
+    """The percentile kernel's output of x (B, H, W, 1) float32 with m
+    steps a pass: the two brackets' midpoints, clip and scale in float32;
+    and the midpoints and shared passes of each image."""
+    qs = (percentiles[0] / 100.0, percentiles[1] / 100.0)
+    out = np.empty_like(x)
+    p_lo, p_hi, shared = [], [], []
+    for i, img in enumerate(x):
+        (lo, hi), sh = multiway_brackets(img.reshape(-1), qs, iters, m)
+        with np.errstate(all="ignore"):
+            y = np.minimum(np.maximum(img, lo), hi)
+            out[i] = (y - lo) / (hi - lo + EPS)
+        p_lo.append(lo)
+        p_hi.append(hi)
+        shared.append(sh)
+    return out, np.array(p_lo, F32), np.array(p_hi, F32), shared
+
+
+def _port_normalize(x, iters, percentiles=PERCENTILES):
+    return tperc.percentile_normalize_plain(torch.from_numpy(x), percentiles,
+                                            iters).numpy()
+
+
+_jax_normalize = jax.jit(
+    lambda x, iters, percentiles: jperc.fused_percentile_normalize(
+        x, percentiles, iters, interpret=True),
+    static_argnums=(1, 2))
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("kind", KINDS)
+def test_two_bracket_walk_matches_one_step(kind, m):
+    """The percentile kernel's model on numpy-seeded images: both brackets
+    have the bits of the port's and JAX's one-step quantiles, and the
+    clipped, scaled output the bits of percentile_normalize_plain and of
+    JAX's fused_percentile_normalize, at 7, 22 and 23 steps."""
+    rng = np.random.default_rng(100 + KINDS.index(kind) * 10 + m)
+    x = _image(kind, rng, (2, 37, 29, 1))
+    for iters in (7, 22, 23):
+        got, p_lo, p_hi, _ = _model_normalize(x, iters, m)
+        assert _same_bits(p_lo, _port(x, 0.01, iters)), (kind, m, iters)
+        assert _same_bits(p_hi, _port(x, 0.99, iters)), (kind, m, iters)
+        assert _same_bits(p_hi, _jax(x, 0.99, iters)), (kind, m, iters)
+        assert _same_bits(got, _port_normalize(x, iters)), (kind, m, iters)
+        assert _same_bits(got, np.asarray(_jax_normalize(jnp.asarray(x), iters,
+                                                         PERCENTILES))), (kind, m, iters)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_bracket_walk_shared_brackets(dtype):
+    """A two-valued image whose 1st and 99th percentiles walk alike (0.5%
+    of the pixels 17, the rest 60000): the brackets keep the same bits, so
+    every pass (8 + 8 + 6 steps) bins once for both; the output has the
+    port's and JAX's bits, in float32 and rounded to bf16."""
+    rng = np.random.default_rng(3)
+    x = np.where(rng.random((2, 40, 40, 1)) < 0.005, F32(17), F32(60000))
+    x[:, 0, 0, 0] = 17
+    if dtype == "bfloat16":
+        x = torch.from_numpy(x).bfloat16().float().numpy()
+    got, p_lo, p_hi, shared = _model_normalize(x, 22, 8)
+    assert shared == [3, 3] and _same_bits(p_lo, p_hi)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = tperc.percentile_normalize_plain(xt, PERCENTILES, 22)
+    got_t = torch.from_numpy(got).to(want.dtype)
+    assert torch.equal(got_t, want)
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    jy = np.asarray(_jax_normalize(jx, 22, PERCENTILES).astype(jnp.float32))
+    assert _same_bits(got_t.float().numpy(), jy)
+
+
+@settings(max_examples=40, deadline=None, database=None, derandomize=True)
+@given(st.data())
+def test_two_bracket_walk_hypothesis(data):
+    """Drawn images, steps 1..25, m in {1, 4, 8} and percentile pairs (the
+    served 1/99, the extremes, one shared quantile): the model's output has
+    the bits of percentile_normalize_plain."""
+    x = _drawn_image(data.draw)
+    iters = data.draw(st.integers(1, 25))
+    m = data.draw(st.sampled_from([1, 4, 8]))
+    pct = data.draw(st.sampled_from([(1.0, 99.0), (0.0, 100.0), (50.0, 50.0),
+                                     (2.0, 98.0)]))
+    got = _model_normalize(x, iters, m, pct)[0]
+    assert _same_bits(got, _port_normalize(x, iters, pct))

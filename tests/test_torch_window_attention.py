@@ -85,15 +85,19 @@ def _ln_inputs(seed, B, H, W, C, heads, ws, shift, with_bias=True):
 
 # the three cases of tests/unit/test_pallas_attention.py's _ln_case tests:
 # one lane group, several groups with a shift mask, no QKV bias with images
-# packed per grid step; then Swin's own 7 x 7 window
+# packed per grid step; then Swin's own 7 x 7 window, and swin_large's
+# stage 4 (C = 1536, 48 heads of 32) on one 7 x 7 window, the width the bf16
+# kernel streams its normalised rows at
 LN_CASES = [((2, 8, 8, 96, 3, 4, 0), True), ((2, 8, 8, 192, 6, 4, 2), True),
-            ((4, 4, 4, 128, 4, 4, 0), False), ((1, 14, 14, 96, 3, 7, 3), True)]
+            ((4, 4, 4, 128, 4, 4, 0), False), ((1, 14, 14, 96, 3, 7, 3), True),
+            ((1, 7, 7, 1536, 48, 7, 0), True)]
 
 
 @pytest.mark.unit
 @pytest.mark.parametrize("case,with_bias", LN_CASES,
                          ids=["single_group", "multi_group_shifted",
-                              "no_bias_batch_packed", "window_7_shifted"])
+                              "no_bias_batch_packed", "window_7_shifted",
+                              "swin_large_stage4"])
 def test_swin_ln_attention_matches_jax(case, with_bias):
     """swin_ln_attention_plain (what fused_swin_ln_attention runs on the
     CPU) against JAX's fused_swin_ln_attention in interpret mode, 2e-5 (the

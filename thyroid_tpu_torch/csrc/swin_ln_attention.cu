@@ -48,10 +48,17 @@
 // separate CTAs (as few as possible) until the grid fills two waves: stage 1
 // all 2 groups a CTA (1,024 CTAs), stage 2 2 + 1 (512), stage 3 one (384),
 // stage 4 one (32 windows x 12 groups). Shared memory: the ring (2-8 stages
-// of 24 KB), the A tiles, 35 KB of K and V a window. Takes dh a multiple
-// of 8 up to 64 and C up to 1024 (the LayerNorm's four 16-byte pieces a
-// lane; a window's A tile beside two stages); other shapes are refused in
-// bf16.
+// of 24 KB), the A tiles, 35 KB of K and V a window.
+// Above C = 1024 (swin_large's stage 4 has C = 1536: 192 KB of A tile a
+// window, more than fits beside two stages) A is not resident: a first
+// kernel of the same call (ln_windows_kernel) normalises every window's
+// rows, with the same arithmetic and rounding as ln_window, into a bf16
+// workspace in window order (row w * n + t), and the producer streams
+// each window's 64 x 64 A k-tile from there by TMA into the same stage as
+// the k-tile's weight boxes (rows past the window's n belong to the next
+// window or read zeros past the end; they land only in rows the epilogue
+// zeroes or never stores). Takes dh a multiple of 8 up to 64 and C up to
+// 1536; other shapes are refused in bf16.
 //
 // float32 (the card-vs-CPU parity path) keeps the scalar kernel below: TF32
 // would not hold the 2e-5 float32 checks. One block of 256 threads per
@@ -228,17 +235,25 @@ constexpr int kMaxWin = 2;                    // windows of a CTA
 constexpr int kStageTc = 3 * kTile;           // one k-tile of a group's q, k, v boxes
 constexpr int kKvBytes = 64 * (wintc::kLdK + wintc::kLdV) * 4;  // K and V of a window
 constexpr int kMaxChunks = 4;                 // 16-byte pieces of a row a lane: C <= 1024
+constexpr int kMaxResidentC = 8 * 32 * kMaxChunks;  // widest C whose A tiles stay resident
+constexpr int kMaxC = 1536;                   // widest C: streamed A above kMaxResidentC
 
 __host__ __device__ constexpr int tc_threads(int win) { return win * 128 + 32; }
 
-// Shared memory: 1024 bytes of alignment slack, the ring, the windows' A
-// tiles, their K and V, the mbarriers.
-inline int tc_smem(int win, int nkb, int stages) {
-  return 1024 + stages * kStageTc + win * (nkb * kTile + kKvBytes) + 16 * stages;
+// Bytes of one ring stage: a k-tile's q, k and v boxes, and with a
+// streamed A each window's A k-tile.
+inline int tc_stage_bytes(int win, bool stream) { return kStageTc + (stream ? win * kTile : 0); }
+
+// Shared memory: 1024 bytes of alignment slack, the ring, the windows'
+// resident A tiles (none when streamed), their K and V, the mbarriers.
+inline int tc_smem(int win, int nkb, int stages, bool stream) {
+  return 1024 + stages * tc_stage_bytes(win, stream) + win * ((stream ? 0 : nkb * kTile) + kKvBytes) +
+         16 * stages;
 }
 
 struct TcPlan {
   int win, gpc, groups, nkb, stages, smem;
+  bool stream;  // A streamed from the workspace (C > kMaxResidentC)
 };
 
 // WIN = 2 where two stages fit beside two windows and the pairs fill the
@@ -246,15 +261,16 @@ struct TcPlan {
 inline bool tc_plan(int windows, int heads, int c, int dh, TcPlan* p) {
   p->nkb = (c + 63) / 64;
   p->groups = (heads + 64 / dh - 1) / (64 / dh);
+  p->stream = c > kMaxResidentC;
   auto stages_for = [&](int win) {
     int st = 0;
-    while (st < 8 && tc_smem(win, p->nkb, st + 1) <= mlptc::kMaxSmem) ++st;
+    while (st < 8 && tc_smem(win, p->nkb, st + 1, p->stream) <= mlptc::kMaxSmem) ++st;
     return st;
   };
   p->win = stages_for(2) >= 2 && (windows + 1) / 2 * p->groups >= mlptc::kSMs ? 2 : 1;
   p->stages = stages_for(p->win);
   if (p->stages < 2) return false;
-  p->smem = tc_smem(p->win, p->nkb, p->stages);
+  p->smem = tc_smem(p->win, p->nkb, p->stages, p->stream);
   const int ctas = (windows + p->win - 1) / p->win;
   p->gpc = 1;
   for (int g = p->groups; g >= 1; --g) {
@@ -264,6 +280,58 @@ inline bool tc_plan(int windows, int heads, int c, int dh, TcPlan* p) {
     }
   }
   return true;
+}
+
+// The LayerNorm's two halves on one 16-byte piece (8 bf16 of columns
+// 8 ch..): add its values to the row's sums, in column order; normalise
+// it, (v - mu) * rs * gamma + beta rounded to bf16.
+__device__ __forceinline__ void ln_sums(const uint4& raw, float& s, float& s2) {
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float v = __bfloat162float(e[q]);
+    s += v;
+    s2 = fmaf(v, v, s2);
+  }
+}
+
+__device__ __forceinline__ uint4 ln_piece(const uint4& raw, int ch, float mu, float rs,
+                                          const float* __restrict__ gamma,
+                                          const float* __restrict__ beta) {
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+  uint32_t packed[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int k = 8 * ch + 2 * q;
+    const __nv_bfloat162 y = __floats2bfloat162_rn(
+        (__bfloat162float(e[2 * q]) - mu) * rs * gamma[k] + beta[k],
+        (__bfloat162float(e[2 * q + 1]) - mu) * rs * gamma[k + 1] + beta[k + 1]);
+    packed[q] = *reinterpret_cast<const uint32_t*>(&y);
+  }
+  return make_uint4(packed[0], packed[1], packed[2], packed[3]);
+}
+
+// The LayerNorm of ln_window for C above kMaxResidentC, before the
+// tensor-core kernel: a warp a row of the windows' rows (row w * n + t is
+// token t of window w), read twice from global memory (statistics, then
+// the pieces), into xn (row stride c) in bf16.
+__global__ void __launch_bounds__(256)
+ln_windows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, bf16* __restrict__ xn, int rows, int hh,
+                  int ww, int ws, int c, float eps) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int n = ws * ws, chunks = c / 8;
+  const uint4* src =
+      reinterpret_cast<const uint4*>(x + swin::window_of(row / n, hh, ww, ws).token(row % n) * c);
+  uint4* dst = reinterpret_cast<uint4*>(xn + static_cast<size_t>(row) * c);
+  float s = 0.f, s2 = 0.f;
+  for (int ch = lane; ch < chunks; ch += 32) ln_sums(src[ch], s, s2);
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  const float mu = s / c;
+  const float rs = rsqrtf(fmaxf(0.f, s2 / c - mu * mu) + eps);
+  for (int ch = lane; ch < chunks; ch += 32) dst[ch] = ln_piece(src[ch], ch, mu, rs, gamma, beta);
 }
 
 // One consumer warpgroup's window: LayerNorm its tokens into the swizzled A
@@ -298,13 +366,7 @@ __device__ __forceinline__ void ln_window(const swin::Window& wd, const bf16* __
       const int ch = lane + 32 * i;
       if (ch < chunks) {
         raw[i] = wg::ld_shared_v4(a_w + (ch / 8) * kTile + wg::swz(r, ch % 8));
-        const bf16* e = reinterpret_cast<const bf16*>(&raw[i]);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const float v = __bfloat162float(e[q]);
-          s += v;
-          s2 = fmaf(v, v, s2);
-        }
+        ln_sums(raw[i], s, s2);
       }
     }
     s = warp_sum(s);
@@ -315,18 +377,8 @@ __device__ __forceinline__ void ln_window(const swin::Window& wd, const bf16* __
     for (int i = 0; i < kMaxChunks; ++i) {
       const int ch = lane + 32 * i;
       if (ch >= chunks) continue;
-      const bf16* e = reinterpret_cast<const bf16*>(&raw[i]);
-      uint32_t packed[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = 8 * ch + 2 * q;
-        const __nv_bfloat162 y = __floats2bfloat162_rn(
-            (__bfloat162float(e[2 * q]) - mu) * rs * gamma[k] + beta[k],
-            (__bfloat162float(e[2 * q + 1]) - mu) * rs * gamma[k + 1] + beta[k + 1]);
-        packed[q] = *reinterpret_cast<const uint32_t*>(&y);
-      }
       wg::st_shared_v4(a_w + (ch / 8) * kTile + wg::swz(r, ch % 8),
-                       make_uint4(packed[0], packed[1], packed[2], packed[3]));
+                       ln_piece(raw[i], ch, mu, rs, gamma, beta));
     }
   }
   wg::fence_proxy();
@@ -335,24 +387,27 @@ __device__ __forceinline__ void ln_window(const swin::Window& wd, const bf16* __
 
 // One CTA: windows [WIN x, +WIN) (consumer warpgroup w: window WIN x + w),
 // head groups [gpc y, +gpc) of 64 / DH heads. The first thread after the
-// consumers loads the weight boxes.
+// consumers loads the weight boxes, and with `stream` (m_a: the
+// workspace's normalised rows) the windows' A k-tiles beside them.
 template <int DH>
 __global__ void __launch_bounds__(tc_threads(kMaxWin), 1)
 swin_ln_attention_tc_kernel(const __grid_constant__ CUtensorMap m_q,
                             const __grid_constant__ CUtensorMap m_k,
-                            const __grid_constant__ CUtensorMap m_v, const bf16* __restrict__ x,
+                            const __grid_constant__ CUtensorMap m_v,
+                            const __grid_constant__ CUtensorMap m_a, const bf16* __restrict__ x,
                             const float* __restrict__ gamma, const float* __restrict__ beta,
                             const float* __restrict__ bqkv, const float* __restrict__ bias,
                             const float* __restrict__ mask, bf16* __restrict__ out, int windows,
                             int hh, int ww, int c, int heads, int ws, int win, int gpc,
-                            int stages, float scale, float eps) {
+                            int stages, int stream, float scale, float eps) {
   constexpr int HPG = 64 / DH;  // heads of a group
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = wg::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   const int n = ws * ws, nkb = (c + 63) / 64;
-  const uint32_t a0 = base + stages * kStageTc;        // WIN A tiles of nkb blocks
-  const uint32_t kv0 = a0 + win * nkb * kTile;         // WIN times K (64 x kLdK), V (64 x kLdV)
+  const int stage_bytes = kStageTc + (stream ? win * kTile : 0);
+  const uint32_t a0 = base + stages * stage_bytes;     // WIN resident A tiles of nkb blocks
+  const uint32_t kv0 = a0 + (stream ? 0 : win * nkb * kTile);  // WIN times K (64 x kLdK), V (64 x kLdV)
   const uint32_t bars = kv0 + win * kKvBytes;          // stages full, then stages empty
   const int tid = threadIdx.x, wgi = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int w_first = blockIdx.x * win, active = min(win, windows - w_first);
@@ -371,12 +426,15 @@ swin_ln_attention_tc_kernel(const __grid_constant__ CUtensorMap m_q,
     if (tid == win * 128) {
       for (int i = 0; i < ng * nkb; ++i) {
         const int s = i % stages, col = (g0 + i / nkb) * HPG * DH, row = 64 * (i % nkb);
-        const uint32_t st = base + s * kStageTc, full = bars + 8 * s;
+        const uint32_t st = base + s * stage_bytes, full = bars + 8 * s;
         wg::mbar_wait(bars + 8 * (stages + s), ((i / stages) & 1) ^ 1);
-        wg::mbar_expect_tx(full, kStageTc);
+        wg::mbar_expect_tx(full, kStageTc + (stream ? active * kTile : 0));
         wg::tma_load(st, &m_q, col, row, full);
         wg::tma_load(st + kTile, &m_k, col, row, full);
         wg::tma_load(st + 2 * kTile, &m_v, col, row, full);
+        if (stream)
+          for (int j = 0; j < active; ++j)
+            wg::tma_load(st + kStageTc + j * kTile, &m_a, row, (w_first + j) * n, full);
       }
     }
     return;
@@ -390,7 +448,7 @@ swin_ln_attention_tc_kernel(const __grid_constant__ CUtensorMap m_q,
   const int lt = tid & 127, warp = lt >> 5, lane = lt & 31, g = lane >> 2, t = lane & 3;
   const float* mask_w = mask != nullptr ? mask + static_cast<size_t>(wd.wi) * n * n : nullptr;
 
-  ln_window(wd, x, gamma, beta, a_w, n, c, nkb, eps, 1 + wgi);
+  if (!stream) ln_window(wd, x, gamma, beta, a_w, n, c, nkb, eps, 1 + wgi);
 
   float acc[96];  // q | k | v of the group: 64 rows x 192 columns
   int tile = 0;
@@ -400,8 +458,9 @@ swin_ln_attention_tc_kernel(const __grid_constant__ CUtensorMap m_q,
     for (int i = 0; i < 96; ++i) acc[i] = 0.f;
     for (int kb = 0; kb < nkb; ++kb, ++tile) {
       const int s = tile % stages;
+      const uint32_t st = base + s * stage_bytes;
       wg::mbar_wait(bars + 8 * s, (tile / stages) & 1);
-      mlptc::mma_tile<192, 1>(acc, a_w + kb * kTile, base + s * kStageTc);
+      mlptc::mma_tile<192, 1>(acc, stream ? st + kStageTc + wgi * kTile : a_w + kb * kTile, st);
       wg::wait<0>();
       if (lt == 0) wg::mbar_arrive(bars + 8 * (stages + s));
     }
@@ -465,7 +524,7 @@ swin_ln_attention_tc_kernel(const __grid_constant__ CUtensorMap m_q,
 }
 
 template <int DH>
-int launch_tc_kernel(const TcPlan& p, const CUtensorMap (&maps)[3], const void* x,
+int launch_tc_kernel(const TcPlan& p, const CUtensorMap (&maps)[4], const void* x,
                      const float* gamma, const float* beta, const float* bqkv, const float* bias,
                      const float* mask, void* out, int windows, int hh, int ww, int c, int heads,
                      int ws, float scale, float eps, cudaStream_t s) {
@@ -474,25 +533,41 @@ int launch_tc_kernel(const TcPlan& p, const CUtensorMap (&maps)[3], const void* 
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((windows + p.win - 1) / p.win, (p.groups + p.gpc - 1) / p.gpc);
   swin_ln_attention_tc_kernel<DH><<<grid, tc_threads(p.win), p.smem, s>>>(
-      maps[0], maps[1], maps[2], static_cast<const bf16*>(x), gamma, beta, bqkv, bias, mask,
-      static_cast<bf16*>(out), windows, hh, ww, c, heads, ws, p.win, p.gpc, p.stages, scale, eps);
+      maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(x), gamma, beta, bqkv, bias,
+      mask, static_cast<bf16*>(out), windows, hh, ww, c, heads, ws, p.win, p.gpc, p.stages,
+      static_cast<int>(p.stream), scale, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
+// work: the normalised rows (windows * n x c bf16) where C > kMaxResidentC,
+// else unused.
 int launch_bf16(const void* x, const float* gamma, const float* beta, const void* w,
-                const float* bqkv, const float* bias, const float* mask, void* out, int b, int hh,
-                int ww, int c, int heads, int ws, float scale, float eps, cudaStream_t s) {
+                const float* bqkv, const float* bias, const float* mask, void* out, void* work,
+                int b, int hh, int ww, int c, int heads, int ws, float scale, float eps,
+                cudaStream_t s) {
   const int n = ws * ws, dh = c / heads;
-  if (n > 64 || dh % 8 != 0 || dh > 64 || c > 8 * 32 * kMaxChunks || !mlptc::aligned16(x) ||
+  if (n > 64 || dh % 8 != 0 || dh > 64 || c > kMaxC || !mlptc::aligned16(x) ||
       (reinterpret_cast<uintptr_t>(out) & 3) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int windows = b * (hh / ws) * (ww / ws);
   TcPlan p;
   if (!tc_plan(windows, heads, c, dh, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap maps[3];
+  CUtensorMap maps[4];
   for (int sec = 0; sec < 3; ++sec) {
     const cudaError_t err =
         mlptc::make_map(&maps[sec], static_cast<const bf16*>(w) + sec * c, c, c, 3 * c);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  maps[3] = maps[0];
+  if (p.stream) {
+    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int rows = windows * n;
+    ln_windows_kernel<<<(rows + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(x), gamma, beta,
+                                                     static_cast<bf16*>(work), rows, hh, ww, ws,
+                                                     c, eps);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = mlptc::make_map(&maps[3], work, rows, c, c);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const auto args = [&](auto launch) {
@@ -515,11 +590,12 @@ int launch_bf16(const void* x, const float* gamma, const float* beta, const void
 
 // x, out: (b, hh, ww, c) in the compute type; gamma, beta (c,) f32; w (c, 3c)
 // in the compute type; bqkv (3c,) f32 or null; bias (heads, n, n) f32; mask
-// (nW, n, n) f32 or null.
+// (nW, n, n) f32 or null; work: in bf16 above C = 1024 a workspace of
+// b * hh * ww * c bf16 (the normalised rows), else null.
 TT_EXPORT int tt_swin_ln_attention(const void* x, const void* gamma, const void* beta,
                                    const void* w, const void* bqkv, const void* bias,
-                                   const void* mask, void* out, int b, int hh, int ww, int c,
-                                   int heads, int ws, float scale, float eps, int is_bf16,
+                                   const void* mask, void* out, void* work, int b, int hh, int ww,
+                                   int c, int heads, int ws, float scale, float eps, int is_bf16,
                                    void* stream) {
   const float* fg = static_cast<const float*>(gamma);
   const float* fb = static_cast<const float*>(beta);
@@ -527,7 +603,7 @@ TT_EXPORT int tt_swin_ln_attention(const void* x, const void* gamma, const void*
   const float* fbias = static_cast<const float*>(bias);
   const float* fmask = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bf16(x, fg, fb, w, fq, fbias, fmask, out, b, hh, ww, c, heads, ws,
+  return is_bf16 ? launch_bf16(x, fg, fb, w, fq, fbias, fmask, out, work, b, hh, ww, c, heads, ws,
                                scale, eps, s)
                  : launch_f32(x, fg, fb, w, fq, fbias, fmask, out, b, hh, ww, c, heads, ws,
                               scale, eps, s);

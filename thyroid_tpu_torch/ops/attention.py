@@ -34,7 +34,8 @@ from .platform import refuse_autograd
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_TOKENS = 64   # the kernel's row layout covers windows up to 8 x 8
-_MAX_LN_WIDTH = 1024  # the bf16 LN + QKV + W-MSA kernel's widest row
+_MAX_LN_WIDTH = 1536  # the bf16 LN + QKV + W-MSA kernel's widest row
+_LN_RESIDENT_WIDTH = 1024  # above it the bf16 kernel normalises into a workspace
 
 
 def window_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -531,14 +532,18 @@ def fused_swin_ln_attention(x: torch.Tensor, ln_scale: torch.Tensor,
     out = torch.empty_like(x)
     if b == 0:
         return out
+    # the normalised rows, which the bf16 kernel streams above C = 1024
+    work = torch.empty(b * hh * ww * c, dtype=x.dtype, device=x.device) \
+        if x.dtype == torch.bfloat16 and c > _LN_RESIDENT_WIDTH else None
     fn = _build.function("swin_ln_attention", "tt_swin_ln_attention",
-                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                          + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                             ctypes.c_void_p])
     status = fn(_build.ptr(x), _build.ptr(g), _build.ptr(beta), _build.ptr(w),
                 _build.ptr(bq) if bq is not None else None, _build.ptr(bias_f),
                 _build.ptr(mask_f) if mask_f is not None else None,
-                _build.ptr(out), b, hh, ww, c, num_heads, ws, float(scale),
+                _build.ptr(out), _build.ptr(work) if work is not None else None,
+                b, hh, ww, c, num_heads, ws, float(scale),
                 float(eps), int(x.dtype == torch.bfloat16),
                 _build.stream_ptr(x.device))
     _build.check("swin_ln_attention", status, "fused_swin_ln_attention")

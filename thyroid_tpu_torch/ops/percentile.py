@@ -7,7 +7,8 @@ CUDA tensor and running its plain PyTorch version on a CPU tensor:
 - `fused_stats_quantile` (plain: `stats_quantile_plain`): per-image mean,
   std, max, min and one percentile, for the quality pipeline.
 Both compute the same bisection brackets as `per_image_quantile_fast`
-(see the kernel's source note).
+(see the kernels' source note); `percentile_normalize_launch` and
+`stats_quantile_launch` report how each launches.
 """
 from __future__ import annotations
 
@@ -114,6 +115,25 @@ def fused_stats_quantile(x: torch.Tensor, q: float,
 
 
 fused_stats_quantile.launches = 0
+
+
+def percentile_normalize_launch(x: torch.Tensor) -> Dict[str, int]:
+    """How fused_percentile_normalize launches on the CUDA tensor x (B, ...):
+    a cluster of `cluster` CTAs of `threads` threads per image, each image
+    `staged` in the CTAs' shared memory (`stage_bytes` a CTA) or streamed
+    from global memory, the kernel's static shared bytes and registers a
+    thread, and the clusters the card holds at once."""
+    b = x.shape[0]
+    n = x.numel() // b
+    out = (ctypes.c_int * 7)()
+    fn = _build.function("percentile", "tt_percentile_normalize_config", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)])
+    _build.check("percentile", fn(_build.ptr(x), b, n,
+                                  int(x.dtype == torch.bfloat16), out),
+                 "percentile_normalize_launch")
+    return dict(zip(("cluster", "threads", "staged", "stage_bytes",
+                     "static_bytes", "registers", "clusters_at_once"), out))
 
 
 def stats_quantile_launch(x: torch.Tensor) -> Dict[str, int]:
