@@ -2,7 +2,7 @@
 """Same-call comparison of kernels between source trees on one card.
 
     python3 chip_compare.py PARENT_TREE [--smokes DIR] [--ablate] [--phases]
-                            [--predict-pairs N]
+                            [--predict-pairs N] [--kernels all|k1|k8|k12|k15]
 
 PARENT_TREE is another checkout of this repository (for example a `git
 archive` of the parent commit unpacked under `build/`). The trees are
@@ -20,6 +20,11 @@ outputs (`percentile_hashes`, `output_hashes` on the quality chunk,
   16 bisection steps (no counting pass, one, two);
 - kernel 7 (`fused_swin_ln_attention`, bf16) summed over a swin_tiny
   forward's 12 blocks at batch 32;
+- row 8 (`fused_window_attention`) in bf16 and float32 at swin_tiny's four
+  block shapes, summed over a forward, and at swin_large's stage 4, beside
+  SDPA on the same bf16 inputs; the SHA-256 of its outputs
+  (`window_hashes`) and of kernels 4-7's at swin_tiny's block shapes
+  (`swin_attention_hashes`, `ln_attention_hashes`);
 - kernels 12-16 on the 32-frame quality chunk (`quality_frames`), 14 at
   both grids, 16 on `dual_fused_case`'s flags.
 
@@ -27,7 +32,11 @@ With --smokes DIR, first each tree's own `chip_smoke.py` runs in the same
 turns, its output into DIR/smoke_<turn>_<tree>.log, its exit code and
 seconds into the summary.
 
-With --ablate, builds of this tree with one part of kernel 1, 12 or 15
+With --kernels k1, k8, k12 or k15 the four runs measure that kernel
+alone (k8: row 8 and the hashes of kernels 4-7), and --ablate cuts only
+it.
+
+With --ablate, builds of this tree with one part of kernel 1, 8, 12 or 15
 cut or changed (ABLATIONS: a copy of the package under
 `build/ablate/<name>/` with one source edited; only that source is
 rebuilt) are measured after the four runs, between two runs of this tree.
@@ -54,6 +63,80 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+
+# row 8's side table in shared memory at a 72-float pitch (window_tc.cuh's
+# kLdK), loaded by the whole CTA, in place of each thread's 32 registers
+K8_TABLE_SMEM = [
+    ("constexpr int tc_smem_bytes() { return 1024 + kStages * 3 * kTcTile; }",
+     "constexpr int kLdT = 72;\n"
+     "constexpr int tc_smem_bytes() { return 1024 + kStages * 3 * kTcTile + 64 * kLdT * 4; }"),
+    ("  const int row0 = 16 * warp;\n",
+     "  const int row0 = 16 * warp;\n"
+     "  float* Ts = reinterpret_cast<float*>(smem_raw + (base - raw) + kStages * 3 * kTcTile);\n"),
+    ("#pragma unroll\n"
+     "      for (int j = 0; j < 8; ++j)\n"
+     "#pragma unroll\n"
+     "        for (int i = 0; i < 2; ++i)\n"
+     "#pragma unroll\n"
+     "          for (int e = 0; e < 2; ++e)\n"
+     "            tab[4 * j + 2 * i + e] = table_at(bh, mw, n, row0 + g + 8 * i, 8 * j + 2 * t + e);\n",
+     "      for (int i = tid; i < 64 * 64; i += kTcThreads)\n"
+     "        Ts[(i / 64) * kLdT + i % 64] = table_at(bh, mw, n, i / 64, i % 64);\n"
+     "      __syncthreads();\n"),
+    ("        s[x] = __fmul_rn(s[x], scale) + tab[x];\n"
+     "        s[x + 1] = __fmul_rn(s[x + 1], scale) + tab[x + 1];\n",
+     "        const float2 side =\n"
+     "            *reinterpret_cast<const float2*>(Ts + (row0 + g + 8 * i) * kLdT + 8 * j + 2 * t);\n"
+     "        s[x] = __fmul_rn(s[x], scale) + side.x;\n"
+     "        s[x + 1] = __fmul_rn(s[x + 1], scale) + side.y;\n"),
+]
+
+# row 8's products on window_tc.cuh's TF32 mma.sync core (kernel 5's
+# staged probs and pv) on the same ring and the shared-memory table, in
+# place of the two wgmma products
+K8_TF32_CORE = K8_TABLE_SMEM + [
+    ('#include "wgmma.cuh"\n', '#include "wgmma.cuh"\n#include "window_tc.cuh"\n'),
+    ("    // S = Q K^T, D / 16 steps; both tiles K-major\n", """\
+    {
+      const auto at = [&](uint32_t tile, int r, int c) {
+        return reinterpret_cast<const bf16*>(smem_raw + (tile - raw) + wg::swz(r, c / 8) +
+                                             (c % 8) * 2);
+      };
+      float qf[DH / 8][4];
+#pragma unroll
+      for (int kc = 0; kc < DH / 8; ++kc)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 qv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(at(st, row0 + g + 8 * i, 8 * kc + 2 * t)));
+          qf[kc][2 * i] = qv.x * scale;
+          qf[kc][2 * i + 1] = qv.y * scale;
+        }
+      float p[8][4], of[DH / 8][4];
+      wintc::probs<DH, true>(
+          qf,
+          [&](int key, int d) {
+            return __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(at(st + kTcTile, key, d)));
+          },
+          n, row0, [&](int r, int key) { return Ts[r * kLdT + key]; }, p);
+      wintc::pv<DH>(
+          p, [&](int key, int d) { return __bfloat162float(*at(st + 2 * kTcTile, key, d)); }, n,
+          of);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = row0 + g + 8 * i;
+        if (r >= n) continue;
+#pragma unroll
+        for (int dt = 0; dt < DH / 8; ++dt)
+          *reinterpret_cast<__nv_bfloat162*>(dst + r * DH + 8 * dt + 2 * t) =
+              __floats2bfloat162_rn(of[dt][2 * i], of[dt][2 * i + 1]);
+      }
+      continue;
+    }
+    // S = Q K^T, D / 16 steps; both tiles K-major
+"""),
+]
 
 # (name, source, [(text, replacement)]): each cut of the redesigned kernels
 ABLATIONS = (
@@ -88,6 +171,12 @@ ABLATIONS = (
     ("k15_no_lut_copies", "clahe.cu",
      [("for (int i = threadIdx.x; i < n16; i += kThreads) cp_async16(dst + 4 * i, src + 4 * i);",
        "(void)src;\n    (void)dst;\n    (void)n16;")]),
+    ("k8_table_smem", "window_attention.cu", K8_TABLE_SMEM),
+    ("k8_three_stages", "window_attention.cu",
+     [("constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
+    ("k8_three_ctas", "window_attention.cu",
+     [("constexpr int kMinCtas = 4;", "constexpr int kMinCtas = 3;")]),
+    ("k8_tf32_core", "window_attention.cu", K8_TF32_CORE),
 )
 
 # kernel 1 with a clock64() stamp by thread 0 of every CTA at each phase's
@@ -222,9 +311,37 @@ def predict_times() -> dict:
     return out
 
 
+def measure_window(cs, timed, out) -> None:
+    """Row 8 (fused_window_attention) in bf16 and float32 at each of
+    window_shapes() and summed over a swin_tiny forward at batch 32, SDPA
+    on the same bf16 inputs, and the SHA-256 of row 8's outputs and of
+    kernels 4-7's at swin_tiny's block shapes."""
+    import torch
+
+    from thyroid_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    counts = cs.swin_tiny_shapes(cs.BATCH)["swin_block_attention"]
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        whats = ("window_attention", "sdpa") if dt == torch.bfloat16 else ("window_attention",)
+        for shape in cs.window_shapes():
+            args = cs.window_inputs(shape, dt, gen)
+            timed(f"window_attention {name} {shape}",
+                  lambda args=args: attention.fused_window_attention(*args))
+            if "sdpa" in whats:
+                timed(f"sdpa {name} {shape}", cs.window_library(args))
+        for what in whats:
+            out["ms"][f"{what} {name} per forward"] = sum(
+                count * out["ms"][f"{what} {name} {shape}"] for shape, count in counts.items())
+    out["sha256"].update(cs.window_hashes())
+    out["sha256"].update(cs.swin_attention_hashes())
+    out["sha256"].update(cs.ln_attention_hashes())
+
+
 def measure(kernels: str) -> dict:
     """The measurements of the tree first on sys.path (run in its process):
-    `kernels` is "all", "k1", "k12" or "k15"."""
+    `kernels` is "all", "k1", "k8", "k12" or "k15"."""
     import importlib.util
 
     import torch
@@ -276,6 +393,8 @@ def measure(kernels: str) -> dict:
                                             q.reshape(-1, 1, 1, 1)) / 256.0)
             timed("median_bilateral", lambda: stencil.fused_median_bilateral(x8s))
         out["sha256"].update(cs.output_hashes(chunk))
+    if kernels in ("all", "k8"):
+        measure_window(cs, timed, out)
     if kernels == "all":
         gen = torch.Generator(device="cuda").manual_seed(5)
         total = 0.0
@@ -296,8 +415,12 @@ def run_tree(tree: Path, kernels: str) -> dict:
     `tree` first on sys.path."""
     call = {"phases": "phases()", "predict": "predict_times()"}.get(kernels,
                                                                    f"measure({kernels!r})")
-    code = (f"import sys, json; sys.path.insert(0, {str(tree)!r}); "
-            f"sys.path.insert(1, {str(HERE)!r}); import chip_compare; "
+    # this file by path: a parent tree may hold a chip_compare.py of its own
+    code = (f"import sys, json, importlib.util; sys.path.insert(0, {str(tree)!r}); "
+            f"spec = importlib.util.spec_from_file_location('chip_compare', "
+            f"{str(HERE / 'chip_compare.py')!r}); "
+            f"chip_compare = importlib.util.module_from_spec(spec); "
+            f"spec.loader.exec_module(chip_compare); "
             f"print('RESULT ' + json.dumps(chip_compare.{call}), flush=True)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(tree), timeout=1800)
@@ -352,6 +475,8 @@ def main() -> int:
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--predict-pairs", type=int, default=0)
+    ap.add_argument("--kernels", default="all", choices=("all", "k1", "k8", "k12", "k15"),
+                    help="what the four turns measure, and with --ablate whose cuts")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_compare: no CUDA device", file=sys.stderr)
@@ -363,7 +488,7 @@ def main() -> int:
         opt.smokes.mkdir(parents=True, exist_ok=True)
         summary["smokes"] = [run_smoke(tree, opt.smokes.resolve() / f"smoke_{i}_{name}.log")
                              for i, (tree, name) in enumerate(turns)]
-    runs = [run_tree(tree, "all") for tree, _ in turns]
+    runs = [run_tree(tree, opt.kernels) for tree, _ in turns]
     summary.update({"card": runs[0]["card"],
                     "ms": {k: [r["ms"].get(k) for r in runs] for k in runs[1]["ms"]},
                     "events_ms": {k: [r["events_ms"].get(k) for r in runs]
@@ -383,7 +508,9 @@ def main() -> int:
     if opt.ablate:
         # per kernel: this tree, each cut, this tree again
         summary["ablations"] = {}
-        for group in ("k1", "k12", "k15"):
+        for group in ("k1", "k8", "k12", "k15"):
+            if opt.kernels not in ("all", group):
+                continue
             cuts = [(name, source, edits) for name, source, edits in ABLATIONS
                     if name.split("_")[0] == group]
             first = run_tree(HERE, group)

@@ -8,12 +8,12 @@ Phases, each printing its lines before the final one:
    sm_90a (one nvcc per source, in parallel; each source's nvcc time is
    printed), count the wgmma (HGMMA) instructions of the tensor-core
    libraries in cuobjdump's SASS and inside each tensor-core kernel's own
-   functions (kernels 2, 3, 4, 7, 9, 10, 11), the TF32 mma.sync (HMMA)
+   functions (kernels 2, 3, 4, 7, 8, 9, 10, 11), the TF32 mma.sync (HMMA)
    instructions of kernels 4's and 7's attention cores and of kernels 5
    and 6 (the training attention), and the async copies (LDGSTS) of the
-   depthwise kernel (17) and the stencil (13); the phase fails at 0 in
-   any instantiation; then print the card's name and power limit as
-   nvidia-smi reports them;
+   depthwise kernel (17), the stencil (13) and row 8's wgmma kernel; the
+   phase fails at 0 in any instantiation; then print the card's name and
+   power limit as nvidia-smi reports them;
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    same inputs, at every shape the swin_tiny forward gives it at batch 32,
    in float32 (TF32 off for matmuls and convolutions) and in bfloat16; the
@@ -121,7 +121,9 @@ Phases, each printing its lines before the final one:
 17. remaining kernels: LN + QKV + W-MSA (row 7, fused_swin_ln_attention)
    and the per-window attention (row 8, fused_window_attention) against
    their plain versions at every swin_tiny serving block shape at batch 32,
-   in float32 (2e-5 of max(1, max|plain|)) and bf16; the fused dual CLAHE
+   in float32 (2e-5 of max(1, max|plain|)) and bf16, row 8 also at
+   swin_large's stage 4 (48 heads), with the kernel that took each shape
+   (bf16 must take wgmma) and two runs bit-equal; the fused dual CLAHE
    apply (row 16) bit-equal to its plain version on phase 8's chunk, with
    the quality pipeline's per-image flags; WindowAttention(ln_kernel=True)
    against ln_kernel=False (kernels 2 + 5 + projection) in float32; then
@@ -159,8 +161,11 @@ Phases, each printing its lines before the final one:
    out, dqkv and dbias), LN + QKV + W-MSA (row 7) in bf16 at swin_large's
    stage 4 (C = 1536, 48 heads, 7x7 maps, batch 32; two runs bit-equal)
    with its device time and the SHA-256 of its output at swin_tiny's
-   widths, and row 3's time per swin_medical forward at bucket 32 beside
-   the library composition's device time;
+   widths, the per-window attention (row 8) in bf16 at swin_large's stage
+   4 on wgmma (two runs bit-equal; its device time beside SDPA's) and in
+   float32 per swin_tiny forward and at that shape (device times), the
+   SHA-256 of row 8's outputs, and row 3's time per swin_medical forward
+   at bucket 32 beside the library composition's device time;
 22. swin_large in float32 ({"name": "swin_large"}: no dtype, as the
    registry resolves it; stage 4 at C = 1536): InferenceEngine serves it
    on the card at bucket 4 on raw 512x512 frames with seeded, perturbed
@@ -239,26 +244,29 @@ DUAL_GRIDS = {"clip_coarse": 2.0, "grid_coarse": (16, 16), "clip_fine": 0.03,
               "grid_fine": (32, 32)}
 
 
-# the libraries whose bf16 kernels run on wgmma (kernels 2, 3, 4, 7, 9, 10
-# and 11), each with the kernel functions that must hold HGMMA instructions
-# in every instantiation; kernels 4's and 7's attention cores and kernels 5
-# and 6 (the training attention, forward and backward) must hold TF32 HMMA
-# (mma.sync) instructions; the depthwise kernel (17) and the stencil (13)
-# must hold async copies (LDGSTS, cp.async) in every instantiation
+# the libraries whose bf16 kernels run on wgmma (kernels 2, 3, 4, 7, 8, 9,
+# 10 and 11), each with the kernel functions that must hold HGMMA
+# instructions in every instantiation; kernels 4's and 7's attention cores
+# and kernels 5 and 6 (the training attention, forward and backward) must
+# hold TF32 HMMA (mma.sync) instructions; the depthwise kernel (17), the
+# stencil (13) and row 8's wgmma kernel must hold async copies (LDGSTS,
+# cp.async) in every instantiation
 TENSOR_CORE_LIBS = ("ln_mlp", "ln_mlp_bwd", "ln_matmul", "ln_matmul_bwd",
-                    "swin_ln_attention", "swin_attention")
+                    "swin_ln_attention", "swin_attention", "window_attention")
 TENSOR_CORE_FUNCTIONS = {"ln_mlp": ("ln_mlp_tc_kernel",),
                          "ln_mlp_bwd": ("ln_mlp_dx_tc_kernel", "ln_mlp_dw_tc_kernel"),
                          "ln_matmul": ("ln_matmul_tc_kernel",),
                          "ln_matmul_bwd": ("ln_matmul_dxn_tc_kernel",),
                          "swin_ln_attention": ("swin_ln_attention_tc_kernel",),
-                         "swin_attention": ("swin_block_attention_tc_kernel",)}
+                         "swin_attention": ("swin_block_attention_tc_kernel",),
+                         "window_attention": ("window_attention_tc_kernel",)}
 TF32_MMA_FUNCTIONS = {"swin_ln_attention": ("swin_ln_attention_tc_kernel",),
                       "swin_attention": ("swin_block_attention_tc_kernel",
                                          "swin_attention_tc_kernel"),
                       "swin_attention_bwd": ("swin_attention_bwd_tc_kernel",)}
 ASYNC_COPY_FUNCTIONS = {"depthwise": ("depthwise_kernel",),
-                        "stencil": ("median_bilateral_kernel",)}
+                        "stencil": ("median_bilateral_kernel",),
+                        "window_attention": ("window_attention_tc_kernel",)}
 
 
 def log(*parts) -> None:
@@ -1440,6 +1448,40 @@ def ln_attention_hashes():
     return out
 
 
+def window_shapes():
+    """Row 8's block shapes: swin_tiny's four at batch 32 and swin_large's
+    stage 4 (48 heads)."""
+    return sorted(set(swin_tiny_shapes(BATCH)["swin_block_attention"])) \
+        + [WIDE_LN_ATTENTION_SHAPE]
+
+
+def window_hashes():
+    """SHA-256 of row 8's output at window_shapes(), in bf16 and float32,
+    on seeded inputs."""
+    from thyroid_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(88)
+    return {f"window_attention {str(dt)[6:]} {shape}":
+            sha(attention.fused_window_attention(*window_inputs(shape, dt, gen)))
+            for dt in (torch.bfloat16, torch.float32) for shape in window_shapes()}
+
+
+def swin_attention_hashes():
+    """SHA-256 of kernels 4's, 5's and 6's bf16 outputs at swin_tiny's four
+    block shapes at batch 32, on seeded inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    out = {}
+    for shape in sorted(set(swin_tiny_shapes(BATCH)["swin_block_attention"])):
+        args = make_inputs("swin_block_attention", shape, torch.bfloat16, gen)
+        out[f"swin_block_attention bf16 {shape}"] = sha(
+            kernel_fns("swin_block_attention", shape)[0](*args))
+        fns = train_kernel_fns(shape)
+        for kernel in ("swin_attention", "swin_attention_bwd"):
+            args = make_train_inputs(kernel, shape, torch.bfloat16, gen)
+            out[f"{kernel} bf16 {shape}"] = sha(*fns[kernel][0](*args))
+    return out
+
+
 def log_hashes(tag: str, what: str, x) -> None:
     for name, digest in output_hashes(x).items():
         log(f"[{tag}] sha256 {name} on {what}: {digest}")
@@ -2569,20 +2611,32 @@ def phase_remaining_kernels(attn_shapes, frames):
         for dtype in (torch.float32, torch.bfloat16):
             for kernel, make in (("swin_ln_attention", ln_attention_inputs),
                                  ("window_attention", window_inputs)):
-                for shape in attn_shapes:
+                # row 8 also at swin_large's stage 4 (48 heads); in bf16 on
+                # wgmma, two runs bit-equal
+                shapes = window_shapes() if kernel == "window_attention" \
+                    else list(attn_shapes)
+                for shape in shapes:
                     args = make(shape, dtype, gen)
                     fused, plain = remaining_fns(kernel, shape)
-                    got, want = fused(*args).float(), plain(*args).float()
+                    got, want = fused(*args), plain(*args).float()
+                    route, same = "", True
+                    if kernel == "window_attention":
+                        route = attention.window_attention_route(*args[:3])
+                        same = torch.equal(got, fused(*args))
+                        if dtype == torch.bfloat16 and route != "wgmma":
+                            failed.append((kernel, shape, route))
+                    got = got.float()
                     torch.cuda.synchronize()
                     err = (got - want).abs().max().item()
                     tol = ATTN_RTOL[dtype] * max(1.0, want.abs().max().item())
-                    ok = bool(np.isfinite(err)) and err <= tol \
+                    ok = bool(np.isfinite(err)) and err <= tol and same \
                         and bool(torch.isfinite(got).all())
                     log(f"[remaining-kernels] {kernel} {str(dtype)[6:]} {shape}: "
-                        f"max_abs_err {err:.3e} tol {tol:.3e} "
-                        f"{'ok' if ok else 'FAIL'}")
+                        f"max_abs_err {err:.3e} tol {tol:.3e}"
+                        + (f", kernel {route}, two runs bit-equal {same}" if route else "")
+                        + f" {'ok' if ok else 'FAIL'}")
                     if not ok:
-                        failed.append((kernel, str(dtype), shape, err))
+                        failed.append((kernel, str(dtype), shape, err, same))
                     del args, got, want
         x, use_coarse, apply = dual_fused_case(frames)
         got = clahe.clahe_uint16_dual_fused(x, use_coarse, apply, **DUAL_GRIDS)
@@ -3188,6 +3242,7 @@ def phase_tensor_core():
     del args, got, again, want
     for name, digest in ln_attention_hashes().items():
         log(f"[tensor-core] sha256 {name}: {digest}")
+    phase_window_wide(gen, failed)
     if failed:
         raise AssertionError(f"tensor-core kernels disagree: {failed}")
     tot = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
@@ -3205,6 +3260,54 @@ def phase_tensor_core():
     log(f"[tensor-core] ln_mlp_residual per swin_medical forward at bucket {BATCH}: "
         f"{tot['ms']:.4f} ms (library {tot['library_ms']:.4f} ms, bound "
         f"{tot['bound_ms']:.4f} ms)")
+
+
+def phase_window_wide(gen, failed) -> None:
+    """Row 8 in bf16 at swin_large's stage 4 (48 heads) on wgmma against
+    its plain version, two runs bit-equal, its device time beside SDPA's and
+    its bound; row 8 in float32 (the scalar kernel) per swin_tiny forward
+    at bucket 32 and at swin_large's stage 4; the SHA-256 of row 8's
+    outputs. Appends what disagrees to `failed`."""
+    from thyroid_tpu_torch.ops import attention
+
+    shape = WIDE_LN_ATTENTION_SHAPE
+    args = window_inputs(shape, torch.bfloat16, gen)
+    fused, plain = remaining_fns("window_attention", shape)
+    got, again = fused(*args), fused(*args)
+    want = plain(*args).float()
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs().max().item()
+    tol = ATTN_RTOL[torch.bfloat16] * max(1.0, want.abs().max().item())
+    same = torch.equal(got, again)
+    route = attention.window_attention_route(*args[:3])
+    ok = bool(np.isfinite(err)) and err <= tol and same and route == "wgmma" \
+        and bool(torch.isfinite(got).all())
+    ms, lib_ms = device_ms(lambda: fused(*args)), device_ms(window_library(args))
+    nbytes, ops, peak = remaining_work("window_attention", shape, torch.bfloat16)
+    log(f"[tensor-core] window_attention bfloat16 {shape}: kernel {route}, max_abs_err "
+        f"{err:.3e} tol {tol:.3e} two runs bit-equal {same} {'ok' if ok else 'FAIL'}; "
+        f"kernel {ms:.4f} ms, library (SDPA) {lib_ms:.4f} ms (device), bound "
+        f"{max(nbytes / H100_BYTES_PER_S, ops / peak) * 1e3:.4f} ms")
+    if not ok:
+        failed.append(("window_attention", shape, err, same, route))
+    del args, got, again, want
+    shapes = dict(swin_tiny_shapes(BATCH)["swin_block_attention"])
+    tot = {"ms": 0.0, "bound_ms": 0.0}
+    for shape, count in list(shapes.items()) + [(WIDE_LN_ATTENTION_SHAPE, 0)]:
+        args = window_inputs(shape, torch.float32, gen)
+        ms = device_ms(lambda: attention.fused_window_attention(*args))
+        nbytes, ops, peak = remaining_work("window_attention", shape, torch.float32)
+        bound = max(nbytes / H100_BYTES_PER_S, ops / peak) * 1e3
+        log(f"[tensor-core] window_attention float32 {shape} x{count}: kernel "
+            f"{attention.window_attention_route(*args[:3])} {ms:.4f} ms (device), bound "
+            f"{bound:.4f} ms")
+        tot["ms"] += count * ms
+        tot["bound_ms"] += count * bound
+        del args
+    log(f"[tensor-core] window_attention float32 per swin_tiny forward at bucket "
+        f"{BATCH}: {tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms)")
+    for name, digest in window_hashes().items():
+        log(f"[tensor-core] sha256 {name}: {digest}")
 
 
 # the registry's swin_large with no dtype: float32 (embed 192, depths (2,

@@ -14,7 +14,9 @@ sums against PyTorch's float32 ones); the stencil's median exact and its
 bilateral within 1e-2 grey levels (the JAX kernel test's bound); the CLAHE
 apply exact. The depthwise kernel: bit-equal to its plain version (its
 stated contract); its autograd backward's dw, a sum over B·H·W,
-DBIAS_RTOL."""
+DBIAS_RTOL. Row 8's bf16 tensor-core kernel also within MODEL_RTOL of the
+model of its roundings (tests/test_torch_window_attention_tc.py), differing
+from it in at most MODEL_SHARE of the elements."""
 import pytest
 import torch
 
@@ -22,6 +24,8 @@ from thyroid_tpu_torch.models.cnn.efficientnet import stride1_depthwise_shapes
 from thyroid_tpu_torch.models.vit.swin import shift_attention_mask
 from thyroid_tpu_torch.ops import (attention, clahe, depthwise_pallas,
                                    percentile, stencil, token_fused)
+from tests.test_torch_window_attention_tc import (MODEL_RTOL, MODEL_SHARE,
+                                                  window_attention_tc_model)
 
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 DBIAS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
@@ -648,18 +652,81 @@ ATTN_RTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 @pytest.mark.parametrize("bw,heads,n,d,nw", [(8, 3, 49, 32, 4), (6, 2, 16, 24, 1),
                                              (5, 1, 64, 40, 0)])
 def test_window_attention(gen, dtype, bw, heads, n, d, nw):
-    """Row 8 against its plain version: ragged N (49), a head width that is
-    not a multiple of 32, no mask; one launch counted."""
+    """Row 8 against its plain version: ragged N (49), head widths that are
+    not multiples of 16 (24, 40: the scalar kernel in both types), no mask;
+    one launch counted."""
     q, k, v = (_rn(gen, bw, heads, n, d, dtype=dtype) for _ in range(3))
     bias = _rn(gen, heads, n, n, scale=0.1)
     mask = torch.where(torch.rand(nw, n, n, generator=gen, device="cuda") > 0.8,
                        -100.0, 0.0) if nw else None
+    assert attention.window_attention_route(q, k, v) == (
+        "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 else "scalar")
     before = attention.fused_window_attention.launches
     got = attention.fused_window_attention(q, k, v, bias, mask)
     assert attention.fused_window_attention.launches == before + 1
     assert got.dtype == dtype
     _close(got, attention.window_attention_reference(q, k, v, bias, mask), dtype,
            ATTN_RTOL)
+
+
+def _window_tc_check(record_property, q, k, v, bias, mask):
+    """Row 8 in bf16 on wgmma: within ATTN_RTOL of the plain version, within
+    MODEL_RTOL of the model of its roundings and differing from it in at
+    most MODEL_SHARE of the elements (both recorded as the test's
+    properties, model_err and model_share, for a JUnit report); two runs
+    bit-equal, one launch a call."""
+    assert attention.window_attention_route(q, k, v) == "wgmma"
+    before = attention.fused_window_attention.launches
+    got = attention.fused_window_attention(q, k, v, bias, mask)
+    again = attention.fused_window_attention(q, k, v, bias, mask)
+    assert attention.fused_window_attention.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _close(got, attention.window_attention_reference(q, k, v, bias, mask),
+           torch.bfloat16, ATTN_RTOL)
+    model = window_attention_tc_model(q, k, v, bias, mask).float()
+    err = (got.float() - model).abs().max().item()
+    assert err <= MODEL_RTOL * max(1.0, model.abs().max().item()), err
+    share = (got.float() != model).float().mean().item()
+    record_property("model_err", err / max(1.0, model.abs().max().item()))
+    record_property("model_share", share)
+    assert share <= MODEL_SHARE, share
+    assert torch.equal(got, again)
+
+
+# (b, r, c, heads, ws, shift) of row 8's blocks: swin_tiny's four stages at
+# batch 32, shifted and unshifted (stage 4's 7 x 7 map never shifts), and
+# swin_large's stage 4 (48 heads)
+WINDOW_TC_STAGES = [(32, 56, 96, 3, 7, 0), (32, 56, 96, 3, 7, 3), (32, 28, 192, 6, 7, 0),
+                    (32, 28, 192, 6, 7, 3), (32, 14, 384, 12, 7, 0), (32, 14, 384, 12, 7, 3),
+                    (32, 7, 768, 24, 7, 0), (32, 7, 1536, 48, 7, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,c,heads,ws,shift", WINDOW_TC_STAGES)
+def test_window_attention_tc_stages(gen, record_property, b, r, c, heads, ws, shift):
+    """Row 8's tensor-core kernel at the Swin block shapes."""
+    n, nw = ws * ws, (r // ws) ** 2
+    q, k, v = (_rn(gen, b * nw, heads, n, c // heads, dtype=torch.bfloat16)
+               for _ in range(3))
+    mask = shift_attention_mask(r, r, ws, shift)
+    _window_tc_check(record_property, q, k, v, _rn(gen, heads, n, n, scale=0.1),
+                     torch.from_numpy(mask).cuda() if mask is not None else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("n", [16, 49, 64])
+@pytest.mark.parametrize("bw,heads,nw", [(1001, 1, 7), (20, 7, 0), (3, 2, 1)])
+def test_window_attention_tc_ragged(gen, record_property, bw, heads, nw, n, d):
+    """Row 8's tensor-core kernel at every window size it pads (16, 49) or
+    fills (64) and head widths 16-64: 1,001 items, not a multiple of the
+    CTAs, so that the CTAs' runs differ by one item and cross groups; 140;
+    6, fewer than the CTAs. Masks of -100 where a uniform draw exceeds
+    0.8."""
+    q, k, v = (_rn(gen, bw, heads, n, d, dtype=torch.bfloat16) for _ in range(3))
+    mask = torch.where(torch.rand(nw, n, n, generator=gen, device="cuda") > 0.8,
+                       -100.0, 0.0) if nw else None
+    _window_tc_check(record_property, q, k, v, _rn(gen, heads, n, n, scale=0.1), mask)
 
 
 @pytest.mark.cuda

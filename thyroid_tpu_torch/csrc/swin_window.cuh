@@ -4,10 +4,12 @@
 // its serving half-block (kernel 4), swin_attention_bwd.cu's backward
 // (kernel 6), which recomputes the softmax with exactly these
 // instructions, so its P is bit-equal to the forward's, and
-// window_attention.cu (kernel 8, float32 and bf16) and swin_ln_attention.cu
+// window_attention.cu (kernel 8 in float32, and in bf16 at head widths
+// that are not multiples of 16 or exceed 64) and swin_ln_attention.cu
 // (kernel 7's float32 path), which fill Qs/Ks/Vs their own way and share
 // scores_softmax and head_pv. The bf16 paths of kernels 4, 5, 6 and 7 run
-// window_tc.cuh's TF32 tensor-core core instead.
+// window_tc.cuh's TF32 tensor-core core instead, kernel 8's bf16 path at
+// head widths 16-64 its own wgmma core (window_attention.cu).
 //
 // A block works on one ws x ws window of one image at a time. Window
 // partition and reverse are index arithmetic: token t of the window lies at

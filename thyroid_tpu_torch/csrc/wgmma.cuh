@@ -176,6 +176,26 @@ __device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
 
+// d = A B (+ d where scale_d != 0) for m64n64k16 with A from registers:
+// a0..a3 the warp's 16 rows of the 64 x 16 bf16 A as mma.sync m16n8k16
+// lays its A fragment out (a0: row g, k 2t, 2t + 1; a1: row g + 8; a2, a3:
+// the same rows at k 2t + 8, 2t + 9; g = lane / 4, t = lane % 4), which is
+// where an accumulator's two 8-column tiles of a 16-column step already
+// lie once packed to bf16 pairs.
+template <int TB>
+__device__ __forceinline__ void mma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                 uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
 template <int TB>
 __device__ __forceinline__ void mma_m64n96k16(float (&d)[48], uint64_t desc_a, uint64_t desc_b,
                                                int scale_d) {

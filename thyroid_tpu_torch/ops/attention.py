@@ -15,7 +15,8 @@
   on wgmma and attention on TF32 tensor cores), forward only;
   `WindowAttention(ln_kernel=True)` reaches it.
 - `fused_window_attention` is the per-window MSA on separate q/k/v
-  (`csrc/window_attention.cu`), forward only.
+  (`csrc/window_attention.cu`; in bf16 at head widths that are multiples
+  of 16 up to 64 on wgmma, `window_attention_route`), forward only.
 
 Each runs its CUDA kernel on CUDA tensors and its plain PyTorch version
 (`swin_block_attention_plain`, `swin_attention_plain`,
@@ -60,6 +61,23 @@ def window_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
 
 
+def window_attention_route(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor) -> str:
+    """Which kernel fused_window_attention runs on these q, k, v: "plain"
+    (window_attention_reference) for CPU tensors; on the card the choice
+    that `csrc/window_attention.cu` makes, "wgmma" for bf16 at a head width
+    d that is a multiple of 16 up to 64 (Swin's 32) with q, k and v 16-byte
+    aligned, "scalar" for float32 and every other bf16 head width (24, 40,
+    80, ...)."""
+    if q.device.type == "cpu":
+        return "plain"
+    fn = _build.function("window_attention", "tt_window_attention_route",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
+    tc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), q.shape[-1],
+            int(q.dtype == torch.bfloat16))
+    return "wgmma" if tc else "scalar"
+
+
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor,
                            mask: Optional[torch.Tensor] = None,
@@ -68,7 +86,14 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Per-window MSA: q/k/v (BW, h, N, d), bias (h, N, N), mask (nW, N, N)
     additive or None (BW % nW == 0; window b takes mask[b % nW]) →
     (BW, h, N, d) in q's dtype. N ≤ 64 on the card. Forward only.
-    `window_tile` is accepted and ignored: it tiled the TPU grid."""
+    `window_tile` is accepted and ignored: it tiled the TPU grid.
+
+    On the card, bf16 at head widths that are multiples of 16 up to 64
+    runs on the tensor cores (wgmma): S from bf16 q and k accumulated in
+    float32, then scaled; the softmax in float32 with e^x as __expf and one
+    reciprocal a row; P rounded to bf16 for P v. float32, and bf16 at any
+    other head width, keep the scalar float32 kernel. `window_attention_route`
+    says which; a build or launch error raises, never falls back."""
     del window_tile
     refuse_autograd("fused_window_attention", "the JAX kernel has no "
                     "autodiff either", q, k, v, bias, mask)
