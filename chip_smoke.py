@@ -172,7 +172,18 @@ Phases, each printing its lines before the final one:
    weights; the counters, set to 0 just before, must move by 1, 27, 24
    and 24 (percentile, LN + matmul, LN + MLP, block attention) per
    forward, and the probabilities must agree with the CPU float32 engine
-   on the same weights and frames.
+   on the same weights and frames;
+23. experiment: the 450-frame 512x512 synthetic corpus written by the
+   port's generate_corpus (time, frames/s, its _meta.json stamp), the 16
+   committed data/synthetic_tiny PNGs decoded pixel-equal to
+   generate_image, the corpus decoded by load_images (frames/s), then
+   launch_experiment (model=cnn/efficientnet_b0 dataset=synthetic
+   training=cnn augmentation=no_aug, one epoch, 2 folds, every path under
+   build/chip_smoke): the generated fold files equal data/splits', both
+   folds succeed with finite averages, the summary holds the k-fold
+   summary's keys, and, with every counter set to 0 just before, kernels
+   12, 13, 15 and 1 launch once per 32-frame chunk of each split (32) and
+   no other kernel launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -3398,6 +3409,143 @@ def phase_yaml_times(engine, cfg, params, registry_params):
     phase_profile(engine, what="swin_tiny.yaml predict")
 
 
+# phase 23: the k-fold experiment from a corpus on disk, at full width
+EXPERIMENT_META = {"n_images": 450, "size": 512, "seed": 42,
+                   "difficulty": 0.0, "label_noise": 0.0}
+# the keys kfold_summary_*.json holds beside avg_/std_ of each number of
+# the fold rows (aggregate_results + log_results)
+SUMMARY_KEYS = {"num_successful_folds", "total_folds", "raw_fold_results",
+                "experiment_name", "model_name"}
+FOLD_NUMBERS = {"fold", "best_val_metric", "epochs_trained", "train_time_s",
+                *(f"{split}_{m}" for split in ("val", "test")
+                  for m in ("acc", "auc", "f1", "loss", "npv", "ppv",
+                            "sensitivity", "specificity"))}
+
+
+def all_counters():
+    """Every kernel wrapper's launch counter, by name."""
+    return {**train_counters(), **quality_counters(), **token_counters(),
+            **effnet_counters(), **remaining_counters()}
+
+
+def phase_experiment(card: str) -> None:
+    """The k-fold experiment from a corpus on disk: the 450-frame 512²
+    synthetic corpus written by the port's generator and PNG writer, the
+    16 committed data/synthetic_tiny PNGs decoded pixel-equal to the
+    generator, then launch_experiment (efficientnet_b0 at 224², 2 folds,
+    one epoch, quality preprocessing on, checkpoints on) with every path
+    under WORK; its fold files must equal the committed data/splits ones,
+    both folds succeed with finite averages, and the quality kernels 12,
+    13, 15 and 1 launch once per 32-frame chunk of each split."""
+    import math
+
+    from thyroid_tpu_torch.data.corpus import load_split_file
+    from thyroid_tpu_torch.data.dataset import CARSThyroidDataset
+    from thyroid_tpu_torch.data.imageio import decode_image
+    from thyroid_tpu_torch.data.synthetic import generate_corpus, generate_image
+    from thyroid_tpu_torch.experiment import launch_experiment
+
+    root = Path(__file__).resolve().parent
+    work = WORK / "experiment"
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = work / "synthetic"
+    t0 = time.perf_counter()
+    generate_corpus(corpus, **EXPERIMENT_META)
+    secs = time.perf_counter() - t0
+    log(f"[experiment] generate_corpus 450 frames 512x512 uint16 PNG: "
+        f"{secs:.2f} s, {450 / secs:.1f} frames/s")
+    meta = json.loads((corpus / "_meta.json").read_text())
+    if meta != EXPERIMENT_META:
+        raise AssertionError(f"_meta.json {meta}, expected {EXPERIMENT_META}")
+
+    tiny = sorted((root / "data" / "synthetic_tiny").glob("*/*.png"))
+    if len(tiny) != 16:
+        raise AssertionError(f"{len(tiny)} committed synthetic_tiny PNGs, expected 16")
+    for path in tiny:
+        label = 0 if path.parent.name == "normal" else 1
+        i = int(path.stem.split("_")[-1])
+        want = generate_image(42 * 1_000_003 + label * 100_000 + i, label, 512)
+        got = decode_image(path)
+        if got.dtype != np.uint16 or not np.array_equal(got, want):
+            raise AssertionError(f"{path.name} does not decode to the generator's frame")
+    log("[experiment] the 16 committed data/synthetic_tiny PNGs decode "
+        "pixel-equal to generate_image")
+    ds = CARSThyroidDataset({"data_path": str(corpus)}, split="all")
+    t0 = time.perf_counter()
+    frames = ds.load_images()
+    secs = time.perf_counter() - t0
+    log(f"[experiment] load_images (8 threads) {frames.shape} {frames.dtype}: "
+        f"{secs:.3f} s, {len(frames) / secs:.1f} frames/s")
+    for j in (0, 1, 224, 225, 226, 449):
+        label, i = int(ds.all_labels[j]), int(ds.all_paths[j].stem.split("_")[-1])
+        want = generate_image(42 * 1_000_003 + label * 100_000 + i, label, 512)
+        if not np.array_equal(frames[j, ..., 0], want):
+            raise AssertionError(f"{ds.all_paths[j].name} decodes to other pixels")
+    del frames, ds
+
+    overrides = ["model=cnn/efficientnet_b0", "dataset=synthetic",
+                 "training=cnn", "augmentation=no_aug", "trainer.max_epochs=1",
+                 "kfold.num_folds=2", f"dataset.data_path={corpus}",
+                 f"dataset.split_dir={work / 'splits'}",
+                 f"kfold.split_dir={work / 'splits'}",
+                 f"output_dir={work / 'out'}"]
+    log(f"[experiment] launch_experiment {' '.join(overrides)}")
+    for fn in all_counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    summary = launch_experiment(overrides)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in all_counters().items()}
+    rows = summary.get("raw_fold_results", [])
+    for row in rows:
+        log(f"[experiment] fold {row.get('fold')}: train_time_s "
+            f"{row.get('train_time_s')} test_acc {row.get('test_acc')} "
+            f"val_acc {row.get('val_acc')} error {row.get('error')}")
+    log(f"[experiment] wall time {wall:.2f} s for 2 folds of one epoch "
+        f"(efficientnet_b0 bf16 224x224, batch 32, quality preprocessing); "
+        f"card {card}")
+
+    failed = [r for r in rows if "error" in r]
+    if failed or summary.get("num_successful_folds") != 2:
+        raise AssertionError(f"folds failed: {failed or summary.get('status')}")
+    for n in (1, 2):
+        got = json.loads((work / "splits" / f"split_fold_{n}.json").read_text())
+        want = json.loads((root / "data" / "splits" / f"split_fold_{n}.json").read_text())
+        if got != want:
+            raise AssertionError(f"split_fold_{n}.json differs from data/splits'")
+    log("[experiment] generated split_fold_{1,2}.json equal data/splits'")
+    bad = {k: v for k, v in summary.items()
+           if k.startswith("avg_") and not math.isfinite(v)}
+    if bad or not 0 <= summary["avg_test_acc"] <= 1:
+        raise AssertionError(f"averages not finite or accuracy out of [0, 1]: "
+                             f"{bad or summary['avg_test_acc']}")
+    paths = list((work / "out").rglob("kfold_summary_*.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"kfold summaries {paths}")
+    written = json.loads(paths[0].read_text())
+    numbers = {k for r in rows for k, v in r.items()
+               if isinstance(v, (int, float)) and math.isfinite(v)}
+    want_keys = SUMMARY_KEYS | {f"{p}_{k}" for p in ("avg", "std") for k in numbers}
+    if numbers != FOLD_NUMBERS or set(written) != want_keys:
+        raise AssertionError(f"summary keys {sorted(set(written) ^ want_keys)} "
+                             f"differ; fold numbers "
+                             f"{sorted(numbers ^ FOLD_NUMBERS)} differ")
+    log(f"[experiment] {paths[0].name}: {len(written)} keys, avg_test_acc "
+        f"{summary['avg_test_acc']:.4f}, avg_val_acc {summary['avg_val_acc']:.4f}")
+
+    chunks = sum(math.ceil(len(v) / 32)
+                 for n in (1, 2)
+                 for v in load_split_file(work / "splits" / f"split_fold_{n}.json").values())
+    quality = ("stats_quantile", "median_bilateral", "apply_luts_dual", "percentile")
+    want = {k: (chunks if k in quality else 0) for k in launches}
+    log(f"[experiment] launches over the run {launches} ({chunks} chunks of "
+        f"at most 32 frames)")
+    if launches != want or chunks != 32:
+        raise AssertionError(f"launches {launches}, expected {want} "
+                             f"({chunks} chunks, 32 expected)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3451,6 +3599,8 @@ def main() -> int:
         del y_engine
         torch.cuda.empty_cache()
         phase_large_f32()
+        torch.cuda.empty_cache()
+        phase_experiment(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

@@ -1,6 +1,9 @@
 """The port (thyroid_tpu_torch) and its card scripts (chip_smoke.py,
 chip_compare.py) import nothing of JAX, flax or the JAX package, and every
-port module imports without them."""
+port module imports without them. Nor do they import the decoders and
+splitters the card's machine lacks (cv2, PIL, imageio, scikit-learn,
+tifffile); only config/schemas.py imports pydantic, and the experiment
+path imports without it."""
 import ast
 import subprocess
 import sys
@@ -12,6 +15,9 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "thyroid_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "thyroid_tpu")
+# absent on the card's machine
+ABSENT = ("cv2", "PIL", "imageio", "sklearn", "tifffile")
+SCHEMAS = ROOT / "thyroid_tpu_torch" / "config" / "schemas.py"
 
 
 def _imported(path: Path):
@@ -43,6 +49,40 @@ def test_package_imports_with_jax_blocked():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_absent_library_imports(path):
+    """No port module imports what the card's machine lacks, and only
+    config/schemas.py imports pydantic."""
+    mods = [m.split(".")[0] for m in _imported(path)]
+    bad = [m for m in mods if m in ABSENT
+           or (m in ("pydantic", "pydantic_core") and path != SCHEMAS)]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.unit
+def test_experiment_imports_without_pydantic():
+    """The config package and the experiment path import, and compose a
+    config, in a process where importing pydantic fails; the schemas
+    raise ImportError only when asked for."""
+    code = (
+        "import sys\n"
+        "for m in ('pydantic', 'pydantic_core'): sys.modules[m] = None\n"
+        "import thyroid_tpu_torch.experiment\n"
+        "from thyroid_tpu_torch import config\n"
+        "cfg = config.compose(overrides=['model=cnn/efficientnet_b0'])\n"
+        "assert cfg.model.name == 'efficientnet_b0'\n"
+        "try:\n"
+        "    config.DatasetConfig\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise SystemExit('schemas imported without pydantic')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -10,6 +10,9 @@ blocks → softmax, through four hand-written CUDA kernels
 (`thyroid_tpu_torch/csrc/`). Slice 2 trains it (two attention kernels);
 slice 3 adds the quality-aware preprocessing to both paths (four kernels:
 statistics, median + bilateral stencil, CLAHE apply single and dual).
+The k-fold experiment runs from a corpus on disk: config composition
+(`config/`), corpus splits and PNG/TIFF decoding (`data/`), `experiment/`
+(`python -m thyroid_tpu_torch.experiment.manager ...`).
 """
 
 __version__ = "0.1.0"

@@ -11,21 +11,24 @@ with a gather, the gray→RGB repeat for 3-channel models and `standardize`:
   the epoch's order, so every batch has the same shape;
 - eval: sequential, the last batch padded with its last row at weight 0,
   so that metrics are exact.
-Augmentation and `create_data_loaders` (which needs the dataset's PNG/TIFF
-decoding) are not ported (ROADMAP Queue 1).
+`create_data_loaders` decodes each split of a corpus on disk
+(data/dataset.py) into a DevicePipeline. Augmentation is not ported
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
 
+from ..models.registry import cfg_get
 from ..ops.image import (adaptive_normalize, resize_bilinear, standardize,
                          to_uint16_scale)
 from ..ops.platform import DeviceLike, resolve_device
 from ..ops.quality import quality_preprocess
+from .dataset import CARSThyroidDataset
 
 # ImageNet statistics for 3-channel models (gray→RGB repeat + ImageNet
 # normalisation, as the JAX package trains them)
@@ -131,3 +134,58 @@ class DevicePipeline:
             yield Batch(image=self.make_batch(sel),
                         label=self.labels.index_select(0, sel),
                         weight=weight[step * bs:(step + 1) * bs])
+
+
+def create_data_loaders(dataset_config: Any,
+                        splits: tuple[str, ...] = ("train", "val", "test"),
+                        augment_mode: str = "standard",
+                        model_config: Any = None,
+                        device: DeviceLike = None) -> dict[str, DevicePipeline]:
+    """A DevicePipeline per split of the dataset config's corpus, on
+    `device` (the card unless the CPU is asked for).
+
+    A model of 3 input channels gets gray→RGB with ImageNet statistics
+    unless the dataset config pins 3-channel mean and std. Without
+    `apply_augmentations` the level is "none"; any other level raises in
+    DevicePipeline (Augmentation is not ported), so `augment_mode` and
+    the ViT augmentation keys are read and not used. The JAX function's
+    `sharding` has no counterpart here: meshes are not ported."""
+    level = cfg_get(dataset_config, "augmentation_level", "medium")
+    if not cfg_get(dataset_config, "apply_augmentations", True):
+        level = "none"
+    out_channels = int(cfg_get(model_config, "in_channels", 1) or 1) \
+        if model_config is not None else 1
+    mean = tuple(np.atleast_1d(cfg_get(dataset_config, "mean", (0.5,))))
+    std = tuple(np.atleast_1d(cfg_get(dataset_config, "std", (0.5,))))
+    if out_channels == 3 and len(mean) == 1:
+        mean, std = IMAGENET_MEAN, IMAGENET_STD
+    # the ViT augmentation keys the JAX pipeline reads (a bad value raises
+    # here as there); unused until Augmentation lands, since the level
+    # above is "none" or raises
+    _ = {
+        "use_randaugment": bool(cfg_get(dataset_config, "use_randaugment", True)),
+        "use_patch_quality": bool(cfg_get(dataset_config, "use_patch_quality", True)),
+        "randaugment_n": int(cfg_get(dataset_config, "randaugment_n", 2)),
+        "randaugment_m": float(cfg_get(
+            dataset_config, "randaugment_m",
+            {"light": 5.0, "medium": 9.0, "heavy": 14.0}.get(level, 9.0))),
+    }
+    device = resolve_device(device)
+    out: dict[str, DevicePipeline] = {}
+    for split in splits:
+        ds = CARSThyroidDataset(dataset_config, split=split)
+        out[split] = DevicePipeline(
+            ds.load_images(),
+            ds.labels,
+            batch_size=cfg_get(dataset_config, "batch_size", 32),
+            img_size=cfg_get(dataset_config, "img_size", 224),
+            mean=mean,
+            std=std,
+            quality_preprocessing=cfg_get(dataset_config,
+                                           "quality_preprocessing", False),
+            augmentation_level=level if split == "train" else "none",
+            train=(split == "train"),
+            out_channels=out_channels,
+            device=device,
+        )
+    return out

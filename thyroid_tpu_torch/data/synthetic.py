@@ -6,14 +6,20 @@ nothing of that package; `tests/test_torch_quality.py` holds the two
 bit-equal. Frames are 512×512 single-channel uint16 by default, with the
 corpus's quality mix: 5.8% extreme-dark (mean < 150), 9.1% low-contrast
 (std < 80, mean > 150), 14.2% bright speckle artifacts (max/mean > 30),
-the rest clean. `generate_corpus`, which writes PNGs through cv2, is not
-copied.
+the rest clean. `generate_corpus` writes a corpus of 16-bit PNGs through
+the port's own PNG writer (data/imageio.py): its bytes are not cv2's, its
+pixels are.
 """
 from __future__ import annotations
 
+import json
+import shutil
+from pathlib import Path
 from typing import Tuple
 
 import numpy as np
+
+from .imageio import encode_png
 
 QUALITY_MIX = {"extreme_dark": 0.058, "low_contrast": 0.091, "artifacts": 0.142}
 
@@ -72,6 +78,53 @@ def generate_image(seed: int, label: int, size: int = 512,
     else:
         img = 0.02 + img * 0.55
     return (np.clip(img, 0.0, 1.0) * 65535.0).astype(np.uint16)
+
+
+def generate_corpus(
+    out_dir: str | Path,
+    n_images: int = 450,
+    size: int = 512,
+    seed: int = 42,
+    difficulty: float = 0.0,
+    label_noise: float = 0.0,
+) -> Tuple[int, int]:
+    """Write the corpus as 16-bit PNGs under out_dir/{normal,cancerous}
+    (`<class>_<i:04d>.png`; the extra frame of an odd count is class 0).
+
+    Idempotent for matching parameters (files that exist are kept); the
+    parameters are stamped in ``out_dir/_meta.json``, and a corpus made
+    with other parameters is wiped and made anew, so a config change is
+    never silently ignored. Returns (n_normal, n_cancer)."""
+    out_dir = Path(out_dir)
+    params = {"n_images": n_images, "size": size, "seed": seed,
+              "difficulty": difficulty, "label_noise": label_noise}
+    meta_path = out_dir / "_meta.json"
+    if out_dir.exists():
+        stale = True
+        if meta_path.exists():
+            try:
+                stale = json.loads(meta_path.read_text()) != params
+            except (ValueError, OSError):
+                stale = True
+        if stale and any((out_dir / c).exists() for c in ("normal", "cancerous")):
+            for c in ("normal", "cancerous"):
+                shutil.rmtree(out_dir / c, ignore_errors=True)
+    n_per_class = n_images // 2
+    counts = []
+    for class_idx, class_name in enumerate(("normal", "cancerous")):
+        d = out_dir / class_name
+        d.mkdir(parents=True, exist_ok=True)
+        count = n_per_class + (n_images % 2 if class_idx == 0 else 0)
+        for i in range(count):
+            path = d / f"{class_name}_{i:04d}.png"
+            if path.exists():
+                continue
+            img = generate_image(seed * 1_000_003 + class_idx * 100_000 + i,
+                                 class_idx, size, difficulty, label_noise)
+            path.write_bytes(encode_png(img))
+        counts.append(count)
+    meta_path.write_text(json.dumps(params))
+    return counts[0], counts[1]
 
 
 def generate_corpus_arrays(

@@ -150,7 +150,8 @@ class Trainer:
         # trainer.precision drives the compute dtype: rebuild the model in
         # bf16 unless the model config pins a dtype (params stay float32)
         if self.cfg.precision == "bf16" and cfg_get(model_config, "dtype", None) is None:
-            mc = dict(model_config)
+            mc = model_config.to_dict() if hasattr(model_config, "to_dict") \
+                else dict(model_config)
             mc["dtype"] = "bf16"
             model = ModelRegistry.create_model(mc)
             self.model_config = mc
@@ -343,8 +344,9 @@ class Trainer:
                              if isinstance(v, float)})
                 monitored = metrics.get(self.cfg.monitor_metric)
                 if ckpt_mgr is not None and monitored is not None:
-                    meta = {"model_config": dict(self.model_config),
-                            **(extra_ckpt_metadata or {})}
+                    mc = self.model_config.to_dict() if hasattr(
+                        self.model_config, "to_dict") else dict(self.model_config)
+                    meta = {"model_config": mc, **(extra_ckpt_metadata or {})}
                     if ckpt_mgr.step(self.state, metrics, epoch, meta):
                         bad_epochs = 0
                         best = monitored
