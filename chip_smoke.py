@@ -183,7 +183,30 @@ Phases, each printing its lines before the final one:
    folds succeed with finite averages, the summary holds the k-fold
    summary's keys, and, with every counter set to 0 just before, kernels
    12, 13, 15 and 1 launch once per 32-frame chunk of each split (32) and
-   no other kernel launches.
+   no other kernel launches;
+24. augmentation and ResNet: (a) train_augment at light, medium and heavy,
+   vit_augment (m = 9) and mixup_cutmix (α 0.8 / 1.0) at batch 32, 224x224,
+   on parameters drawn once on the CPU and copied to the card, card
+   against CPU (at most 1e-4 of the elements more than 1e-5 apart, none
+   more than 1/255 + 1e-5), and two card runs from one generator seed
+   bit-equal; (b) the median time of 20 DevicePipeline.make_batch calls at
+   levels none, light, medium and heavy and in vit mode, the CUDA kernels
+   one augmented batch launches (torch.profiler), and a resnet50 train
+   step at batch 32 with a medium-level batch and with an unaugmented one;
+   (c) resnet50 (bf16, seeded and bumped weights, running statistics from a
+   train-mode forward) served at bucket 32 (images/s, median of 5; one
+   percentile launch per forward, no other kernel), its probabilities
+   against the CPU float32 engine (N = 8, card float32 and bf16), and one
+   float32 train step (batch 8, dropout 0) against the CPU (loss,
+   gradients, updated running statistics); (d) launch_experiment of the
+   root default composition (resnet50, dataset cars, level medium; no
+   group override), then experiment=swin_baseline and
+   experiment=test_resnet18_kfold_quick, each on phase 23's corpus and
+   fold files, cut to 2 folds of one epoch: both folds succeed with finite
+   averages and the summary's keys, the fold files stay data/splits', and,
+   with every counter set to 0 just before each run, kernel 1 launches once
+   per prepared split, swin_baseline's eval forwards launch 3 LN + matmul
+   and 12 LN + MLP each, and no other kernel launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -191,6 +214,7 @@ before that line is printed. Needs one CUDA card; exits nonzero without one.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import re
@@ -3546,6 +3570,427 @@ def phase_experiment(card: str) -> None:
                              f"({chunks} chunks, 32 expected)")
 
 
+# phase 24: augmentation and ResNet
+RESNET50 = {"name": "resnet50", "in_channels": 1, "num_classes": 2,
+            "dtype": "bf16"}
+# augmentation on the card against the CPU on the same drawn parameters:
+# elements further apart than AUG_TOL at most AUG_SHARE of them (a warp's
+# coordinate rounds on either side of a pixel or of a floor onto the
+# 8-bit grid), none further than one 8-bit level
+AUG_TOL, AUG_SHARE, AUG_MAX = 1e-5, 1e-4, 1 / 255 + 1e-5
+AUG_LEVELS = ("light", "medium", "heavy")
+# resnet50 with seeded weights amplifies a perturbation of its float32
+# activations in every block, most at each stage's first, while bf16 adds
+# a rounding or two in each: its bf16 probabilities stand far past
+# PROB_TOL from float32's, on the CPU as on the card (phase 24 logs both,
+# block by block, with each block's gain). So the card's bf16 engine is
+# held to the CPU's bf16 engine (the same roundings, summed in another
+# order) at PROB_TOL, and each block on the card in bf16, fed the CPU's
+# float32 input, to the CPU's float32 output within this (a few bf16
+# roundings)
+RESNET_BLOCK_BF16_TOL = 2e-2
+# resnet50's float32 gradient turns on its ReLU decisions: a few hundred
+# of the 77 million in a step at batch 8 flip when the same sums run in
+# another order, and those alone move the gradient by a few per cent. So
+# the CPU's reference step takes the card's decisions (relu_decisions)
+# and is held to the card at phase 15's limits, each leaf within
+# STEP_GRAD_RTOL too; the decisions that the CPU would have taken the
+# other way are at most this share
+RESNET_RELU_FLIP_SHARE = 1e-4
+
+
+def aug_cases(shape):
+    """{case: (draw(generator), apply(x, params) → tuple of tensors)} of
+    phase 24's augmentation checks."""
+    from thyroid_tpu_torch.ops import augment as A
+
+    cases = {}
+    for level in AUG_LEVELS:
+        cases[f"train_augment {level}"] = (
+            lambda g, level=level: A.draw_train_augment(g, shape, level),
+            lambda x, p, level=level: (A.apply_train_augment(x, p, level),))
+    cases["vit_augment m=9"] = (
+        lambda g: A.draw_vit_augment(g, shape),
+        lambda x, p: (A.apply_vit_augment(x, p, randaugment_m=9.0),))
+
+    def mix(x, p):
+        labels = torch.arange(x.shape[0], device=x.device)
+        mixed, _, labels_b, lam = A.apply_mixup_cutmix(x, labels, p)
+        return mixed, labels_b.float(), lam.reshape(1)
+
+    cases["mixup_cutmix 0.8/1.0"] = (
+        lambda g: A.draw_mixup_cutmix(g, shape, 0.8, 1.0), mix)
+    return cases
+
+
+def phase_augment() -> None:
+    """(a) of phase 24: each augmentation case card against CPU on the
+    same drawn parameters, and two card runs from one seed bit-equal."""
+    from thyroid_tpu_torch.ops.augment import params_to
+
+    shape = (BATCH, 224, 224, 1)
+    x_cpu = torch.from_numpy(np.random.RandomState(24).rand(*shape)
+                             .astype(np.float32))
+    x = x_cpu.cuda()
+    failed = []
+    for i, (name, (draw, apply)) in enumerate(aug_cases(shape).items()):
+        params = draw(torch.Generator().manual_seed(100 + i))
+        want = apply(x_cpu, params)
+        got = apply(x, params_to(params, "cuda"))
+        torch.cuda.synchronize()
+        err = torch.cat([(g.cpu() - w).abs().reshape(-1)
+                         for g, w in zip(got, want)])
+        share = float((err > AUG_TOL).float().mean())
+        runs = [apply(x, draw(torch.Generator(device="cuda").manual_seed(7)))
+                for _ in range(2)]
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        moved = float((runs[0][0] - x).abs().max())
+        log(f"[augment] {name} B={BATCH} 224x224 card vs cpu: max_abs_err "
+            f"{float(err.max()):.3e} (tol {AUG_MAX:.3e}), share > {AUG_TOL:.0e} "
+            f"{share:.3e} (tol {AUG_SHARE:.0e}); two card runs of one seed "
+            f"bit-equal: {same}; max change of the batch {moved:.3f}")
+        if not (float(err.max()) <= AUG_MAX and share <= AUG_SHARE and same
+                and moved > 0):
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"augmentation on the card disagrees: {failed}")
+
+
+def aug_pipeline(n: int = TRAIN_FRAMES):
+    """A training DevicePipeline of `n` random raw 512x512 frames at 224²,
+    batch 32."""
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+
+    rs = np.random.RandomState(25)
+    raw = (rs.rand(n, 512, 512, 1) * 65535).astype(np.float32)
+    labels = rs.permutation(np.arange(n) % 2)
+    return DevicePipeline(raw, labels, batch_size=BATCH, train=True)
+
+
+def kernel_count(fn) -> str:
+    """CUDA kernels one call of fn launches, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+    return str(n) if n else "not measured (the profile holds no device time)"
+
+
+def phase_augment_cost(variables, card: str) -> None:
+    """(b) of phase 24: make_batch's time at each level and in vit mode,
+    the kernels an augmented batch launches, and a resnet50 train step with
+    a medium-level batch and with an unaugmented one."""
+    from thyroid_tpu_torch.training import metrics as tmetrics
+
+    pipe = aug_pipeline()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    idx = torch.arange(BATCH, device="cuda")
+    times = {}
+    for level, mode in (("none", "standard"), ("light", "standard"),
+                        ("medium", "standard"), ("heavy", "standard"),
+                        ("medium", "vit")):
+        pipe.augmentation_level, pipe.augment_mode = level, mode
+        what = f"{level} {mode}"
+        times[what] = median_ms(lambda: pipe.make_batch(idx, gen))
+        log(f"[augment-cost] make_batch {what} B={BATCH} 224x224: "
+            f"{times[what]:.3f} ms (median of 20 after 3); kernels launched "
+            f"{kernel_count(lambda: pipe.make_batch(idx, gen))}; card {card}")
+    trainer = effnet_trainer(dict(RESNET50), variables, "resnet_cost")
+    labels = pipe.labels[:BATCH]
+    weights = torch.ones(BATCH, device="cuda")
+    for level in ("medium", "none"):
+        pipe.augmentation_level, pipe.augment_mode = level, "standard"
+
+        def step():
+            trainer.train_step(tmetrics.zero_metric_state(device="cuda"),
+                               pipe.make_batch(idx, gen), labels, weights)
+
+        ms = median_ms(step, reps=5, warm=2)
+        log(f"[augment-cost] resnet50 bf16 make_batch ({level}) + train_step "
+            f"B={BATCH}: {ms:.2f} ms (median of 5 after 2), "
+            f"{BATCH / ms * 1e3:.1f} images/s; card {card}")
+    del trainer, pipe
+    torch.cuda.empty_cache()
+
+
+def phase_resnet(variables, card: str) -> None:
+    """(c) of phase 24: resnet50 served (launches, images/s, probabilities
+    against the CPU) and its float32 train step against the CPU."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    engine = InferenceEngine(RESNET50, variables=variables)
+    engine.warmup()
+    rs = np.random.RandomState(26)
+    frames = (rs.rand(BATCH, 512, 512, 1) * 65535).astype(np.float32)
+    watched = all_counters()
+    for fn in watched.values():
+        fn.launches = 0
+    probs = engine.predict(frames)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in watched.items()}
+    want = {k: int(k == "percentile") for k in watched}
+    log(f"[resnet] resnet50 bf16 served N={BATCH}: launches {launches}")
+    if launches != want or probs.shape != (BATCH, 2) or not np.isfinite(probs).all():
+        raise AssertionError(f"launches {launches}, expected {want}, or bad "
+                             f"probabilities {probs.shape}")
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.predict(frames)
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    log(f"[resnet] predict bucket {BATCH}: {med * 1e3:.2f} ms, "
+        f"{BATCH / med:.1f} images/s (median of 5); card {card}")
+    f32 = dict(RESNET50, dtype="f32")
+    engines = {"cpu f32": InferenceEngine(f32, variables=variables, device="cpu"),
+               "cpu bf16": InferenceEngine(RESNET50, variables=variables,
+                                           device="cpu"),
+               "cuda f32": InferenceEngine(f32, variables=variables),
+               "cuda bf16": engine}
+    probs, blocks = {}, {}
+    for what, eng in engines.items():
+        blocks[what] = block_io(eng.model, lambda: probs.__setitem__(
+            what, eng.predict(frames[:8])), 8)
+    ok = resnet_blocks(engines, blocks)
+    spread = float(probs["cpu f32"][:, 0].max() - probs["cpu f32"][:, 0].min())
+    for what, ref, tol in (("cuda f32", "cpu f32", PROB_TOL[torch.float32]),
+                           ("cuda bf16", "cpu bf16", PROB_TOL[torch.bfloat16]),
+                           ("cuda bf16", "cpu f32", None),
+                           ("cpu bf16", "cpu f32", None)):
+        err = float(np.abs(probs[what] - probs[ref]).max())
+        log(f"[resnet] N=8 probabilities, {what} vs {ref}: max_abs_err "
+            f"{err:.3e} " + (f"tol {tol:.3e}" if tol else "(logged, not held: "
+                             "bf16 against float32)")
+            + f" (spread of p0 over the batch {spread:.3e})")
+        ok &= tol is None or err <= tol
+    if not ok:
+        raise AssertionError("resnet50's probabilities or bf16 blocks "
+                             "disagree with the CPU")
+    del engine, engines, blocks
+    torch.cuda.empty_cache()
+    resnet_step(variables)
+
+
+def block_io(model, run, n: int):
+    """{block name: (input, output)} of the first n images at each of a
+    ResNet's blocks in one call of run(), as float32 CPU tensors."""
+    got, hooks = {}, []
+    for name in model.blocks:
+        hooks.append(getattr(model, name).register_forward_hook(
+            lambda mod, args, out, name=name: got.__setitem__(
+                name, (args[0][:n].float().cpu(), out[:n].float().cpu()))))
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return got
+
+
+def resnet_blocks(engines, blocks) -> bool:
+    """Log resnet50's bf16 forward block by block against the CPU's float32
+    one: the distance |a − b| / |b| of its input and output on the card
+    and on the CPU, the error bf16 adds inside the block on the card (the
+    block in bf16 fed the CPU's float32 input; held to
+    RESNET_BLOCK_BF16_TOL), and the block's gain (the CPU's float32 block
+    fed the card's bf16 input: its distance over the input's). True when
+    every block holds."""
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    card = engines["cuda bf16"].model
+    cpu32 = engines["cpu f32"].model
+    ok = True
+    for name in card.blocks:
+        x32, y32 = blocks["cpu f32"][name]
+        x16, y16 = blocks["cuda bf16"][name]
+        with torch.no_grad():
+            local = getattr(card, name)(x32.cuda(), False, torch.bfloat16)
+            prop = getattr(cpu32, name)(x16, False, torch.float32)
+        local = rel(local.float().cpu(), y32)
+        d_in = rel(x16, x32)
+        log(f"[resnet-bf16] {name}: card bf16 vs cpu f32 in {d_in:.3e} out "
+            f"{rel(y16, y32):.3e}; cpu bf16 vs cpu f32 out "
+            f"{rel(blocks['cpu bf16'][name][1], y32):.3e}; bf16 inside the "
+            f"block on the card {local:.3e} (tol {RESNET_BLOCK_BF16_TOL:.0e}); "
+            f"float32 gain {rel(prop, y32) / d_in:.3f}")
+        ok &= local <= RESNET_BLOCK_BF16_TOL
+    return ok
+
+
+@contextlib.contextmanager
+def relu_decisions(record=None, impose=None, flips=None):
+    """Within the block, torch.nn.functional.relu (which the port's ResNet
+    calls) appends each call's decisions x > 0 to `record` as CPU
+    tensors, or takes them from `impose` (one a call, in order: x times
+    the decision) and appends to `flips` (differing, all) against the
+    call's own x > 0."""
+    import torch.nn.functional as F
+
+    relu, calls = F.relu, iter(range(1 << 30))
+
+    def decide(x, inplace=False):
+        own = x > 0
+        if record is not None:
+            record.append(own.cpu())
+        if impose is None:
+            return relu(x)
+        d = impose[next(calls)].to(x.device)
+        flips.append((int((d != own).sum()), d.numel()))
+        return x * d
+
+    F.relu = decide
+    try:
+        yield
+    finally:
+        F.relu = relu
+
+
+def resnet_step(variables) -> None:
+    """(c) of phase 24: resnet50's float32 train step (batch 8, dropout 0)
+    on the card against the CPU's on the card's ReLU decisions: loss,
+    gradients (global and each leaf) and updated running statistics; the
+    CPU's step on its own decisions is logged beside it."""
+    rs = np.random.RandomState(27)
+    batch = (rs.randn(8, 224, 224, 1).astype(np.float32),
+             (np.arange(8) % 2).astype(np.int64), np.ones(8, np.float32))
+    cfg = dict(RESNET50, dtype="f32", dropout_rate=0.0)
+    decisions, flips = [], []
+    with relu_decisions(record=decisions):
+        card = effnet_step(cfg, variables, batch)
+    torch.cuda.empty_cache()
+    with relu_decisions(impose=decisions, flips=flips):
+        cpu = effnet_step(cfg, variables, batch, "cpu")
+    own = effnet_step(cfg, variables, batch, "cpu")
+    flipped, total = sum(f for f, _ in flips), sum(n for _, n in flips)
+    loss_rel, grad_rel, norm = step_agreement(card[:2], cpu[:2])
+    leaves = {n: float((card[1][n] - g).norm() / g.norm())
+              for n, g in cpu[1].items() if float(g.norm()) > 0}
+    worst = max(leaves, key=leaves.get)
+    sdiff = sum(float(((card[2][n] - v) ** 2).sum()) for n, v in cpu[2].items())
+    snorm = sum(float((v ** 2).sum()) for v in cpu[2].values())
+    stats_rel = (sdiff / snorm) ** 0.5
+    own_grad = step_agreement(card[:2], own[:2])[1]
+    log(f"[resnet] resnet50 f32 step, batch 8, card vs cpu on the card's "
+        f"ReLU decisions ({len(decisions)} calls; the CPU's own take "
+        f"{flipped} of {total} the other way, share {flipped / total:.3e}, "
+        f"tol {RESNET_RELU_FLIP_SHARE:.0e}): loss {card[0]:.7f} vs "
+        f"{cpu[0]:.7f} (relative {loss_rel:.3e}, tol {STEP_LOSS_RTOL:.0e}); "
+        f"|grad diff| / |grad| {grad_rel:.3e} (tol {STEP_GRAD_RTOL:.0e}; "
+        f"|grad| {norm:.4e}); worst of {len(leaves)} leaves {worst} "
+        f"{leaves[worst]:.3e} (tol {STEP_GRAD_RTOL:.0e}); updated running "
+        f"statistics |diff| / |stats| {stats_rel:.3e} (tol "
+        f"{STEP_STATS_RTOL:.0e}); against the CPU on its own decisions "
+        f"|grad diff| / |grad| {own_grad:.3e} (logged, not held)")
+    if not (len(flips) == len(decisions) and flipped / total <= RESNET_RELU_FLIP_SHARE
+            and loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL
+            and leaves[worst] <= STEP_GRAD_RTOL and stats_rel <= STEP_STATS_RTOL):
+        raise AssertionError("the card's resnet50 train step disagrees with "
+                             "the CPU's")
+
+
+# phase 24 (d): each run's overrides beyond the corpus, split and output
+# paths and the cuts, and its eval forwards' launches of the YAML Swin's
+# kernels (swin_tiny.yaml: 3 merges, 12 MLPs; no kernel in a train step)
+AUG_EXPERIMENTS = {
+    "root default": ([], {}),
+    "swin_baseline": (["experiment=swin_baseline",
+                       "experiment.kfold.num_folds=2"],
+                      {"ln_matmul": 3, "ln_mlp_residual": 12}),
+    "test_resnet18_kfold_quick": (["experiment=test_resnet18_kfold_quick"], {}),
+}
+
+
+def phase_aug_experiments(card: str) -> None:
+    """(d) of phase 24: the root default composition and two presets on
+    phase 23's corpus and fold files, 2 folds of one epoch each, with the
+    launches counted."""
+    import math
+
+    from thyroid_tpu_torch.data.corpus import load_split_file
+    from thyroid_tpu_torch.experiment import launch_experiment
+
+    root = Path(__file__).resolve().parent
+    work = WORK / "experiment"
+    splits = [load_split_file(work / "splits" / f"split_fold_{n}.json")
+              for n in (1, 2)]
+    # kernel 1 once per split of each fold (at most 512 frames a chunk);
+    # eval forwards: the val split after the epoch and the test split
+    chunks = sum(math.ceil(len(v) / 512) for s in splits for v in s.values())
+    evals = sum(math.ceil(len(s["val"]) / BATCH) + math.ceil(len(s["test"]) / BATCH)
+                for s in splits)
+    for name, (extra, per_eval) in AUG_EXPERIMENTS.items():
+        out = work / f"out_{name.replace(' ', '_')}"
+        overrides = [*extra, f"dataset.data_path={work / 'synthetic'}",
+                     f"dataset.split_dir={work / 'splits'}",
+                     f"kfold.split_dir={work / 'splits'}", f"output_dir={out}",
+                     "kfold.num_folds=2", "trainer.max_epochs=1",
+                     "training.epochs=1"]
+        log(f"[aug-experiment] {name}: launch_experiment {' '.join(overrides)}")
+        watched = all_counters()
+        for fn in watched.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        summary = launch_experiment(overrides)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in watched.items()}
+        rows = summary.get("raw_fold_results", [])
+        for row in rows:
+            log(f"[aug-experiment] {name} fold {row.get('fold')}: train_time_s "
+                f"{row.get('train_time_s')} test_acc {row.get('test_acc')} "
+                f"error {row.get('error')}")
+        log(f"[aug-experiment] {name}: wall time {wall:.2f} s for 2 folds of one "
+            f"epoch (bf16 224x224, batch 32, level medium); card {card}")
+        failed = [r for r in rows if "error" in r]
+        if failed or summary.get("num_successful_folds") != 2:
+            raise AssertionError(f"{name}: folds failed: "
+                                 f"{failed or summary.get('status')}")
+        for n in (1, 2):
+            got = (work / "splits" / f"split_fold_{n}.json").read_text()
+            if json.loads(got) != json.loads(
+                    (root / "data" / "splits" / f"split_fold_{n}.json").read_text()):
+                raise AssertionError(f"split_fold_{n}.json differs from data/splits'")
+        bad = {k: v for k, v in summary.items()
+               if k.startswith("avg_") and not math.isfinite(v)}
+        written = json.loads(next(out.rglob("kfold_summary_*.json")).read_text())
+        numbers = {k for r in rows for k, v in r.items()
+                   if isinstance(v, (int, float)) and math.isfinite(v)}
+        want_keys = SUMMARY_KEYS | {f"{p}_{k}" for p in ("avg", "std")
+                                    for k in numbers}
+        if bad or numbers != FOLD_NUMBERS or set(written) != want_keys:
+            raise AssertionError(f"{name}: averages {bad}, summary keys "
+                                 f"{sorted(set(written) ^ want_keys)}, fold "
+                                 f"numbers {sorted(numbers ^ FOLD_NUMBERS)}")
+        want = {k: per_eval.get(k, 0) * evals for k in launches}
+        want["percentile"] = chunks
+        log(f"[aug-experiment] {name}: launches {launches} ({chunks} prepared "
+            f"splits, {evals} eval forwards); avg_test_acc "
+            f"{summary['avg_test_acc']:.4f}")
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected {want}")
+
+
+def phase_aug_resnet(card: str) -> None:
+    """Phase 24: augmentation and ResNet, (a) to (d); float32 matmuls and
+    convolutions without TF32, as phase 2 sets them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_augment()
+    variables = effnet_variables(RESNET50)
+    phase_augment_cost(variables, card)
+    phase_resnet(variables, card)
+    del variables
+    torch.cuda.empty_cache()
+    phase_aug_experiments(card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3601,6 +4046,8 @@ def main() -> int:
         phase_large_f32()
         torch.cuda.empty_cache()
         phase_experiment(card)
+        torch.cuda.empty_cache()
+        phase_aug_resnet(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

@@ -84,8 +84,8 @@ def test_create_data_loaders_match_jax(tiny_corpus):
 @pytest.mark.unit
 def test_create_data_loaders_channels_and_augmentation(tiny_corpus):
     """3-channel models get ImageNet statistics unless 3-channel ones are
-    pinned; an augmentation level other than none raises (Augmentation is
-    not ported)."""
+    pinned; with apply_augmentations the train split (only) augments at
+    the config's level, in the given mode, with JAX's ViT flags."""
     cfg = _dataset_config(tiny_corpus)
     rgb = create_data_loaders(cfg, ("val",), model_config={"in_channels": 3},
                               device="cpu")["val"]
@@ -96,9 +96,23 @@ def test_create_data_loaders_channels_and_augmentation(tiny_corpus):
     kept = create_data_loaders(pinned, ("val",), model_config={"in_channels": 3},
                                device="cpu")["val"]
     assert kept.mean == (0.1, 0.2, 0.3) and kept.std == (0.4, 0.5, 0.6)
-    with pytest.raises(NotImplementedError, match="Augmentation"):
-        create_data_loaders(dict(cfg, apply_augmentations=True), ("train",),
-                            device="cpu")
+    aug_cfg = dict(cfg, apply_augmentations=True, randaugment_n=3)
+    for mode in ("standard", "vit"):
+        got = create_data_loaders(aug_cfg, ("train", "val"), augment_mode=mode,
+                                  device="cpu")
+        want = jax_loaders(aug_cfg, ("train", "val"), augment_mode=mode)
+        for split in ("train", "val"):
+            g, w = got[split], want[split]
+            assert (g.augmentation_level, g.augment_mode, g.vit_aug_params) == \
+                (w.augmentation_level, w.augment_mode, w.vit_aug_params)
+        assert got["train"].augments() and not got["val"].augments()
+    assert got["train"].vit_aug_params == {
+        "use_randaugment": True, "use_patch_quality": True,
+        "randaugment_n": 3, "randaugment_m": 9.0}
+    batch = next(got["train"].epoch(torch.Generator().manual_seed(0),
+                                    torch.Generator().manual_seed(0)))
+    assert batch.image.shape == (4, 32, 32, 1)
+    assert bool(torch.isfinite(batch.image).all())
 
 
 def _overrides(root: Path, out: Path, *extra):
@@ -173,12 +187,15 @@ def test_failed_fold_is_recorded_and_sweep_goes_on(tiny_corpus, tmp_path,
                              {"error": "division by zero", "fold": 2}]}
 
 
+# option: (overrides, the Queue 1 item it raises naming, or None where the
+# option is ported and the folds must run)
 UNPORTED = {
     "distillation": (["+distillation.enabled=true"], "Other experiments"),
     "stacked": (["+kfold.stacked=true"], "Other experiments"),
     "slices": (["+kfold.num_slices=2"], "Parallelism"),
     "ablation": (["+ablation.parameter_space=[]"], "Other experiments"),
-    "augmentation": (["augmentation=medium"], "Augmentation"),
+    "augmentation": (["augmentation=medium",
+                      "dataset.apply_augmentations=true"], None),
 }
 
 
@@ -186,13 +203,97 @@ UNPORTED = {
 @pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_options_raise_before_any_fold(case, tiny_corpus, tmp_path,
                                                 monkeypatch):
+    """Each unported option raises before any fold; augmentation, which is
+    ported, reaches both folds (test_augmented_kfold_runs runs
+    them)."""
     extra, item = UNPORTED[case]
     ran = []
     monkeypatch.setattr(KFoldExperiment, "run_fold",
-                        lambda self, fold: ran.append(fold))
+                        lambda self, fold: ran.append(fold) or _fake_row(fold))
+    overrides = _overrides(tiny_corpus, tmp_path, *extra)
+    if item is None:
+        launch_experiment(overrides, device="cpu")
+        assert ran == [1, 2]
+        return
     with pytest.raises(NotImplementedError, match=item):
-        launch_experiment(_overrides(tiny_corpus, tmp_path, *extra), device="cpu")
+        launch_experiment(overrides, device="cpu")
     assert ran == [] and not (tmp_path / "splits").exists()
+
+
+# narrow models at 32² for the augmented experiments: the root default's
+# resnet50 and the preset's resnet18 at width 8, one block a stage;
+# swin_baseline's swin_tiny.yaml at embed 16, one block in each of two
+# stages, window 4. A preset's model node replaces the root's model, and
+# its kfold node merges over the root's, so their cuts name the
+# experiment node (as in the JAX manager).
+NARROW_RESNET = ["img_size=32", "params.width=8", "params.layers=[1,1,1,1]",
+                 "dtype=f32"]
+NARROW_SWIN = ["img_size=32", "params.embed_dim=16", "params.depths=[1,1]",
+               "params.num_heads=[1,2]", "params.window_size=4", "dtype=f32"]
+AUGMENTED = {
+    # the root default composition: resnet50, dataset cars, level medium
+    "root_default": ([], [f"model.{o}" for o in NARROW_RESNET[:3]]
+                     + ["+model.dtype=f32"], "resnet50", "standard"),
+    "test_resnet18_kfold_quick": (
+        ["experiment=test_resnet18_kfold_quick"],
+        [f"+experiment.model.{o}" for o in NARROW_RESNET], "resnet18",
+        "standard"),
+    "swin_baseline": (["experiment=swin_baseline",
+                       "experiment.kfold.num_folds=2"],
+                      [f"+experiment.model.{o}" for o in NARROW_SWIN],
+                      "swin_tiny", "vit"),
+}
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("preset", ["swin_baseline", "swin_large",
+                                    "swin_medical_optimized",
+                                    "swin_target_944"])
+def test_swin_presets_build_with_augmentation(preset):
+    """The four Swin presets, as written (level medium), build their
+    k-fold experiment: nothing refuses them before a fold, and their
+    training split will take the ViT augmentation."""
+    exp = ExperimentManager(compose(overrides=[f"experiment={preset}"]),
+                            device="cpu").build_experiment()
+    assert isinstance(exp, KFoldExperiment)
+    assert exp.dataset_config["augmentation_level"] == "medium"
+    assert exp.dataset_config["apply_augmentations"] is True
+    assert exp.model_config["architecture"] == "vit"
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("case", list(AUGMENTED))
+def test_augmented_kfold_runs(case, tiny_corpus, tmp_path, monkeypatch):
+    """The root default (no group override) and two presets at level
+    medium, cut to 2 folds of one epoch on the tiny corpus on the CPU:
+    both folds succeed with finite averages, and the train split augments
+    in the mode the architecture picks (the ViT path: RandAugment and
+    patch quality)."""
+    from thyroid_tpu_torch.data import pipeline
+
+    preset, narrow, name, mode = AUGMENTED[case]
+    batches = []
+    make_batch = pipeline.DevicePipeline.make_batch
+
+    def spy(self, idx, generator=None):
+        if self.augments():
+            batches.append((self.augment_mode, self.augmentation_level))
+        return make_batch(self, idx, generator)
+
+    monkeypatch.setattr(pipeline.DevicePipeline, "make_batch", spy)
+    overrides = [*preset, f"dataset.data_path={tiny_corpus / 'synthetic'}",
+                 f"dataset.split_dir={tmp_path / 'splits'}",
+                 f"kfold.split_dir={tmp_path / 'splits'}",
+                 f"output_dir={tmp_path / 'out'}", "kfold.num_folds=2",
+                 "trainer.max_epochs=1", "training.epochs=1",
+                 "training.batch_size=4", *narrow]
+    summary = launch_experiment(overrides, device="cpu")
+    rows = summary["raw_fold_results"]
+    assert summary["num_successful_folds"] == 2, rows
+    assert not any("error" in r for r in rows)
+    assert (tmp_path / "out" / name).is_dir()       # the model built
+    assert all(np.isfinite(v) for k, v in summary.items() if k.startswith("avg_"))
+    assert batches and set(batches) == {(mode, "medium")}
 
 
 @pytest.mark.unit

@@ -20,6 +20,7 @@ from thyroid_tpu_torch.models.from_jax import (jax_layout, jax_tree,
                                                load_jax_params)
 from thyroid_tpu_torch.models.layers import DropPath
 from thyroid_tpu_torch.models.registry import ModelRegistry
+from thyroid_tpu_torch.ops.augment import train_augment
 from thyroid_tpu_torch.training import checkpoint as tckpt
 from thyroid_tpu_torch.training import losses as tlosses
 from thyroid_tpu_torch.training import metrics as tmetrics
@@ -371,8 +372,20 @@ def test_device_pipeline_batches():
     assert next(rgb.epoch()).image.shape == (4, 32, 32, 3)
     with pytest.raises(ValueError):
         next(train.epoch())
-    with pytest.raises(NotImplementedError, match="Augmentation"):
-        DevicePipeline(imgs, labels, augmentation_level="light", **kw)
+    # an augmented training pipeline augments after the gather, before
+    # standardize, from the augmentation generator; evaluation never
+    aug = DevicePipeline(imgs, labels, augmentation_level="light", train=True,
+                         **kw)
+    with pytest.raises(ValueError, match="Generator"):
+        next(aug.epoch(torch.Generator().manual_seed(0)))
+    x = next(aug.epoch(torch.Generator().manual_seed(0),
+                       torch.Generator().manual_seed(1))).image
+    want = train_augment(aug.cache[order[:4]], torch.Generator().manual_seed(1),
+                         "light")
+    assert torch.equal(x, (want - 0.5) / 0.25)
+    assert not torch.equal(x, batches[0].image)
+    held = DevicePipeline(imgs, labels, augmentation_level="light", **kw)
+    assert torch.equal(next(held.epoch()).image, e[0].image)
 
 
 @pytest.mark.unit
@@ -429,11 +442,21 @@ def test_trainer_refuses_unported_modes(tmp_path):
         with pytest.raises(NotImplementedError, match=match):
             Trainer(model, SMALL_SWIN, TRAINING_VIT, TRAINER_DEFAULT,
                     **kw, **extra)
-    for tcfg, match in ((dict(TRAINING_VIT, mixup_alpha=0.2), "MixUp"),
-                        (dict(TRAINING_VIT, optimizer_params={"name": "sgd"}),
-                         "SGD")):
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(model, SMALL_SWIN, tcfg, TRAINER_DEFAULT, **kw)
+    with pytest.raises(NotImplementedError, match="SGD"):
+        Trainer(model, SMALL_SWIN, dict(TRAINING_VIT,
+                                        optimizer_params={"name": "sgd"}),
+                TRAINER_DEFAULT, **kw)
+    # MixUp/CutMix is ported: the step mixes the batch (its loss is the
+    # mixed CE, test_torch_resnet.py holds it to JAX) and counts the
+    # original labels
+    mixed = Trainer(ModelRegistry.create_model(SMALL_F32), SMALL_F32,
+                    dict(TRAINING_VIT, mixup_alpha=0.2, mixup_prob=0.0),
+                    TRAINER_DEFAULT, **kw)
+    assert (mixed.mixup_alpha, mixed.cutmix_alpha, mixed.mixup_prob) == (0.2, 0.0, 1.0)
+    x, y, w = small_batch(5)
+    ms, _ = mixed.train_step(tmetrics.zero_metric_state(), torch.from_numpy(x),
+                             torch.from_numpy(y).long(), torch.from_numpy(w))
+    assert bool(torch.isfinite(ms["loss_sum"])) and float(ms["w_sum"]) == w.sum()
     for trcfg, match in (({"accumulate_grad_batches": 2}, "accumulation"),
                          ({"gradient_clip_algorithm": "value"}, "clip"),
                          ({"log_attention_every_n_epochs": 1}, "attention")):

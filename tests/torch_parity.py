@@ -175,3 +175,164 @@ def jax_train_stats(model, variables: Dict[str, Any], x) -> Dict[str, Any]:
 
     return {"params": variables["params"],
             "batch_stats": batch(upd["batch_stats"])}
+
+
+# --------------------------------------------------------------- augmentation
+# JAX's augmentation draws, repeated split by split and draw by draw from
+# the key each JAX function takes, as the port's parameter dicts
+# (thyroid_tpu_torch/ops/augment.py draw_* / apply_*). A mis-mirrored draw
+# makes the port's apply_* disagree with the JAX function's output.
+
+
+def _torch_tree(tree):
+    import torch
+
+    return {k: _torch_tree(v) if isinstance(v, dict)
+            else torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+
+def _jax_gate(key, b: int, p: float):
+    import jax
+
+    return np.asarray(jax.random.uniform(key, (b,)) < p)
+
+
+def _jax_uniform(key, shape, lo: float, hi: float):
+    import jax
+
+    return np.asarray(jax.random.uniform(key, shape, minval=lo, maxval=hi))
+
+
+def jax_elastic_params(key, shape):
+    import jax
+
+    b, h, w, _ = shape
+    k1, k2 = jax.random.split(key)
+    return {"dx": _jax_uniform(k1, (b, h, w, 1), -1.0, 1.0),
+            "dy": _jax_uniform(k2, (b, h, w, 1), -1.0, 1.0)}
+
+
+def _jax_microscopy(key, shape, brightness, contrast, blur, p):
+    import jax
+
+    b = shape[0]
+    keys = jax.random.split(key, 9)
+    return {"bright_gate": _jax_gate(keys[0], b, 0.5),
+            "bright": _jax_uniform(keys[1], (b,), *brightness),
+            "contrast_gate": _jax_gate(keys[2], b, 0.5),
+            "contrast": _jax_uniform(keys[3], (b,), *contrast),
+            "noise_gate": _jax_gate(keys[4], b, 0.3),
+            "noise": np.asarray(jax.random.normal(keys[5], shape)),
+            "blur_gate": _jax_gate(keys[6], b, 0.3),
+            "blur_sigma": _jax_uniform(keys[7], (b,), *blur),
+            "gate": _jax_gate(keys[8], b, p)}
+
+
+def _jax_patch_drop(key, shape, patch_size, max_patches, p):
+    import jax
+
+    b, h, w, _ = shape
+    keys = jax.random.split(key, 2 + max_patches)
+    y0, x0 = [], []
+    for i in range(max_patches):
+        ky, kx = jax.random.split(keys[2 + i])
+        y0.append(np.asarray(jax.random.randint(
+            ky, (b, 1, 1, 1), 0, max(h - patch_size, 1))).reshape(b))
+        x0.append(np.asarray(jax.random.randint(
+            kx, (b, 1, 1, 1), 0, max(w - patch_size, 1))).reshape(b))
+    return {"gate": _jax_gate(keys[0], b, p),
+            "n_active": np.asarray(jax.random.randint(keys[1], (b,), 1,
+                                                      max_patches + 1)),
+            "y0": np.stack(y0), "x0": np.stack(x0)}
+
+
+def jax_train_augment_params(key, shape, level: str):
+    """thyroid_tpu.ops.augment.train_augment's draws at `level`."""
+    import jax
+
+    if level == "none":
+        return {}
+    b = shape[0]
+    heavy = level == "heavy"
+    keys = jax.random.split(key, 9)
+    deg = 180.0 if heavy else 90.0
+    out = {"hflip": _jax_gate(keys[0], b, 0.5),
+           "vflip": _jax_gate(keys[1], b, 0.5),
+           "angle": _jax_uniform(keys[2], (b,), -deg, deg)}
+    if level in ("medium", "heavy"):
+        rng = (0.7, 1.3) if heavy else (0.8, 1.2)
+        out["elastic_gate"] = _jax_gate(keys[3], b, 0.5 if heavy else 0.3)
+        out["elastic"] = jax_elastic_params(keys[4], shape)
+        out["microscopy"] = _jax_microscopy(keys[5], shape, rng, rng,
+                                            (0.0, 1.0), 0.7 if heavy else 0.5)
+    if heavy:
+        out["patch_drop"] = _jax_patch_drop(keys[6], shape, 32, 5, 0.3)
+        out["blur_gate"] = _jax_gate(keys[7], b, 0.3)
+        out["blur_sigma"] = _jax_uniform(keys[8], (b,), 0.1, 2.0)
+    return _torch_tree(out)
+
+
+def jax_patch_quality_params(key, shape, patch_size: int = 16):
+    import jax
+
+    b, h, w, _ = shape
+    ph, pw = h // patch_size, w // patch_size
+    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+    return {"strong": np.asarray(jax.random.uniform(k1, (b, ph, pw)) < 0.8),
+            "drop": np.asarray(jax.random.uniform(k2, (b, ph, pw)) < 0.1),
+            "aug_type": np.asarray(jax.random.randint(k3, (b, ph, pw), 0, 4)),
+            "noise": np.asarray(jax.random.normal(k4, shape)),
+            "bright": _jax_uniform(k5, (b, 1, 1, 1), 0.7, 1.3).reshape(b)}
+
+
+def jax_vit_augment_params(key, shape, randaugment_n: int = 2,
+                           patch_quality_p: float = 0.5):
+    """thyroid_tpu.ops.augment.vit_augment's draws (both parts on)."""
+    import jax
+
+    b = shape[0]
+    keys = jax.random.split(key, 5)
+    choice = np.stack([np.asarray(jax.random.randint(k, (b,), 0, 12))
+                       for k in jax.random.split(keys[2], randaugment_n)])
+    return _torch_tree({
+        "hflip": _jax_gate(keys[0], b, 0.5),
+        "vflip": _jax_gate(keys[1], b, 0.5),
+        "randaugment": {"choice": choice},
+        "patch_gate": _jax_gate(keys[3], b, patch_quality_p),
+        "patch_quality": jax_patch_quality_params(keys[4], shape)})
+
+
+def jax_mixup_cutmix_params(key, shape, mixup_alpha: float = 0.8,
+                            cutmix_alpha: float = 1.0, prob: float = 1.0,
+                            switch_prob: float = 0.5):
+    """thyroid_tpu.ops.augment.mixup_cutmix's draws."""
+    import jax
+
+    b, h, w, _ = shape
+    k_perm, k_switch, k_lm, k_lc, k_cy, k_cx, k_apply = jax.random.split(key, 7)
+    out = {"index": np.asarray(jax.random.permutation(k_perm, b))}
+    if mixup_alpha > 0:
+        out["lam_mixup"] = np.asarray(jax.random.beta(k_lm, mixup_alpha,
+                                                      mixup_alpha))
+    if cutmix_alpha > 0:
+        out["lam_cutmix"] = np.asarray(jax.random.beta(k_lc, cutmix_alpha,
+                                                       cutmix_alpha))
+        out["cy"] = np.asarray(jax.random.randint(k_cy, (), 0, h))
+        out["cx"] = np.asarray(jax.random.randint(k_cx, (), 0, w))
+    if mixup_alpha > 0 and cutmix_alpha > 0:
+        out["use_cutmix"] = np.asarray(jax.random.bernoulli(k_switch, switch_prob))
+    if prob < 1.0:
+        out["apply"] = np.asarray(jax.random.bernoulli(k_apply, prob))
+    return _torch_tree(out)
+
+
+def assert_close_8bit(got, want, atol: float = 1e-5, share: float = 1e-3):
+    """`got` within atol of `want`, but for elements one 8-bit level off
+    (an upstream rounding crossed a floor onto the 8-bit grid): each within
+    1/255 + atol, at most `share` of the elements."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    err = np.abs(got - want)
+    assert err.max() <= 1 / 255 + atol, err.max()
+    off = int((err > atol).sum())
+    assert off <= share * err.size, (off, err.size)

@@ -5,15 +5,17 @@ engine uses it per request): uint16 scale → with `quality`, the
 quality-aware pipeline (ops/quality.py) in chunks of 32 frames → resize →
 per-image percentile normalisation. `DevicePipeline` keeps a
 whole split's prepared images on the device and materialises each batch
-with a gather, the gray→RGB repeat for 3-channel models and `standardize`:
+with a gather, the training augmentation (ops/augment.py: the level
+ladder, or RandAugment and patch quality in "vit" mode, drawn from the
+caller's device generator), the gray→RGB repeat for 3-channel models and
+`standardize`:
 - train: a shuffled permutation per epoch (from the caller's
   `torch.Generator`), the last partial batch wrapped around to the start of
   the epoch's order, so every batch has the same shape;
-- eval: sequential, the last batch padded with its last row at weight 0,
-  so that metrics are exact.
+- eval: sequential, never augmented, the last batch padded with its last
+  row at weight 0, so that metrics are exact.
 `create_data_loaders` decodes each split of a corpus on disk
-(data/dataset.py) into a DevicePipeline. Augmentation is not ported
-(ROADMAP Queue 1).
+(data/dataset.py) into a DevicePipeline.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models.registry import cfg_get
+from ..ops.augment import train_augment, vit_augment
 from ..ops.image import (adaptive_normalize, resize_bilinear, standardize,
                          to_uint16_scale)
 from ..ops.platform import DeviceLike, resolve_device
@@ -80,13 +83,15 @@ class DevicePipeline:
                  batch_size: int = 32, img_size: int = 224,
                  mean=(0.5,), std=(0.5,),
                  quality_preprocessing: bool = False,
-                 augmentation_level: str = "none", train: bool = False,
-                 out_channels: int = 1, device: DeviceLike = None):
-        if augmentation_level != "none":
-            raise NotImplementedError(
-                f"augmentation_level={augmentation_level!r}: augmentation is "
-                "not ported (ROADMAP Queue 1: Augmentation)")
+                 augmentation_level: str = "none",
+                 augment_mode: str = "standard", train: bool = False,
+                 out_channels: int = 1,
+                 vit_aug_params: Optional[dict] = None,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
+        self.augmentation_level = augmentation_level
+        self.augment_mode = augment_mode
+        self.vit_aug_params = dict(vit_aug_params or {})
         self.batch_size = int(batch_size)
         self.img_size = int(img_size)
         self.mean = tuple(float(m) for m in np.atleast_1d(mean))
@@ -101,10 +106,23 @@ class DevicePipeline:
                                     quality=bool(quality_preprocessing))
         del raw
 
-    def make_batch(self, idx: torch.Tensor) -> torch.Tensor:
-        """Rows `idx` of the cache, gray→RGB for 3-channel models,
-        standardized."""
+    def augments(self) -> bool:
+        """Whether training batches are augmented."""
+        return self.train and self.augmentation_level != "none"
+
+    def make_batch(self, idx: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Rows `idx` of the cache, augmented in a training pipeline (the
+        draws from `generator`, on the cache's device), gray→RGB for
+        3-channel models, standardized."""
         x = self.cache.index_select(0, idx)
+        if self.augments():
+            if generator is None:
+                raise ValueError("an augmented batch needs a torch.Generator")
+            if self.augment_mode == "vit":
+                x = vit_augment(x, generator, **self.vit_aug_params)
+            else:
+                x = train_augment(x, generator, level=self.augmentation_level)
         if self.out_channels == 3 and x.shape[-1] == 1:
             x = x.repeat(1, 1, 1, 3)
         return standardize(x, self.mean, self.std)
@@ -112,10 +130,13 @@ class DevicePipeline:
     def steps_per_epoch(self) -> int:
         return max(1, -(-self.n // self.batch_size))
 
-    def epoch(self, generator: Optional[torch.Generator] = None
+    def epoch(self, generator: Optional[torch.Generator] = None,
+              aug_generator: Optional[torch.Generator] = None
               ) -> Iterator[Batch]:
         """Yield one epoch's batches. Training draws the epoch's order from
-        `generator` (a CPU generator), which it needs."""
+        `generator` (a CPU generator), which it needs, and an augmented
+        pipeline its batches' augmentation from `aug_generator` (on the
+        pipeline's device)."""
         bs, n_steps = self.batch_size, self.steps_per_epoch()
         pos = torch.arange(n_steps * bs)
         if self.train:
@@ -131,7 +152,7 @@ class DevicePipeline:
         weight = weight.to(self.device)
         for step in range(n_steps):
             sel = idx[step * bs:(step + 1) * bs]
-            yield Batch(image=self.make_batch(sel),
+            yield Batch(image=self.make_batch(sel, aug_generator),
                         label=self.labels.index_select(0, sel),
                         weight=weight[step * bs:(step + 1) * bs])
 
@@ -146,10 +167,11 @@ def create_data_loaders(dataset_config: Any,
 
     A model of 3 input channels gets gray→RGB with ImageNet statistics
     unless the dataset config pins 3-channel mean and std. Without
-    `apply_augmentations` the level is "none"; any other level raises in
-    DevicePipeline (Augmentation is not ported), so `augment_mode` and
-    the ViT augmentation keys are read and not used. The JAX function's
-    `sharding` has no counterpart here: meshes are not ported."""
+    `apply_augmentations` the level is "none"; the train split is
+    augmented at the level ("standard") or by vit_augment with the
+    config's RandAugment and patch-quality keys ("vit"). The JAX
+    function's `sharding` has no counterpart here: meshes are not
+    ported."""
     level = cfg_get(dataset_config, "augmentation_level", "medium")
     if not cfg_get(dataset_config, "apply_augmentations", True):
         level = "none"
@@ -159,10 +181,8 @@ def create_data_loaders(dataset_config: Any,
     std = tuple(np.atleast_1d(cfg_get(dataset_config, "std", (0.5,))))
     if out_channels == 3 and len(mean) == 1:
         mean, std = IMAGENET_MEAN, IMAGENET_STD
-    # the ViT augmentation keys the JAX pipeline reads (a bad value raises
-    # here as there); unused until Augmentation lands, since the level
-    # above is "none" or raises
-    _ = {
+    # the ViT augmentation flags; the magnitude follows the level ladder
+    vit_aug_params = {
         "use_randaugment": bool(cfg_get(dataset_config, "use_randaugment", True)),
         "use_patch_quality": bool(cfg_get(dataset_config, "use_patch_quality", True)),
         "randaugment_n": int(cfg_get(dataset_config, "randaugment_n", 2)),
@@ -184,8 +204,10 @@ def create_data_loaders(dataset_config: Any,
             quality_preprocessing=cfg_get(dataset_config,
                                            "quality_preprocessing", False),
             augmentation_level=level if split == "train" else "none",
+            augment_mode=augment_mode,
             train=(split == "train"),
             out_channels=out_channels,
+            vit_aug_params=vit_aug_params,
             device=device,
         )
     return out

@@ -17,8 +17,8 @@ thyroid_tpu/experiment/kfold_experiment.py).
 Everything runs on `device` (the card unless the CPU is asked for).
 Options without a port raise NotImplementedError in __init__, before any
 fold runs, because the sweep would record them as failed folds:
-distillation, `kfold.stacked`, `kfold.num_slices` > 1, an ablation node
-and an augmentation level other than "none".
+distillation, `kfold.stacked`, `kfold.num_slices` > 1 and an ablation
+node.
 """
 from __future__ import annotations
 
@@ -70,10 +70,6 @@ class KFoldExperiment(BaseExperiment):
             raise _unported("the stacked k-fold trainer", other)
         if int(cfg_get(self.kfold_config, "num_slices", 1)) > 1:
             raise _unported("k-fold over slices", "Parallelism")
-        level = cfg_get(self.dataset_config, "augmentation_level", "medium")
-        if cfg_get(self.dataset_config, "apply_augmentations", True) and \
-                level != "none":
-            raise _unported(f"augmentation_level={level!r}", "Augmentation")
 
     # ------------------------------------------------------------------
     def setup(self) -> None:

@@ -1,1 +1,1 @@
-from . import efficientnet  # noqa: F401  (registers the EfficientNet family)
+from . import efficientnet, resnet  # noqa: F401  (register the EfficientNet and ResNet families)

@@ -4,12 +4,15 @@ The serving and quality paths' subset: uint16 coercion, the cv2-rule
 bilinear resize, the bisection quantile, per-image adaptive normalisation
 and standardisation; gamma correction, the quality statistics and issue
 masks, the 3×3 median, the bilateral filter and the artifact-suppression
-chain. Images are NHWC float32, as in the JAX package. `anscombe`,
-`gaussian_blur` and `elastic_deform` wait for the augmentation slice.
+chain; the Anscombe transform, the exact sort-based quantile, the
+separable Gaussian blur and the elastic deformation that augmentation uses
+(ops/augment.py). Images are NHWC float32, as in the JAX package.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple, Union
+
+import math
 
 import numpy as np
 import torch
@@ -65,6 +68,23 @@ def resize_bilinear(x: torch.Tensor,
     ww = _bilinear_weight_matrix(w, size[1], x.device)
     out = torch.einsum("oh,bhwc->bowc", wh, x)
     return torch.einsum("pw,bowc->bopc", ww, out).contiguous()
+
+
+def anscombe(x: torch.Tensor) -> torch.Tensor:
+    """Anscombe variance-stabilising transform for Poisson noise."""
+    return 2.0 * torch.sqrt(x + 3.0 / 8.0)
+
+
+def inverse_anscombe(y: torch.Tensor) -> torch.Tensor:
+    return torch.square(y / 2.0) - 3.0 / 8.0
+
+
+def per_image_quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """Per-image quantile over H, W, C, exact (sort-based, np.quantile's
+    linear interpolation): x (B, ...) → (B, 1, 1, 1)."""
+    b = x.shape[0]
+    out = torch.quantile(x.reshape(b, -1), float(q), dim=1)
+    return out.reshape(b, 1, 1, 1)
 
 
 def per_image_quantile_fast(x: torch.Tensor, q: float,
@@ -258,3 +278,132 @@ def suppress_artifacts(
         .reshape(-1, 1, 1, 1)
     # cv2's bilateral returns uint8: truncation before the upscale
     return torch.where(needs_bilateral, torch.floor(bil), med) * 256.0
+
+
+# ---------------------------------------------------------- blur, elastic
+
+
+def edge_pad(x: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
+    """Pad `axis` of x by lo before and hi after, replicating the edges."""
+    size = x.shape[axis]
+    idx = torch.clamp(torch.arange(-lo, size + hi, device=x.device), 0, size - 1)
+    return x.index_select(axis, idx)
+
+
+_GAUSSIANS: Dict[tuple, torch.Tensor] = {}
+
+
+def gaussian_kernel_1d(sigma: float, truncate: float = 4.0,
+                       device=None) -> torch.Tensor:
+    """The normalised float32 Gaussian of radius int(truncate·σ + 0.5),
+    computed on the CPU (so that every device blurs with the same bits)
+    and moved to `device` once: kept per (σ, truncate, device), so that a
+    blur on the card makes no host-to-device copy, which would wait for
+    the work queued before it."""
+    key = (float(sigma), float(truncate), str(torch.device(device or "cpu")))
+    if key not in _GAUSSIANS:
+        radius = int(truncate * sigma + 0.5)
+        xs = torch.arange(-radius, radius + 1, dtype=torch.float32)
+        k = torch.exp(-0.5 * (xs / sigma) ** 2)
+        _GAUSSIANS[key] = (k / k.sum()).to(device)
+    return _GAUSSIANS[key]
+
+
+def _sep_conv(xp: torch.Tensor, k: torch.Tensor, axis: int) -> torch.Tensor:
+    """1-D correlation along `axis` of an edge-padded NHWC tensor, summed
+    tap by tap in order (the JAX package's float32 sum)."""
+    n = k.shape[0]
+    size = xp.shape[axis] - n + 1
+    out = torch.zeros_like(xp.narrow(axis, 0, size))
+    for i in range(n):
+        out = out + k[i] * xp.narrow(axis, i, size)
+    return out
+
+
+def gaussian_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable Gaussian blur of NHWC x with edge padding (H, then W);
+    σ ≤ 0 returns x."""
+    if sigma <= 0:
+        return x
+    k = gaussian_kernel_1d(sigma, device=x.device)
+    r = (k.shape[0] - 1) // 2
+    x = _sep_conv(edge_pad(x, 1, r, r), k, axis=1)
+    return _sep_conv(edge_pad(x, 2, r, r), k, axis=2)
+
+
+def map_coordinates_nearest(x: torch.Tensor, cy: torch.Tensor,
+                            cx: torch.Tensor) -> torch.Tensor:
+    """scipy's map_coordinates(order=1, mode="nearest") of every channel of
+    NHWC x at per-pixel coordinates cy, cx (B, H', W'), as JAX computes it:
+    each tap index is clamped (not the coordinate), and the four weighted
+    taps are summed in the order (y0, x0), (y0, x1), (y1, x0), (y1, x1)."""
+    b, h, w, c = x.shape
+    y0 = torch.floor(cy)
+    x0 = torch.floor(cx)
+    wy1, wx1 = cy - y0, cx - x0
+    wy0, wx0 = 1 - wy1, 1 - wx1
+    y0, x0 = y0.to(torch.int64), x0.to(torch.int64)
+    flat = x.reshape(b, h * w, c)
+
+    def tap(iy, ix):
+        idx = torch.clamp(iy, 0, h - 1) * w + torch.clamp(ix, 0, w - 1)
+        idx = idx.reshape(b, -1, 1).expand(-1, -1, c)
+        return torch.gather(flat, 1, idx).reshape(*cy.shape, c)
+
+    out = (wy0 * wx0)[..., None] * tap(y0, x0)
+    out = out + (wy0 * wx1)[..., None] * tap(y0, x0 + 1)
+    out = out + (wy1 * wx0)[..., None] * tap(y0 + 1, x0)
+    return out + (wy1 * wx1)[..., None] * tap(y0 + 1, x0 + 1)
+
+
+def draw_elastic(generator: torch.Generator, shape) -> Dict[str, torch.Tensor]:
+    """The elastic deformation's random fields for a batch of `shape`
+    (B, H, W, C): dx, dy uniform in [-1, 1), (B, H, W, 1), on the
+    generator's device."""
+    b, h, w, _ = shape
+    dev = generator.device
+
+    def field():
+        return torch.rand((b, h, w, 1), generator=generator, device=dev) * 2 - 1
+
+    dx = field()
+    return {"dx": dx, "dy": field()}
+
+
+def apply_elastic(x: torch.Tensor, params: Dict[str, torch.Tensor],
+                  alpha: float = 100.0, sigma: float = 10.0,
+                  method: Optional[str] = None) -> torch.Tensor:
+    """Elastic deformation with drawn fields: each field σ-blurred and
+    scaled by α, then bilinear resampling at the displaced coordinates.
+
+    method "gather" (the default): map_coordinates, order 1, mode nearest.
+    "separable": two shift passes (ops/warp.py) with the fields clipped to
+    a bound of more than 6 of their standard deviations; the x
+    displacement is taken at the pre-shift coordinate."""
+    b, h, w, c = x.shape
+    dx = gaussian_blur(params["dx"], sigma) * alpha
+    dy = gaussian_blur(params["dy"], sigma) * alpha
+    if method in (None, "gather"):
+        yy, xx = torch.meshgrid(
+            torch.arange(h, dtype=torch.float32, device=x.device),
+            torch.arange(w, dtype=torch.float32, device=x.device),
+            indexing="ij")
+        return map_coordinates_nearest(x, yy[None] + dy[..., 0],
+                                       xx[None] + dx[..., 0])
+    if method == "separable":
+        from .warp import elastic_separable
+
+        sigma_field = 0.5774 / (2.0 * float(sigma) * math.sqrt(math.pi))
+        bound = max(2, int(math.ceil(8.0 * alpha * sigma_field)))
+        return elastic_separable(x, dy[..., 0], dx[..., 0],
+                                 max_disp=min(bound, int(math.ceil(alpha))))
+    raise ValueError(f"unknown elastic method {method!r}")
+
+
+def elastic_deform(x: torch.Tensor, generator: torch.Generator,
+                   alpha: float = 100.0, sigma: float = 10.0,
+                   method: Optional[str] = None) -> torch.Tensor:
+    """Elastic deformation (Gaussian-smoothed random displacement fields,
+    bilinear resampling); both methods read the same fields."""
+    return apply_elastic(x, draw_elastic(generator, x.shape), alpha, sigma,
+                         method)

@@ -14,16 +14,21 @@ parameters, and a metric update that stays on the device. Evaluation runs
 the `train=False` (serving) forward under `torch.no_grad` with the
 parameters (or their EMA) and the running statistics.
 
+With `mixup_alpha` or `cutmix_alpha` above 0 the step mixes the batch
+first (ops/augment.py mixup_cutmix, gated by `mixup_prob`) and the loss is
+λ·CE(y_a) + (1 − λ)·CE(y_b); the metrics stay on the original labels.
+
 Differences from the JAX engine: the per-step loop is the only loop
 (`scan_epoch` is accepted; the JAX package documents its epoch scan as
-equal to this loop); the epoch permutation and DropPath draw from
-`torch.Generator`s seeded with `TrainerConfig.seed`, so their random
-streams are not JAX's; the initial weights come from the port's own
-initialisers unless `variables` (or `params`) carries a JAX tree in.
-Distillation, DeiT's dual head, Inception's aux head, MixUp/CutMix, meshes
-and attention-map logging raise NotImplementedError; the TrainerConfig
-fields that only those read (mesh axes) and the two the JAX engine never
-reads (`log_every_n_steps`, `deterministic`) are left out.
+equal to this loop); the epoch permutation, DropPath and dropout, the
+batch augmentation and MixUp/CutMix draw from `torch.Generator`s seeded
+with `TrainerConfig.seed`, so their random streams are not JAX's; the
+initial weights come from the port's own initialisers unless `variables`
+(or `params`) carries a JAX tree in. Distillation, DeiT's dual head,
+Inception's aux head, meshes and attention-map logging raise
+NotImplementedError; the TrainerConfig fields that only those read (mesh
+axes) and the two the JAX engine never reads (`log_every_n_steps`,
+`deterministic`) are left out.
 """
 from __future__ import annotations
 
@@ -41,12 +46,13 @@ from ..models import cnn, vit  # noqa: F401  (register the model families)
 from ..models.base import check_pretrained
 from ..models.from_jax import load_jax_variables
 from ..models.registry import ModelRegistry, cfg_get
+from ..ops.augment import apply_mixup_cutmix, draw_mixup_cutmix
 from ..ops.platform import DeviceLike, resolve_device
 from ..utils.observe import MetricLogger, StepTimer
 from .checkpoint import (BestCheckpointManager, load_checkpoint, load_payload,
                          save_checkpoint, variables_of)
 from .configs import VIT_OPTIMIZER_PARAMS
-from .losses import cross_entropy
+from .losses import cross_entropy, mixed_cross_entropy
 from .metrics import (finalize_metric_state, update_metric_state,
                       zero_metric_state)
 from .schedules import build_optimizer, build_schedule
@@ -169,9 +175,9 @@ class Trainer:
             cfg_get(training_config, "label_smoothing",
                     cfg_get(cfg_get(training_config, "loss", {}) or {},
                             "label_smoothing", 0.0)) or 0.0)
-        for key in ("mixup_alpha", "cutmix_alpha"):
-            if float(cfg_get(training_config, key, 0.0) or 0.0) > 0:
-                raise _unported("MixUp/CutMix", "Augmentation")
+        self.mixup_alpha = float(cfg_get(training_config, "mixup_alpha", 0.0) or 0.0)
+        self.cutmix_alpha = float(cfg_get(training_config, "cutmix_alpha", 0.0) or 0.0)
+        self.mixup_prob = float(cfg_get(training_config, "mixup_prob", 1.0) or 1.0)
         opt = cfg_get(training_config, "optimizer_params", {}) or {}
         if not opt and str(cfg_get(self.model_config, "architecture", "")) == "vit":
             opt = dict(VIT_OPTIMIZER_PARAMS)
@@ -218,22 +224,32 @@ class Trainer:
         ema_decay = cfg_get(training_config, "ema_decay", None)
         self.ema_decay = float(ema_decay) if ema_decay else None
         self.state = TrainState(self.model, tx, ema=self.ema_decay is not None)
-        # the epoch permutations (CPU), the DropPath and dropout draws (device)
+        # the epoch permutations (CPU); the DropPath and dropout draws, and
+        # the batch augmentation and MixUp/CutMix draws (device)
         self.perm_generator = torch.Generator().manual_seed(self.cfg.seed)
         self.dropout_generator = torch.Generator(device=self.device) \
+            .manual_seed(self.cfg.seed)
+        self.aug_generator = torch.Generator(device=self.device) \
             .manual_seed(self.cfg.seed)
         self._global_step = 0
 
     # ------------------------------------------------------------------
     def loss_and_grads(self, images: torch.Tensor, labels: torch.Tensor,
-                       weights: Optional[torch.Tensor]):
+                       weights: Optional[torch.Tensor],
+                       labels_b: Optional[torch.Tensor] = None,
+                       lam: Optional[torch.Tensor] = None):
         """One training forward and backward → (loss, logits, {name: grad});
-        the forward updates the BatchNorm statistics in place."""
+        the forward updates the BatchNorm statistics in place. With
+        `labels_b` and `lam` (a mixed batch) the loss is the mixed CE."""
         logits = self.model(images, train=True,
                             generator=self.dropout_generator)
         if isinstance(logits, tuple):
             raise _unported("auxiliary heads", "rest of the zoo")
-        loss = cross_entropy(logits, labels, self.label_smoothing, weights)
+        if labels_b is None:
+            loss = cross_entropy(logits, labels, self.label_smoothing, weights)
+        else:
+            loss = mixed_cross_entropy(logits, labels, labels_b, lam,
+                                       self.label_smoothing, weights)
         names = list(self.state.params)
         params = [self.state.params[n] for n in names]
         # a parameter outside the loss (Swin's uncertainty head) gets a zero
@@ -246,9 +262,17 @@ class Trainer:
 
     def train_step(self, mstate: Dict[str, torch.Tensor], images: torch.Tensor,
                    labels: torch.Tensor, weights: Optional[torch.Tensor]):
-        """forward, CE, backward, clip, AdamW, EMA, metric update →
-        (new metric state, P(class 1) scores)."""
-        loss, logits, grads = self.loss_and_grads(images, labels, weights)
+        """[MixUp/CutMix,] forward, CE, backward, clip, AdamW, EMA, metric
+        update → (new metric state, P(class 1) scores); the metrics read
+        the original labels."""
+        labels_b = lam = None
+        if self.mixup_alpha > 0 or self.cutmix_alpha > 0:
+            params = draw_mixup_cutmix(self.aug_generator, images.shape,
+                                       self.mixup_alpha, self.cutmix_alpha,
+                                       self.mixup_prob)
+            images, _, labels_b, lam = apply_mixup_cutmix(images, labels, params)
+        loss, logits, grads = self.loss_and_grads(images, labels, weights,
+                                                  labels_b, lam)
         self.state.apply_gradients(grads, ema_decay=self.ema_decay)
         probs = torch.softmax(logits.float(), dim=-1)
         return update_metric_state(mstate, probs, labels, weights, loss=loss)
@@ -277,7 +301,8 @@ class Trainer:
         if 0 < self.cfg.max_steps:
             max_batches = min(max_batches,
                               self.cfg.max_steps - self._global_step)
-        for i, batch in enumerate(pipeline.epoch(self.perm_generator)):
+        for i, batch in enumerate(pipeline.epoch(self.perm_generator,
+                                                 self.aug_generator)):
             if i >= max_batches or (0 < self.cfg.max_steps <= self._global_step):
                 break
             mstate, score1 = self.train_step(mstate, batch.image, batch.label,

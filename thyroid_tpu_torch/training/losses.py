@@ -1,5 +1,5 @@
-"""Loss functions (counterpart of thyroid_tpu/training/losses.py, the
-cross-entropy the "ce" loss mode uses)."""
+"""Loss functions (counterpart of thyroid_tpu/training/losses.py): the
+cross-entropy the "ce" loss mode uses and the MixUp/CutMix objective."""
 from __future__ import annotations
 
 from typing import Optional
@@ -23,3 +23,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return per_sample.mean()
     w = weights.float()
     return (per_sample * w).sum() / torch.clamp(w.sum(), min=1e-6)
+
+
+def mixed_cross_entropy(logits: torch.Tensor, labels_a: torch.Tensor,
+                        labels_b: torch.Tensor, lam,
+                        label_smoothing: float = 0.0,
+                        weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The MixUp/CutMix objective λ·CE(y_a) + (1 − λ)·CE(y_b)."""
+    return lam * cross_entropy(logits, labels_a, label_smoothing, weights) + \
+        (1.0 - lam) * cross_entropy(logits, labels_b, label_smoothing, weights)
