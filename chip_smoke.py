@@ -195,10 +195,12 @@ Phases, each printing its lines before the final one:
    step at batch 32 with a medium-level batch and with an unaugmented one;
    (c) resnet50 (bf16, seeded and bumped weights, running statistics from a
    train-mode forward) served at bucket 32 (images/s, median of 5; one
-   percentile launch per forward, no other kernel), its probabilities
-   against the CPU float32 engine (N = 8, card float32 and bf16), and one
-   float32 train step (batch 8, dropout 0) against the CPU (loss,
-   gradients, updated running statistics); (d) launch_experiment of the
+   percentile launch per forward, no other kernel), its card float32 and
+   bf16 engines against the CPU's float32 and bf16 engines (N = 8), each
+   block's bf16 error on the card, and one float32 train step (batch 8,
+   dropout 0) against the CPU's step on the card's ReLU decisions and
+   max-pool choices (loss, gradients globally and in each leaf, updated
+   running statistics), with phase 25's code; (d) launch_experiment of the
    root default composition (resnet50, dataset cars, level medium; no
    group override), then experiment=swin_baseline and
    experiment=test_resnet18_kfold_quick, each on phase 23's corpus and
@@ -206,7 +208,36 @@ Phases, each printing its lines before the final one:
    averages and the summary's keys, the fold files stay data/splits', and,
    with every counter set to 0 just before each run, kernel 1 launches once
    per prepared split, swin_baseline's eval forwards launch 3 LN + matmul
-   and 12 LN + MLP each, and no other kernel launches.
+   and 12 LN + MLP each, and no other kernel launches;
+25. the rest of the zoo: (a) kernels 2 and 3 against their plain versions
+   at ViT's and DeiT's token counts at bucket 32 (T = 32·197 and 32·198,
+   not multiples of 64) and widths 192, 384 and 768, in float32 and bf16,
+   two runs bit-equal; (b) vit_tiny, deit_tiny and vit_base (bf16, seeded
+   and bumped weights) served at bucket 32 on raw 512x512 frames: exactly
+   1 percentile, 12 LN + QKV and 12 LN + MLP launches per forward and no
+   other kernel, none of kernels 2-3 with token_kernels false, images/s
+   (median of 5), the card's float32 and bf16 engines against the CPU's
+   float32 and bf16 engines (N = 8), and kernels 2 and 3 timed at the
+   served shapes beside their bounds, plain versions and library calls;
+   (c) densenet121 (224x224) and inception_v3 (299x299, as its YAML)
+   served the same way with kernel 1 as their only kernel, the Inception
+   pool branch's gradient against the CPU's, and one float32 train step
+   each (batch 8, dropout 0; inception_v3's loss
+   ce + 0.4·aux) against the CPU's step on the card's ReLU decisions and
+   max-pool choices (loss, gradients globally and in each leaf, running
+   statistics), and deit_tiny's
+   float32 step with the dual loss against the CPU's; (d) the cnn_top3
+   ensemble (resnet50, efficientnet_b0, densenet121, float32, seeded
+   weights with running statistics) on the card against the CPU for each
+   method; (e) launch_experiment for model=vit/deit_tiny training=vit and
+   model=cnn/inception_v3 training=cnn on phase 23's corpus and fold files,
+   cut to 2 folds of one epoch, with phase 24's checks: kernel 1 once per
+   prepared split, deit_tiny's eval forwards 12 LN + QKV and 12 LN + MLP
+   launches each, no other kernel; (f) the other new names (vit_small,
+   deit_small, deit_base, densenet161/169/201, inception_v4 at 299x299)
+   each served once at bucket 32 (1 percentile launch, 12 or 0 of kernels
+   2 and 3) and stepped once in bf16 at batch 8 from seeded weights,
+   finite.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -3589,14 +3620,23 @@ AUG_LEVELS = ("light", "medium", "heavy")
 # float32 input, to the CPU's float32 output within this (a few bf16
 # roundings)
 RESNET_BLOCK_BF16_TOL = 2e-2
-# resnet50's float32 gradient turns on its ReLU decisions: a few hundred
-# of the 77 million in a step at batch 8 flip when the same sums run in
-# another order, and those alone move the gradient by a few per cent. So
-# the CPU's reference step takes the card's decisions (relu_decisions)
-# and is held to the card at phase 15's limits, each leaf within
-# STEP_GRAD_RTOL too; the decisions that the CPU would have taken the
-# other way are at most this share
-RESNET_RELU_FLIP_SHARE = 1e-4
+# a seeded deep CNN's float32 gradient turns on its ReLU decisions and
+# max-pool choices: a few hundred of resnet50's 77 million in a step at
+# batch 8 flip when the same sums run in another order, and those alone
+# move the gradient by a few per cent. So the CPU's reference step takes
+# the card's decisions (step_decisions) and is held to the card at phase
+# 15's limits, each leaf within STEP_GRAD_RTOL too; the decisions that the
+# CPU would have taken the other way are at most this share
+STEP_FLIP_SHARE = 1e-4
+# leaves whose float32 gradient no order of summation holds to
+# STEP_GRAD_RTOL, logged and not held. densenet121's stem reaches the loss
+# only through train-mode BatchNorms, which all but cancel a common growth
+# of norm0's scale and bias, so ∂L/∂(norm0.scale) is a sum over every stem
+# position whose terms cancel about 4e6-fold (median over channels; two
+# CPU thread counts give float32 sums 3.6e-2 apart at 224², batch 2:
+# scripts/torch_grad_condition.py). norm0's bias and conv0's kernel, which
+# carry the same upstream gradient, are held
+STEP_FREE_LEAVES = {"densenet121": ("norm0.scale",)}
 
 
 def aug_cases(shape):
@@ -3721,60 +3761,15 @@ def phase_augment_cost(variables, card: str) -> None:
 
 def phase_resnet(variables, card: str) -> None:
     """(c) of phase 24: resnet50 served (launches, images/s, probabilities
-    against the CPU) and its float32 train step against the CPU."""
-    from thyroid_tpu_torch.serving.engine import InferenceEngine
-
-    engine = InferenceEngine(RESNET50, variables=variables)
-    engine.warmup()
-    rs = np.random.RandomState(26)
-    frames = (rs.rand(BATCH, 512, 512, 1) * 65535).astype(np.float32)
-    watched = all_counters()
-    for fn in watched.values():
-        fn.launches = 0
-    probs = engine.predict(frames)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in watched.items()}
-    want = {k: int(k == "percentile") for k in watched}
-    log(f"[resnet] resnet50 bf16 served N={BATCH}: launches {launches}")
-    if launches != want or probs.shape != (BATCH, 2) or not np.isfinite(probs).all():
-        raise AssertionError(f"launches {launches}, expected {want}, or bad "
-                             f"probabilities {probs.shape}")
-    secs = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        engine.predict(frames)
-        secs.append(time.perf_counter() - t0)
-    med = statistics.median(secs)
-    log(f"[resnet] predict bucket {BATCH}: {med * 1e3:.2f} ms, "
-        f"{BATCH / med:.1f} images/s (median of 5); card {card}")
-    f32 = dict(RESNET50, dtype="f32")
-    engines = {"cpu f32": InferenceEngine(f32, variables=variables, device="cpu"),
-               "cpu bf16": InferenceEngine(RESNET50, variables=variables,
-                                           device="cpu"),
-               "cuda f32": InferenceEngine(f32, variables=variables),
-               "cuda bf16": engine}
-    probs, blocks = {}, {}
-    for what, eng in engines.items():
-        blocks[what] = block_io(eng.model, lambda: probs.__setitem__(
-            what, eng.predict(frames[:8])), 8)
-    ok = resnet_blocks(engines, blocks)
-    spread = float(probs["cpu f32"][:, 0].max() - probs["cpu f32"][:, 0].min())
-    for what, ref, tol in (("cuda f32", "cpu f32", PROB_TOL[torch.float32]),
-                           ("cuda bf16", "cpu bf16", PROB_TOL[torch.bfloat16]),
-                           ("cuda bf16", "cpu f32", None),
-                           ("cpu bf16", "cpu f32", None)):
-        err = float(np.abs(probs[what] - probs[ref]).max())
-        log(f"[resnet] N=8 probabilities, {what} vs {ref}: max_abs_err "
-            f"{err:.3e} " + (f"tol {tol:.3e}" if tol else "(logged, not held: "
-                             "bf16 against float32)")
-            + f" (spread of p0 over the batch {spread:.3e})")
-        ok &= tol is None or err <= tol
-    if not ok:
-        raise AssertionError("resnet50's probabilities or bf16 blocks "
-                             "disagree with the CPU")
-    del engine, engines, blocks
+    against the CPU, and block by block its bf16 forward against float32)
+    and its float32 train step against the CPU's, as phase 25 serves and
+    steps the rest of the zoo."""
+    ok = zoo_serve("resnet50", variables, {"percentile": 1}, card, blocks=True,
+                   seed=26)[1]
     torch.cuda.empty_cache()
-    resnet_step(variables)
+    if not ok & zoo_step("resnet50", variables, decisions=True, seed=27):
+        raise AssertionError("resnet50 served or stepped on the card "
+                             "disagrees with the CPU")
 
 
 def block_io(model, run, n: int):
@@ -3824,77 +3819,6 @@ def resnet_blocks(engines, blocks) -> bool:
     return ok
 
 
-@contextlib.contextmanager
-def relu_decisions(record=None, impose=None, flips=None):
-    """Within the block, torch.nn.functional.relu (which the port's ResNet
-    calls) appends each call's decisions x > 0 to `record` as CPU
-    tensors, or takes them from `impose` (one a call, in order: x times
-    the decision) and appends to `flips` (differing, all) against the
-    call's own x > 0."""
-    import torch.nn.functional as F
-
-    relu, calls = F.relu, iter(range(1 << 30))
-
-    def decide(x, inplace=False):
-        own = x > 0
-        if record is not None:
-            record.append(own.cpu())
-        if impose is None:
-            return relu(x)
-        d = impose[next(calls)].to(x.device)
-        flips.append((int((d != own).sum()), d.numel()))
-        return x * d
-
-    F.relu = decide
-    try:
-        yield
-    finally:
-        F.relu = relu
-
-
-def resnet_step(variables) -> None:
-    """(c) of phase 24: resnet50's float32 train step (batch 8, dropout 0)
-    on the card against the CPU's on the card's ReLU decisions: loss,
-    gradients (global and each leaf) and updated running statistics; the
-    CPU's step on its own decisions is logged beside it."""
-    rs = np.random.RandomState(27)
-    batch = (rs.randn(8, 224, 224, 1).astype(np.float32),
-             (np.arange(8) % 2).astype(np.int64), np.ones(8, np.float32))
-    cfg = dict(RESNET50, dtype="f32", dropout_rate=0.0)
-    decisions, flips = [], []
-    with relu_decisions(record=decisions):
-        card = effnet_step(cfg, variables, batch)
-    torch.cuda.empty_cache()
-    with relu_decisions(impose=decisions, flips=flips):
-        cpu = effnet_step(cfg, variables, batch, "cpu")
-    own = effnet_step(cfg, variables, batch, "cpu")
-    flipped, total = sum(f for f, _ in flips), sum(n for _, n in flips)
-    loss_rel, grad_rel, norm = step_agreement(card[:2], cpu[:2])
-    leaves = {n: float((card[1][n] - g).norm() / g.norm())
-              for n, g in cpu[1].items() if float(g.norm()) > 0}
-    worst = max(leaves, key=leaves.get)
-    sdiff = sum(float(((card[2][n] - v) ** 2).sum()) for n, v in cpu[2].items())
-    snorm = sum(float((v ** 2).sum()) for v in cpu[2].values())
-    stats_rel = (sdiff / snorm) ** 0.5
-    own_grad = step_agreement(card[:2], own[:2])[1]
-    log(f"[resnet] resnet50 f32 step, batch 8, card vs cpu on the card's "
-        f"ReLU decisions ({len(decisions)} calls; the CPU's own take "
-        f"{flipped} of {total} the other way, share {flipped / total:.3e}, "
-        f"tol {RESNET_RELU_FLIP_SHARE:.0e}): loss {card[0]:.7f} vs "
-        f"{cpu[0]:.7f} (relative {loss_rel:.3e}, tol {STEP_LOSS_RTOL:.0e}); "
-        f"|grad diff| / |grad| {grad_rel:.3e} (tol {STEP_GRAD_RTOL:.0e}; "
-        f"|grad| {norm:.4e}); worst of {len(leaves)} leaves {worst} "
-        f"{leaves[worst]:.3e} (tol {STEP_GRAD_RTOL:.0e}); updated running "
-        f"statistics |diff| / |stats| {stats_rel:.3e} (tol "
-        f"{STEP_STATS_RTOL:.0e}); against the CPU on its own decisions "
-        f"|grad diff| / |grad| {own_grad:.3e} (logged, not held)")
-    if not (len(flips) == len(decisions) and flipped / total <= RESNET_RELU_FLIP_SHARE
-            and loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL
-            and leaves[worst] <= STEP_GRAD_RTOL and stats_rel <= STEP_STATS_RTOL):
-        raise AssertionError("the card's resnet50 train step disagrees with "
-                             "the CPU's")
-
-
 # phase 24 (d): each run's overrides beyond the corpus, split and output
 # paths and the cuts, and its eval forwards' launches of the YAML Swin's
 # kernels (swin_tiny.yaml: 3 merges, 12 MLPs; no kernel in a train step)
@@ -3911,6 +3835,16 @@ def phase_aug_experiments(card: str) -> None:
     """(d) of phase 24: the root default composition and two presets on
     phase 23's corpus and fold files, 2 folds of one epoch each, with the
     launches counted."""
+    run_experiments(AUG_EXPERIMENTS, "aug-experiment", card)
+
+
+def run_experiments(experiments, tag: str, card: str) -> None:
+    """launch_experiment of each {name: (overrides, launches per eval
+    forward)} on phase 23's corpus and fold files, cut to 2 folds of one
+    epoch: both folds succeed with finite averages and the summary's keys,
+    the fold files stay data/splits', and, with every counter set to 0
+    just before each run, kernel 1 launches once per prepared split, each
+    eval forward launches the kernels given and nothing else launches."""
     import math
 
     from thyroid_tpu_torch.data.corpus import load_split_file
@@ -3925,14 +3859,14 @@ def phase_aug_experiments(card: str) -> None:
     chunks = sum(math.ceil(len(v) / 512) for s in splits for v in s.values())
     evals = sum(math.ceil(len(s["val"]) / BATCH) + math.ceil(len(s["test"]) / BATCH)
                 for s in splits)
-    for name, (extra, per_eval) in AUG_EXPERIMENTS.items():
+    for name, (extra, per_eval) in experiments.items():
         out = work / f"out_{name.replace(' ', '_')}"
         overrides = [*extra, f"dataset.data_path={work / 'synthetic'}",
                      f"dataset.split_dir={work / 'splits'}",
                      f"kfold.split_dir={work / 'splits'}", f"output_dir={out}",
                      "kfold.num_folds=2", "trainer.max_epochs=1",
                      "training.epochs=1"]
-        log(f"[aug-experiment] {name}: launch_experiment {' '.join(overrides)}")
+        log(f"[{tag}] {name}: launch_experiment {' '.join(overrides)}")
         watched = all_counters()
         for fn in watched.values():
             fn.launches = 0
@@ -3943,11 +3877,11 @@ def phase_aug_experiments(card: str) -> None:
         launches = {k: fn.launches for k, fn in watched.items()}
         rows = summary.get("raw_fold_results", [])
         for row in rows:
-            log(f"[aug-experiment] {name} fold {row.get('fold')}: train_time_s "
+            log(f"[{tag}] {name} fold {row.get('fold')}: train_time_s "
                 f"{row.get('train_time_s')} test_acc {row.get('test_acc')} "
                 f"error {row.get('error')}")
-        log(f"[aug-experiment] {name}: wall time {wall:.2f} s for 2 folds of one "
-            f"epoch (bf16 224x224, batch 32, level medium); card {card}")
+        log(f"[{tag}] {name}: wall time {wall:.2f} s for 2 folds of one "
+            f"epoch (bf16, batch 32, level medium); card {card}")
         failed = [r for r in rows if "error" in r]
         if failed or summary.get("num_successful_folds") != 2:
             raise AssertionError(f"{name}: folds failed: "
@@ -3970,7 +3904,7 @@ def phase_aug_experiments(card: str) -> None:
                                  f"numbers {sorted(numbers ^ FOLD_NUMBERS)}")
         want = {k: per_eval.get(k, 0) * evals for k in launches}
         want["percentile"] = chunks
-        log(f"[aug-experiment] {name}: launches {launches} ({chunks} prepared "
+        log(f"[{tag}] {name}: launches {launches} ({chunks} prepared "
             f"splits, {evals} eval forwards); avg_test_acc "
             f"{summary['avg_test_acc']:.4f}")
         if launches != want:
@@ -3989,6 +3923,442 @@ def phase_aug_resnet(card: str) -> None:
     del variables
     torch.cuda.empty_cache()
     phase_aug_experiments(card)
+
+
+# phase 25: the rest of the zoo
+# the token counts ViT (197 tokens an image) and DeiT (198) give kernels 2
+# and 3 at bucket 32, and the ViT/DeiT widths
+ZOO_TOKENS = (BATCH * 197, BATCH * 198)
+ZOO_WIDTHS = (192, 384, 768)
+ZOO_VITS = ("vit_tiny", "deit_tiny", "vit_base")
+ZOO_STEP_BATCH = 8
+# the CNNs as their YAMLs size them: densenet121 at 224², inception_v3 at
+# 299² with its aux head
+ZOO_CNNS = {"densenet121": 224, "inception_v3": 299}
+ZOO_EXPERIMENTS = {
+    "deit_tiny": (["model=vit/deit_tiny", "training=vit"],
+                  {"ln_matmul": 12, "ln_mlp_residual": 12}),
+    "inception_v3": (["model=cnn/inception_v3", "training=cnn"], {}),
+}
+
+
+def zoo_config(name: str, dtype: str = "bf16", **over):
+    cfg = {"name": name, "in_channels": 1, "num_classes": 2, "dtype": dtype}
+    if name in ZOO_CNNS:
+        cfg["img_size"] = ZOO_CNNS[name]
+    return dict(cfg, **over)
+
+
+def zoo_token_kernels() -> None:
+    """(a) of phase 25: kernels 2 and 3 against their plain versions at
+    T = 32·197 and 32·198 (not multiples of 64: a partial last tile),
+    C = 192, 384 and 768, in float32 and bf16, two runs bit-equal."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    failed = []
+    for t in ZOO_TOKENS:
+        for c in ZOO_WIDTHS:
+            for dtype in (torch.float32, torch.bfloat16):
+                for kernel, shape in (("ln_matmul", (t, c, 3 * c, True)),
+                                      ("ln_mlp_residual", (t, c, 4 * c))):
+                    args = make_inputs(kernel, shape, dtype, gen)
+                    fused, plain = kernel_fns(kernel, shape)
+                    got, again = fused(*args), fused(*args)
+                    want = plain(*args).float()
+                    torch.cuda.synchronize()
+                    err = (got.float() - want).abs().max().item()
+                    tol = RTOL[dtype] * max(1.0, want.abs().max().item())
+                    same = torch.equal(got, again)
+                    ok = bool(np.isfinite(err)) and err <= tol and same
+                    log(f"[zoo-kernels] {kernel} {str(dtype)[6:]} {shape}: "
+                        f"max_abs_err {err:.3e} tol {tol:.3e}, two runs "
+                        f"bit-equal: {same} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failed.append((kernel, str(dtype), shape, err, same))
+    if failed:
+        raise AssertionError(f"kernels 2-3 at ViT shapes disagree: {failed}")
+
+
+def zoo_counts(run):
+    """{counter: launches} over one call of run(), every counter set to 0
+    just before."""
+    watched = all_counters()
+    for fn in watched.values():
+        fn.launches = 0
+    run()
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in watched.items()}
+
+
+def zoo_probs(name: str, variables, frames, blocks: bool = False) -> bool:
+    """The card's float32 engine against the CPU's float32 engine at
+    PROB_TOL 1e-3, the card's bf16 engine against the CPU's bf16 engine at
+    3e-2, on the first 8 frames; bf16 against float32 logged. With
+    `blocks` (a ResNet), each block's bf16 error on the card is held too
+    (resnet_blocks). True when all hold."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    engines = {f"{dev} {dt}": InferenceEngine(zoo_config(name, dt), device=dev,
+                                              variables=variables)
+               for dt in ("f32", "bf16") for dev in ("cuda", "cpu")}
+    probs, io = {}, {}
+    for what, eng in engines.items():
+        def run(what=what, eng=eng):
+            probs[what] = eng.predict(frames[:8])
+        if blocks:
+            io[what] = block_io(eng.model, run, 8)
+        else:
+            run()
+    ok = resnet_blocks(engines, io) if blocks else True
+    spread = float(probs["cpu f32"][:, 0].max() - probs["cpu f32"][:, 0].min())
+    for what, ref, tol in (("cuda f32", "cpu f32", PROB_TOL[torch.float32]),
+                           ("cuda bf16", "cpu bf16", PROB_TOL[torch.bfloat16]),
+                           ("cuda bf16", "cpu f32", None),
+                           ("cpu bf16", "cpu f32", None)):
+        err = float(np.abs(probs[what] - probs[ref]).max())
+        log(f"[serve] {name} N=8 probabilities, {what} vs {ref}: max_abs_err "
+            f"{err:.3e} " + (f"tol {tol:.3e}" if tol else "(logged, not held: "
+                             "bf16 against float32)")
+            + f" (spread of p0 over the batch {spread:.3e})")
+        ok &= tol is None or err <= tol
+    return ok
+
+
+def zoo_serve(name: str, variables, per_forward, card: str, blocks: bool = False,
+              seed: int = 250):
+    """Serve `name` in bf16 at bucket 32 on raw 512² frames drawn from
+    `seed`: the launches of one forward (counters set to 0 just before)
+    against `per_forward`, images/s (median of 5), the probabilities
+    against the CPU (zoo_probs). Returns (frames, ok)."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    engine = InferenceEngine(zoo_config(name), variables=variables)
+    engine.warmup()
+    rs = np.random.RandomState(seed)
+    frames = (rs.rand(BATCH, 512, 512, 1) * 65535).astype(np.float32)
+    probs = {}
+    launches = zoo_counts(lambda: probs.setdefault("p", engine.predict(frames)))
+    want = {k: per_forward.get(k, 0) for k in launches}
+    ok = launches == want and probs["p"].shape == (BATCH, 2) \
+        and bool(np.isfinite(probs["p"]).all())
+    log(f"[serve] {name} bf16 served N={BATCH}: launches {launches}; "
+        f"expected {want}")
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.predict(frames)
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    log(f"[serve] {name} predict bucket {BATCH}: {med * 1e3:.2f} ms, "
+        f"{BATCH / med:.1f} images/s (median of 5); card {card}")
+    del engine
+    torch.cuda.empty_cache()
+    return frames, ok & zoo_probs(name, variables, frames, blocks)
+
+
+def zoo_vit_times(name: str, card: str) -> None:
+    """Kernels 2 and 3 at the served model's shapes (bucket 32, bf16):
+    device time per call and per forward (12 calls each) beside the bound,
+    the plain version and the library composition."""
+    from thyroid_tpu_torch.models.vit.deit import DEIT_PARAMS
+    from thyroid_tpu_torch.models.vit.vit import VIT_PARAMS
+
+    c = {**VIT_PARAMS, **DEIT_PARAMS}[name][0]
+    t = BATCH * (198 if name.startswith("deit") else 197)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    for kernel, shape in (("ln_matmul", (t, c, 3 * c, True)),
+                          ("ln_mlp_residual", (t, c, 4 * c))):
+        args = make_inputs(kernel, shape, torch.bfloat16, gen)
+        fused, plain = kernel_fns(kernel, shape)
+        ms = device_ms(lambda: fused(*args))
+        plain_ms = device_ms(lambda: plain(*args))
+        lib_ms = device_ms(library_fn(kernel, shape, args))
+        nbytes, ops, peak = work(kernel, shape, torch.bfloat16)
+        bound = max(nbytes / H100_BYTES_PER_S, ops / peak) * 1e3
+        by = "bytes" if nbytes / H100_BYTES_PER_S >= ops / peak else "operations"
+        log(f"[zoo-times] {name} {kernel} bf16 {shape}: {ms:.5f} ms a call, "
+            f"{12 * ms:.4f} per forward (12 calls); bound {bound:.5f} "
+            f"({by}; {12 * bound:.4f} per forward); plain {plain_ms:.4f}; "
+            f"library {lib_ms:.5f} (factor {ms / lib_ms:.3f}); card {card}")
+
+
+def zoo_vits(card: str) -> bool:
+    """(b) of phase 25: vit_tiny, deit_tiny and vit_base served through
+    kernels 1, 2 and 3 (1/12/12 per forward, no other kernel), and with
+    token_kernels false through kernel 1 only."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    ok = True
+    for name in ZOO_VITS:
+        variables = {"params": perturbed_params(zoo_config(name, "f32"))}
+        frames, good = zoo_serve(
+            name, variables, {"percentile": 1, "ln_matmul": 12,
+                              "ln_mlp_residual": 12}, card)
+        plain = InferenceEngine(zoo_config(name, token_kernels=False),
+                                variables=variables)
+        launches = zoo_counts(lambda: plain.predict(frames))
+        want = {k: int(k == "percentile") for k in launches}
+        log(f"[serve] {name} token_kernels false N={BATCH}: launches "
+            f"{launches}")
+        ok &= good and launches == want
+        del plain
+        zoo_vit_times(name, card)
+        torch.cuda.empty_cache()
+    return ok
+
+
+@contextlib.contextmanager
+def step_decisions(record=None, impose=None, flips=None):
+    """Within the block, torch.nn.functional.relu and max_pool2d (which the
+    port's CNNs call) append each call's decisions (x > 0; the input
+    position of each window's maximum) to `record` as CPU tensors, or take
+    them from `impose` in call order (x times the decision; x gathered at
+    the positions) and append (differing, all) against the call's own to
+    `flips`."""
+    import torch.nn.functional as F
+
+    relu, max_pool2d, calls = F.relu, F.max_pool2d, iter(impose or ())
+
+    def decide(x, inplace=False):
+        own = x > 0
+        if record is not None:
+            record.append(own.cpu())
+        if impose is None:
+            return relu(x)
+        d = next(calls).to(x.device)
+        flips.append((int((d != own).sum()), d.numel()))
+        return x * d
+
+    def pick(x, *args, **kw):
+        out, idx = max_pool2d(x, *args, return_indices=True, **kw)
+        if record is not None:
+            record.append(idx.cpu())
+        if impose is None:
+            return out
+        d = next(calls).to(x.device)
+        flips.append((int((d != idx).sum()), d.numel()))
+        return x.flatten(2).gather(2, d.flatten(2)).view(out.shape)
+
+    F.relu, F.max_pool2d = decide, pick
+    try:
+        yield
+    finally:
+        F.relu, F.max_pool2d = relu, max_pool2d
+
+
+def zoo_step(name: str, variables, decisions: bool, seed: int = 28) -> bool:
+    """One float32 train step (batch ZOO_STEP_BATCH drawn from `seed`,
+    dropout 0) on the card against the CPU's: with `decisions`, the CPU's
+    step on the card's ReLU decisions and max-pool choices (at most
+    STEP_FLIP_SHARE of them the CPU's own arithmetic takes the other way;
+    the CPU's step on its own decisions logged beside it); loss
+    STEP_LOSS_RTOL, gradients STEP_GRAD_RTOL globally and in each leaf but
+    STEP_FREE_LEAVES, running statistics STEP_STATS_RTOL. deit_tiny's loss
+    is the dual 0.5 / 0.5 CE, inception_v3's ce + 0.4·aux."""
+    side = ZOO_CNNS.get(name, 224)
+    rs = np.random.RandomState(seed)
+    batch = (rs.randn(ZOO_STEP_BATCH, side, side, 1).astype(np.float32),
+             (np.arange(ZOO_STEP_BATCH) % 2).astype(np.int64),
+             np.ones(ZOO_STEP_BATCH, np.float32))
+    cfg = zoo_config(name, "f32", dropout_rate=0.0, drop_path_rate=0.0)
+    record, flips = ([], []) if decisions else (None, None)
+    with step_decisions(record=record):
+        card = effnet_step(cfg, variables, batch)
+    torch.cuda.empty_cache()
+    with step_decisions(impose=record, flips=flips):
+        cpu = effnet_step(cfg, variables, batch, "cpu")
+    loss_rel, grad_rel, norm = step_agreement(card[:2], cpu[:2])
+    leaves = {n: float((card[1][n] - g).norm() / g.norm())
+              for n, g in cpu[1].items() if float(g.norm()) > 0}
+    free = STEP_FREE_LEAVES.get(name, ())
+    held = {n: r for n, r in leaves.items() if n not in free}
+    worst = max(held, key=held.get)
+    sdiff = sum(float(((card[2][n] - v) ** 2).sum()) for n, v in cpu[2].items())
+    snorm = sum(float((v ** 2).sum()) for v in cpu[2].values())
+    stats_rel = (sdiff / snorm) ** 0.5 if snorm else 0.0
+    ok = loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL \
+        and leaves[worst] <= STEP_GRAD_RTOL and stats_rel <= STEP_STATS_RTOL
+    what = own = ""
+    if decisions:
+        flipped, total = sum(f for f, _ in flips), sum(n for _, n in flips)
+        ok &= len(flips) == len(record) and flipped <= STEP_FLIP_SHARE * total
+        what = (f" on the card's ReLU decisions and max-pool choices "
+                f"({len(record)} calls; the CPU's own take {flipped} of "
+                f"{total} the other way, tol share {STEP_FLIP_SHARE:.0e})")
+        own_grad = step_agreement(
+            card[:2], effnet_step(cfg, variables, batch, "cpu")[:2])[1]
+        own = (f"; against the CPU on its own decisions |grad diff| / |grad| "
+               f"{own_grad:.3e} (logged, not held)")
+    log(f"[step] {name} f32 step, batch {ZOO_STEP_BATCH} at {side}x{side}, "
+        f"card vs cpu{what}: loss {card[0]:.7f} vs {cpu[0]:.7f} (relative "
+        f"{loss_rel:.3e}, tol {STEP_LOSS_RTOL:.0e}); |grad diff| / |grad| "
+        f"{grad_rel:.3e} (tol {STEP_GRAD_RTOL:.0e}; |grad| {norm:.4e}); worst "
+        f"of {len(held)} held leaves {worst} {leaves[worst]:.3e} (tol "
+        f"{STEP_GRAD_RTOL:.0e})"
+        + "".join(f"; {n} {leaves[n]:.3e} (logged, not held: STEP_FREE_LEAVES)"
+                  for n in free)
+        + f"; running statistics {stats_rel:.3e} (tol "
+        f"{STEP_STATS_RTOL:.0e}){own} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def zoo_pool_grads() -> bool:
+    """The Inception pool branch's input gradient on the card against the
+    CPU's at the map sizes inception_v3 gives it at 299² (35, 17, 8), both
+    count_include_pad modes, within STEP_GRAD_RTOL; beside it, logged and
+    not held, F.avg_pool2d on the channels-last view, whose backward the
+    port avoids."""
+    import torch.nn.functional as F
+
+    from thyroid_tpu_torch.models.cnn.inception import branch_pool
+
+    def channels_last(x, cip):
+        return F.avg_pool2d(x.permute(0, 3, 1, 2), 3, 1, 1,
+                            count_include_pad=cip).permute(0, 2, 3, 1)
+
+    ok = True
+    for side, c in ((35, 192), (17, 768), (8, 1280)):
+        gen = torch.Generator().manual_seed(side)
+        x = torch.randn(8, side, side, c, generator=gen)
+        dy = torch.randn(8, side, side, c, generator=gen)
+        for cip in (True, False):
+            rel = {}
+            for name, fn in (("branch_pool", branch_pool),
+                             ("channels-last view", channels_last)):
+                grads = []
+                for dev in ("cpu", "cuda"):
+                    xd = x.to(dev).requires_grad_(True)
+                    (g,) = torch.autograd.grad(fn(xd, cip), xd, dy.to(dev))
+                    grads.append(g.cpu())
+                rel[name] = float((grads[1] - grads[0]).norm() / grads[0].norm())
+            log(f"[zoo-pool] 3x3 SAME average pool, count_include_pad {cip}, "
+                f"(8, {side}, {side}, {c}): input gradient card vs cpu "
+                f"{rel['branch_pool']:.3e} (tol {STEP_GRAD_RTOL:.0e}); on the "
+                f"channels-last view {rel['channels-last view']:.3e} (logged)")
+            ok &= rel["branch_pool"] <= STEP_GRAD_RTOL
+    return ok
+
+
+def zoo_cnns(card: str) -> bool:
+    """(c) of phase 25: densenet121 and inception_v3 served with kernel 1
+    as their only kernel, their float32 steps against the CPU's; and
+    deit_tiny's float32 step with the dual loss."""
+    ok = zoo_pool_grads()
+    for name in ZOO_CNNS:
+        variables = effnet_variables(zoo_config(name, "f32"))
+        ok &= zoo_serve(name, variables, {"percentile": 1}, card)[1]
+        torch.cuda.empty_cache()
+        ok &= zoo_step(name, variables, decisions=True)
+        torch.cuda.empty_cache()
+    variables = {"params": perturbed_params(zoo_config("deit_tiny", "f32"))}
+    return ok & zoo_step("deit_tiny", variables, decisions=False)
+
+
+def zoo_ensemble(card: str) -> bool:
+    """(d) of phase 25: configs/model/ensemble/cnn_top3.yaml's members
+    (resnet50, efficientnet_b0, densenet121) in float32 on seeded weights
+    with running statistics, combined on the card and on the CPU on the
+    same 8 prepared frames, for each method: probabilities within
+    PROB_TOL (float32)."""
+    from thyroid_tpu_torch.data.pipeline import prepare_images
+    from thyroid_tpu_torch.models.ensemble import build_ensemble_from_members
+    from thyroid_tpu_torch.models.ensemble.cnn_ensemble import METHODS
+    from thyroid_tpu_torch.ops.image import standardize
+
+    names = ("resnet50", "efficientnet_b0", "densenet121")
+    cfgs = [zoo_config(n, "f32") for n in names]
+    variables = [effnet_variables(c) for c in cfgs]
+    rs = np.random.RandomState(29)
+    raw = torch.from_numpy((rs.rand(8, 512, 512, 1) * 65535).astype(np.float32))
+    x = standardize(prepare_images(raw, 224), (0.5,), (0.5,))
+    ens = {dev: build_ensemble_from_members(cfgs, variables, device=dev)
+           for dev in ("cuda", "cpu")}
+    ok = True
+    for method in METHODS:
+        got = {}
+        for dev, e in ens.items():
+            e.method = method
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                got[dev] = e(x.to(dev)).cpu()
+            secs = time.perf_counter() - t0
+        err = float((got["cuda"] - got["cpu"]).abs().max())
+        tol = PROB_TOL[torch.float32]
+        log(f"[zoo-ensemble] cnn_top3 {method} N=8 float32 card vs cpu: "
+            f"max_abs_err {err:.3e} tol {tol:.0e}; weights "
+            f"{ens['cuda'].weights().tolist()}; card p0 "
+            f"{[round(v, 4) for v in got['cuda'][:, 0].tolist()]}; cpu call "
+            f"{secs:.2f} s; card {card}")
+        ok &= err <= tol and bool(torch.isfinite(got["cuda"]).all())
+    del ens
+    torch.cuda.empty_cache()
+    return ok
+
+
+# the registry's other new names, each served once and stepped once on the
+# card from its seeded initial weights (the same code as the checked
+# models above, at other widths and depths)
+ZOO_OTHERS = {"vit_small": 12, "deit_small": 12, "deit_base": 12,
+              "densenet161": 0, "densenet169": 0, "densenet201": 0,
+              "inception_v4": 0}
+
+
+def zoo_others(card: str) -> bool:
+    """(f) of phase 25: each of ZOO_OTHERS served in bf16 at bucket 32 on
+    raw 512² frames (launches 1 percentile and 12 or 0 each of kernels 2
+    and 3 per forward, finite probabilities) and one bf16 train step at
+    batch 8 (finite loss and gradients), from its seeded initial
+    weights."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    rs = np.random.RandomState(251)
+    frames = (rs.rand(BATCH, 512, 512, 1) * 65535).astype(np.float32)
+    ok = True
+    for name, tokens in ZOO_OTHERS.items():
+        t0 = time.perf_counter()
+        cfg = zoo_config(name, img_size=299 if name == "inception_v4" else 224)
+        engine = InferenceEngine(cfg)
+        probs = {}
+        launches = zoo_counts(lambda: probs.setdefault("p", engine.predict(frames)))
+        want = {k: {"percentile": 1, "ln_matmul": tokens,
+                    "ln_mlp_residual": tokens}.get(k, 0) for k in launches}
+        del engine
+        side = cfg["img_size"]
+        x = torch.from_numpy(rs.randn(ZOO_STEP_BATCH, side, side, 1)
+                             .astype(np.float32)).cuda()
+        y = torch.arange(ZOO_STEP_BATCH, device="cuda") % 2
+        trainer = effnet_trainer(cfg, None, "zoo_others")
+        loss, _, grads = trainer.loss_and_grads(
+            x, y, torch.ones(ZOO_STEP_BATCH, device="cuda"))
+        gnorm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values())))
+        good = launches == want and bool(np.isfinite(probs["p"]).all()) \
+            and probs["p"].shape == (BATCH, 2) and bool(torch.isfinite(loss)) \
+            and np.isfinite(gnorm) and gnorm > 0
+        log(f"[zoo-others] {name} {side}x{side}: served N={BATCH} bf16, kernels "
+            f"2/3 {launches['ln_matmul']}/{launches['ln_mlp_residual']} "
+            f"(expected {tokens}), percentile {launches['percentile']}; bf16 "
+            f"step batch {ZOO_STEP_BATCH}: loss {float(loss):.5f}, |grad| "
+            f"{gnorm:.4e}; {time.perf_counter() - t0:.1f} s "
+            f"{'ok' if good else 'FAIL'}; card {card}")
+        ok &= good
+        del trainer, grads
+        torch.cuda.empty_cache()
+    return ok
+
+
+def phase_zoo(card: str) -> None:
+    """Phase 25: the rest of the zoo, (a) to (f); float32 matmuls and
+    convolutions without TF32, as phase 2 sets them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    zoo_token_kernels()
+    ok = {"vits": zoo_vits(card), "cnns": zoo_cnns(card),
+          "ensemble": zoo_ensemble(card), "others": zoo_others(card)}
+    log(f"[zoo] checks {ok}; (a)-(d), (f) {time.perf_counter() - t0:.1f} s")
+    if not all(ok.values()):
+        raise AssertionError(f"phase 25 checks failed: {ok}")
+    run_experiments(ZOO_EXPERIMENTS, "zoo-experiment", card)
+    log(f"[zoo] phase 25 {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -4048,6 +4418,8 @@ def main() -> int:
         phase_experiment(card)
         torch.cuda.empty_cache()
         phase_aug_resnet(card)
+        torch.cuda.empty_cache()
+        phase_zoo(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

@@ -1,5 +1,5 @@
-"""The port (thyroid_tpu_torch) and its card scripts (chip_smoke.py,
-chip_compare.py) import nothing of JAX, flax or the JAX package, and every
+"""The port (thyroid_tpu_torch) and its scripts (chip_smoke.py,
+chip_compare.py, scripts/torch_grad_condition.py) import nothing of JAX, flax or the JAX package, and every
 port module imports without them. Nor do they import the decoders and
 splitters the card's machine lacks (cv2, PIL, imageio, scikit-learn,
 tifffile); only config/schemas.py imports pydantic, and the experiment
@@ -13,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "thyroid_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
+       ROOT / "scripts" / "torch_grad_condition.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "thyroid_tpu")
 # absent on the card's machine
 ABSENT = ("cv2", "PIL", "imageio", "sklearn", "tifffile")

@@ -16,7 +16,8 @@ import pytest
 import torch
 import yaml
 
-from tests.torch_parity import (flat_tree, jax_cnn, jax_mixup_cutmix_params,
+from tests.torch_parity import (flat_tree, global_rel, golden_variables,
+                                jax_cnn, jax_mixup_cutmix_params,
                                 jax_train_stats)
 from thyroid_tpu_torch.models.cnn import resnet as port_resnet
 from thyroid_tpu_torch.models.from_jax import (jax_tree, load_jax_variables,
@@ -83,14 +84,6 @@ def _batch(seed, n=4):
     return x, y, w
 
 
-def _global_rel(got, want):
-    g, w = flat_tree(got), flat_tree(want)
-    assert set(g) == set(w)
-    num = sum(float(np.sum((g[k] - w[k]) ** 2)) for k in w)
-    den = sum(float(np.sum(w[k] ** 2)) for k in w)
-    return (num / den) ** 0.5
-
-
 @pytest.mark.unit
 @pytest.mark.parametrize("block,mix", [("basic", False), ("bottleneck", False),
                                        ("bottleneck", True)],
@@ -154,7 +147,7 @@ def test_train_step_matches_jax(block, mix, tmp_path, monkeypatch):
     got = float(tm["loss_sum"]) / float(tm["w_sum"])
     assert abs(got - float(want)) <= 1e-4 * max(1.0, abs(float(want))), \
         (got, float(want))
-    assert _global_rel(jax_tree(grads, pt.state.layout),
+    assert global_rel(jax_tree(grads, pt.state.layout),
                        jax.tree.map(np.asarray, grads_want)) < 1e-3
     stats = flat_tree(jax_tree(pt.state.batch_stats, pt.state.layout))
     for k, v in flat_tree(stats_want).items():
@@ -164,34 +157,13 @@ def test_train_step_matches_jax(block, mix, tmp_path, monkeypatch):
     assert float(tm["w_sum"]) == float(w.sum())
 
 
-def _golden_variables(name):
-    """JAX's create_and_init(PRNGKey(0)) of the golden config with
-    test_golden_parity's 0.01·sin bump, in one jitted program (the same
-    draws in one compile; eagerly, each operation and each leaf's bump
-    compiles on its own, seconds for resnet50)."""
-    from thyroid_tpu.models.base import create_and_init as jax_create
-
-    cfg = {"name": name, "img_size": 224, "in_channels": 1, "num_classes": 2}
-
-    def bump(p):
-        wave = jnp.sin(jnp.arange(p.size, dtype=jnp.float32) * 0.7)
-        return p + 0.01 * wave.reshape(p.shape).astype(p.dtype)
-
-    def init(key):
-        variables = jax_create(cfg, key)[1]
-        return {"params": jax.tree.map(bump, variables["params"]),
-                "batch_stats": variables["batch_stats"]}
-
-    return cfg, jax.jit(init)(jax.random.PRNGKey(0))
-
-
 @pytest.mark.unit
 @pytest.mark.parametrize("name", ["resnet18", "resnet50"])
 def test_golden_logits(name):
     """The golden fixture's logits from the port on JAX's initial variables,
     at tests/unit/test_golden_parity.py's tolerance."""
     rec = np.load(GOLDEN / f"{name}.npz")
-    cfg, variables = _golden_variables(name)
+    cfg, variables = golden_variables(name)
     rs = np.random.RandomState(12345)
     x = (rs.rand(2, 224, 224, 1).astype(np.float32) * 2 - 1)
     with torch.no_grad():

@@ -437,11 +437,17 @@ def test_trainer_refuses_unported_modes(tmp_path):
     kw = dict(steps_per_epoch=2, output_dir=tmp_path, device="cpu")
     model = ModelRegistry.create_model(SMALL_SWIN)
     for extra, match in (({"teacher_fn": lambda x: x}, "distillation"),
-                         ({"mesh": object()}, "mesh"),
-                         ({"loss_mode": "deit"}, "deit")):
+                         ({"distillation_config": {"alpha": 0.5}},
+                          "Other experiments and the stacked trainer"),
+                         ({"loss_mode": "distillation"},
+                          "Other experiments and the stacked trainer"),
+                         ({"mesh": object()}, "mesh")):
         with pytest.raises(NotImplementedError, match=match):
             Trainer(model, SMALL_SWIN, TRAINING_VIT, TRAINER_DEFAULT,
                     **kw, **extra)
+    # the "deit" loss mode is ported (tests/test_torch_vit.py holds it to JAX)
+    assert Trainer(model, SMALL_SWIN, TRAINING_VIT, TRAINER_DEFAULT, **kw,
+                   loss_mode="deit").loss_mode == "deit"
     with pytest.raises(NotImplementedError, match="SGD"):
         Trainer(model, SMALL_SWIN, dict(TRAINING_VIT,
                                         optimizer_params={"name": "sgd"}),

@@ -131,9 +131,19 @@ def jax_cnn(config: Dict[str, Any], seed: int = 0):
     from thyroid_tpu.models.registry import ModelRegistry
 
     model = ModelRegistry.create_model(config)
-    shapes = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0)},
-        jnp.zeros((1, 32, 32, config.get("in_channels", 1))), train=False))
+    return model, jax_module_variables(
+        model, jnp.zeros((1, 32, 32, config.get("in_channels", 1))), seed)
+
+
+def jax_module_variables(module, x, seed: int = 0) -> Dict[str, Any]:
+    """Variables of a flax module with BatchNorm for the input x, as
+    numpy: the tree from module.init traced with jax.eval_shape; conv and
+    dense kernels N(0, 1/fan_in), unit scales, zero biases, the parameters
+    bumped as in `perturb`; batch_stats mean 0 and var 1."""
+    import jax
+
+    shapes = jax.eval_shape(lambda: module.init(
+        {"params": jax.random.PRNGKey(0)}, x, train=False))
     rs = np.random.RandomState(seed)
 
     def draw(tree):
@@ -150,8 +160,8 @@ def jax_cnn(config: Dict[str, Any], seed: int = 0):
                 out[k] = (rs.randn(*v.shape) / np.sqrt(fan_in)).astype(np.float32)
         return out
 
-    return model, {"params": perturb(draw(shapes["params"])),
-                   "batch_stats": draw(shapes["batch_stats"])}
+    return {"params": perturb(draw(shapes["params"])),
+            "batch_stats": draw(shapes["batch_stats"])}
 
 
 def jax_train_stats(model, variables: Dict[str, Any], x) -> Dict[str, Any]:
@@ -336,3 +346,229 @@ def assert_close_8bit(got, want, atol: float = 1e-5, share: float = 1e-3):
     assert err.max() <= 1 / 255 + atol, err.max()
     off = int((err > atol).sum())
     assert off <= share * err.size, (off, err.size)
+
+
+# --------------------------------------------------------------- train steps
+# One training step's loss, gradients and updated running statistics, as
+# JAX's Trainer computes them and as the port's Trainer does, on the same
+# variables and batch.
+
+
+def jax_params(config: Dict[str, Any], seed: int = 0, img: int = 32):
+    """(JAX module, bumped parameters as numpy) of a model without
+    BatchNorm (ViT, DeiT): the tree from the module's own init traced with
+    jax.eval_shape on an img² input; unit LayerNorm scales, zero biases,
+    N(0, 0.02²) elsewhere (jax_swin's draw), bumped as in `perturb`."""
+    return jax_swin(dict(config, img_size=img), seed)
+
+
+def pool_choice(x, window_shape, strides=None, padding="VALID"):
+    """For flax's nn.max_pool(x, window_shape, strides, padding) on NHWC x:
+    (B, Ho, Wo, C) int32 flat input positions h·W + w of each window's
+    first maximum in row-major window order (padding taps count as −inf)."""
+    import jax.numpy as jnp
+
+    kh, kw = window_shape
+    sh, sw = strides or (1, 1)
+    (ph0, ph1), (pw0, pw1) = ((0, 0), (0, 0)) if padding == "VALID" else padding
+    b, h, w, c = x.shape
+    xp = jnp.pad(x, ((0, 0), (ph0, ph1), (pw0, pw1), (0, 0)),
+                 constant_values=-jnp.inf)
+    ho, wo = (h + ph0 + ph1 - kh) // sh + 1, (w + pw0 + pw1 - kw) // sw + 1
+    taps = jnp.stack([xp[:, i:i + sh * (ho - 1) + 1:sh, j:j + sw * (wo - 1) + 1:sw]
+                      for i in range(kh) for j in range(kw)], axis=-1)
+    k = jnp.argmax(taps, axis=-1)
+    rows = jnp.arange(ho)[None, :, None, None] * sh - ph0 + k // kw
+    cols = jnp.arange(wo)[None, None, :, None] * sw - pw0 + k % kw
+    return (rows * w + cols).astype(jnp.int32)
+
+
+def jax_step(model, variables: Dict[str, Any], x, y, w, *,
+             loss_mode: str = "ce", label_smoothing: float = 0.0,
+             mix_rng=None, mix=(0.8, 1.0), decisions=None, pools=None):
+    """(loss, gradients, updated batch_stats or None) of JAX's
+    _train_step_impl on (x, y, w): MixUp/CutMix on `mix_rng` when given,
+    the train-mode forward (mutable batch_stats where the model has them;
+    dropout draws from a fixed key, so configs without dropout agree), then
+    the loss of `loss_mode` ("deit" with a tuple: 0.5·ce + 0.5·ce; any
+    other tuple: ce(main) + 0.4·ce(aux)); one jitted value_and_grad. With
+    a list `decisions`, every flax.linen.relu call of the forward appends
+    its decisions x > 0 to it, in call order, as numpy arrays; with a list
+    `pools`, every flax.linen.max_pool call appends the input position of
+    each output's maximum (`pool_choice`)."""
+    import flax.linen as fnn
+    import jax
+    import jax.numpy as jnp
+
+    from thyroid_tpu.ops.augment import mixup_cutmix
+    from thyroid_tpu.training.losses import cross_entropy, mixed_cross_entropy
+
+    has_stats = "batch_stats" in variables
+
+    def loss_fn(params, batch_stats, x, y, w):
+        labels_b = lam = None
+        if mix_rng is not None:
+            x, _, labels_b, lam = mixup_cutmix(x, y, mix_rng, mixup_alpha=mix[0],
+                                               cutmix_alpha=mix[1])
+
+        def ce(lgts):
+            if mix_rng is not None:
+                return mixed_cross_entropy(lgts, y, labels_b, lam,
+                                           label_smoothing, w)
+            return cross_entropy(lgts, y, label_smoothing, w)
+
+        v = {"params": params}
+        rngs = {"dropout": jax.random.PRNGKey(0)}
+        seen, chosen, relu, max_pool = [], [], fnn.relu, fnn.max_pool
+        if decisions is not None:
+            fnn.relu = lambda a: seen.append(a > 0) or relu(a)
+        if pools is not None:
+            fnn.max_pool = lambda a, *args, **kw: chosen.append(
+                pool_choice(a, *args, **kw)) or max_pool(a, *args, **kw)
+        try:
+            if has_stats:
+                v["batch_stats"] = batch_stats
+                out, upd = model.apply(v, x, train=True,
+                                       mutable=["batch_stats"], rngs=rngs)
+                new_stats = upd["batch_stats"]
+            else:
+                out, new_stats = model.apply(v, x, train=True, rngs=rngs), None
+        finally:
+            fnn.relu, fnn.max_pool = relu, max_pool
+        if loss_mode == "deit" and isinstance(out, tuple):
+            loss = 0.5 * ce(out[0]) + 0.5 * ce(out[1])
+        elif isinstance(out, tuple):
+            loss = ce(out[0]) + 0.4 * ce(out[1])
+        else:
+            loss = ce(out)
+        return loss, (new_stats, seen, chosen)
+
+    (loss, (stats, seen, chosen)), grads = jax.jit(
+        jax.value_and_grad(loss_fn, has_aux=True))(
+            variables["params"], variables.get("batch_stats"), jnp.asarray(x),
+            jnp.asarray(y), jnp.asarray(w))
+    if decisions is not None:
+        decisions.extend(np.asarray(d) for d in seen)
+    if pools is not None:
+        pools.extend(np.asarray(c) for c in chosen)
+    tree = jax.tree.map(np.asarray, grads)
+    return float(loss), tree, (jax.tree.map(np.asarray, stats)
+                               if stats is not None else None)
+
+
+def port_step(config, training, variables, x, y, w, monkeypatch, tmp_path,
+              mirror=None, impose=None, flips=None, impose_pools=None,
+              **trainer_kw):
+    """(loss, gradients as a JAX tree, updated batch_stats as a JAX tree or
+    None, metric state) of one port Trainer.train_step on the CPU from
+    `variables`; with `mirror`, the MixUp/CutMix draw is replaced by it
+    (JAX's draw, jax_mixup_cutmix_params). With `impose` (jax_step's
+    decisions), each torch.nn.functional.relu call of the step takes the
+    next decision d (x·d) and appends (decisions it takes the other way
+    on its own, elements) to `flips`; with `impose_pools` (jax_step's
+    pools), each torch.nn.functional.max_pool2d call takes the next
+    positions and appends its own differing choices to `flips` likewise."""
+    import torch
+    import torch.nn.functional as F
+
+    from thyroid_tpu_torch.models.from_jax import jax_tree
+    from thyroid_tpu_torch.models.registry import ModelRegistry
+    from thyroid_tpu_torch.training import engine as port_engine
+    from thyroid_tpu_torch.training import metrics as tmetrics
+    from thyroid_tpu_torch.training.configs import TRAINER_DEFAULT
+    from thyroid_tpu_torch.training.engine import Trainer
+
+    if mirror is not None:
+        monkeypatch.setattr(port_engine, "draw_mixup_cutmix",
+                            lambda *a, **k: mirror)
+    grads = {}
+    loss_and_grads = Trainer.loss_and_grads
+
+    def keep(self, *args):
+        out = loss_and_grads(self, *args)
+        grads.update(out[2])
+        return out
+
+    monkeypatch.setattr(Trainer, "loss_and_grads", keep)
+    if impose is not None:
+        calls = iter(impose)
+
+        def decide(a, inplace=False):
+            d = torch.from_numpy(next(calls))
+            flips.append((int((d != (a > 0)).sum()), d.numel()))
+            return a * d
+
+        monkeypatch.setattr(F, "relu", decide)
+    if impose_pools is not None:
+        pools, max_pool2d = iter(impose_pools), F.max_pool2d
+
+        def pick(a, *args, **kw):
+            own, idx = max_pool2d(a, *args, return_indices=True, **kw)
+            d = torch.from_numpy(next(pools)).permute(0, 3, 1, 2).long()
+            flips.append((int((d != idx).sum()), d.numel()))
+            return a.flatten(2).gather(2, d.flatten(2)).view(own.shape)
+
+        monkeypatch.setattr(F, "max_pool2d", pick)
+    pt = Trainer(ModelRegistry.create_model(config), config, training,
+                 TRAINER_DEFAULT, steps_per_epoch=2, output_dir=tmp_path,
+                 variables=variables, device="cpu", **trainer_kw)
+    tm, _ = pt.train_step(tmetrics.zero_metric_state(), torch.from_numpy(x),
+                          torch.from_numpy(y).long(), torch.from_numpy(w))
+    monkeypatch.undo()
+    stats = jax_tree(pt.state.batch_stats, pt.state.layout) \
+        if pt.state.batch_stats else None
+    return (float(tm["loss_sum"]) / float(tm["w_sum"]),
+            jax_tree(grads, pt.state.layout), stats, tm)
+
+
+def global_rel(got, want) -> float:
+    """|got − want| / |want| over every leaf of two trees (global norms)."""
+    g, w = flat_tree(got), flat_tree(want)
+    assert set(g) == set(w), sorted(set(g) ^ set(w))
+    num = sum(float(np.sum((g[k] - w[k]) ** 2)) for k in w)
+    den = sum(float(np.sum(w[k] ** 2)) for k in w)
+    return (num / den) ** 0.5
+
+
+def golden_variables(name: str, img: int = 224):
+    """JAX's create_and_init(PRNGKey(0)) of the golden config
+    ({"name", "img_size", "in_channels": 1, "num_classes": 2}) with
+    test_golden_parity's 0.01·sin bump on the parameters, in one jitted
+    program, as numpy; → (config, variables)."""
+    import jax
+    import jax.numpy as jnp
+
+    from thyroid_tpu.models.base import create_and_init as jax_create
+
+    cfg = {"name": name, "img_size": img, "in_channels": 1, "num_classes": 2}
+
+    def bump(p):
+        wave = jnp.sin(jnp.arange(p.size, dtype=jnp.float32) * 0.7)
+        return p + 0.01 * wave.reshape(p.shape).astype(p.dtype)
+
+    def init(key):
+        variables = jax_create(cfg, key)[1]
+        return {**variables, "params": jax.tree.map(bump, variables["params"])}
+
+    return cfg, jax.tree.map(np.asarray, jax.jit(init)(jax.random.PRNGKey(0)))
+
+
+def golden_input(img: int, batch: int = 2) -> np.ndarray:
+    """test_golden_parity's fixed input."""
+    rs = np.random.RandomState(12345)
+    return rs.rand(batch, img, img, 1).astype(np.float32) * 2 - 1
+
+
+def tree_shapes_equal(port_variables, jax_shapes) -> None:
+    """The port's JAX tree (to_jax_variables) against jax.eval_shape's, by
+    collection, name and shape."""
+    import jax
+
+    assert set(port_variables) == set(jax_shapes), \
+        (set(port_variables), set(jax_shapes))
+    for col in port_variables:
+        want = {".".join(str(getattr(k, "key", k)) for k in path): tuple(leaf.shape)
+                for path, leaf in jax.tree_util.tree_flatten_with_path(
+                    jax_shapes[col])[0]}
+        got = {k: tuple(v.shape) for k, v in flat_tree(port_variables[col]).items()}
+        assert got == want, (col, sorted(set(got) ^ set(want)))

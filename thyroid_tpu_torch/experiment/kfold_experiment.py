@@ -33,7 +33,7 @@ import numpy as np
 from ..data.corpus import generate_kfold_splits
 from ..data.dataset import CARSThyroidDataset
 from ..data.pipeline import DevicePipeline, create_data_loaders
-from ..models import cnn, vit  # noqa: F401  (register the model families)
+from ..models import cnn, ensemble, vit  # noqa: F401  (register the model families)
 from ..models.registry import ModelRegistry, cfg_get
 from ..ops.platform import DeviceLike, resolve_device
 from ..training.engine import Trainer, _unported

@@ -9,7 +9,7 @@ import torch
 from ..ops.platform import DeviceLike, resolve_device
 from .import_torch import find_pretrained_file
 from .registry import ModelRegistry, cfg_get
-from . import cnn, vit  # noqa: F401  (register the EfficientNet and Swin families)
+from . import cnn, ensemble, vit  # noqa: F401  (register every model family)
 
 logger = logging.getLogger(__name__)
 

@@ -1,1 +1,1 @@
-from . import efficientnet, resnet  # noqa: F401  (register the EfficientNet and ResNet families)
+from . import densenet, efficientnet, inception, resnet  # noqa: F401  (register the CNN families)

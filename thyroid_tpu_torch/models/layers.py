@@ -1,6 +1,5 @@
-"""Parameter holders shared by the port's models (counterpart of
-thyroid_tpu/models/layers.py, the parts Swin and EfficientNet use, and of
-flax's nn.Conv and nn.BatchNorm).
+"""Building blocks shared by the port's models (counterpart of
+thyroid_tpu/models/layers.py, and of flax's nn.Conv and nn.BatchNorm).
 
 Parameters keep the JAX package's names — LayerNorm and BatchNorm
 `scale`/`bias`, Dense and Conv `kernel` and `bias`, BatchNorm's running
@@ -13,10 +12,14 @@ module whose parameters are laid out otherwise declares the difference in
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+from ..ops.token_fused import fused_ln_matmul, fused_ln_mlp_residual
+from .registry import cfg_get
 
 # torch nn.LayerNorm's default, which the JAX package and its kernels use
 LN_EPS = 1e-5
@@ -85,17 +88,20 @@ class LecunDense(DenseParams):
 class ConvParams(nn.Module):
     """flax nn.Conv parameters: `kernel` in PyTorch's (out, in / groups,
     kh, kw) layout and an optional `bias` (out,). The JAX leaf is the HWIO
-    kernel (a depthwise one (k, k, 1, C)); `jax_layout` says so."""
+    kernel (a depthwise one (k, k, 1, C)); `jax_layout` says so. `k` is
+    the side of a square kernel or (kh, kw)."""
 
     # JAX leaf → (port parameter, axes of the JAX array in the port's order)
     jax_layout: Dict[str, Tuple[str, Optional[Tuple[int, ...]]]] = {
         "kernel": ("kernel", HWIO_TO_OIHW)}
 
-    def __init__(self, in_dim: int, out_dim: int, k: int = 1, groups: int = 1,
+    def __init__(self, in_dim: int, out_dim: int,
+                 k: int | Tuple[int, int] = 1, groups: int = 1,
                  use_bias: bool = False):
         super().__init__()
         self.groups = groups
-        self.kernel = nn.Parameter(torch.empty(out_dim, in_dim // groups, k, k))
+        kh, kw = (k, k) if isinstance(k, int) else k
+        self.kernel = nn.Parameter(torch.empty(out_dim, in_dim // groups, kh, kw))
         self.bias = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
 
     def init_(self, generator: torch.Generator) -> None:
@@ -191,3 +197,199 @@ class DropPath(nn.Module):
         mask = torch.rand(shape, generator=generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
+
+
+def manual_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      dtype: torch.dtype, eps: float = LN_EPS) -> torch.Tensor:
+    """flax LayerNorm numerics: float32 statistics, fast variance
+    E[x²]−μ² clamped at 0, the result in `dtype`."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    mul = torch.rsqrt(var + eps) * scale.float()
+    return ((xf - mu) * mul + bias.float()).to(dtype)
+
+
+def dense(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+          dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.Dense(dtype=dtype) numerics from raw parameters: input and
+    parameters cast to `dtype`, the product and the bias add in `dtype`."""
+    y = x.to(dtype) @ kernel.to(dtype)
+    return y + bias.to(dtype) if bias is not None else y
+
+
+# ------------------------------------------------- the plain transformer
+# (ViT and DeiT). Parameters carry flax's names for both paths of a Block:
+# LayerNorm_0, Attention_0/Dense_{0,1}, LayerNorm_1, Mlp_0/Dense_{0,1}.
+
+
+class Mlp(MlpParams):
+    """Dense → exact GELU → dropout → Dense → dropout, in the stream's
+    dtype."""
+
+    def __init__(self, in_dim: int, hidden: int, drop_rate: float = 0.0):
+        super().__init__(in_dim, hidden)
+        self.drop_rate = float(drop_rate)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = x.dtype
+        x = F.gelu(dense(x, self.Dense_0.kernel, self.Dense_0.bias, dt))
+        x = dropout(x, self.drop_rate, train, generator)
+        x = dense(x, self.Dense_1.kernel, self.Dense_1.bias, dt)
+        return dropout(x, self.drop_rate, train, generator)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over (B, N, C) in the stream's dtype:
+    q·scale in that dtype, the scores accumulated in float32, softmax in
+    float32 then cast, attention dropout, attn·v accumulated in float32
+    then cast, the out-projection (`Dense_1`) and dropout. Plain PyTorch,
+    as it is XLA outside any kernel in JAX. With `ln` = (scale, bias) the
+    serving path: LN + QKV in one kernel (`fused_ln_matmul`, kernel 2) on
+    the pre-norm stream x."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 attn_drop_rate: float = 0.0, proj_drop_rate: float = 0.0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = float((dim // num_heads) ** -0.5)
+        self.attn_drop_rate = float(attn_drop_rate)
+        self.proj_drop_rate = float(proj_drop_rate)
+        self.Dense_0 = DenseParams(dim, 3 * dim, qkv_bias)
+        self.Dense_1 = DenseParams(dim, dim)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        b, n, c = x.shape
+        dt = x.dtype
+        heads = self.num_heads
+        if ln is not None:
+            qkv = fused_ln_matmul(x.contiguous(), ln[0], ln[1],
+                                  self.Dense_0.kernel, self.Dense_0.bias)
+        else:
+            qkv = dense(x, self.Dense_0.kernel, self.Dense_0.bias, dt)
+        q, k, v = qkv.reshape(b, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+        # the scale rounded to the model dtype, as JAX's weakly typed constant
+        q = q * torch.tensor(self.scale, dtype=dt)
+        attn = torch.softmax(q.float() @ k.float().transpose(-1, -2),
+                             dim=-1).to(dt)
+        attn = dropout(attn, self.attn_drop_rate, train, generator)
+        out = (attn.float() @ v.float()).to(dt)
+        out = dense(out.transpose(1, 2).reshape(b, n, c), self.Dense_1.kernel,
+                    self.Dense_1.bias, dt)
+        return dropout(out, self.proj_drop_rate, train, generator)
+
+
+class PatchEmbed(nn.Module):
+    """Patch embedding: a stride-p p×p conv `proj` (cuDNN on the card) →
+    (B, N, D) tokens in the model dtype. With `quality_aware` it also holds
+    the patch-quality head, conv3×3 → ReLU → conv1×1 → sigmoid → p×p
+    average pool → (B, N) scores (`quality_conv1`, `quality_conv2`). JAX
+    computes the head on every forward and only sows it, and no loss reads
+    it; here `scores(x)` computes it when asked (a train step gives its
+    parameters zero gradients, as jax.grad does)."""
+
+    def __init__(self, in_channels: int, embed_dim: int, patch_size: int,
+                 quality_aware: bool = False):
+        super().__init__()
+        self.patch_size, self.embed_dim = patch_size, embed_dim
+        self.proj = ConvParams(in_channels, embed_dim, patch_size, use_bias=True)
+        if quality_aware:
+            self.quality_conv1 = ConvParams(in_channels, 8, 3, use_bias=True)
+            self.quality_conv2 = ConvParams(8, 1, 1, use_bias=True)
+        else:
+            self.quality_conv1 = self.quality_conv2 = None
+
+    def init_(self, generator: torch.Generator) -> None:
+        """proj: truncated normal σ 0.02 and zero bias; the quality convs:
+        flax's lecun_normal defaults."""
+        with torch.no_grad():
+            trunc_normal_(self.proj.kernel, generator)
+            self.proj.bias.zero_()
+            for conv in (self.quality_conv1, self.quality_conv2):
+                if conv is not None:
+                    conv.init_(generator)
+
+    def _check(self, x: torch.Tensor) -> None:
+        p = self.patch_size
+        if x.shape[1] % p or x.shape[2] % p:
+            raise ValueError(f"image {x.shape[1]}x{x.shape[2]} not divisible "
+                             f"by patch size {p}")
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        self._check(x)
+        p = self.patch_size
+        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.proj.kernel.to(dtype),
+                     self.proj.bias.to(dtype), stride=p)
+        return y.permute(0, 2, 3, 1).reshape(x.shape[0], -1, self.embed_dim)
+
+    def scores(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(B, N) patch-quality scores in `dtype`."""
+        if self.quality_conv1 is None:
+            raise ValueError("this patch embedding has no quality head")
+        self._check(x)
+        c1, c2 = self.quality_conv1, self.quality_conv2
+        q = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), c1.kernel.to(dtype),
+                     c1.bias.to(dtype), padding=1)
+        q = F.conv2d(F.relu(q), c2.kernel.to(dtype), c2.bias.to(dtype))
+        q = F.avg_pool2d(torch.sigmoid(q), self.patch_size)
+        return q.reshape(x.shape[0], -1)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block. With `token_kernels`, an eval forward
+    takes the serving path: LN + QKV through kernel 2, attention, the
+    residual, then LN + MLP + residual through `fused_ln_mlp_residual`
+    (kernel 3). Otherwise, and in training: LN → Attention → DropPath → LN
+    → Mlp → DropPath."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 token_kernels: bool = False):
+        super().__init__()
+        self.token_kernels = token_kernels
+        self.LayerNorm_0 = LNParams(dim)
+        self.Attention_0 = Attention(dim, num_heads, qkv_bias, attn_drop_rate,
+                                     drop_rate)
+        self.LayerNorm_1 = LNParams(dim)
+        self.Mlp_0 = Mlp(dim, int(dim * mlp_ratio), drop_rate)
+        self.drop_path = DropPath(drop_path_rate)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        n1, n2, m = self.LayerNorm_0, self.LayerNorm_1, self.Mlp_0
+        if self.token_kernels and not train:
+            x = x + self.Attention_0(x, ln=(n1.scale, n1.bias))
+            return fused_ln_mlp_residual(
+                x.contiguous(), n2.scale, n2.bias, m.Dense_0.kernel,
+                m.Dense_0.bias, m.Dense_1.kernel, m.Dense_1.bias)
+        dt = x.dtype
+        y = self.Attention_0(manual_layer_norm(x, n1.scale, n1.bias, dt),
+                             train, generator)
+        x = x + self.drop_path(y, train, generator)
+        y = m(manual_layer_norm(x, n2.scale, n2.bias, dt), train, generator)
+        return x + self.drop_path(y, train, generator)
+
+
+def sincos_pos_embed(n: int, dim: int) -> torch.Tensor:
+    """(n, dim) fixed sinusoidal position embedding in float32, with the
+    JAX package's `div[: (dim + 1) // 2]` slice for the cosines."""
+    position = torch.arange(n, dtype=torch.float32)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32)
+                    * (-torch.log(torch.tensor(10000.0)) / dim))
+    pe = torch.zeros(n, dim)
+    pe[:, 0::2] = torch.sin(position * div)
+    pe[:, 1::2] = torch.cos(position * div[: (dim + 1) // 2])
+    return pe
+
+
+def token_kernels_default(cfg: Any) -> bool:
+    """A model config's `token_kernels` where it is set, else True: the
+    serving path through kernels 2 and 3, which JAX takes on its
+    accelerator (on its CPU it defaults to False)."""
+    v = cfg_get(cfg, "token_kernels", None)
+    return True if v is None else bool(v)

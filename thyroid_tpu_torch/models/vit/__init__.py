@@ -1,1 +1,1 @@
-from . import swin  # noqa: F401  (registers the Swin family)
+from . import deit, swin, vit  # noqa: F401  (register the ViT, DeiT and Swin families)

@@ -62,8 +62,9 @@ from ...ops.attention import (fused_swin_attention, fused_swin_block_attention,
 from ...ops.attention import window_partition, window_reverse  # noqa: F401
 from ...ops.token_fused import (fused_ln_matmul, fused_ln_mlp,
                                 fused_ln_mlp_residual)
-from ..layers import (HWIO_TO_OIHW, LN_EPS, DenseParams, DropPath, LecunDense,
-                      LNParams, MlpParams, dropout, trunc_normal_)
+from ..layers import (HWIO_TO_OIHW, DenseParams, DropPath, LecunDense,
+                      LNParams, MlpParams, dense, dropout, manual_layer_norm,
+                      trunc_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 
 
@@ -98,25 +99,6 @@ def shift_attention_mask(h: int, w: int, ws: int, shift: int) -> Optional[np.nda
     mask_windows = mask_windows.transpose(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws)
     attn_mask = mask_windows[:, None, :] - mask_windows[:, :, None]
     return np.where(attn_mask != 0, -100.0, 0.0).astype(np.float32)
-
-
-def manual_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                      dtype: torch.dtype, eps: float = LN_EPS) -> torch.Tensor:
-    """flax LayerNorm numerics: float32 statistics, fast variance
-    E[x²]−μ² clamped at 0, the result in `dtype`."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-    mul = torch.rsqrt(var + eps) * scale.float()
-    return ((xf - mu) * mul + bias.float()).to(dtype)
-
-
-def dense(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
-          dtype: torch.dtype) -> torch.Tensor:
-    """flax nn.Dense(dtype=dtype) numerics from raw parameters: input and
-    parameters cast to `dtype`, the product and the bias add in `dtype`."""
-    y = x.to(dtype) @ kernel.to(dtype)
-    return y + bias.to(dtype) if bias is not None else y
 
 
 class WindowAttention(nn.Module):

@@ -9,7 +9,8 @@ exact resume, opt_state and ema_params. params and batch_stats are JAX
 trees (the JAX leaf names and layouts, conv kernels HWIO) of float32
 tensors, so `models/from_jax.py:load_jax_variables` fills a model from
 them. The format is not orbax's: the JAX package cannot read these
-checkpoints, nor this one the JAX package's.
+checkpoints, nor this one the JAX package's. `restore_ensemble` fills an
+ensemble's members from such checkpoints.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.from_jax import jax_tree
+from ..models.from_jax import jax_tree, load_jax_variables
 
 STATE_FILE = "state.pt"
 
@@ -139,3 +140,14 @@ class BestCheckpointManager:
                 shutil.rmtree(best)
             shutil.copytree(self.kept[0][1], best)
         return is_best
+
+
+def restore_ensemble(ensemble: Any, checkpoints: List[str | Path]) -> Any:
+    """Fill the members of a CNNEnsemble (a registry shell) from their
+    checkpoints, one a member in order; returns the ensemble."""
+    if len(checkpoints) != len(ensemble.members):
+        raise ValueError(f"{len(ensemble.members)} members but "
+                         f"{len(checkpoints)} checkpoints")
+    for member, path in zip(ensemble.members, checkpoints):
+        load_jax_variables(member, load_checkpoint(path)[0])
+    return ensemble

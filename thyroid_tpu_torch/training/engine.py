@@ -1,5 +1,5 @@
 """Training engine (counterpart of thyroid_tpu/training/engine.py), loss
-mode "ce".
+modes "ce" and "deit".
 
 `Trainer(model, model_config, training_config, trainer_config,
 steps_per_epoch).fit(train_pipeline, val_pipeline)` then
@@ -7,15 +7,24 @@ steps_per_epoch).fit(train_pipeline, val_pipeline)` then
 JAX engine. A train step is: forward with `train=True` (DropPath and
 dropout draw from the trainer's generator on the device; BatchNorm
 normalises with the batch's statistics and updates its running ones in
-place, the state JAX installs with the step), cross-entropy with label
-smoothing and sample weights, backward (the Swin attention through its
-backward kernel), clip, AdamW with the schedule and layer decay, EMA of the
-parameters, and a metric update that stays on the device. Evaluation runs
-the `train=False` (serving) forward under `torch.no_grad` with the
-parameters (or their EMA) and the running statistics.
+place, the state JAX installs with the step), the loss, backward (the Swin
+attention through its backward kernel), clip, AdamW with the schedule and
+layer decay, EMA of the parameters, and a metric update that stays on the
+device. Evaluation runs the `train=False` (serving) forward under
+`torch.no_grad` with the parameters (or their EMA) and the running
+statistics; every model's eval forward gives one logits tensor (DeiT the
+mean of its heads, Inception without its auxiliary head), so the JAX eval
+step's `outputs[0]` of a tuple has no counterpart.
 
+The loss, as JAX's `_train_step_impl` takes it, with `ce` the
+cross-entropy with label smoothing and sample weights:
+- a plain output: ce(logits);
+- loss mode "deit" (a config named deit_*) with DeiT's training tuple
+  (cls, dist): 0.5·ce(cls) + 0.5·ce(dist), the metrics on (cls + dist) / 2;
+- any other tuple (Inception v3's auxiliary head): ce(main) + 0.4·ce(aux),
+  the metrics on main.
 With `mixup_alpha` or `cutmix_alpha` above 0 the step mixes the batch
-first (ops/augment.py mixup_cutmix, gated by `mixup_prob`) and the loss is
+first (ops/augment.py mixup_cutmix, gated by `mixup_prob`) and `ce` is
 λ·CE(y_a) + (1 − λ)·CE(y_b); the metrics stay on the original labels.
 
 Differences from the JAX engine: the per-step loop is the only loop
@@ -24,11 +33,11 @@ equal to this loop); the epoch permutation, DropPath and dropout, the
 batch augmentation and MixUp/CutMix draw from `torch.Generator`s seeded
 with `TrainerConfig.seed`, so their random streams are not JAX's; the
 initial weights come from the port's own initialisers unless `variables`
-(or `params`) carries a JAX tree in. Distillation, DeiT's dual head,
-Inception's aux head, meshes and attention-map logging raise
-NotImplementedError; the TrainerConfig fields that only those read (mesh
-axes) and the two the JAX engine never reads (`log_every_n_steps`,
-`deterministic`) are left out.
+(or `params`) carries a JAX tree in. Distillation (a teacher, a
+distillation config or loss mode "distillation"), meshes and
+attention-map logging raise NotImplementedError; the TrainerConfig fields
+that only those read (mesh axes) and the two the JAX engine never reads
+(`log_every_n_steps`, `deterministic`) are left out.
 """
 from __future__ import annotations
 
@@ -42,7 +51,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import torch
 from torch.func import functional_call
 
-from ..models import cnn, vit  # noqa: F401  (register the model families)
+from ..models import cnn, ensemble, vit  # noqa: F401  (register the model families)
 from ..models.base import check_pretrained
 from ..models.from_jax import load_jax_variables
 from ..models.registry import ModelRegistry, cfg_get
@@ -52,7 +61,8 @@ from ..utils.observe import MetricLogger, StepTimer
 from .checkpoint import (BestCheckpointManager, load_checkpoint, load_payload,
                          save_checkpoint, variables_of)
 from .configs import VIT_OPTIMIZER_PARAMS
-from .losses import cross_entropy, mixed_cross_entropy
+from .losses import (classification_outputs_to_logits, cross_entropy,
+                     mixed_cross_entropy)
 from .metrics import (finalize_metric_state, update_metric_state,
                       zero_metric_state)
 from .schedules import build_optimizer, build_schedule
@@ -147,8 +157,10 @@ class Trainer:
         self.model_config = model_config
         self.training_config = training_config
         self.cfg = TrainerConfig.from_config(trainer_config, training_config)
-        if teacher_fn is not None or distillation_config is not None:
-            raise _unported("distillation", "other experiments")
+        if teacher_fn is not None or distillation_config is not None \
+                or loss_mode == "distillation":
+            raise _unported("distillation",
+                            "Other experiments and the stacked trainer")
         if mesh is not None or self.cfg.mesh_shape:
             raise _unported("training on a mesh", "Parallelism")
         if self.cfg.log_attention_every_n_epochs:
@@ -168,8 +180,6 @@ class Trainer:
         if loss_mode is None:
             name = str(cfg_get(model_config, "name", ""))
             loss_mode = "deit" if name.startswith("deit") else "ce"
-        if loss_mode != "ce":
-            raise _unported(f"loss mode {loss_mode!r}", "rest of the zoo")
         self.loss_mode = loss_mode
         self.label_smoothing = float(
             cfg_get(training_config, "label_smoothing",
@@ -238,23 +248,32 @@ class Trainer:
                        weights: Optional[torch.Tensor],
                        labels_b: Optional[torch.Tensor] = None,
                        lam: Optional[torch.Tensor] = None):
-        """One training forward and backward → (loss, logits, {name: grad});
-        the forward updates the BatchNorm statistics in place. With
-        `labels_b` and `lam` (a mixed batch) the loss is the mixed CE."""
-        logits = self.model(images, train=True,
-                            generator=self.dropout_generator)
-        if isinstance(logits, tuple):
-            raise _unported("auxiliary heads", "rest of the zoo")
-        if labels_b is None:
-            loss = cross_entropy(logits, labels, self.label_smoothing, weights)
-        else:
-            loss = mixed_cross_entropy(logits, labels, labels_b, lam,
+        """One training forward and backward → (loss, metric logits, {name:
+        grad}); the forward updates the BatchNorm statistics in place. With
+        `labels_b` and `lam` (a mixed batch) `ce` is the mixed CE."""
+        outputs = self.model(images, train=True,
+                             generator=self.dropout_generator)
+
+        def ce(lgts):
+            if labels_b is None:
+                return cross_entropy(lgts, labels, self.label_smoothing, weights)
+            return mixed_cross_entropy(lgts, labels, labels_b, lam,
                                        self.label_smoothing, weights)
+
+        if self.loss_mode == "deit" and isinstance(outputs, tuple):
+            loss = 0.5 * ce(outputs[0]) + 0.5 * ce(outputs[1])
+            logits = classification_outputs_to_logits(outputs)
+        elif isinstance(outputs, tuple):          # Inception's aux head
+            main, aux = outputs
+            loss = ce(main) + 0.4 * ce(aux)
+            logits = main
+        else:
+            loss, logits = ce(outputs), outputs
         names = list(self.state.params)
         params = [self.state.params[n] for n in names]
-        # a parameter outside the loss (Swin's uncertainty head) gets a zero
-        # gradient, as jax.grad gives it: it still moves Adam's moments and
-        # the decoupled weight decay
+        # a parameter outside the loss (Swin's uncertainty head, the ViT
+        # patch-quality head) gets a zero gradient, as jax.grad gives it: it
+        # still moves Adam's moments and the decoupled weight decay
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
@@ -262,7 +281,7 @@ class Trainer:
 
     def train_step(self, mstate: Dict[str, torch.Tensor], images: torch.Tensor,
                    labels: torch.Tensor, weights: Optional[torch.Tensor]):
-        """[MixUp/CutMix,] forward, CE, backward, clip, AdamW, EMA, metric
+        """[MixUp/CutMix,] forward, loss, backward, clip, AdamW, EMA, metric
         update → (new metric state, P(class 1) scores); the metrics read
         the original labels."""
         labels_b = lam = None
