@@ -237,7 +237,31 @@ Phases, each printing its lines before the final one:
    deit_small, deit_base, densenet161/169/201, inception_v4 at 299x299)
    each served once at bucket 32 (1 percentile launch, 12 or 0 of kernels
    2 and 3) and stepped once in bf16 at batch 8 from seeded weights,
-   finite.
+   finite;
+26. distillation, the other experiments, the stacked trainer, on phase
+   23's corpus: (a) a teacher checkpoint each of resnet50 (phase 24's root
+   default fold), efficientnet_b0 and densenet121 (fold 1 of one epoch
+   through KFoldExperiment.run_fold) under build/chip_smoke/distill/
+   checkpoints; (b, c) the deit_tiny_distill_resnet50 and
+   deit_small_distill_ensemble presets through launch_experiment from
+   there (their relative teacher paths resolve), 2 folds of one epoch,
+   with phase 24's checks and counts (12 + 12 of kernels 2 and 3 per eval
+   forward), α per epoch, the three distillation terms in each fold's
+   history, the distillation fields of the summary and each teacher's
+   weights unchanged by the run; the ensemble teacher on the card against
+   the CPU (float32); kernels 2 and 3 at deit_small's T = 32·198, C = 384
+   against their plain versions and timed; (d) a distillation step of
+   deit_tiny (float32) with the resnet50 teacher against the CPU's on the
+   card's teacher logits, and resnet18 steps with SGD, with clipping by
+   value and over 2 accumulated mini-steps against the CPU's optimizer
+   on the card's gradients and against the CPU's step on the card's
+   decisions; (e) the ablation_augmentation preset's 8 runs, cut to one
+   epoch of 3 batches, with exact quality-kernel counts; (f) the
+   all-models sweep over resnet18 and deit_tiny with exact counts, only
+   each model's best checkpoint left; (g) test_resnet18_kfold_quick with
+   kfold.stacked, 2 folds of 2 epochs, against the sequential sweep per
+   epoch, its export in the sequential layout, and the fall-back at 4
+   unequal folds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -1095,7 +1119,7 @@ def step_loss_grads(config, params, batch, device=None, token: bool = False):
     backward of `config` on `batch` (numpy x, y, w) on `device`."""
     trainer = make_trainer(config, params, "step", device=device, token=token)
     dev = trainer.device
-    loss, _, grads = trainer.loss_and_grads(
+    loss, _, grads, _ = trainer.loss_and_grads(
         *(torch.from_numpy(a).to(dev) for a in batch))
     return float(loss), {n: g.float().cpu() for n, g in grads.items()}
 
@@ -1303,7 +1327,7 @@ def phase_train_profile(trainer, x, y, w, top: int = 14,
             secs.append(time.perf_counter() - t0)
         return statistics.median(secs) * 1e3
 
-    _, _, grads = trainer.loss_and_grads(x, y, w)
+    _, _, grads, _ = trainer.loss_and_grads(x, y, w)
     fb = timed(lambda: trainer.loss_and_grads(x, y, w))
     opt = timed(lambda: trainer.state.apply_gradients(grads))
     log(f"[profile] {what} batch {n} apart, median of 5: forward + "
@@ -2326,7 +2350,7 @@ def effnet_step(config, variables, batch, device=None):
     backward of `config` on `batch` (numpy x, y, w) on `device`."""
     trainer = effnet_trainer(config, variables, "effnet_step", device)
     dev = trainer.device
-    loss, _, grads = trainer.loss_and_grads(
+    loss, _, grads, _ = trainer.loss_and_grads(
         *(torch.from_numpy(a).to(dev) for a in batch))
     return float(loss), {n: g.float().cpu() for n, g in grads.items()}, \
         {n: b.float().cpu() for n, b in trainer.state.batch_stats.items()}
@@ -3838,34 +3862,53 @@ def phase_aug_experiments(card: str) -> None:
     run_experiments(AUG_EXPERIMENTS, "aug-experiment", card)
 
 
-def run_experiments(experiments, tag: str, card: str) -> None:
-    """launch_experiment of each {name: (overrides, launches per eval
-    forward)} on phase 23's corpus and fold files, cut to 2 folds of one
-    epoch: both folds succeed with finite averages and the summary's keys,
-    the fold files stay data/splits', and, with every counter set to 0
-    just before each run, kernel 1 launches once per prepared split, each
-    eval forward launches the kernels given and nothing else launches."""
+def corpus_paths(out: Path, splits: str = "splits"):
+    """Overrides that point a composition at phase 23's corpus and fold
+    files, writing under `out`."""
+    work = WORK / "experiment"
+    return [f"dataset.data_path={work / 'synthetic'}",
+            f"dataset.split_dir={work / splits}",
+            f"kfold.split_dir={work / splits}", f"output_dir={out}"]
+
+
+def fold_counts():
+    """(kernel 1's launches over the two folds' prepared splits without
+    quality preprocessing (at most 512 frames a chunk), eval forwards (the
+    val split after one epoch and the test split, batch 32), the splits'
+    32-frame chunks (quality preprocessing))."""
     import math
 
     from thyroid_tpu_torch.data.corpus import load_split_file
+
+    splits = [load_split_file(WORK / "experiment" / "splits" / f"split_fold_{n}.json")
+              for n in (1, 2)]
+    return (sum(math.ceil(len(v) / 512) for s in splits for v in s.values()),
+            sum(math.ceil(len(s["val"]) / BATCH) + math.ceil(len(s["test"]) / BATCH)
+                for s in splits),
+            sum(math.ceil(len(v) / 32) for s in splits for v in s.values()))
+
+
+def run_experiments(experiments, tag: str, card: str, summary_keys=()):
+    """launch_experiment of each {name: (overrides, launches per eval
+    forward)} on phase 23's corpus and fold files, cut to 2 folds of one
+    epoch: both folds succeed with finite averages and the summary's keys
+    (with `summary_keys` beside the usual ones), the fold files stay
+    data/splits', and, with every counter set to 0 just before each run,
+    kernel 1 launches once per prepared split, each eval forward launches
+    the kernels given and nothing else launches. Returns {name:
+    summary}."""
+    import math
+
     from thyroid_tpu_torch.experiment import launch_experiment
 
     root = Path(__file__).resolve().parent
     work = WORK / "experiment"
-    splits = [load_split_file(work / "splits" / f"split_fold_{n}.json")
-              for n in (1, 2)]
-    # kernel 1 once per split of each fold (at most 512 frames a chunk);
-    # eval forwards: the val split after the epoch and the test split
-    chunks = sum(math.ceil(len(v) / 512) for s in splits for v in s.values())
-    evals = sum(math.ceil(len(s["val"]) / BATCH) + math.ceil(len(s["test"]) / BATCH)
-                for s in splits)
+    chunks, evals, _ = fold_counts()
+    summaries = {}
     for name, (extra, per_eval) in experiments.items():
         out = work / f"out_{name.replace(' ', '_')}"
-        overrides = [*extra, f"dataset.data_path={work / 'synthetic'}",
-                     f"dataset.split_dir={work / 'splits'}",
-                     f"kfold.split_dir={work / 'splits'}", f"output_dir={out}",
-                     "kfold.num_folds=2", "trainer.max_epochs=1",
-                     "training.epochs=1"]
+        overrides = [*extra, *corpus_paths(out), "kfold.num_folds=2",
+                     "trainer.max_epochs=1", "training.epochs=1"]
         log(f"[{tag}] {name}: launch_experiment {' '.join(overrides)}")
         watched = all_counters()
         for fn in watched.values():
@@ -3896,8 +3939,8 @@ def run_experiments(experiments, tag: str, card: str) -> None:
         written = json.loads(next(out.rglob("kfold_summary_*.json")).read_text())
         numbers = {k for r in rows for k, v in r.items()
                    if isinstance(v, (int, float)) and math.isfinite(v)}
-        want_keys = SUMMARY_KEYS | {f"{p}_{k}" for p in ("avg", "std")
-                                    for k in numbers}
+        want_keys = SUMMARY_KEYS | set(summary_keys) | {
+            f"{p}_{k}" for p in ("avg", "std") for k in numbers}
         if bad or numbers != FOLD_NUMBERS or set(written) != want_keys:
             raise AssertionError(f"{name}: averages {bad}, summary keys "
                                  f"{sorted(set(written) ^ want_keys)}, fold "
@@ -3909,6 +3952,8 @@ def run_experiments(experiments, tag: str, card: str) -> None:
             f"{summary['avg_test_acc']:.4f}")
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, expected {want}")
+        summaries[name] = summary
+    return summaries
 
 
 def phase_aug_resnet(card: str) -> None:
@@ -3949,31 +3994,39 @@ def zoo_config(name: str, dtype: str = "bf16", **over):
     return dict(cfg, **over)
 
 
+def token_kernel_cases(cases, gen, tag: str):
+    """Kernels 2 and 3 against their plain versions at each (T, C) of
+    `cases`, in float32 and bf16 (RTOL of max(1, max|plain|)), two runs
+    bit-equal; → the failures."""
+    failed = []
+    for t, c in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            for kernel, shape in (("ln_matmul", (t, c, 3 * c, True)),
+                                  ("ln_mlp_residual", (t, c, 4 * c))):
+                args = make_inputs(kernel, shape, dtype, gen)
+                fused, plain = kernel_fns(kernel, shape)
+                got, again = fused(*args), fused(*args)
+                want = plain(*args).float()
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs().max().item()
+                tol = RTOL[dtype] * max(1.0, want.abs().max().item())
+                same = torch.equal(got, again)
+                ok = bool(np.isfinite(err)) and err <= tol and same
+                log(f"[{tag}] {kernel} {str(dtype)[6:]} {shape}: "
+                    f"max_abs_err {err:.3e} tol {tol:.3e}, two runs "
+                    f"bit-equal: {same} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append((kernel, str(dtype), shape, err, same))
+    return failed
+
+
 def zoo_token_kernels() -> None:
     """(a) of phase 25: kernels 2 and 3 against their plain versions at
     T = 32·197 and 32·198 (not multiples of 64: a partial last tile),
     C = 192, 384 and 768, in float32 and bf16, two runs bit-equal."""
     gen = torch.Generator(device="cuda").manual_seed(25)
-    failed = []
-    for t in ZOO_TOKENS:
-        for c in ZOO_WIDTHS:
-            for dtype in (torch.float32, torch.bfloat16):
-                for kernel, shape in (("ln_matmul", (t, c, 3 * c, True)),
-                                      ("ln_mlp_residual", (t, c, 4 * c))):
-                    args = make_inputs(kernel, shape, dtype, gen)
-                    fused, plain = kernel_fns(kernel, shape)
-                    got, again = fused(*args), fused(*args)
-                    want = plain(*args).float()
-                    torch.cuda.synchronize()
-                    err = (got.float() - want).abs().max().item()
-                    tol = RTOL[dtype] * max(1.0, want.abs().max().item())
-                    same = torch.equal(got, again)
-                    ok = bool(np.isfinite(err)) and err <= tol and same
-                    log(f"[zoo-kernels] {kernel} {str(dtype)[6:]} {shape}: "
-                        f"max_abs_err {err:.3e} tol {tol:.3e}, two runs "
-                        f"bit-equal: {same} {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        failed.append((kernel, str(dtype), shape, err, same))
+    failed = token_kernel_cases([(t, c) for t in ZOO_TOKENS for c in ZOO_WIDTHS],
+                                gen, "zoo-kernels")
     if failed:
         raise AssertionError(f"kernels 2-3 at ViT shapes disagree: {failed}")
 
@@ -4327,7 +4380,7 @@ def zoo_others(card: str) -> bool:
                              .astype(np.float32)).cuda()
         y = torch.arange(ZOO_STEP_BATCH, device="cuda") % 2
         trainer = effnet_trainer(cfg, None, "zoo_others")
-        loss, _, grads = trainer.loss_and_grads(
+        loss, _, grads, _ = trainer.loss_and_grads(
             x, y, torch.ones(ZOO_STEP_BATCH, device="cuda"))
         gnorm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values())))
         good = launches == want and bool(np.isfinite(probs["p"]).all()) \
@@ -4359,6 +4412,592 @@ def phase_zoo(card: str) -> None:
         raise AssertionError(f"phase 25 checks failed: {ok}")
     run_experiments(ZOO_EXPERIMENTS, "zoo-experiment", card)
     log(f"[zoo] phase 25 {time.perf_counter() - t0:.1f} s")
+
+
+# phase 26: distillation, the ablation and all-models sweeps, the stacked
+# trainer, SGD, accumulation and clipping by value
+DISTILL_TEACHERS = ("resnet50", "efficientnet_b0", "densenet121")
+# the summary's distillation fields, beside SUMMARY_KEYS
+DISTILL_KEYS = ("family", "student_model_name", "teacher_model_name",
+                "student_param_count")
+DISTILL_EXPERIMENTS = {
+    "deit_tiny_distill_resnet50": (
+        ["experiment=deit_tiny_distill_resnet50", "experiment.kfold.num_folds=2"],
+        {"ln_matmul": 12, "ln_mlp_residual": 12}),
+    "deit_small_distill_ensemble": (
+        ["experiment=deit_small_distill_ensemble", "experiment.kfold.num_folds=2"],
+        {"ln_matmul": 12, "ln_mlp_residual": 12}),
+}
+# the presets' α at epoch 0: deit_tiny_distill_resnet50's schedule starts
+# at 0.3; deit_small_distill_ensemble is progressive without a schedule,
+# so α stays its 0.7
+DISTILL_ALPHA = {"deit_tiny_distill_resnet50": 0.3,
+                 "deit_small_distill_ensemble": 0.7}
+# the ensemble teacher in float32 (TF32 off) on the card against the CPU:
+# max abs logit difference over max(1, max|cpu logit|)
+TEACHER_RTOL = 1e-3
+# deit_small's tokens and width at bucket 32 (kernels 2 and 3)
+DEIT_SMALL_SHAPE = (BATCH * 198, 384)
+# the optimizer steps card vs CPU: resnet18 in float32 at this side, SGD
+# (momentum 0.9, lr 1e-2, no warmup), one update each. The card's update
+# against the CPU's optimizer on the same gradients, in each leaf: the
+# chain is elementwise float32 (equal bits under clipping by value) but
+# for the clip by norm's float32 sum of 11 million squares, which each
+# side takes in its own order (6.7e-6 apart on the card)
+OPT_SIDE = 112
+OPT_RTOL = 1e-4
+OPT_CASES = {"sgd": {}, "sgd, clip by value 1e-3": {
+    "gradient_clip_algorithm": "value", "gradient_clip_val": 1e-3},
+    "sgd, accumulate_grad_batches 2": {"accumulate_grad_batches": 2}}
+# the stacked trainer's folds against sequential Trainers on the card, per
+# epoch (JAX's own bands in tests/unit/test_stacked.py): the card's
+# backward sums are not deterministic, and bf16 carries them over 2 epochs
+STACKED_TOL = {"train_loss": 2e-2, "val_loss": 5e-2, "val_acc": 0.13}
+ALL_MODELS_CLASS = ("thyroid_tpu_torch.experiment.all_models_experiment."
+                    "AllModelsFullKFoldExperiment")
+
+
+def teacher_sha(teacher) -> str:
+    return sha(*(t for m in teacher.members for t in m.state_dict().values()))
+
+
+@contextlib.contextmanager
+def distill_spy(record):
+    """Within the block, every Trainer.train_epoch appends (loss mode,
+    epoch, α) to record["alpha"], and every teacher the k-fold experiment
+    builds is appended with the SHA-256 of its weights to
+    record["teachers"]."""
+    from thyroid_tpu_torch.experiment import kfold_experiment
+    from thyroid_tpu_torch.training.engine import Trainer
+
+    make, train_epoch = kfold_experiment.create_teacher_from_config, Trainer.train_epoch
+
+    def teacher(*args, **kw):
+        t = make(*args, **kw)
+        record["teachers"].append((t, teacher_sha(t)))
+        return t
+
+    def epoch(self, pipeline, e):
+        record["alpha"].append((self.loss_mode, e, self._alpha_for_epoch(e)))
+        return train_epoch(self, pipeline, e)
+
+    kfold_experiment.create_teacher_from_config, Trainer.train_epoch = teacher, epoch
+    try:
+        yield
+    finally:
+        kfold_experiment.create_teacher_from_config = make
+        Trainer.train_epoch = train_epoch
+
+
+def distill_teachers(card: str) -> Path:
+    """(a): a checkpoint of each DISTILL_TEACHERS model as
+    `WORK/distill/checkpoints/<name>-best.ckpt`, where the presets' teacher
+    paths point from WORK/distill: resnet50's from phase 24's root default
+    run (fold 1), the others trained for fold 1 of one epoch through the
+    port's k-fold (phase 23's corpus and fold files)."""
+    from thyroid_tpu_torch.config import compose
+    from thyroid_tpu_torch.experiment import ExperimentManager
+    from thyroid_tpu_torch.training.checkpoint import get_best_checkpoint
+
+    ckdir = WORK / "distill" / "checkpoints"
+    shutil.rmtree(ckdir.parent, ignore_errors=True)
+    ckdir.mkdir(parents=True)
+    for name in DISTILL_TEACHERS:
+        t0 = time.perf_counter()
+        src = get_best_checkpoint(WORK / "experiment" / "out_root_default" / name
+                                  / "fold_1" / "checkpoints", name)
+        how = "phase 24's root default run, fold 1"
+        if src is None:
+            exp = ExperimentManager(compose(overrides=[
+                f"model=cnn/{name}", "training=cnn", "augmentation=no_aug",
+                "kfold.num_folds=2", "trainer.max_epochs=1", "training.epochs=1",
+                *corpus_paths(WORK / "distill" / "teachers")])).build_experiment()
+            exp.setup()
+            row = exp.run_fold(1)
+            src = get_best_checkpoint(Path(row["best_checkpoint"]).parent, name)
+            how = (f"fold 1 of one epoch through KFoldExperiment.run_fold, "
+                   f"test_acc {row['test_acc']:.4f}")
+        shutil.copytree(src, ckdir / f"{name}-best.ckpt")
+        log(f"[distill] teacher {name}: {how}; {time.perf_counter() - t0:.1f} s; "
+            f"card {card}")
+    return ckdir
+
+
+def distill_presets(card: str) -> bool:
+    """(b) and (c): the two presets through the CLI from WORK/distill (their
+    relative teacher paths resolve there), 2 folds of one epoch, with
+    run_experiments' checks and counts (kernel 1 once per prepared split,
+    12 + 12 of kernels 2 and 3 per eval forward, nothing else), the
+    summary's distillation fields, α per epoch, the three distillation
+    terms in every fold's history, and each teacher's weights unchanged
+    by the run."""
+    import os
+
+    ok = True
+    here = Path.cwd()
+    os.chdir(WORK / "distill")
+    try:
+        for name, spec in DISTILL_EXPERIMENTS.items():
+            record = {"alpha": [], "teachers": []}
+            with distill_spy(record):
+                summary = run_experiments({name: spec}, "distill", card,
+                                          DISTILL_KEYS)[name]
+            alphas = sorted({(m, e, a) for m, e, a in record["alpha"]})
+            log(f"[distill] {name}: alpha per epoch {alphas}; family "
+                f"{summary['family']}, student {summary['student_model_name']}, "
+                f"teacher {summary['teacher_model_name']}, student_param_count "
+                f"{summary['student_param_count']}")
+            ok &= alphas == [("distillation", 0, DISTILL_ALPHA[name])]
+            ok &= summary["family"] == "distilled_vit" and \
+                isinstance(summary["student_param_count"], int)
+            terms = ("train_class_loss", "train_distillation_loss",
+                     "train_teacher_agreement")
+            out = WORK / "experiment" / f"out_{name}"
+            for path in sorted(out.rglob("history.json")):
+                row = json.loads(path.read_text())[0]
+                have = {k: row.get(k) for k in terms}
+                log(f"[distill] {name} {path.parent.name} epoch 0: {have}")
+                ok &= all(isinstance(v, float) and np.isfinite(v)
+                          for v in have.values())
+            kept = [teacher_sha(t) == h for t, h in record["teachers"]]
+            log(f"[distill] {name}: {len(kept)} teachers built, weights "
+                f"unchanged after the run (SHA-256): {kept}")
+            ok &= len(kept) == 2 and all(kept)
+    finally:
+        os.chdir(here)
+    return ok
+
+
+def distill_ensemble_teacher(card: str) -> bool:
+    """(c): deit_small_distill_ensemble's teacher (the three checkpoints,
+    weights 0.4 / 0.3 / 0.3, float32) on the card against the CPU on 8
+    prepared frames, within TEACHER_RTOL; kernels 2 and 3 at deit_small's
+    shape against their plain versions, and their times."""
+    import os
+
+    from thyroid_tpu_torch.config import compose
+    from thyroid_tpu_torch.data.pipeline import prepare_images
+    from thyroid_tpu_torch.ops.image import standardize
+    from thyroid_tpu_torch.training.checkpoint import create_teacher_from_config
+
+    node = compose(overrides=["experiment=deit_small_distill_ensemble"]).experiment.distillation
+    here = Path.cwd()
+    os.chdir(WORK / "distill")
+    try:
+        teachers = {dev: create_teacher_from_config(node, device=dev)
+                    for dev in ("cuda", "cpu")}
+    finally:
+        os.chdir(here)
+    rs = np.random.RandomState(260)
+    raw = torch.from_numpy((rs.rand(8, 512, 512, 1) * 65535).astype(np.float32))
+    x = standardize(prepare_images(raw, 224), (0.5,), (0.5,))
+    got = {dev: t(x.to(dev)).cpu() for dev, t in teachers.items()}
+    err = float((got["cuda"] - got["cpu"]).abs().max())
+    tol = TEACHER_RTOL * max(1.0, float(got["cpu"].abs().max()))
+    ok = err <= tol and bool(torch.isfinite(got["cuda"]).all())
+    log(f"[distill] ensemble teacher {[type(m).__name__ for m in teachers['cuda'].members]} "
+        f"weights {teachers['cuda'].weights} float32, N=8 logits card vs cpu: "
+        f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}; card {card}")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    failed = token_kernel_cases([DEIT_SMALL_SHAPE], gen, "distill-kernels")
+    zoo_vit_times("deit_small", card)
+    return ok and not failed
+
+
+def distill_step(teacher_ck: Path, card: str) -> bool:
+    """(d): one distillation step (soft, T 4, α 0.3) of deit_tiny in
+    float32 (seeded, bumped weights, drop path 0) with the resnet50
+    teacher, batch ZOO_STEP_BATCH at 224², on the card against the CPU, the
+    card's teacher logits fed to both: loss and its three terms within
+    STEP_LOSS_RTOL, gradients within STEP_GRAD_RTOL globally and in each
+    leaf."""
+    from thyroid_tpu_torch.models.registry import ModelRegistry
+    from thyroid_tpu_torch.training.checkpoint import create_teacher_from_config
+    from thyroid_tpu_torch.training.configs import TRAINER_DEFAULT, TRAINING_VIT
+    from thyroid_tpu_torch.training.engine import Trainer
+
+    rs = np.random.RandomState(262)
+    x = rs.randn(ZOO_STEP_BATCH, 224, 224, 1).astype(np.float32)
+    y = (np.arange(ZOO_STEP_BATCH) % 2).astype(np.int64)
+    w = np.ones(ZOO_STEP_BATCH, np.float32)
+    teacher = create_teacher_from_config(
+        {"teacher_checkpoint": str(teacher_ck), "teacher_model": {"name": "resnet50"}},
+        device="cuda")
+    logits = teacher(torch.from_numpy(x).cuda())
+    cfg = zoo_config("deit_tiny", "f32", drop_path_rate=0.0)
+    params = perturbed_params(cfg)
+    dcfg = {"alpha": 0.3, "temperature": 4.0, "distillation_type": "soft"}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = logits.to(dev)
+        trainer = Trainer(ModelRegistry.create_model(cfg), cfg, TRAINING_VIT,
+                          TRAINER_DEFAULT, steps_per_epoch=TRAIN_FRAMES // BATCH,
+                          output_dir=WORK / "distill_step", params=params,
+                          device=dev, teacher_fn=lambda im, t=t: t,
+                          distillation_config=dcfg)
+        loss, _, grads, aux = trainer.loss_and_grads(
+            *(torch.from_numpy(a).to(dev) for a in (x, y, w)), None, None, t,
+            torch.tensor(0.3, device=dev))
+        out[dev] = (float(loss), {n: g.float().cpu() for n, g in grads.items()},
+                    {k: float(v) for k, v in aux.items()})
+        del trainer
+    card_, cpu = out["cuda"], out["cpu"]
+    loss_rel, grad_rel, norm = step_agreement(card_[:2], cpu[:2])
+    leaves = {n: float((card_[1][n] - g).norm() / g.norm())
+              for n, g in cpu[1].items() if float(g.norm()) > 0}
+    worst = max(leaves, key=leaves.get)
+    terms = {k: abs(card_[2][k] - v) / max(abs(v), 1e-6) for k, v in cpu[2].items()}
+    ok = loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL \
+        and leaves[worst] <= STEP_GRAD_RTOL and set(terms) == {
+            "class_loss", "distillation_loss", "teacher_agreement"} \
+        and max(terms.values()) <= STEP_LOSS_RTOL
+    log(f"[distill-step] deit_tiny f32 + resnet50 teacher, batch "
+        f"{ZOO_STEP_BATCH} at 224x224, card vs cpu on the card's teacher "
+        f"logits: loss {card_[0]:.7f} vs {cpu[0]:.7f} (relative {loss_rel:.3e}, "
+        f"tol {STEP_LOSS_RTOL:.0e}); terms card {card_[2]} cpu {cpu[2]}; "
+        f"|grad diff| / |grad| {grad_rel:.3e} (tol {STEP_GRAD_RTOL:.0e}; "
+        f"|grad| {norm:.4e}); worst of {len(leaves)} leaves {worst} "
+        f"{leaves[worst]:.3e} {'ok' if ok else 'FAIL'}; card {card}")
+    return ok
+
+
+def opt_trainer(variables, cfg, trainer_over, device):
+    """A resnet18 Trainer for the optimizer steps: SGD (momentum 0.9, lr
+    1e-2, no warmup) with configs/training/cnn.yaml's other keys and the
+    default trainer's, `trainer_over` on top."""
+    from thyroid_tpu_torch.models.registry import ModelRegistry
+    from thyroid_tpu_torch.training.configs import TRAINER_DEFAULT, TRAINING_CNN
+    from thyroid_tpu_torch.training.engine import Trainer
+
+    training = dict(TRAINING_CNN, optimizer_params={"name": "sgd", "lr": 1e-2},
+                    scheduler_params={"name": "cosine", "warmup_epochs": 0})
+    return Trainer(ModelRegistry.create_model(cfg), cfg, training,
+                   dict(TRAINER_DEFAULT, **trainer_over),
+                   steps_per_epoch=TRAIN_FRAMES // BATCH,
+                   output_dir=WORK / "opt_step", variables=variables,
+                   device=device)
+
+
+def opt_updates(trainer):
+    """[each update the trainer's optimizer returns from now on, as float32
+    CPU tensors ({} where accumulation makes none)]. The updates
+    themselves, not the parameters' change: a BatchNorm scale near 1 moved
+    by 1e-5 keeps two or three significant digits of its update."""
+    seen = []
+    update = trainer.state.tx.update
+
+    def keep(grads, state, params):
+        out = update(grads, state, params)
+        seen.append({n: u.detach().float().cpu().clone() for n, u in out.items()})
+        return out
+
+    trainer.state.tx.update = keep
+    return seen
+
+
+def opt_step(variables, cfg, trainer_over, batches, device, record=None,
+             impose=None, flips=None):
+    """Trainer.train_step over `batches` on `device` → ([each mini-step's
+    update], the running statistics after, [each mini-step's gradients]),
+    with step_decisions recording or imposing."""
+    from thyroid_tpu_torch.training import metrics as tmetrics
+
+    trainer = opt_trainer(variables, cfg, trainer_over, device)
+    grads = []
+    loss_and_grads = trainer.loss_and_grads
+
+    def keep(*args):
+        out = loss_and_grads(*args)
+        grads.append({n: g.detach().float().cpu().clone() for n, g in out[2].items()})
+        return out
+
+    trainer.loss_and_grads = keep
+    updates = opt_updates(trainer)
+    dev = trainer.device
+    with step_decisions(record=record, impose=impose, flips=flips):
+        for b in batches:
+            trainer.train_step(tmetrics.zero_metric_state(device=dev),
+                               *(torch.from_numpy(a).to(dev) for a in b))
+    stats = {n: t.float().cpu() for n, t in trainer.state.batch_stats.items()}
+    return updates, stats, grads
+
+
+def rel_diff(got, want):
+    """(|got − want| / |want| over every leaf, {leaf: its own}) of two
+    {name: tensor} dicts, leaves with |want| 0 left out of the second."""
+    num = sum(float(((got[n] - v) ** 2).sum()) for n, v in want.items())
+    den = sum(float((v ** 2).sum()) for v in want.values())
+    leaves = {n: float((got[n] - v).norm() / v.norm())
+              for n, v in want.items() if float(v.norm()) > 0}
+    return ((num / den) ** 0.5 if den else float("inf")), leaves
+
+
+def distill_opt_steps(card: str) -> bool:
+    """(d): resnet18 in float32 at OPT_SIDE², batch ZOO_STEP_BATCH, one
+    update each of SGD, SGD with clipping by value and SGD over 2
+    accumulated mini-steps (no update after the first). The optimizer: the
+    card's update against the CPU's optimizer on the card's own gradients
+    within OPT_RTOL in every leaf. The whole step: the card against the
+    CPU on the card's ReLU decisions and max-pool choices, the update
+    within STEP_GRAD_RTOL globally and in every leaf, the running
+    statistics within STEP_STATS_RTOL."""
+    cfg = zoo_config("resnet18", "f32", img_size=OPT_SIDE)
+    variables = effnet_variables(cfg)
+    rs = np.random.RandomState(263)
+    batches = [(rs.randn(ZOO_STEP_BATCH, OPT_SIDE, OPT_SIDE, 1).astype(np.float32),
+                (np.arange(ZOO_STEP_BATCH) % 2).astype(np.int64),
+                np.ones(ZOO_STEP_BATCH, np.float32)) for _ in range(2)]
+    ok = True
+    for name, over in OPT_CASES.items():
+        k = over.get("accumulate_grad_batches", 1)
+        record, flips = [], []
+        card_up, card_stats, card_grads = opt_step(variables, cfg, over,
+                                                   batches[:k], "cuda",
+                                                   record=record)
+        cpu_up, cpu_stats, _ = opt_step(variables, cfg, over, batches[:k], "cpu",
+                                        impose=record, flips=flips)
+        replay = opt_trainer(variables, cfg, over, "cpu")
+        replay_up = opt_updates(replay)
+        for g in card_grads:
+            replay.state.apply_gradients(g)
+        counts = [[len(u) for u in ups] for ups in (card_up, replay_up, cpu_up)]
+        opt_rel, opt_leaves = rel_diff(card_up[-1], replay_up[-1])
+        opt_worst = max(opt_leaves, key=opt_leaves.get)
+        rel, leaves = rel_diff(card_up[-1], cpu_up[-1])
+        worst = max(leaves, key=leaves.get)
+        stats_rel = rel_diff(card_stats, cpu_stats)[0]
+        flipped, total = sum(f for f, _ in flips), sum(n for _, n in flips)
+        n_leaves = len(card_grads[0])
+        good = counts == [[0] * (k - 1) + [n_leaves]] * 3 \
+            and opt_leaves[opt_worst] <= OPT_RTOL and rel <= STEP_GRAD_RTOL \
+            and leaves[worst] <= STEP_GRAD_RTOL and stats_rel <= STEP_STATS_RTOL \
+            and flipped <= STEP_FLIP_SHARE * total
+        clipped = ""
+        if "gradient_clip_val" in over:
+            # the trace's first step is g itself: the update is −lr·clip(g),
+            # and its elements at ±lr·v were clipped
+            lim = 1e-2 * over["gradient_clip_val"]
+            at = sum(int((v.abs() >= lim * (1 - 1e-6)).sum())
+                     for v in replay_up[-1].values())
+            size = sum(v.numel() for v in replay_up[-1].values())
+            clipped = f"; {at} of {size} elements clipped"
+        log(f"[opt-step] resnet18 f32 {OPT_SIDE}x{OPT_SIDE} {name}: updates "
+            f"a mini-step card/replay/cpu {counts}; the card's update vs the "
+            f"CPU's optimizer on the card's gradients {opt_rel:.3e}, worst "
+            f"leaf {opt_worst} {opt_leaves[opt_worst]:.3e} (tol {OPT_RTOL:.0e}); "
+            f"the whole step card vs cpu (the card's decisions, the CPU's own "
+            f"take {flipped} of {total} the other way) |diff| / |update| "
+            f"{rel:.3e}, worst of {len(leaves)} leaves {worst} "
+            f"{leaves[worst]:.3e} (tol {STEP_GRAD_RTOL:.0e}); running "
+            f"statistics {stats_rel:.3e}{clipped} {'ok' if good else 'FAIL'}; "
+            f"card {card}")
+        ok &= good
+    torch.cuda.empty_cache()
+    return ok
+
+
+def distill_ablation(card: str) -> bool:
+    """(e): ablation_augmentation through the CLI on phase 23's corpus (its
+    split_info split), cut to 1 epoch of 3 train batches, 2 val and 2 test
+    batches a run: 8 runs, none an "error" row, ablation_summary.json with
+    all 8 and the best by test_acc; with the counters set to 0 just
+    before, rows 12, 13, 15 and 1 once per 32-frame chunk of each split of
+    the 4 quality runs, row 1 once per split of the 4 others, nothing
+    else."""
+    import math
+
+    from thyroid_tpu_torch.data.corpus import load_split_file
+    from thyroid_tpu_torch.experiment import launch_experiment
+
+    out = WORK / "ablation"
+    overrides = ["experiment=ablation_augmentation", *corpus_paths(out),
+                 "experiment.trainer.max_epochs=1", "experiment.training.epochs=1",
+                 "trainer.limit_train_batches=3", "trainer.limit_val_batches=2",
+                 "trainer.limit_test_batches=2"]
+    t0 = time.perf_counter()
+    got = {}
+    launches = zoo_counts(lambda: got.setdefault("s", launch_experiment(overrides)))
+    wall = time.perf_counter() - t0
+    summary = got["s"]
+    sizes = [len(v) for v in load_split_file(
+        WORK / "experiment" / "splits" / "split_info.json").values()]
+    chunks = sum(math.ceil(n / 32) for n in sizes)
+    quality = ("stats_quantile", "median_bilateral", "apply_luts_dual")
+    want = {k: 4 * chunks if k in quality else 0 for k in launches}
+    want["percentile"] = 4 * chunks + 4 * len(sizes)
+    written = json.loads((out / "ablation_augmentation" / "ablation_summary.json").read_text())
+    runs = written["all_runs"]
+    errors = [r for r in runs if "error" in r]
+    for r in runs:
+        log(f"[ablation] {r.get('run')}: test_acc {r.get('test_acc')} error "
+            f"{r.get('error')}")
+    ok = len(runs) == 8 and not errors and summary["num_successful"] == 8 \
+        and launches == want and written["best_run"]["run"] == max(
+            runs, key=lambda r: r["test_acc"])["run"]
+    log(f"[ablation] 8 runs in {wall:.2f} s (resnet50 bf16, splits {sizes}); "
+        f"launches {launches}, expected {want}; best {written['best_run']['run']} "
+        f"{'ok' if ok else 'FAIL'}; card {card}")
+    return ok
+
+
+def distill_all_models(card: str) -> bool:
+    """(f): the all-models sweep through the CLI's experiment_class_path,
+    model_names cnn/resnet18 and vit/deit_tiny, 2 folds of one epoch,
+    quality forced on: a summary per model with its best fold, only
+    `{model}/best_checkpoint` left, all_models_summary.json; with the
+    counters set to 0 just before, rows 12, 13, 15 and 1 once per 32-frame
+    chunk of each split of both models' folds, deit_tiny's eval forwards
+    12 + 12 of kernels 2 and 3, nothing else."""
+    from thyroid_tpu_torch.experiment import launch_experiment
+
+    out = WORK / "all_models"
+    overrides = [f"+experiment_class_path={ALL_MODELS_CLASS}",
+                 "+model_names=[cnn/resnet18,vit/deit_tiny]", *corpus_paths(out),
+                 "kfold.num_folds=2", "trainer.max_epochs=1", "training.epochs=1"]
+    t0 = time.perf_counter()
+    got = {}
+    launches = zoo_counts(lambda: got.setdefault("s", launch_experiment(overrides)))
+    wall = time.perf_counter() - t0
+    results = got["s"]
+    _, evals, chunks = fold_counts()
+    want = {k: 0 for k in launches}
+    for k in ("stats_quantile", "median_bilateral", "apply_luts_dual", "percentile"):
+        want[k] = 2 * chunks
+    want["ln_matmul"] = want["ln_mlp_residual"] = 12 * evals
+    root = out / "all_models_kfold"
+    ok = launches == want
+    for name in ("resnet18", "deit_tiny"):
+        res = results.get(name, {})
+        left = sorted(p.name for p in (root / name).iterdir())
+        log(f"[all-models] {name}: folds {res.get('num_successful_folds')}, "
+            f"avg_accuracy {res.get('avg_accuracy')}, best_fold "
+            f"{res.get('best_fold')}, error {res.get('error')}; left {left}")
+        ok &= res.get("num_successful_folds") == 2 and res.get("best_fold") in (1, 2) \
+            and (root / name / "best_checkpoint" / "state.pt").exists() \
+            and not any(n.startswith("fold_") for n in left)
+    summary = json.loads((root / "all_models_summary.json").read_text())
+    ok &= set(summary) == {"resnet18", "deit_tiny"}
+    log(f"[all-models] {wall:.2f} s; launches {launches}, expected {want} "
+        f"{'ok' if ok else 'FAIL'}; card {card}")
+    return ok
+
+
+def distill_stacked(card: str) -> bool:
+    """(g): test_resnet18_kfold_quick with `+kfold.stacked=true`, 2 folds ×
+    2 epochs (bf16, no augmentation): each fold's history against a
+    sequential run of the same overrides within STACKED_TOL per epoch, the
+    stacked trainer's export in the sequential layout (each checkpoint the
+    fold's best parameters); then 4 folds (unequal splits of 450 frames,
+    fold files in splits4, 1 epoch of 2 batches): StackedShapeError sends
+    the sweep to the sequential path once."""
+    from thyroid_tpu_torch.experiment import KFoldExperiment, launch_experiment
+    from thyroid_tpu_torch.models.from_jax import load_jax_variables
+    from thyroid_tpu_torch.models.registry import ModelRegistry
+    from thyroid_tpu_torch.training import stacked as stacked_mod
+    from thyroid_tpu_torch.training.checkpoint import load_checkpoint
+
+    base = ["experiment=test_resnet18_kfold_quick", "augmentation=no_aug",
+            "experiment.trainer.max_epochs=2", "experiment.training.epochs=2"]
+    captured = []
+    fit = stacked_mod.StackedKFoldTrainer.fit
+
+    def spy(self):
+        rows = fit(self)
+        captured.append((self, rows))
+        return rows
+
+    stacked_mod.StackedKFoldTrainer.fit = spy
+    t0 = time.perf_counter()
+    try:
+        stacked = launch_experiment([*base, "+kfold.stacked=true",
+                                     *corpus_paths(WORK / "stacked" / "on")])
+    finally:
+        stacked_mod.StackedKFoldTrainer.fit = fit
+    t_stacked = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launch_experiment([*base, *corpus_paths(WORK / "stacked" / "off")])
+    t_seq = time.perf_counter() - t0
+    ok = len(captured) == 1 and stacked["num_successful_folds"] == 2 and all(
+        r.get("stacked") is True for r in stacked["raw_fold_results"])
+    st, rows = captured[0]
+    for f, row in enumerate(rows, start=1):
+        seq = json.loads((WORK / "stacked" / "off" / "resnet18" / f"fold_{f}"
+                          / "history.json").read_text())
+        diffs = {k: max(abs(a[k] - b[k]) for a, b in zip(row["history"], seq))
+                 for k in STACKED_TOL}
+        good = len(seq) == len(row["history"]) == 2 and all(
+            diffs[k] <= tol for k, tol in STACKED_TOL.items())
+        log(f"[stacked] fold {f}: best_epoch {row['best_epoch']}, per-epoch "
+            f"stacked vs sequential {[(round(a['train_loss'], 5), round(b['train_loss'], 5)) for a, b in zip(row['history'], seq)]} "
+            f"train_loss; largest differences {diffs} (tol {STACKED_TOL}) "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    paths = st.export_fold_checkpoints(WORK / "stacked" / "export", "resnet18",
+                                       st.model_config)
+    for f, path in enumerate(paths, start=1):
+        variables, meta = load_checkpoint(path)
+        model = ModelRegistry.create_model(st.model_config)
+        load_jax_variables(model, variables)
+        live = st.trainers[f - 1].state.params
+        same = all(torch.equal(t, live[n].detach().cpu())
+                   for n, t in model.named_parameters())
+        where = path.relative_to(WORK / "stacked" / "export")
+        log(f"[stacked] export fold {f}: {where}, fold {meta['fold']}, "
+            f"stacked_export {meta['stacked_export']}, the fold's best "
+            f"parameters: {same}")
+        ok &= same and str(where) == f"resnet18/fold_{f}/checkpoints/resnet18-best.ckpt"
+    calls = {"stacked": 0, "sequential": 0}
+    run_stacked, run_fold = KFoldExperiment.run_stacked, KFoldExperiment.run_fold
+
+    def count(kind, fn):
+        def wrapped(self, arg):
+            calls[kind] += 1
+            return fn(self, arg)
+        return wrapped
+
+    KFoldExperiment.run_stacked = count("stacked", run_stacked)
+    KFoldExperiment.run_fold = count("sequential", run_fold)
+    t0 = time.perf_counter()
+    try:
+        back = launch_experiment([
+            "experiment=test_resnet18_kfold_quick", "augmentation=no_aug",
+            "+kfold.stacked=true", "experiment.kfold.num_folds=4",
+            "trainer.limit_train_batches=2", "trainer.limit_val_batches=1",
+            "trainer.limit_test_batches=1",
+            *corpus_paths(WORK / "stacked" / "back", splits="splits4")])
+    finally:
+        KFoldExperiment.run_stacked, KFoldExperiment.run_fold = run_stacked, run_fold
+    t_back = time.perf_counter() - t0
+    good = calls == {"stacked": 1, "sequential": 4} and \
+        back["num_successful_folds"] == 4 and \
+        not any("stacked" in r for r in back["raw_fold_results"])
+    log(f"[stacked] 4 unequal folds: calls {calls}, folds "
+        f"{back['num_successful_folds']}, rows stacked "
+        f"{[r.get('stacked') for r in back['raw_fold_results']]} "
+        f"{'ok' if good else 'FAIL'}")
+    log(f"[stacked] stacked 2 folds x 2 epochs {t_stacked:.2f} s, sequential "
+        f"{t_seq:.2f} s, fall-back {t_back:.2f} s; card {card}")
+    return ok and good
+
+
+def phase_distill(card: str) -> None:
+    """Phase 26: distillation, the ablation and all-models sweeps, the
+    stacked trainer, SGD, accumulation and clipping by value, (a) to (g),
+    on phase 23's corpus; float32 matmuls and convolutions without TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    ckdir = distill_teachers(card)
+    ok = {"presets": distill_presets(card),
+          "ensemble teacher": distill_ensemble_teacher(card),
+          "distillation step": distill_step(ckdir / "resnet50-best.ckpt", card),
+          "optimizer steps": distill_opt_steps(card),
+          "ablation": distill_ablation(card),
+          "all models": distill_all_models(card),
+          "stacked": distill_stacked(card)}
+    log(f"[distill] checks {ok}; phase 26 {time.perf_counter() - t0:.1f} s")
+    if not all(ok.values()):
+        raise AssertionError(f"phase 26 checks failed: {ok}")
 
 
 def main() -> int:
@@ -4420,6 +5059,8 @@ def main() -> int:
         phase_aug_resnet(card)
         torch.cuda.empty_cache()
         phase_zoo(card)
+        torch.cuda.empty_cache()
+        phase_distill(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

@@ -84,14 +84,16 @@ def _captured(cls_attr, module, monkeypatch):
 @pytest.mark.parametrize("preset", PRESETS)
 def test_experiment_preset_tree_matches_jax(preset, monkeypatch):
     """The tree build_experiment hands its experiment; the experiment
-    classes are stubbed on both sides (several presets name options the
-    port raises on: distillation, ablation)."""
+    classes (k-fold and ablation) are stubbed on both sides, so that no
+    experiment is built."""
     overrides = [f"experiment={preset}", "augmentation=no_aug"]
     want = _captured("KFoldExperiment", jax_manager, monkeypatch)
     monkeypatch.setattr(jax_manager, "AblationExperiment",
                         lambda cfg: want.setdefault("cfg", cfg))
     jax_manager.ExperimentManager(jax_compose(overrides=overrides)).build_experiment()
     got = _captured("KFoldExperiment", torch_manager, monkeypatch)
+    monkeypatch.setattr(torch_manager, "AblationExperiment",
+                        lambda cfg, **kw: got.setdefault("cfg", cfg))
     torch_manager.ExperimentManager(compose(overrides=overrides)).build_experiment()
     assert got["cfg"].to_dict() == want["cfg"].to_dict()
 

@@ -190,10 +190,10 @@ def test_failed_fold_is_recorded_and_sweep_goes_on(tiny_corpus, tmp_path,
 # option: (overrides, the Queue 1 item it raises naming, or None where the
 # option is ported and the folds must run)
 UNPORTED = {
-    "distillation": (["+distillation.enabled=true"], "Other experiments"),
-    "stacked": (["+kfold.stacked=true"], "Other experiments"),
+    "distillation": (["+distillation.enabled=true"], None),
+    "stacked": (["+kfold.stacked=true"], None),
     "slices": (["+kfold.num_slices=2"], "Parallelism"),
-    "ablation": (["+ablation.parameter_space=[]"], "Other experiments"),
+    "ablation": (["+ablation.parameter_space=[]"], None),
     "augmentation": (["augmentation=medium",
                       "dataset.apply_augmentations=true"], None),
 }
@@ -203,13 +203,19 @@ UNPORTED = {
 @pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_options_raise_before_any_fold(case, tiny_corpus, tmp_path,
                                                 monkeypatch):
-    """Each unported option raises before any fold; augmentation, which is
-    ported, reaches both folds (test_augmented_kfold_runs runs
-    them)."""
+    """Each unported option (k-fold over slices) raises before any fold;
+    the ported ones reach both folds: augmentation
+    (test_augmented_kfold_runs runs them), distillation
+    (tests/test_torch_distill.py), the stacked trainer, which takes both
+    folds at once (tests/test_torch_stacked.py), and an ablation node
+    without a parameter space, which the manager leaves to the k-fold
+    experiment as JAX's does (tests/test_torch_ablation.py)."""
     extra, item = UNPORTED[case]
     ran = []
     monkeypatch.setattr(KFoldExperiment, "run_fold",
                         lambda self, fold: ran.append(fold) or _fake_row(fold))
+    monkeypatch.setattr(KFoldExperiment, "run_stacked", lambda self, folds: (
+        ran.extend(folds), self.fold_results.extend(map(_fake_row, folds))))
     overrides = _overrides(tiny_corpus, tmp_path, *extra)
     if item is None:
         launch_experiment(overrides, device="cpu")

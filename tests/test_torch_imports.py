@@ -87,3 +87,14 @@ def test_experiment_imports_without_pydantic():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.unit
+def test_sources_cover_every_experiment_module():
+    """The scan above covers the stacked trainer and the ablation and
+    all-models sweeps beside the k-fold experiment and its manager."""
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {f"thyroid_tpu_torch/{m}.py" for m in (
+        "training/stacked", "training/checkpoint", "training/losses",
+        "experiment/ablation_experiment", "experiment/all_models_experiment",
+        "experiment/kfold_experiment", "experiment/manager")} <= names

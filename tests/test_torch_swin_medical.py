@@ -208,7 +208,7 @@ def test_medical_train_step_matches_jax(medical, tmp_path, monkeypatch):
                              jnp.asarray(y), 0.1, jnp.asarray(w))
 
     want_loss, want = jax.jit(jax.value_and_grad(loss))(params)
-    got_loss, _, grads = pt.loss_and_grads(
+    got_loss, _, grads, _ = pt.loss_and_grads(
         torch.from_numpy(x), torch.from_numpy(y).long(), torch.from_numpy(w))
     assert abs(float(got_loss) - float(want_loss)) < 1e-5
     layout = pt.state.layout

@@ -434,24 +434,61 @@ def test_swin_training_options():
 
 @pytest.mark.unit
 def test_trainer_refuses_unported_modes(tmp_path):
+    """A mesh and attention-map logging raise naming their Queue 1 items.
+    Distillation (a teacher_fn), SGD, gradient accumulation and clipping by
+    value, once refused here, build and step (tests/test_torch_distill.py
+    and tests/test_torch_optim_extra.py hold them to JAX); loss mode
+    "distillation" without a teacher raises a ValueError."""
     kw = dict(steps_per_epoch=2, output_dir=tmp_path, device="cpu")
     model = ModelRegistry.create_model(SMALL_SWIN)
-    for extra, match in (({"teacher_fn": lambda x: x}, "distillation"),
-                         ({"distillation_config": {"alpha": 0.5}},
-                          "Other experiments and the stacked trainer"),
-                         ({"loss_mode": "distillation"},
-                          "Other experiments and the stacked trainer"),
-                         ({"mesh": object()}, "mesh")):
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(model, SMALL_SWIN, TRAINING_VIT, TRAINER_DEFAULT,
-                    **kw, **extra)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Trainer(model, SMALL_SWIN, TRAINING_VIT, TRAINER_DEFAULT, **kw,
+                mesh=object())
+    with pytest.raises(ValueError, match="teacher"):
+        Trainer(model, SMALL_SWIN, TRAINING_VIT, TRAINER_DEFAULT, **kw,
+                loss_mode="distillation")
     # the "deit" loss mode is ported (tests/test_torch_vit.py holds it to JAX)
     assert Trainer(model, SMALL_SWIN, TRAINING_VIT, TRAINER_DEFAULT, **kw,
                    loss_mode="deit").loss_mode == "deit"
-    with pytest.raises(NotImplementedError, match="SGD"):
-        Trainer(model, SMALL_SWIN, dict(TRAINING_VIT,
-                                        optimizer_params={"name": "sgd"}),
-                TRAINER_DEFAULT, **kw)
+    x, y, w = small_batch(5)
+    x, y, w = torch.from_numpy(x), torch.from_numpy(y).long(), torch.from_numpy(w)
+
+    def step(trainer, alpha=None):
+        before = {n: p.detach().clone() for n, p in trainer.state.params.items()}
+        keys = trainer._aux_keys
+        ms, _ = trainer.train_step(tmetrics.zero_metric_state(keys), x, y, w,
+                                   alpha)
+        assert bool(torch.isfinite(ms["loss_sum"])) and float(ms["w_sum"]) == w.sum()
+        return ms, any(not torch.equal(before[n], p)
+                       for n, p in trainer.state.params.items())
+
+    # distillation: a teacher_fn selects the mode; the teacher sees the
+    # batch, MixUp/CutMix is skipped, the three terms are summed
+    seen = []
+    teacher = Trainer(ModelRegistry.create_model(SMALL_F32), SMALL_F32,
+                      dict(TRAINING_VIT, mixup_alpha=0.2), TRAINER_DEFAULT,
+                      **kw, teacher_fn=lambda im: seen.append(im) or
+                      torch.zeros(len(im), 2),
+                      distillation_config={"alpha": 0.5})
+    assert teacher.loss_mode == "distillation"
+    ms, _ = step(teacher, torch.tensor(0.5))
+    assert len(seen) == 1 and torch.equal(seen[0], x)
+    assert {"aux_class_loss", "aux_distillation_loss",
+            "aux_teacher_agreement"} <= set(ms)
+    # SGD, clipping by value: the first step updates (no warmup)
+    no_warmup = dict(TRAINING_VIT, scheduler_params={"name": "cosine"})
+    for training, trcfg in (
+            (dict(no_warmup, optimizer_params={"name": "sgd", "lr": 1e-2}), {}),
+            (no_warmup, {"gradient_clip_algorithm": "value",
+                         "gradient_clip_val": 1e-3})):
+        trainer = Trainer(ModelRegistry.create_model(SMALL_F32), SMALL_F32,
+                          training, dict(TRAINER_DEFAULT, **trcfg), **kw)
+        assert step(trainer)[1] and trainer.state.opt_state.count == 1
+    # accumulation over 2 mini-steps: the parameters move on the second
+    acc = Trainer(ModelRegistry.create_model(SMALL_F32), SMALL_F32, no_warmup,
+                  dict(TRAINER_DEFAULT, accumulate_grad_batches=2), **kw)
+    assert [step(acc)[1] for _ in range(2)] == [False, True]
+    assert acc.state.step == 2 and acc.state.opt_state.count == 1
     # MixUp/CutMix is ported: the step mixes the batch (its loss is the
     # mixed CE, test_torch_resnet.py holds it to JAX) and counts the
     # original labels
@@ -459,13 +496,7 @@ def test_trainer_refuses_unported_modes(tmp_path):
                     dict(TRAINING_VIT, mixup_alpha=0.2, mixup_prob=0.0),
                     TRAINER_DEFAULT, **kw)
     assert (mixed.mixup_alpha, mixed.cutmix_alpha, mixed.mixup_prob) == (0.2, 0.0, 1.0)
-    x, y, w = small_batch(5)
-    ms, _ = mixed.train_step(tmetrics.zero_metric_state(), torch.from_numpy(x),
-                             torch.from_numpy(y).long(), torch.from_numpy(w))
-    assert bool(torch.isfinite(ms["loss_sum"])) and float(ms["w_sum"]) == w.sum()
-    for trcfg, match in (({"accumulate_grad_batches": 2}, "accumulation"),
-                         ({"gradient_clip_algorithm": "value"}, "clip"),
-                         ({"log_attention_every_n_epochs": 1}, "attention")):
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(model, SMALL_SWIN, TRAINING_VIT,
-                    dict(TRAINER_DEFAULT, **trcfg), **kw)
+    step(mixed)
+    with pytest.raises(NotImplementedError, match="attention"):
+        Trainer(model, SMALL_SWIN, TRAINING_VIT,
+                dict(TRAINER_DEFAULT, log_attention_every_n_epochs=1), **kw)

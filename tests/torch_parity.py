@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import pytest
 
 # a small Swin with shifted and unshifted blocks in both stages
 SMALL_SWIN = {"name": "swin_tiny", "img_size": 64, "embed_dim": 32,
@@ -572,3 +573,17 @@ def tree_shapes_equal(port_variables, jax_shapes) -> None:
                     jax_shapes[col])[0]}
         got = {k: tuple(v.shape) for k, v in flat_tree(port_variables[col]).items()}
         assert got == want, (col, sorted(set(got) ^ set(want)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side of a test module that
+    imports this fixture: its tensors are small, so one thread is as fast
+    alone, and under the suite's parallel workers it does not wait on
+    threads the other workers' processes hold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

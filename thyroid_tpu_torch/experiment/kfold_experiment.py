@@ -5,20 +5,24 @@ thyroid_tpu/experiment/kfold_experiment.py).
   (in the dataset's split_dir, which wins over the kfold group's);
 - per fold: the dataset config gets the fold's split file, each split is
   decoded into a DevicePipeline (create_data_loaders), the model is built
-  from the registry, `Trainer.fit` trains it and `Trainer.test` evaluates
-  the best checkpoint; the fold's row holds the test metrics, the best
-  epoch's val metrics, the epochs trained and the wall time;
+  from the registry, the teacher from the distillation node when it is
+  enabled (create_teacher_from_config), `Trainer.fit` trains it and
+  `Trainer.test` evaluates the best checkpoint; the fold's row holds the
+  test metrics, the best epoch's val metrics, the epochs trained and the
+  wall time;
+- `kfold.stacked`: every fold at once (training/stacked.py), falling back
+  to the sequential sweep when the folds' splits differ in shape;
 - a fold that raises is logged and recorded as {"error", "fold"}, and the
   sweep goes on;
 - aggregation: avg_/std_ over the finite numbers of the successful folds,
   over the union of their keys; log_results writes
-  kfold_summary_<prefix>.json.
+  kfold_summary_<prefix>.json, with the student and teacher names and the
+  student's parameter count under distillation.
 
 Everything runs on `device` (the card unless the CPU is asked for).
-Options without a port raise NotImplementedError in __init__, before any
-fold runs, because the sweep would record them as failed folds:
-distillation, `kfold.stacked`, `kfold.num_slices` > 1 and an ablation
-node.
+`kfold.num_slices` > 1, which has no port, raises NotImplementedError in
+__init__, before any fold runs, because the sweep would record it as
+failed folds.
 """
 from __future__ import annotations
 
@@ -34,8 +38,10 @@ from ..data.corpus import generate_kfold_splits
 from ..data.dataset import CARSThyroidDataset
 from ..data.pipeline import DevicePipeline, create_data_loaders
 from ..models import cnn, ensemble, vit  # noqa: F401  (register the model families)
+from ..models.base import num_parameters
 from ..models.registry import ModelRegistry, cfg_get
 from ..ops.platform import DeviceLike, resolve_device
+from ..training.checkpoint import create_teacher_from_config
 from ..training.engine import Trainer, _unported
 from ..utils.logging import get_logger
 from .base_experiment import BaseExperiment
@@ -55,21 +61,22 @@ class KFoldExperiment(BaseExperiment):
         self.trainer_config = cfg_get(config, "trainer", {})
         self.training_config = cfg_get(config, "training_content", None) or \
             cfg_get(config, "training", {})
+        self.distillation_config = cfg_get(config, "distillation", None)
         self.num_folds = int(cfg_get(self.kfold_config, "num_folds", 5))
-        self._refuse_unported()
-        self.device = resolve_device(device)
-
-    def _refuse_unported(self) -> None:
-        other = "Other experiments and the stacked trainer"
-        distillation = cfg_get(self.config, "distillation", None)
-        if distillation and cfg_get(distillation, "enabled", True):
-            raise _unported("distillation", other)
-        if cfg_get(self.config, "ablation", None) is not None:
-            raise _unported("the ablation experiment", other)
-        if cfg_get(self.kfold_config, "stacked", False):
-            raise _unported("the stacked k-fold trainer", other)
         if int(cfg_get(self.kfold_config, "num_slices", 1)) > 1:
             raise _unported("k-fold over slices", "Parallelism")
+        self.device = resolve_device(device)
+
+    def _distilling(self) -> bool:
+        return bool(self.distillation_config) and \
+            bool(cfg_get(self.distillation_config, "enabled", True))
+
+    def _teacher(self):
+        """The distillation teacher on the device, or None."""
+        if not self._distilling():
+            return None
+        return create_teacher_from_config(self.distillation_config,
+                                          device=self.device)
 
     # ------------------------------------------------------------------
     def setup(self) -> None:
@@ -139,6 +146,8 @@ class KFoldExperiment(BaseExperiment):
             self.trainer_config,
             steps_per_epoch=pipelines["train"].steps_per_epoch(),
             output_dir=self.output_dir / f"fold_{fold}",
+            teacher_fn=self._teacher(),
+            distillation_config=self.distillation_config,
             device=self.device,
         )
         fit = trainer.fit(pipelines["train"], pipelines["val"],
@@ -169,8 +178,42 @@ class KFoldExperiment(BaseExperiment):
         pick = max if mode == "max" else min
         return pick(rows, key=lambda r: r[monitor])
 
+    def run_stacked(self, folds) -> None:
+        """Every fold at once (training/stacked.py); one row a fold, its
+        wall time the sweep's share."""
+        from ..training.stacked import StackedKFoldTrainer
+
+        t0 = time.time()
+        pipes = [self._build_pipelines(f) for f in folds]
+        st = StackedKFoldTrainer(
+            self.model_config, self.training_config, self.trainer_config,
+            [p["train"] for p in pipes], [p["val"] for p in pipes],
+            [p["test"] for p in pipes],
+            output_dir=self.output_dir / "stacked",
+            teacher_fn=self._teacher(),
+            distillation_config=self.distillation_config,
+            device=self.device,
+        )
+        results = st.fit()
+        wall = time.time() - t0
+        for f, r in zip(folds, results):
+            row = {"fold": f, **{k: v for k, v in r.items() if k != "history"}}
+            row["train_time_s"] = wall / max(1, len(folds))
+            self.fold_results.append(row)
+
     def run(self) -> Dict[str, Any]:
-        for fold in range(1, self.num_folds + 1):
+        folds = list(range(1, self.num_folds + 1))
+        if cfg_get(self.kfold_config, "stacked", False):
+            from ..training.stacked import StackedShapeError
+
+            try:
+                self.run_stacked(folds)
+                self.aggregate_results()
+                return self.aggregated_results
+            except StackedShapeError as e:
+                logger.warning("stacked k-fold unavailable (%s); falling "
+                               "back to the sequential sweep", e)
+        for fold in folds:
             logger.info("===== fold %d/%d =====", fold, self.num_folds)
             try:
                 self.fold_results.append(self.run_fold(fold))
@@ -213,6 +256,20 @@ class KFoldExperiment(BaseExperiment):
         prefix = cfg_get(self.kfold_config, "experiment_name_prefix", name)
         self.aggregated_results["experiment_name"] = str(name)
         self.aggregated_results["model_name"] = str(prefix)
+        if self._distilling():
+            res = self.aggregated_results
+            res["family"] = "distilled_vit"
+            res["student_model_name"] = str(cfg_get(self.model_config, "name",
+                                                    "unknown_student"))
+            res["teacher_model_name"] = str(cfg_get(
+                self.distillation_config, "teacher_model_name",
+                cfg_get(cfg_get(self.distillation_config, "teacher_model", {})
+                        or {}, "name", "unknown_teacher")))
+            try:
+                res["student_param_count"] = num_parameters(
+                    ModelRegistry.create_model(self.model_config))
+            except Exception:
+                res["student_param_count"] = "N/A"
         path = self.output_dir / f"kfold_summary_{prefix}.json"
         with open(path, "w") as f:
             json.dump(self.aggregated_results, f, indent=4, default=str)

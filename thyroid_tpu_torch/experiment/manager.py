@@ -5,6 +5,8 @@ The composed config's `experiment` node is merged into the root groups (a
 `config_group` inside a model node loads that model YAML first), the
 `augmentation` group's level is carried into the dataset group, and the
 experiment is built: the class named by `experiment_class_path`, else
+AblationExperiment for a primary ablation node (one with a parameter
+space, unless `is_primary_ablation_experiment` says otherwise), else
 KFoldExperiment. It runs on the card:
 
     python -m thyroid_tpu_torch.experiment.manager model=cnn/efficientnet_b0 \
@@ -23,6 +25,7 @@ from ..config.node import ConfigNode
 from ..models.registry import cfg_get
 from ..ops.platform import DeviceLike
 from ..utils.logging import get_logger
+from .ablation_experiment import AblationExperiment
 from .base_experiment import BaseExperiment
 from .kfold_experiment import KFoldExperiment
 
@@ -76,13 +79,18 @@ class ExperimentManager:
 
     def build_experiment(self) -> BaseExperiment:
         """`experiment_class_path`'s class (called with the config and
-        `device=`), else KFoldExperiment."""
+        `device=`), else AblationExperiment or KFoldExperiment."""
         cfg = self.experiment_config()
         class_path = cfg_get(cfg, "experiment_class_path", None)
         if class_path:
             module_name, _, cls_name = str(class_path).rpartition(".")
             cls = getattr(importlib.import_module(module_name), cls_name)
             return cls(cfg, device=self.device)
+        ablation = cfg_get(cfg, "ablation", None)
+        if ablation is not None and cfg_get(
+                ablation, "is_primary_ablation_experiment",
+                bool(cfg_get(ablation, "parameter_space", None))):
+            return AblationExperiment(cfg, device=self.device)
         return KFoldExperiment(cfg, device=self.device)
 
     def run(self) -> Any:

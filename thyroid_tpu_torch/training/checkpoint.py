@@ -10,33 +10,44 @@ trees (the JAX leaf names and layouts, conv kernels HWIO) of float32
 tensors, so `models/from_jax.py:load_jax_variables` fills a model from
 them. The format is not orbax's: the JAX package cannot read these
 checkpoints, nor this one the JAX package's. `restore_ensemble` fills an
-ensemble's members from such checkpoints.
+ensemble's members from such checkpoints, and the teacher side
+(`load_teacher`, `make_teacher_fn`, `make_ensemble_teacher_fn`,
+`create_teacher_from_config`) builds a frozen distillation teacher from
+them: each member built from its own model config (float32 where the
+config names no dtype, as in JAX, whatever the student's precision), in
+eval mode, its parameters taking no gradient.
 """
 from __future__ import annotations
 
 import json
 import shutil
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..models import cnn, ensemble, vit  # noqa: F401  (register the model families)
 from ..models.from_jax import jax_tree, load_jax_variables
+from ..models.registry import ModelRegistry, cfg_get
+from ..ops.platform import DeviceLike, resolve_device
 
 STATE_FILE = "state.pt"
 
 
-def _cpu(named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {n: t.detach().cpu().clone() for n, t in named.items()}
+def _cpu(tree):
+    """`tree` (nested dicts) with every tensor copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu().clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def save_checkpoint(path: str | Path, state: Any,
                     metadata: Optional[Dict[str, Any]] = None,
                     include_opt_state: bool = False) -> Path:
     """Save params, batch_stats and step (+ metadata.json). With
-    `include_opt_state` the optimizer state (count and moments, by port
-    parameter name) and the EMA shadow are stored too, for an exact
+    `include_opt_state` the optimizer state (counts, moments or trace and
+    the accumulated gradients, by port parameter name) and the EMA shadow are stored too, for an exact
     resume."""
     path = Path(path).absolute()
     if path.exists():
@@ -47,9 +58,7 @@ def save_checkpoint(path: str | Path, state: Any,
         "batch_stats": jax_tree(state.batch_stats, state.layout),
         "step": int(state.step)}
     if include_opt_state:
-        sd = state.opt_state.state_dict()
-        payload["opt_state"] = {"count": sd["count"], "mu": _cpu(sd["mu"]),
-                                "nu": _cpu(sd["nu"])}
+        payload["opt_state"] = _cpu(state.opt_state.state_dict())
         if state.ema_params is not None:
             payload["ema_params"] = _cpu(state.ema_params)
     torch.save(payload, path / STATE_FILE)
@@ -140,6 +149,117 @@ class BestCheckpointManager:
                 shutil.rmtree(best)
             shutil.copytree(self.kept[0][1], best)
         return is_best
+
+
+def get_best_checkpoint(checkpoint_dir: str | Path,
+                        model_name: str) -> Optional[Path]:
+    """`{checkpoint_dir}/{model_name}-best.ckpt` where it exists."""
+    p = Path(checkpoint_dir) / f"{model_name}-best.ckpt"
+    return p if p.exists() else None
+
+
+# ---------------------------------------------------------------------------
+# distillation teachers
+# ---------------------------------------------------------------------------
+
+def load_teacher(checkpoint_path: str | Path, model_config: Any,
+                 device: DeviceLike = None
+                 ) -> Tuple[torch.nn.Module, Dict[str, Any], Dict[str, Any]]:
+    """A frozen teacher → (module filled from the checkpoint, in eval mode
+    on `device` with no parameter requiring a gradient, its variables,
+    metadata)."""
+    module = ModelRegistry.create_model(model_config)
+    variables, metadata = load_checkpoint(checkpoint_path)
+    load_jax_variables(module, variables)
+    module.requires_grad_(False)
+    return module.to(resolve_device(device)).eval(), variables, metadata
+
+
+class Teacher:
+    """A frozen teacher's forward: the eval-mode logits (the first of a
+    tuple) of one member, or the weighted average Σ wᵢ·logitsᵢ of several,
+    in member order, under torch.no_grad. `members` are the modules, which
+    hold the teacher's weights."""
+
+    def __init__(self, members: Sequence[torch.nn.Module],
+                 weights: Optional[Sequence[float]] = None):
+        self.members = list(members)
+        self.weights = None if weights is None else [float(w) for w in weights]
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        acc = None
+        for i, module in enumerate(self.members):
+            out = module(x, train=False)
+            if isinstance(out, tuple):
+                out = out[0]
+            if self.weights is None:
+                return out
+            out = out * self.weights[i]
+            acc = out if acc is None else acc + out
+        return acc
+
+
+def _frozen(module: torch.nn.Module, variables: Optional[Dict[str, Any]]):
+    if variables is not None:
+        load_jax_variables(module, variables)
+    return module.requires_grad_(False).eval()
+
+
+def make_teacher_fn(module: torch.nn.Module,
+                    variables: Optional[Dict[str, Any]] = None) -> Teacher:
+    """A frozen single teacher; `variables` (a JAX tree), when given, fill
+    the module first."""
+    return Teacher([_frozen(module, variables)])
+
+
+def make_ensemble_teacher_fn(members: Sequence[Any],
+                             weights: Optional[Sequence[float]] = None
+                             ) -> Teacher:
+    """The weighted logit average of `members` (modules, or (module, JAX
+    variables) pairs), the weights normalised to sum 1 (equal without
+    weights)."""
+    if weights is None:
+        weights = [1.0 / len(members)] * len(members)
+    w = [float(x) for x in weights]
+    total = sum(w)
+    modules = [_frozen(*m) if isinstance(m, tuple) else _frozen(m, None)
+               for m in members]
+    return Teacher(modules, [x / total for x in w])
+
+
+def create_teacher_from_config(distillation_cfg: Any,
+                               device: DeviceLike = None) -> Callable:
+    """The teacher a distillation node names, on `device`: a
+    `teacher_checkpoints` list (models from `teacher_models`, else from
+    each file's name; weights `teacher_weights`) makes an ensemble, else
+    `teacher_checkpoint` with `teacher_model` (else the file's name) a
+    single teacher."""
+    ckpts = cfg_get(distillation_cfg, "teacher_checkpoints", None)
+    if ckpts:
+        model_cfgs = cfg_get(distillation_cfg, "teacher_models", None)
+        members = []
+        for i, ck in enumerate(ckpts):
+            mc = model_cfgs[i] if model_cfgs else _infer_model_config_from_path(ck)
+            members.append(load_teacher(ck, mc, device)[0])
+        return make_ensemble_teacher_fn(
+            members, cfg_get(distillation_cfg, "teacher_weights", None))
+    ckpt = cfg_get(distillation_cfg, "teacher_checkpoint", None)
+    if ckpt is None:
+        raise ValueError("distillation config carries no teacher checkpoint")
+    mc = cfg_get(distillation_cfg, "teacher_model", None) or \
+        _infer_model_config_from_path(ckpt)
+    return make_teacher_fn(load_teacher(ckpt, mc, device)[0])
+
+
+def _infer_model_config_from_path(path: str | Path) -> Dict[str, Any]:
+    """{"name": the first registry name, CNNs then ViTs in sorted order,
+    that is a substring of the file's name}."""
+    stem = Path(path).name.lower()
+    for name in ModelRegistry.list_models("cnn") + ModelRegistry.list_models("vit"):
+        if name in stem:
+            return {"name": name}
+    raise ValueError(f"cannot infer teacher architecture from path {path}")
 
 
 def restore_ensemble(ensemble: Any, checkpoints: List[str | Path]) -> Any:

@@ -1,5 +1,5 @@
 """Training engine (counterpart of thyroid_tpu/training/engine.py), loss
-modes "ce" and "deit".
+modes "ce", "deit" and "distillation".
 
 `Trainer(model, model_config, training_config, trainer_config,
 steps_per_epoch).fit(train_pipeline, val_pipeline)` then
@@ -8,8 +8,9 @@ JAX engine. A train step is: forward with `train=True` (DropPath and
 dropout draw from the trainer's generator on the device; BatchNorm
 normalises with the batch's statistics and updates its running ones in
 place, the state JAX installs with the step), the loss, backward (the Swin
-attention through its backward kernel), clip, AdamW with the schedule and
-layer decay, EMA of the parameters, and a metric update that stays on the
+attention through its backward kernel), clip, the optimizer (AdamW or SGD)
+with the schedule and layer decay, every `accumulate_grad_batches`
+mini-steps, EMA of the parameters, and a metric update that stays on the
 device. Evaluation runs the `train=False` (serving) forward under
 `torch.no_grad` with the parameters (or their EMA) and the running
 statistics; every model's eval forward gives one logits tensor (DeiT the
@@ -22,10 +23,18 @@ cross-entropy with label smoothing and sample weights:
 - loss mode "deit" (a config named deit_*) with DeiT's training tuple
   (cls, dist): 0.5·ce(cls) + 0.5·ce(dist), the metrics on (cls + dist) / 2;
 - any other tuple (Inception v3's auxiliary head): ce(main) + 0.4·ce(aux),
-  the metrics on main.
+  the metrics on main;
+- loss mode "distillation" (a `teacher_fn` given): the frozen teacher's
+  logits of the step's images, computed before the student's forward,
+  and losses.distillation_loss with α of the epoch (`progressive_alpha`
+  where the distillation node sets `progressive`, else its `alpha`) and
+  its temperature and type; the metrics on the class head (a DeiT
+  student's first output), and the metric state also sums class_loss,
+  distillation_loss and teacher_agreement.
 With `mixup_alpha` or `cutmix_alpha` above 0 the step mixes the batch
-first (ops/augment.py mixup_cutmix, gated by `mixup_prob`) and `ce` is
-λ·CE(y_a) + (1 − λ)·CE(y_b); the metrics stay on the original labels.
+first (ops/augment.py mixup_cutmix, gated by `mixup_prob`; never under
+distillation) and `ce` is λ·CE(y_a) + (1 − λ)·CE(y_b); the metrics stay
+on the original labels.
 
 Differences from the JAX engine: the per-step loop is the only loop
 (`scan_epoch` is accepted; the JAX package documents its epoch scan as
@@ -33,9 +42,8 @@ equal to this loop); the epoch permutation, DropPath and dropout, the
 batch augmentation and MixUp/CutMix draw from `torch.Generator`s seeded
 with `TrainerConfig.seed`, so their random streams are not JAX's; the
 initial weights come from the port's own initialisers unless `variables`
-(or `params`) carries a JAX tree in. Distillation (a teacher, a
-distillation config or loss mode "distillation"), meshes and
-attention-map logging raise NotImplementedError; the TrainerConfig fields
+(or `params`) carries a JAX tree in. Meshes and attention-map logging
+raise NotImplementedError; the TrainerConfig fields
 that only those read (mesh axes) and the two the JAX engine never reads
 (`log_every_n_steps`, `deterministic`) are left out.
 """
@@ -46,7 +54,7 @@ import logging
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional
 
 import torch
 from torch.func import functional_call
@@ -62,7 +70,8 @@ from .checkpoint import (BestCheckpointManager, load_checkpoint, load_payload,
                          save_checkpoint, variables_of)
 from .configs import VIT_OPTIMIZER_PARAMS
 from .losses import (classification_outputs_to_logits, cross_entropy,
-                     mixed_cross_entropy)
+                     distillation_loss, mixed_cross_entropy,
+                     progressive_alpha)
 from .metrics import (finalize_metric_state, update_metric_state,
                       zero_metric_state)
 from .schedules import build_optimizer, build_schedule
@@ -157,10 +166,6 @@ class Trainer:
         self.model_config = model_config
         self.training_config = training_config
         self.cfg = TrainerConfig.from_config(trainer_config, training_config)
-        if teacher_fn is not None or distillation_config is not None \
-                or loss_mode == "distillation":
-            raise _unported("distillation",
-                            "Other experiments and the stacked trainer")
         if mesh is not None or self.cfg.mesh_shape:
             raise _unported("training on a mesh", "Parallelism")
         if self.cfg.log_attention_every_n_epochs:
@@ -177,10 +182,20 @@ class Trainer:
         self.output_dir = Path(output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
 
+        self.teacher_fn = teacher_fn
+        self.distillation_config = distillation_config
         if loss_mode is None:
             name = str(cfg_get(model_config, "name", ""))
-            loss_mode = "deit" if name.startswith("deit") else "ce"
+            if teacher_fn is not None:
+                loss_mode = "distillation"
+            else:
+                loss_mode = "deit" if name.startswith("deit") else "ce"
+        if loss_mode == "distillation" and teacher_fn is None:
+            raise ValueError('loss_mode="distillation" needs a teacher_fn')
         self.loss_mode = loss_mode
+        self._aux_keys = (
+            ("class_loss", "distillation_loss", "teacher_agreement")
+            if loss_mode == "distillation" else ())
         self.label_smoothing = float(
             cfg_get(training_config, "label_smoothing",
                     cfg_get(cfg_get(training_config, "loss", {}) or {},
@@ -247,10 +262,15 @@ class Trainer:
     def loss_and_grads(self, images: torch.Tensor, labels: torch.Tensor,
                        weights: Optional[torch.Tensor],
                        labels_b: Optional[torch.Tensor] = None,
-                       lam: Optional[torch.Tensor] = None):
+                       lam: Optional[torch.Tensor] = None,
+                       teacher_logits: Optional[torch.Tensor] = None,
+                       alpha=None):
         """One training forward and backward → (loss, metric logits, {name:
-        grad}); the forward updates the BatchNorm statistics in place. With
-        `labels_b` and `lam` (a mixed batch) `ce` is the mixed CE."""
+        grad}, {aux name: scalar}); the forward updates the BatchNorm
+        statistics in place. With `labels_b` and `lam` (a mixed batch) `ce`
+        is the mixed CE; in loss mode "distillation" the loss is
+        distillation_loss against `teacher_logits` at `alpha` and the aux
+        dict holds its three terms (else it is empty)."""
         outputs = self.model(images, train=True,
                              generator=self.dropout_generator)
 
@@ -260,12 +280,22 @@ class Trainer:
             return mixed_cross_entropy(lgts, labels, labels_b, lam,
                                        self.label_smoothing, weights)
 
-        if self.loss_mode == "deit" and isinstance(outputs, tuple):
+        aux: Dict[str, torch.Tensor] = {}
+        if self.loss_mode == "distillation":
+            dcfg = self.distillation_config or {}
+            loss, aux = distillation_loss(
+                outputs, teacher_logits, labels, alpha=alpha,
+                temperature=float(cfg_get(dcfg, "temperature", 4.0)),
+                distillation_type=str(cfg_get(dcfg, "distillation_type", "soft")),
+                label_smoothing=self.label_smoothing, weights=weights)
+            aux = {k: v.detach() for k, v in aux.items()}
+            logits = outputs[0] if isinstance(outputs, tuple) else outputs
+        elif self.loss_mode == "deit" and isinstance(outputs, tuple):
             loss = 0.5 * ce(outputs[0]) + 0.5 * ce(outputs[1])
             logits = classification_outputs_to_logits(outputs)
         elif isinstance(outputs, tuple):          # Inception's aux head
-            main, aux = outputs
-            loss = ce(main) + 0.4 * ce(aux)
+            main, aux_logits = outputs
+            loss = ce(main) + 0.4 * ce(aux_logits)
             logits = main
         else:
             loss, logits = ce(outputs), outputs
@@ -277,24 +307,33 @@ class Trainer:
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
-        return loss.detach(), logits.detach(), dict(zip(names, grads))
+        return loss.detach(), logits.detach(), dict(zip(names, grads)), aux
 
     def train_step(self, mstate: Dict[str, torch.Tensor], images: torch.Tensor,
-                   labels: torch.Tensor, weights: Optional[torch.Tensor]):
-        """[MixUp/CutMix,] forward, loss, backward, clip, AdamW, EMA, metric
-        update → (new metric state, P(class 1) scores); the metrics read
-        the original labels."""
-        labels_b = lam = None
-        if self.mixup_alpha > 0 or self.cutmix_alpha > 0:
+                   labels: torch.Tensor, weights: Optional[torch.Tensor],
+                   alpha=None):
+        """[MixUp/CutMix,] [the teacher's logits,] forward, loss, backward,
+        clip, optimizer, EMA, metric update → (new metric state, P(class
+        1) scores); the metrics read the original labels. `alpha` is the
+        distillation weight (a float32 scalar tensor, as JAX's step takes
+        it; the epoch's by default)."""
+        labels_b = lam = teacher_logits = None
+        if (self.mixup_alpha > 0 or self.cutmix_alpha > 0) \
+                and self.loss_mode != "distillation":
             params = draw_mixup_cutmix(self.aug_generator, images.shape,
                                        self.mixup_alpha, self.cutmix_alpha,
                                        self.mixup_prob)
             images, _, labels_b, lam = apply_mixup_cutmix(images, labels, params)
-        loss, logits, grads = self.loss_and_grads(images, labels, weights,
-                                                  labels_b, lam)
+        if self.loss_mode == "distillation":
+            teacher_logits = self.teacher_fn(images)
+            if alpha is None:
+                alpha = self._alpha_tensor(0)
+        loss, logits, grads, aux = self.loss_and_grads(
+            images, labels, weights, labels_b, lam, teacher_logits, alpha)
         self.state.apply_gradients(grads, ema_decay=self.ema_decay)
         probs = torch.softmax(logits.float(), dim=-1)
-        return update_metric_state(mstate, probs, labels, weights, loss=loss)
+        return update_metric_state(mstate, probs, labels, weights, loss=loss,
+                                   aux=aux)
 
     @torch.no_grad()
     def eval_step(self, variables: Dict[str, torch.Tensor],
@@ -307,11 +346,33 @@ class Trainer:
         return update_metric_state(mstate, probs, labels, weights, loss=loss)
 
     # ------------------------------------------------------------------
+    def _alpha_for_epoch(self, epoch: int) -> float:
+        """The distillation weight α of `epoch` (0 outside distillation)."""
+        dcfg = self.distillation_config or {}
+        if self.loss_mode != "distillation":
+            return 0.0
+        if cfg_get(dcfg, "progressive", False):
+            return progressive_alpha(epoch, cfg_get(dcfg, "alpha_schedule", None),
+                                     float(cfg_get(dcfg, "alpha", 0.7)))
+        return float(cfg_get(dcfg, "alpha", 0.7))
+
+    def _alpha_tensor(self, epoch: int) -> torch.Tensor:
+        return torch.tensor(self._alpha_for_epoch(epoch), dtype=torch.float32,
+                            device=self.device)
+
     def train_epoch(self, pipeline, epoch: int) -> Dict[str, float]:
         """One epoch with no per-step host read: metric state, scores and
         labels stay on the device until finalize_metric_state."""
-        del epoch
-        mstate = zero_metric_state(device=self.device)
+        *_, metrics = self.train_steps(pipeline, epoch)
+        return metrics
+
+    def train_steps(self, pipeline, epoch: int
+                    ) -> Iterator[Optional[Dict[str, float]]]:
+        """train_epoch a step at a time: yields None after each step, then
+        the epoch's metrics (the stacked k-fold trainer steps its folds'
+        epochs in lockstep through it)."""
+        alpha = self._alpha_tensor(epoch)
+        mstate = zero_metric_state(self._aux_keys, device=self.device)
         scores: List = []
         lbls: List = []
         wts: List = []
@@ -325,12 +386,13 @@ class Trainer:
             if i >= max_batches or (0 < self.cfg.max_steps <= self._global_step):
                 break
             mstate, score1 = self.train_step(mstate, batch.image, batch.label,
-                                             batch.weight)
+                                             batch.weight, alpha)
             scores.append(score1)
             lbls.append(batch.label)
             wts.append(batch.weight)
             self._global_step += 1
-        return finalize_metric_state(mstate, scores, lbls, wts, prefix="train_")
+            yield None
+        yield finalize_metric_state(mstate, scores, lbls, wts, prefix="train_")
 
     def eval_epoch(self, pipeline, prefix: str = "val_",
                    use_ema: bool = False,

@@ -42,6 +42,10 @@ class TrainState:
                         ema_decay: Optional[float] = None) -> "TrainState":
         updates = self.tx.update(grads, self.opt_state, self.params)
         apply_updates(self.params, updates)
+        # step and EMA advance on every call, as JAX's apply_gradients does
+        # under gradient accumulation too: on a mini-step whose update is
+        # zero (here none) the shadow still moves toward the unchanged
+        # parameters
         if ema_decay is not None and self.ema_params is not None:
             # e · decay + p · (1 − decay)
             ema = list(self.ema_params.values())
