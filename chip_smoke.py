@@ -261,7 +261,29 @@ Phases, each printing its lines before the final one:
    each model's best checkpoint left; (g) test_resnet18_kfold_quick with
    kfold.stacked, 2 folds of 2 epochs, against the sequential sweep per
    epoch, its export in the sequential layout, and the fall-back at 4
-   unequal folds.
+   unequal folds;
+27. analysis, on phase 23's corpus and phase 26's checkpoints, float32
+   card against CPU at 1e-3 of max(1, max|CPU|): (a) capture forwards of
+   resnet50, densenet121, efficientnet_b0 (224x224), inception_v3
+   (299x299), vit_tiny, deit_tiny and the registry swin_tiny (perturbed):
+   every captured tensor, the keys in the same order, no kernel launched;
+   (b) GradCAM of resnet50, swin_tiny and deit_tiny (class, heatmap,
+   confidence, no kernel, ms per image), vit_tiny's and deit_tiny's
+   class-token heatmap and rollout, swin_tiny's stage maps, vit_tiny's
+   gradient patch importance without its kernels and through kernels 2-3
+   and their backward kernels (12 launches each of 2, 3, 9, 10, 11), and
+   swin_tiny's serving attention refusing autograd; (c) evaluate_checkpoint
+   with and without TTA of a registry swin_tiny checkpoint and the
+   all-models sweep's deit_tiny checkpoint, as stored (bf16, 3e-2) and in
+   float32 (1e-3), on 16 frames: exact launches (kernel 1 once for the
+   pipeline; 15/12/12 or 12/12 of kernels 2/3/4 per forward, x5 with TTA),
+   the reports' decisions equal but within the tolerance of 0.5, and
+   images/s with and without TTA; (d) the ensemble-kfold CLI over phase
+   26's three teachers (fold 1) with every mode's and member's report
+   finite, and the members card against CPU on the 16 frames; (e) the
+   quality-report CLI on the card and the CPU, issue lists equal; (f)
+   Trainer.fit of deit_tiny with attention-map logging: the figure and
+   the logged maps against the CPU's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -5000,6 +5022,522 @@ def phase_distill(card: str) -> None:
         raise AssertionError(f"phase 26 checks failed: {ok}")
 
 
+# phase 27: analysis
+# the captures' models and sides (float32, TF32 off): seeded weights, the
+# registry swin_tiny's perturbed as in phase 1
+ANALYSIS_MODELS = {"resnet50": 224, "densenet121": 224, "efficientnet_b0": 224,
+                   "inception_v3": 299, "vit_tiny": 224, "deit_tiny": 224,
+                   "swin_tiny": 224}
+# the card against the CPU on the same float32 weights and inputs: captured
+# tensors, heatmaps and maps, GradCAM confidences, relative to max(1, max|CPU|)
+ANALYSIS_RTOL = 1e-3
+# frames of phase 23's corpus (half of each class) that the card-vs-CPU
+# evaluations run on, at batch 8
+EVAL_FRAMES, EVAL_BATCH = 16, 8
+# the images/s pipeline: prepared raw 512² frames at the served bucket
+TIMED_FRAMES = 128
+# rows 2, 3, 4 per eval forward of the registry swin_tiny and of deit_tiny
+EVAL_PER_FORWARD = {"swin_tiny": {"ln_matmul": 15, "ln_mlp_residual": 12,
+                                  "swin_block_attention": 12},
+                    "deit_tiny": {"ln_matmul": 12, "ln_mlp_residual": 12}}
+
+
+def all_launches(run):
+    """{counter: launches} of every kernel, rows 1-17 (kernel 6 as
+    swin_attention_bwd), over one call of run(), every counter 0 before."""
+    from thyroid_tpu_torch.ops import attention
+
+    attention.fused_swin_attention.bwd_launches = 0
+    got = zoo_counts(run)
+    got["swin_attention_bwd"] = attention.fused_swin_attention.bwd_launches
+    return got
+
+
+def rel_err(got, want) -> float:
+    """max|got − want| / max(1, max|want|), over numpy arrays or tensors."""
+    got = np.asarray(got.float().cpu() if torch.is_tensor(got) else got, np.float64)
+    want = np.asarray(want.float().cpu() if torch.is_tensor(want) else want,
+                      np.float64)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+@contextlib.contextmanager
+def spy(module, name: str, seen: list):
+    """Within the block, every call of module.<name> appends its result to
+    `seen`."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        seen.append(fn(*args, **kw))
+        return seen[-1]
+
+    setattr(module, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def analysis_pair(name: str, seed: int = 27, **over):
+    """(the float32 model on the CPU, a copy on the card): the registry
+    swin_tiny with phase 1's perturbed weights, the others seeded."""
+    import copy
+
+    from thyroid_tpu_torch.models.base import create_and_init
+    from thyroid_tpu_torch.models.from_jax import load_jax_params
+
+    cfg = {"name": name, "in_channels": 1, "num_classes": 2, "dtype": "f32",
+           **over}
+    cpu = create_and_init(cfg, seed=seed, device="cpu")
+    if name == "swin_tiny":
+        load_jax_params(cpu, perturbed_params(dict(SWIN_TINY, dtype="f32")))
+    return cpu, copy.deepcopy(cpu).to("cuda").eval()
+
+
+def analysis_captures(card: str) -> bool:
+    """(a): each model's capture forward (N = 2) on the card against the
+    CPU's: the output and every captured tensor within ANALYSIS_RTOL, the
+    same keys in the same order, no kernel launched."""
+    ok = True
+    for name, side in ANALYSIS_MODELS.items():
+        cpu, dev = analysis_pair(name)
+        x = torch.from_numpy(np.random.RandomState(270).randn(2, side, side, 1)
+                             .astype(np.float32))
+        got = {}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            launches = all_launches(lambda: got.setdefault(
+                "c", dev(x.cuda(), capture=True)))
+            secs = time.perf_counter() - t0
+            want = cpu(x, capture=True)
+        (out, inter), (want_out, want_inter) = got["c"], want
+        errs = {k: rel_err(inter[k], v) for k, v in want_inter.items()
+                if k in inter}
+        worst = max(errs, key=errs.get)
+        keys_ok = list(inter) == list(want_inter)
+        fired = {k: v for k, v in launches.items() if v}
+        out_err = rel_err(out, want_out)
+        good = keys_ok and not fired and out_err <= ANALYSIS_RTOL \
+            and errs[worst] <= ANALYSIS_RTOL
+        log(f"[analysis] (a) {name} capture {side}x{side} N=2: {len(inter)} "
+            f"tensors, keys {'equal' if keys_ok else 'DIFFER'} (first "
+            f"{list(inter)[:2]}, last {list(inter)[-1]}), output err "
+            f"{out_err:.3e}, worst {worst} err {errs[worst]:.3e} (tol "
+            f"{ANALYSIS_RTOL:.0e}), kernels launched {fired or 'none'}, "
+            f"{secs * 1e3:.1f} ms with the first call; card {card}")
+        ok &= good
+        del cpu, dev
+    torch.cuda.empty_cache()
+    return ok
+
+
+def analysis_gradcam(card: str) -> bool:
+    """(b): GradCAM on resnet50, swin_tiny and deit_tiny (the same class,
+    heatmap and confidence within ANALYSIS_RTOL, no kernel launched, its
+    time per image); the class-token heatmap and rollout of vit_tiny and
+    deit_tiny and swin_tiny's stage maps; gradient patch importance of
+    vit_tiny built without its kernels, card against CPU, and with them
+    (through kernels 2-3 and their backward kernels 9-11) against the CPU's
+    plain path; with the kernels, swin_tiny's serving attention refuses
+    autograd."""
+    from thyroid_tpu_torch.analysis import attention as att
+    from thyroid_tpu_torch.analysis.gradcam import gradcam
+
+    ok = True
+    x = torch.from_numpy(np.random.RandomState(271).randn(1, 224, 224, 1)
+                         .astype(np.float32))
+    xc = x.cuda()
+    for name in ("resnet50", "swin_tiny", "deit_tiny"):
+        cpu, dev = analysis_pair(name)
+        got = {}
+        launches = all_launches(lambda: got.setdefault("g", gradcam(dev, None, xc)))
+        heat, cls, conf = got["g"]
+        w_heat, w_cls, w_conf = gradcam(cpu, None, x)
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            gradcam(dev, None, xc)
+            secs.append(time.perf_counter() - t0)
+        err = rel_err(heat, w_heat)
+        fired = {k: v for k, v in launches.items() if v}
+        good = cls == w_cls and heat.shape == w_heat.shape and \
+            err <= ANALYSIS_RTOL and abs(conf - w_conf) <= ANALYSIS_RTOL \
+            and not fired
+        log(f"[analysis] (b) gradcam {name}: class {cls} (CPU {w_cls}), "
+            f"heatmap {heat.shape} err {err:.3e}, confidence {conf:.6f} (CPU "
+            f"{w_conf:.6f}), kernels launched {fired or 'none'}, "
+            f"{statistics.median(secs) * 1e3:.2f} ms per image (median of 3); "
+            f"card {card}")
+        ok &= good
+        if name == "swin_tiny":
+            maps = att.swin_stage_feature_maps(dev, None, xc)
+            want = att.swin_stage_feature_maps(cpu, None, x)
+            errs = [rel_err(g, w) for g, w in zip(maps, want)]
+            good = len(maps) == len(want) == 4 and max(errs) <= ANALYSIS_RTOL
+            log(f"[analysis] (b) swin_stage_feature_maps: "
+                f"{[m.shape for m in maps]}, max err {max(errs):.3e}")
+            ok &= good
+    for name in ("vit_tiny", "deit_tiny"):
+        cpu, dev = analysis_pair(name)
+        maps, want = (att.collect_attention_maps(m, None, xx)
+                      for m, xx in ((dev, xc), (cpu, x)))
+        errs = {"cls heatmap": rel_err(att.cls_attention_heatmap(maps[-1]),
+                                       att.cls_attention_heatmap(want[-1])),
+                "rollout": rel_err(att.attention_rollout(maps),
+                                   att.attention_rollout(want))}
+        good = len(maps) == 12 and max(errs.values()) <= ANALYSIS_RTOL
+        log(f"[analysis] (b) {name} 12 maps {maps[0].shape}: errors {errs}")
+        ok &= good
+    cpu, dev = analysis_pair("vit_tiny", token_kernels=False)
+    plain = att.gradient_patch_importance(cpu, None, x)
+    imp = att.gradient_patch_importance(dev, None, xc)
+    err = rel_err(imp, plain)
+    log(f"[analysis] (b) gradient_patch_importance vit_tiny token_kernels "
+        f"false: {imp.shape} err {err:.3e}")
+    ok &= err <= ANALYSIS_RTOL
+    _, fused = analysis_pair("vit_tiny")
+    got = {}
+    launches = all_launches(lambda: got.setdefault(
+        "i", att.gradient_patch_importance(fused, None, xc)))
+    err = rel_err(got["i"], plain)
+    want = {k: 0 for k in launches}
+    want.update(ln_matmul=12, ln_mlp_residual=12, ln_matmul_bwd=12,
+                ln_mlp_bwd_dx=12, ln_mlp_bwd_dw=12)
+    log(f"[analysis] (b) gradient_patch_importance vit_tiny with kernels 2-3 "
+        f"(backward kernels 9-11): err {err:.3e} against the CPU's plain path; "
+        f"launches {launches}, expected {want}")
+    ok &= err <= ANALYSIS_RTOL and launches == want
+    _, swin = analysis_pair("swin_tiny")
+    try:
+        att.gradient_patch_importance(swin, None, xc)
+        log("[analysis] (b) gradient_patch_importance swin_tiny with its "
+            "kernels did not raise: FAIL")
+        ok = False
+    except RuntimeError as e:
+        log(f"[analysis] (b) gradient_patch_importance swin_tiny with its "
+            f"kernels raises: {e}")
+        ok &= "has no backward" in str(e)
+    torch.cuda.empty_cache()
+    return ok
+
+
+def eval_frames():
+    """EVAL_FRAMES raw frames of phase 23's corpus, the first half of each
+    class, with their labels."""
+    from thyroid_tpu_torch.data.dataset import CARSThyroidDataset
+
+    ds = CARSThyroidDataset({"data_path": str(WORK / "experiment" / "synthetic")},
+                            split="all")
+    half = EVAL_FRAMES // 2
+    idx = np.concatenate([np.nonzero(ds.all_labels == c)[0][:half]
+                          for c in (0, 1)])
+    ds.paths = [ds.all_paths[i] for i in idx]
+    return ds.load_images(), ds.all_labels[idx]
+
+
+def eval_pipelines(frames, labels):
+    """The 16-frame eval pipelines (224², batch 8) on the card and the CPU,
+    and the launches of the card's preparation."""
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+
+    got = {}
+    launches = all_launches(lambda: got.setdefault("p", DevicePipeline(
+        frames, labels, batch_size=EVAL_BATCH, img_size=224)))
+    cpu = DevicePipeline(frames, labels, batch_size=EVAL_BATCH, img_size=224,
+                         device="cpu")
+    return got["p"], cpu, launches
+
+
+def compare_probs(tag: str, got, want, tol: float) -> bool:
+    """Card against CPU probabilities (N, 2) within `tol`, and the binary
+    reports' predictions equal but for frames whose CPU probability lies
+    within `tol` of 0.5 (counted)."""
+    err = float(np.abs(got - want).max())
+    near = np.abs(want[:, 1] - 0.5) <= tol
+    flips = (got[:, 1] >= 0.5) != (want[:, 1] >= 0.5)
+    good = got.shape == want.shape and err <= tol and not (flips & ~near).any()
+    log(f"[analysis] {tag}: probabilities max_abs_err {err:.3e} (tol "
+        f"{tol:.0e}); {int(near.sum())} frames within tol of 0.5 "
+        f"{np.nonzero(near)[0].tolist()}, {int(flips.sum())} decisions "
+        f"differ ({int((flips & ~near).sum())} outside that band)")
+    return good
+
+
+def analysis_checkpoints(card: str, pipes) -> bool:
+    """(c): evaluate_checkpoint with and without TTA on a registry swin_tiny
+    checkpoint written from phase 1's perturbed parameters and on the
+    all-models sweep's deit_tiny fold checkpoint, each as stored (bf16)
+    and in float32: exact launches per call (rows 2-4 per forward, ×5 with
+    TTA), probabilities card vs CPU, the reports' counts; images/s with
+    and without TTA."""
+    from types import SimpleNamespace
+
+    from thyroid_tpu_torch.analysis import evaluation
+    from thyroid_tpu_torch.models.from_jax import (batch_stats, jax_layout,
+                                                   load_jax_params)
+    from thyroid_tpu_torch.models.registry import ModelRegistry, resolve_dtype
+    from thyroid_tpu_torch.training.checkpoint import save_checkpoint
+
+    model = ModelRegistry.create_model(SWIN_TINY)
+    load_jax_params(model, perturbed_params(SWIN_TINY))
+    swin_ckpt = save_checkpoint(
+        WORK / "analysis" / "swin_tiny.ckpt",
+        SimpleNamespace(params=dict(model.named_parameters()),
+                        batch_stats=batch_stats(model),
+                        layout=jax_layout(model), step=0),
+        {"model_config": SWIN_TINY})
+    deit_ckpt = WORK / "all_models" / "all_models_kfold" / "deit_tiny" / "best_checkpoint"
+    stored = json.loads((deit_ckpt / "metadata.json").read_text())["model_config"]
+    card_pipe, cpu_pipe = pipes
+    forwards = -(-EVAL_FRAMES // EVAL_BATCH)
+    ok = True
+    for name, ckpt, cfg in (("swin_tiny", swin_ckpt, SWIN_TINY),
+                            ("deit_tiny", deit_ckpt, stored)):
+        for dtype in ("as stored", "f32"):
+            mcfg = None if dtype == "as stored" else dict(cfg, dtype="f32")
+            tol = PROB_TOL[resolve_dtype(mcfg or cfg)]
+            for tta in (False, True):
+                seen, got = [], {}
+                with spy(evaluation, "predict_probs", seen):
+                    launches = all_launches(lambda: got.setdefault(
+                        "r", evaluation.evaluate_checkpoint(
+                            ckpt, mcfg, card_pipe, tta=tta)))
+                    evaluation.evaluate_checkpoint(ckpt, mcfg, cpu_pipe,
+                                                   tta=tta, device="cpu")
+                n = forwards * (5 if tta else 1)
+                want = {k: EVAL_PER_FORWARD[name].get(k, 0) * n for k in launches}
+                tag = (f"(c) evaluate_checkpoint {name} {dtype} "
+                       f"({str(resolve_dtype(mcfg or cfg))[6:]}) tta={tta}")
+                good = compare_probs(tag, seen[0][0], seen[1][0], tol)
+                rep = got["r"]
+                log(f"[analysis] {tag}: accuracy {rep['accuracy']:.4f}, auc "
+                    f"{rep['auc']:.4f}, confusion {rep['confusion_matrix']}; "
+                    f"launches {launches}, expected {want}")
+                ok &= good and launches == want
+    ok &= analysis_times(card, swin_ckpt)
+    return ok
+
+
+def analysis_times(card: str, ckpt) -> bool:
+    """Evaluation images/s of the registry swin_tiny (bf16) over TIMED_FRAMES
+    prepared frames at bucket 32, without and with TTA, median of 3."""
+    from thyroid_tpu_torch.analysis import evaluation
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+
+    rs = np.random.RandomState(272)
+    frames = (rs.rand(TIMED_FRAMES, 512, 512, 1) * 65535).astype(np.float32)
+    pipe = DevicePipeline(frames, np.arange(TIMED_FRAMES) % 2, batch_size=BATCH,
+                          img_size=224)
+    model, _ = evaluation.load_model(ckpt)
+    rates = {}
+    for tta in (False, True):
+        evaluation.predict_probs(model, None, pipe, tta=tta)
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            evaluation.predict_probs(model, None, pipe, tta=tta)
+            secs.append(time.perf_counter() - t0)
+        rates[tta] = TIMED_FRAMES / statistics.median(secs)
+    log(f"[analysis] (c) predict_probs swin_tiny bf16, {TIMED_FRAMES} frames "
+        f"at bucket {BATCH}: {rates[False]:.1f} images/s without TTA, "
+        f"{rates[True]:.1f} with (5 views), ratio "
+        f"{rates[False] / rates[True]:.2f} (median of 3); card {card}")
+    return all(np.isfinite(list(rates.values())))
+
+
+def analysis_ensemble(card: str, pipes) -> bool:
+    """(d): the `ensemble-kfold` CLI on the card over phase 26's teachers
+    (resnet50, efficientnet_b0, densenet121; fold 1, weights 0.5 / 0.25 /
+    0.25) in the sequential-training layout, on fold 1's test split of
+    phase 23's corpus (quality preprocessing on): every mode's and member's
+    report present and finite; then the same members on the 16-frame
+    pipelines, card against CPU."""
+    import math
+
+    from thyroid_tpu_torch.analysis import cli, evaluation
+    from thyroid_tpu_torch.models.registry import resolve_dtype
+
+    root = WORK / "analysis" / "ensemble"
+    for name in DISTILL_TEACHERS:
+        dst = root / name / "fold_1" / "checkpoints" / f"{name}-best.ckpt"
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copytree(WORK / "distill" / "checkpoints" / f"{name}-best.ckpt", dst)
+    work = WORK / "experiment"
+    args = ["ensemble-kfold", "--members", *DISTILL_TEACHERS, "--folds", "1",
+            "--checkpoint-root", str(root), "--output", str(root / "ensemble.json"),
+            "--override", f"dataset.data_path={work / 'synthetic'}",
+            "--override", f"dataset.split_dir={work / 'splits'}"]
+    log(f"[analysis] (d) python -m thyroid_tpu_torch.analysis.cli {' '.join(args)}")
+    got = {}
+    t0 = time.perf_counter()
+    launches = all_launches(lambda: got.setdefault("s", cli.main(args)))
+    secs = time.perf_counter() - t0
+    summary = got["s"]
+    reports = [summary["folds"]["fold_1"]] + [
+        d["folds"]["fold_1"] for group in ("modes", "members")
+        for d in summary[group].values()]
+    finite = all(math.isfinite(r[k]) for r in reports
+                 for k in ("accuracy", "auc", "sensitivity", "specificity"))
+    ok = set(summary["modes"]) == {"weighted_average", "simple_average",
+                                   "weighted_voting"} \
+        and set(summary["members"]) == set(DISTILL_TEACHERS) and finite \
+        and summary["weights"] == [0.5, 0.25, 0.25]
+    log(f"[analysis] (d) ensemble fold 1: weighted_average accuracy "
+        f"{summary['mean_accuracy']:.4f} auc {summary['mean_auc']}; "
+        f"members {{{', '.join(f'{k}: {v['mean_accuracy']:.4f}' for k, v in summary['members'].items())}}}; "
+        f"{len(reports)} reports finite {finite}; {secs:.2f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; card {card}")
+    specs = [{"model": cli.stored_config(root / n / "fold_1" / "checkpoints"
+                                         / f"{n}-best.ckpt", n),
+              "checkpoints": {1: str(root / n / "fold_1" / "checkpoints"
+                                     / f"{n}-best.ckpt")}}
+             for n in DISTILL_TEACHERS]
+    runs = []
+    for pipe, device in zip(pipes, ("cuda", "cpu")):
+        seen = []
+        with spy(evaluation, "predict_probs", seen):
+            summary = evaluation.evaluate_ensemble_kfold(specs, {1: pipe},
+                                                         device=device)
+        runs.append(([s[0] for s in seen], summary))
+    (card_p, card_s), (cpu_p, cpu_s) = runs
+    tols = [PROB_TOL[resolve_dtype(s["model"])] for s in specs]
+    for name, g, w, tol in zip(DISTILL_TEACHERS, card_p, cpu_p, tols):
+        ok &= compare_probs(f"(d) member {name} (16 frames)", g, w, tol)
+    wts = np.array([0.5, 0.25, 0.25]).reshape(-1, 1, 1)
+    ok &= compare_probs("(d) weighted average (16 frames)",
+                        (np.stack(card_p) * wts).sum(0),
+                        (np.stack(cpu_p) * wts).sum(0), max(tols))
+    return ok
+
+
+def analysis_quality(card: str) -> bool:
+    """(e): the `quality-report` CLI over phase 23's corpus on the card and
+    on the CPU: the issue index lists equal, the means within 1e-5
+    relative, minima and maxima equal."""
+    from thyroid_tpu_torch.analysis import cli
+
+    out = WORK / "analysis" / "quality"
+    reports, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        reports[device] = cli.main([
+            "quality-report", "--data-path", str(WORK / "experiment" / "synthetic"),
+            "--split-dir", str(out / "splits"), "--output",
+            str(out / f"quality_report_{device}.json"), "--device", device])
+        secs[device] = time.perf_counter() - t0
+    card_report, cpu_report = reports["cuda"], reports["cpu"]
+    ok = card_report["summary"] == cpu_report["summary"]
+    for split, entry in card_report["dataset_stats"].items():
+        g, w = entry["metrics"], cpu_report["dataset_stats"][split]["metrics"]
+        rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                  for k in ("mean_intensity", "std_intensity"))
+        good = g["quality_issues"] == w["quality_issues"] and rel <= 1e-5 \
+            and (g["min"], g["max"]) == (w["min"], w["max"])
+        log(f"[analysis] (e) quality report {split}: {g['num_images']} frames, "
+            f"issues {{{', '.join(f'{k}: {len(v)}' for k, v in g['quality_issues'].items())}}} "
+            f"{'equal' if g['quality_issues'] == w['quality_issues'] else 'DIFFER'}, "
+            f"means rel err {rel:.2e}")
+        ok &= good
+    card_secs, cpu_secs = secs["cuda"], secs["cpu"]
+    log(f"[analysis] (e) summary {card_report['summary']}; {card_secs:.2f} s "
+        f"on the card, {cpu_secs:.2f} s on the CPU (decoding included); "
+        f"card {card}")
+    return ok
+
+
+def analysis_logging(card: str, have_matplotlib: bool) -> bool:
+    """(f): deit_tiny (float32) for one epoch of 3 batches with
+    log_attention_every_n_epochs 1: the figure written, the logged maps
+    equal to the CPU's on the same weights and images. Without matplotlib
+    the Trainer refuses to log, and the maps are checked alone."""
+    from thyroid_tpu_torch.analysis import attention as att
+    from thyroid_tpu_torch.data.dataset import CARSThyroidDataset
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+    from thyroid_tpu_torch.models.registry import ModelRegistry
+    from thyroid_tpu_torch.training.configs import TRAINER_DEFAULT, TRAINING_VIT
+    from thyroid_tpu_torch.training.engine import Trainer
+
+    cfg = {"name": "deit_tiny", "in_channels": 1, "num_classes": 2, "dtype": "f32"}
+    trainer_cfg = dict(TRAINER_DEFAULT, max_epochs=1, enable_checkpointing=False,
+                       log_attention_every_n_epochs=1)
+    out = WORK / "analysis" / "trainer"
+    ds = CARSThyroidDataset({"data_path": str(WORK / "experiment" / "synthetic")},
+                            split="all")
+    ds.paths = ds.all_paths[::4][:4 * BATCH]
+    frames, labels = ds.load_images(), ds.all_labels[::4][:4 * BATCH]
+    train = DevicePipeline(frames[:3 * BATCH], labels[:3 * BATCH],
+                           batch_size=BATCH, img_size=224, train=True)
+    val = DevicePipeline(frames[3 * BATCH:], labels[3 * BATCH:],
+                         batch_size=BATCH, img_size=224)
+    if have_matplotlib:
+        trainer = Trainer(ModelRegistry.create_model(cfg), cfg, TRAINING_VIT,
+                          trainer_cfg, steps_per_epoch=3, output_dir=out)
+        seen = []
+        with spy(Trainer, "attention_maps", seen):
+            t0 = time.perf_counter()
+            launches = all_launches(lambda: trainer.fit(train, val))
+            secs = time.perf_counter() - t0
+        png = out / "logs" / "images" / "attention_maps_00000.png"
+        ok = len(seen) == 1 and png.exists()
+        log(f"[analysis] (f) Trainer.fit deit_tiny f32, 3 batches of {BATCH} "
+            f"with log_attention_every_n_epochs 1: {secs:.2f} s, figure "
+            f"{png.name} {'written' if png.exists() else 'MISSING'} "
+            f"({png.stat().st_size if png.exists() else 0} bytes); launches "
+            f"{ {k: v for k, v in launches.items() if v} }; card {card}")
+        images, _, heatmaps = seen[0]
+    else:
+        try:
+            Trainer(ModelRegistry.create_model(cfg), cfg, TRAINING_VIT,
+                    trainer_cfg, steps_per_epoch=3, output_dir=out)
+            ok = False
+        except ImportError as e:
+            log(f"[analysis] (f) no matplotlib on this machine; the Trainer "
+                f"asked to log refuses: {e}")
+            ok = True
+        trainer = Trainer(ModelRegistry.create_model(cfg), cfg, TRAINING_VIT,
+                          dict(trainer_cfg, log_attention_every_n_epochs=0),
+                          steps_per_epoch=3, output_dir=out)
+        trainer.fit(train, val)
+        images, _, heatmaps = trainer.attention_maps(val)
+    cpu = ModelRegistry.create_model(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+    maps = att.collect_attention_maps(cpu.eval(), None, torch.from_numpy(images))
+    errs = [rel_err(hm, att.cls_attention_heatmap(maps[-1][i:i + 1]))
+            for i, hm in enumerate(heatmaps)]
+    log(f"[analysis] (f) logged maps {len(heatmaps)} x {heatmaps[0].shape} "
+        f"against the CPU's on the same weights: max err {max(errs):.3e}")
+    return ok and len(heatmaps) == 4 and max(errs) <= ANALYSIS_RTOL
+
+
+def phase_analysis(card: str) -> None:
+    """Phase 27: the analysis on the card against the CPU, (a) to (f), on
+    phase 23's corpus and phase 26's checkpoints; float32 matmuls and
+    convolutions without TF32."""
+    import importlib.util
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    have_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    log(f"[analysis] matplotlib {'is' if have_matplotlib else 'is not'} "
+        f"installed on this machine")
+    frames, labels = eval_frames()
+    card_pipe, cpu_pipe, launches = eval_pipelines(frames, labels)
+    want = {k: int(k == "percentile") for k in launches}
+    log(f"[analysis] the {EVAL_FRAMES}-frame eval pipeline's preparation on "
+        f"the card: launches {launches}, expected {want}")
+    ok = {"pipeline": launches == want,
+          "captures": analysis_captures(card),
+          "gradcam": analysis_gradcam(card),
+          "checkpoints": analysis_checkpoints(card, (card_pipe, cpu_pipe)),
+          "ensemble": analysis_ensemble(card, (card_pipe, cpu_pipe)),
+          "quality report": analysis_quality(card),
+          "logging": analysis_logging(card, have_matplotlib)}
+    log(f"[analysis] checks {ok}; phase 27 {time.perf_counter() - t0:.1f} s")
+    if not all(ok.values()):
+        raise AssertionError(f"phase 27 checks failed: {ok}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5061,6 +5599,8 @@ def main() -> int:
         phase_zoo(card)
         torch.cuda.empty_cache()
         phase_distill(card)
+        torch.cuda.empty_cache()
+        phase_analysis(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

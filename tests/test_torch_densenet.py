@@ -95,7 +95,8 @@ def test_train_step_matches_jax(mix, tmp_path, monkeypatch):
 def test_bf16_forward_and_round_trip():
     """The bf16 forward within 1e-2 of JAX's bf16 forward as written (the
     jitted program without excess precision); load/to_jax_variables exact
-    inverses and strict; capture raises naming Analysis."""
+    inverses and strict; the capture forward gives the same logits and
+    the (B, h, w, C) feature map after norm_final and ReLU."""
     from thyroid_tpu.models.registry import ModelRegistry as JaxRegistry
 
     _, variables = small()
@@ -109,8 +110,11 @@ def test_bf16_forward_and_round_trip():
     with pytest.raises(KeyError, match="transition1"):
         load_jax_variables(model, {**variables, "params": params})
     x = np.random.RandomState(4).randn(2, 32, 32, 1).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="Analysis"):
-        model(torch.from_numpy(x), capture=True)
+    with torch.no_grad():
+        logits, inter = model(torch.from_numpy(x), capture=True)
+        assert torch.equal(logits, model(torch.from_numpy(x)))
+    assert list(inter) == ["features"] and inter["features"].shape[0] == 2
+    assert inter["features"].min() >= 0                      # after the ReLU
     cfg = dict(NARROW, dtype="bf16")
     jmodel = JaxRegistry.create_model(cfg)
     want = jax.jit(lambda v, x: jmodel.apply(v, x, train=False)).lower(

@@ -198,14 +198,16 @@ def test_engine_matches_jax_engine():
 @pytest.mark.unit
 def test_serving_size_and_unported_options():
     """A b3 config without img_size is served at 224, as the JAX engine
-    serves it (cfg img_size or 224), not at b3's resolution 300; capture,
-    int8 serving and meshes raise."""
+    serves it (cfg img_size or 224), not at b3's resolution 300; the
+    capture forward records the feature map ("features"); int8 serving and
+    meshes raise."""
     b3 = {"name": "efficientnet_b3", "in_channels": 1, "num_classes": 2}
     engine = InferenceEngine(b3, device="cpu")
     assert engine.img_size == engine.model.img_size == 224
     assert ModelRegistry.create_model(dict(b3, img_size=300)).img_size == 300
-    with pytest.raises(NotImplementedError, match="capture"):
-        engine.model(torch.zeros(1, 32, 32, 1), capture=True)
+    with torch.no_grad():
+        _, inter = engine.model(torch.zeros(1, 32, 32, 1), capture=True)
+    assert list(inter) == ["features"] and inter["features"].shape == (1, 1, 1, 1536)
     with pytest.raises(NotImplementedError, match="int8"):
         InferenceEngine(b3, quantize="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):

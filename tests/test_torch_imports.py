@@ -3,7 +3,8 @@ chip_compare.py, scripts/torch_grad_condition.py) import nothing of JAX, flax or
 port module imports without them. Nor do they import the decoders and
 splitters the card's machine lacks (cv2, PIL, imageio, scikit-learn,
 tifffile); only config/schemas.py imports pydantic, and the experiment
-path imports without it."""
+path imports without it. matplotlib is imported only inside the figure
+functions (analysis/, the Trainer's attention-map logging)."""
 import ast
 import subprocess
 import sys
@@ -98,3 +99,31 @@ def test_sources_cover_every_experiment_module():
         "training/stacked", "training/checkpoint", "training/losses",
         "experiment/ablation_experiment", "experiment/all_models_experiment",
         "experiment/kfold_experiment", "experiment/manager")} <= names
+
+
+@pytest.mark.unit
+def test_package_imports_without_matplotlib():
+    """Every port module, the analysis and its CLI included, imports in a
+    process where importing matplotlib fails, and none imports it."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import thyroid_tpu_torch as pkg\n"
+        "for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "import thyroid_tpu_torch.analysis.cli, thyroid_tpu_torch.data.quality_report\n"
+        "bad = [m for m in sys.modules if m.startswith('matplotlib.')]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.unit
+def test_sources_cover_the_analysis():
+    """The scans above cover the analysis package, its CLI and the
+    quality report."""
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {f"thyroid_tpu_torch/{m}.py" for m in (
+        "analysis/__init__", "analysis/gradcam", "analysis/attention",
+        "analysis/evaluation", "analysis/cli", "data/quality_report")} <= names

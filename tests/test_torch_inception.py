@@ -186,7 +186,8 @@ def test_variable_tree_and_yaml(name):
     init (jax.eval_shape at 107²; inception_v3's golden variables), the
     loader's round trip exact and strict; the YAML's img_size 299,
     aux_logits and dropout_rate are read; the train forward returns the
-    aux head only for v3 with aux_logits."""
+    aux head only for v3 with aux_logits; the capture forward records the
+    last mixed block's output ("features")."""
     from thyroid_tpu.models.registry import ModelRegistry as JaxRegistry
 
     model = JaxRegistry.create_model({"name": name})
@@ -221,5 +222,7 @@ def test_variable_tree_and_yaml(name):
         assert "aux_fc" not in to_jax_variables(off)["params"]
     else:
         assert isinstance(built, port_inception.InceptionV4)
-    with pytest.raises(NotImplementedError, match="Analysis"):
-        built(torch.zeros(1, 107, 107, 1), capture=True)
+    with torch.no_grad():
+        _, inter = built(torch.zeros(1, 107, 107, 1), capture=True)
+    width = 2048 if name == "inception_v3" else 1536
+    assert list(inter) == ["features"] and inter["features"].shape[-1] == width

@@ -204,7 +204,8 @@ def test_variable_tree_and_yaml(name):
 @pytest.mark.parametrize("block", BLOCKS)
 def test_round_trip_strict_and_capture(block):
     """load_jax_variables and to_jax_variables are exact inverses, strict
-    on a missing downsample; capture raises naming Analysis; for the
+    on a missing downsample; the capture forward gives the same logits
+    and the last block's output ("features"); for the
     bottleneck net (resnet50's blocks) the bf16 forward within 1e-2 of
     JAX's bf16 forward as written (bf16 moves these logits by 6e-2 from
     float32, and XLA's default jitted program, which keeps some
@@ -223,8 +224,10 @@ def test_round_trip_strict_and_capture(block):
         load_jax_variables(model, {**variables, "params": params})
     x = torch.from_numpy(np.random.RandomState(4).randn(2, 32, 32, 1)
                          .astype(np.float32))
-    with pytest.raises(NotImplementedError, match="Analysis"):
-        model(x, capture=True)
+    with torch.no_grad():
+        logits, inter = model(x, capture=True)
+        assert torch.equal(logits, model(x))
+    assert list(inter) == ["features"] and inter["features"].shape[0] == 2
     if block != "bottleneck":
         return
     from thyroid_tpu.models.registry import ModelRegistry as JaxRegistry

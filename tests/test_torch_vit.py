@@ -247,8 +247,9 @@ def test_variable_tree_and_yaml(name):
 
 @pytest.mark.unit
 def test_round_trip_strict_capture_and_defaults():
-    """load_jax_params / to_jax_params are exact inverses and strict; capture
-    raises naming Analysis; token_kernels defaults to True unless a config
+    """load_jax_params / to_jax_params are exact inverses and strict; the
+    capture forward gives the same logits on the plain path and records
+    each block's attention; token_kernels defaults to True unless a config
     sets it (JAX: True on its accelerator, False on its CPU); the
     registry's bare names keep JAX's builder defaults."""
     params = small("deit")
@@ -260,8 +261,11 @@ def test_round_trip_strict_capture_and_defaults():
     bad = {k: v for k, v in params.items() if k != "head_dist"}
     with pytest.raises(KeyError, match="head_dist"):
         load_jax_params(model, bad)
-    with pytest.raises(NotImplementedError, match="Analysis"):
-        model(torch.zeros(1, 32, 32, 1), capture=True)
+    with torch.no_grad():
+        logits, inter = model(torch.zeros(1, 32, 32, 1), capture=True)
+        assert torch.equal(logits, model(torch.zeros(1, 32, 32, 1)))
+    assert list(inter) == ["block_0/Attention_0/attention",
+                           "block_1/Attention_0/attention", "final_tokens"]
     assert port_layers.token_kernels_default({"name": "vit_tiny"})
     assert not port_layers.token_kernels_default({"params": {"token_kernels": False}})
     from thyroid_tpu.models.layers import token_kernels_default as jax_default

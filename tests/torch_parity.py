@@ -587,3 +587,27 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+class JittedModule:
+    """A flax module whose `apply` is jitted, one program per keyword
+    set, for the JAX package's functions that call `model.apply` op by op
+    (its analysis functions): JAX's CPU takes several times longer
+    unjitted. Every other attribute is the module's."""
+
+    def __init__(self, module):
+        self.module = module
+        self._programs: Dict[Any, Any] = {}
+
+    def apply(self, variables, x, **kw):
+        import jax
+
+        key = tuple(sorted((k, tuple(v) if isinstance(v, list) else v)
+                           for k, v in kw.items()))
+        if key not in self._programs:
+            self._programs[key] = jax.jit(
+                lambda v, x: self.module.apply(v, x, **kw))
+        return self._programs[key](variables, x)
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)

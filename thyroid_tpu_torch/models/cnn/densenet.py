@@ -15,7 +15,8 @@ classifier in float32.
 Parameters are float32 and named as in the JAX tree: `conv0`, `norm0`,
 `denseblock{i}_layer{j}` (each `BatchNorm_{0,1}`, `Conv_{0,1}`),
 `transition{i}` (`BatchNorm_0`, `Conv_0`), `norm_final`, `classifier`.
-`forward(x, capture=True)` raises NotImplementedError.
+`forward(x, capture=True)` returns (logits, {"features": the map after
+`norm_final` and ReLU}), the tensor JAX sows for GradCAM.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import (BatchNorm, ConvParams, DenseParams, dropout,
+from ..layers import (BatchNorm, ConvParams, DenseParams, captured, dropout,
                       lecun_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 from .efficientnet import conv_nhwc, pointwise
@@ -112,10 +113,8 @@ class DenseNet(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, S, S, in_channels) NHWC → (B, num_classes) float32 logits.
         `train` takes the training forward: batch statistics (the running
-        ones updated in place) and dropout drawing from `generator`."""
-        if capture:
-            raise NotImplementedError(
-                "feature capture is not ported (ROADMAP Queue 1: Analysis)")
+        ones updated in place) and dropout drawing from `generator`; with
+        `capture`, (logits, intermediates)."""
         dt = self.dtype
         x = conv_nhwc(x, self.conv0, dt, stride=2, padding=3)
         x = F.relu(self.norm0(x, train, dt))
@@ -123,8 +122,11 @@ class DenseNet(nn.Module):
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
         for name in self.stages:
             x = getattr(self, name)(x, train, dt, generator)
-        x = F.relu(self.norm_final(x, train, dt)).mean(dim=(1, 2))
-        return x.float() @ self.classifier.kernel + self.classifier.bias
+        x = F.relu(self.norm_final(x, train, dt))
+        recorded = {"features": x} if capture else None
+        x = x.mean(dim=(1, 2))
+        return captured(x.float() @ self.classifier.kernel + self.classifier.bias,
+                        recorded)
 
 
 DENSENET_PARAMS = {

@@ -28,7 +28,9 @@ convolutions carry explicit names `Conv_{n}` and the BatchNorms flax's
 per-class count `BatchNorm_0..2`; the expand_ratio 1 block has no expand
 convolution, so its depthwise conv is `Conv_0` and its project `Conv_1`.
 Padding is symmetric k//2 at every stride (timm's non-TF variants), not
-TF SAME. `forward(x, capture=True)` raises NotImplementedError.
+TF SAME. `forward(x, capture=True)` returns (logits, {"features": the
+map after `head_bn` and SiLU}), the tensor JAX sows for GradCAM; with
+dw_pallas_conv its forward runs the depthwise kernel, as JAX's does.
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ from torch import nn
 
 from ...ops.depthwise import shift_depthwise_conv
 from ...ops.depthwise_pallas import depthwise_conv2d_pallas
-from ..layers import (BatchNorm, ConvParams, DenseParams, DropPath, dropout,
-                      lecun_normal_)
+from ..layers import (BatchNorm, ConvParams, DenseParams, DropPath, captured,
+                      dropout, lecun_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 
 # (expand_ratio, channels, repeats, stride, kernel) — standard B0 plan
@@ -247,19 +249,18 @@ class EfficientNet(nn.Module):
         """x (B, S, S, in_channels) NHWC → (B, num_classes) float32 logits.
         `train` takes the training forward: batch statistics (the running
         ones updated in place), DropPath and dropout drawing from
-        `generator` (on x's device)."""
-        if capture:
-            raise NotImplementedError(
-                "feature capture is not ported (ROADMAP Queue 1: "
-                "Analysis)")
+        `generator` (on x's device); with `capture`, (logits,
+        intermediates)."""
         dt = self.dtype
         x = conv_nhwc(x, self.stem_conv, dt, stride=2, padding=1)
         x = F.silu(self.stem_bn(x, train, dt))
         for name in self.blocks:
             x = getattr(self, name)(x, train, dt, generator)
         x = F.silu(self.head_bn(pointwise(x, self.head_conv, dt), train, dt))
+        recorded = {"features": x} if capture else None
         x = dropout(x.mean(dim=(1, 2)), self.dropout_rate, train, generator)
-        return x.float() @ self.classifier.kernel + self.classifier.bias
+        return captured(x.float() @ self.classifier.kernel + self.classifier.bias,
+                        recorded)
 
 
 EFFICIENTNET_PARAMS = {

@@ -22,7 +22,8 @@ the running statistics there. Dropout before `fc`, float32 heads.
 Parameters are float32 and named as in the JAX tree: flax's per-class
 names in creation order (`ConvBN_{n}`, `InceptionA_{n}`, …, each ConvBN a
 `Conv_0` and a `BatchNorm_0`), and `aux_conv0`, `aux_conv1`, `aux_fc`,
-`fc`. `forward(x, capture=True)` raises NotImplementedError.
+`fc`. `forward(x, capture=True)` returns (output, {"features": the last
+mixed block's output}), the tensor JAX sows for GradCAM.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import (BatchNorm, ConvParams, DenseParams, dropout,
+from ..layers import (BatchNorm, ConvParams, DenseParams, captured, dropout,
                       lecun_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 from .efficientnet import conv_nhwc, pointwise
@@ -217,12 +218,6 @@ def _init_convnet(model: nn.Module, generator: torch.Generator,
             head.bias.zero_()
 
 
-def _no_capture(capture: bool) -> None:
-    if capture:
-        raise NotImplementedError(
-            "feature capture is not ported (ROADMAP Queue 1: Analysis)")
-
-
 class InceptionV3(_Convs):
     def __init__(self, num_classes: int = 2, in_channels: int = 1,
                  dropout_rate: float = 0.5, aux_logits: bool = True,
@@ -269,8 +264,7 @@ class InceptionV3(_Convs):
         """x (B, S, S, in_channels) NHWC → (B, num_classes) float32 logits;
         in training with `aux_logits`, (logits, aux_logits). `train` takes
         batch statistics (the running ones updated in place) and dropout
-        drawing from `generator`."""
-        _no_capture(capture)
+        drawing from `generator`; with `capture`, (that, intermediates)."""
         dt = self.dtype
         for conv in self.stem:
             x = max_pool(x) if conv is None else conv(x, train, dt)
@@ -279,9 +273,10 @@ class InceptionV3(_Convs):
         aux = self.aux(x, train) if self.aux_logits and train else None
         for block in self.after_aux:
             x = block(x, train, dt)
+        recorded = {"features": x} if capture else None
         x = dropout(x.mean(dim=(1, 2)), self.dropout_rate, train, generator)
         logits = x.float() @ self.fc.kernel + self.fc.bias
-        return (logits, aux) if aux is not None else logits
+        return captured((logits, aux) if aux is not None else logits, recorded)
 
 
 class InceptionV4A(_Convs):
@@ -375,8 +370,8 @@ class InceptionV4(_Convs):
     def forward(self, x: torch.Tensor, train: bool = False,
                 capture: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x (B, S, S, in_channels) NHWC → (B, num_classes) float32 logits."""
-        _no_capture(capture)
+        """x (B, S, S, in_channels) NHWC → (B, num_classes) float32 logits;
+        with `capture`, (logits, intermediates)."""
         dt = self.dtype
         x = _chain(self.stem, x, train, dt)
         x = _cat(max_pool(x), _chain(self.p2, x, train, dt))
@@ -392,8 +387,9 @@ class InceptionV4(_Convs):
                  _chain(self.red_b2, x, train, dt), max_pool(x))
         for block in self.mixed_c:
             x = block(x, train, dt)
+        recorded = {"features": x} if capture else None
         x = dropout(x.mean(dim=(1, 2)), self.dropout_rate, train, generator)
-        return x.float() @ self.fc.kernel + self.fc.bias
+        return captured(x.float() @ self.fc.kernel + self.fc.bias, recorded)
 
 
 @ModelRegistry.register(["inception_v3", "inception_v4"], "cnn")

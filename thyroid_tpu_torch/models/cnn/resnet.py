@@ -13,7 +13,8 @@ dropout draws from the caller's generator, and `fc` is float32.
 Parameters are float32 and named as in the JAX tree: the stem `conv1`
 and `bn1`, blocks `layer{stage}_{i}` holding `ConvBN_{j}` (each a
 `Conv_0` and a `BatchNorm_0`) and, where the shape changes, `downsample`;
-the head `fc`. `forward(x, capture=True)` raises NotImplementedError.
+the head `fc`. `forward(x, capture=True)` returns (logits, {"features":
+the last block's output}), the tensor JAX sows for GradCAM.
 `SpatialAttention` and `QualityEncoder` are kept, unwired, as in JAX.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers import (BatchNorm, ConvParams, DenseParams, LecunDense,
-                      dropout, lecun_normal_)
+                      captured, dropout, lecun_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 from .efficientnet import conv_nhwc, pointwise
 
@@ -169,10 +170,7 @@ class ResNet(nn.Module):
         """x (B, S, S, in_channels) NHWC → (B, num_classes) float32 logits.
         `train` takes the training forward: batch statistics (the running
         ones updated in place) and dropout drawing from `generator` (on x's
-        device)."""
-        if capture:
-            raise NotImplementedError(
-                "feature capture is not ported (ROADMAP Queue 1: Analysis)")
+        device); with `capture`, (logits, intermediates)."""
         dt = self.dtype
         x = conv_nhwc(x, self.conv1, dt, stride=2, padding=3)
         x = F.relu(self.bn1(x, train, dt))
@@ -180,8 +178,9 @@ class ResNet(nn.Module):
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
         for name in self.blocks:
             x = getattr(self, name)(x, train, dt)
+        recorded = {"features": x} if capture else None
         x = dropout(x.mean(dim=(1, 2)), self.dropout_rate, train, generator)
-        return x.float() @ self.fc.kernel + self.fc.bias
+        return captured(x.float() @ self.fc.kernel + self.fc.bias, recorded)
 
 
 RESNET_PARAMS = {

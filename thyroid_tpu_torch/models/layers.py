@@ -12,7 +12,7 @@ module whose parameters are laid out otherwise declares the difference in
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,6 +31,40 @@ HWIO_TO_OIHW = (3, 2, 0, 1)
 # std of a standard normal truncated at ±2 (flax's variance_scaling divides by
 # it, so that the truncated draw has the asked-for variance)
 _TRUNC_STD = 0.87962566103423978
+
+
+# The capture path (`forward(..., capture=True)`): a model records the
+# tensors the JAX package sows into its "intermediates" collection through a
+# `record(key, tensor)` callable that each parent scopes for its children.
+# Keys are the flax module path joined by "/" ("block_0/Attention_0/
+# attention"), which sort as the JAX package's "/".join(str(k) for k in
+# path) strings sort ("['block_0']/['Attention_0']/['attention']/[0]"):
+# '/' and the end of a key, like "'", sort before every letter, digit and
+# '_' of a module name.
+Record = Optional[Callable[[str, torch.Tensor], None]]
+
+
+def scoped(record: Record, scope: str) -> Record:
+    """`record` with its keys under `scope/`; None stays None."""
+    if record is None:
+        return None
+    return lambda key, value: record(f"{scope}/{key}", value)
+
+
+def recorder(capture: bool):
+    """(the dict a capture forward fills, its `record`), or (None, None)."""
+    if not capture:
+        return None, None
+    recorded: Dict[str, torch.Tensor] = {}
+    return recorded, recorded.__setitem__
+
+
+def captured(out: Any, recorded: Optional[Dict[str, torch.Tensor]]):
+    """A forward's result: `out`, or (out, the recorded tensors by key in
+    the JAX package's order) from a capture forward."""
+    if recorded is None:
+        return out
+    return out, dict(sorted(recorded.items()))
 
 
 def trunc_normal_(t: torch.Tensor, generator: torch.Generator,
@@ -261,8 +295,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                record: Record = None) -> torch.Tensor:
         b, n, c = x.shape
         dt = x.dtype
         heads = self.num_heads
@@ -276,6 +310,8 @@ class Attention(nn.Module):
         q = q * torch.tensor(self.scale, dtype=dt)
         attn = torch.softmax(q.float() @ k.float().transpose(-1, -2),
                              dim=-1).to(dt)
+        if record is not None:
+            record("attention", attn)
         attn = dropout(attn, self.attn_drop_rate, train, generator)
         out = (attn.float() @ v.float()).to(dt)
         out = dense(out.transpose(1, 2).reshape(b, n, c), self.Dense_1.kernel,
@@ -343,8 +379,9 @@ class Block(nn.Module):
     """Pre-norm transformer block. With `token_kernels`, an eval forward
     takes the serving path: LN + QKV through kernel 2, attention, the
     residual, then LN + MLP + residual through `fused_ln_mlp_residual`
-    (kernel 3). Otherwise, and in training: LN → Attention → DropPath → LN
-    → Mlp → DropPath."""
+    (kernel 3). Otherwise, in training and in a capture forward (a
+    `record` given, as JAX's Block takes its plain path under capture): LN
+    → Attention → DropPath → LN → Mlp → DropPath."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_rate: float = 0.0,
@@ -360,16 +397,18 @@ class Block(nn.Module):
         self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                record: Record = None) -> torch.Tensor:
         n1, n2, m = self.LayerNorm_0, self.LayerNorm_1, self.Mlp_0
-        if self.token_kernels and not train:
+        if self.token_kernels and not train and record is None:
             x = x + self.Attention_0(x, ln=(n1.scale, n1.bias))
             return fused_ln_mlp_residual(
                 x.contiguous(), n2.scale, n2.bias, m.Dense_0.kernel,
                 m.Dense_0.bias, m.Dense_1.kernel, m.Dense_1.bias)
         dt = x.dtype
         y = self.Attention_0(manual_layer_norm(x, n1.scale, n1.bias, dt),
-                             train, generator)
+                             train, generator,
+                             record=scoped(record, "Attention_0"))
         x = x + self.drop_path(y, train, generator)
         y = m(manual_layer_norm(x, n2.scale, n2.bias, dt), train, generator)
         return x + self.drop_path(y, train, generator)

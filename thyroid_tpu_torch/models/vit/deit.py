@@ -3,7 +3,10 @@ ViT stack with a distillation token beside the class token and a second
 head on it. A training forward returns (cls_logits, dist_logits), which the
 Trainer's "deit" loss mode weighs 0.5 / 0.5; an eval forward returns their
 mean. The position table is always learnable and pooling always reads the
-tokens, as in JAX.
+tokens, as in JAX. The capture path is ViT's. Like JAX's DeiT it has no
+`pool_type` or `class_token` attribute, so GradCAM's head rule
+(analysis/gradcam.py `_apply_head`) applies `head` to the mean of all
+tokens, the class and distillation tokens included.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ class DeiT(VisionTransformer):
                          quality_aware=quality_aware,
                          token_kernels=token_kernels, dtype=dtype)
         self.head_dist = DenseParams(embed_dim, num_classes)
+        # neither attribute exists on JAX's DeiT; GradCAM reads their absence
+        del self.pool_type, self.class_token
 
     def classify(self, tokens: torch.Tensor, train: bool):
         """(cls_logits, dist_logits) in training, their mean at eval;

@@ -41,10 +41,22 @@ Parameters are float32 and named as in the JAX tree; the stream runs in
 the model dtype (float32 or bfloat16). As in JAX, `build_swin` does not
 read `train_token_kernels` or `ln_kernel`: they are set on the modules,
 `SwinTransformer(**swin_arguments(cfg), train_token_kernels=True)` (JAX:
-`create_model(cfg).clone(train_token_kernels=True)`). The port always
-computes JAX's fused-path math (`use_pallas_attention` is read and has no
-effect); `use_checkpoint` only trades memory in JAX and is read and
-ignored; `attn_softmax_dtype` bf16 and attention capture raise.
+`create_model(cfg).clone(train_token_kernels=True)`). Unless a config sets
+`use_pallas_attention: false`, the port computes JAX's fused-path math
+(JAX's default on its accelerator); with false every block and merge
+takes the plain path, no kernel, as JAX's flag does (JAX's analysis
+scripts set it, so that autograd runs through the forward).
+`use_checkpoint` only trades memory in JAX and is read and ignored;
+`attn_softmax_dtype` bf16 raises.
+
+`forward(..., capture=True)` returns (output, intermediates), JAX's sown
+tensors: each block's window attention after the contrast scaling
+("stage_{i}/block_{j}/attn/attention", (B·nW, heads, n, n)), each stage's
+tokens before its merge ("stage_{i}/stage_features"), the tokens after the
+final norm ("final_tokens") and, with the uncertainty head, its output
+("uncertainty"). A capture forward runs no kernel: the windows attention
+and the MLP take the plain path as in JAX, and so does the merge, which
+JAX with `use_pallas_attention` would still run fused.
 """
 from __future__ import annotations
 
@@ -63,8 +75,8 @@ from ...ops.attention import window_partition, window_reverse  # noqa: F401
 from ...ops.token_fused import (fused_ln_matmul, fused_ln_mlp,
                                 fused_ln_mlp_residual)
 from ..layers import (HWIO_TO_OIHW, DenseParams, DropPath, LecunDense,
-                      LNParams, MlpParams, dense, dropout, manual_layer_norm,
-                      trunc_normal_)
+                      LNParams, MlpParams, Record, captured, dense, dropout,
+                      manual_layer_norm, recorder, scoped, trunc_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 
 
@@ -145,13 +157,15 @@ class WindowAttention(nn.Module):
                 train: bool = False, generator: Optional[torch.Generator] = None,
                 spatial: bool = False,
                 ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                fuse_residual: bool = False) -> torch.Tensor:
+                fuse_residual: bool = False,
+                record: Record = None) -> torch.Tensor:
         """`spatial`: x (B, H, W, C) the rolled stream, layer-normed here
         with `ln` = (scale, bias) → (B, H, W, C); with `fuse_residual` (and
         no quality gate) the half-block's residual stream x + proj(attn).
         Otherwise x (B·nW, N, C) windows, already normed → (B·nW, N, C).
         `mask` (nW, N, N) or None; `train` takes dropout's draws from
-        `generator`."""
+        `generator`; `record` (windows only) takes the softmax as
+        "attention"."""
         dt = x.dtype
         bias = self.bias_hnn()
         kw = dict(window_size=self.ws, num_heads=self.num_heads,
@@ -197,6 +211,8 @@ class WindowAttention(nn.Module):
         if self.contrast_adaptive:
             attn = attn * self.contrast_scale.float().reshape(1, -1, 1, 1)
         attn = torch.softmax(attn, dim=-1).to(dt)
+        if record is not None:
+            record("attention", attn)
         attn = dropout(attn, self.attn_drop_rate, train, generator)
         out = (attn.float() @ v.float()).to(dt)
         out = out.transpose(1, 2).reshape(b_, n, c)
@@ -221,7 +237,7 @@ class SwinBlock(nn.Module):
                  qk_scale: Optional[float] = None, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  contrast_adaptive: bool = False, quality_guided: bool = False,
-                 train_token_kernels: bool = False):
+                 train_token_kernels: bool = False, kernels: bool = True):
         super().__init__()
         h, w = input_resolution
         ws, shift = window_size, shift_size
@@ -234,6 +250,7 @@ class SwinBlock(nn.Module):
         self.ws, self.shift = ws, shift
         self.drop_rate = float(drop_rate)
         self.train_token_kernels = train_token_kernels
+        self.kernels = kernels
         self.norm1 = LNParams(dim)
         self.attn = WindowAttention(
             dim, ws, num_heads, qkv_bias, qk_scale, attn_drop_rate, drop_rate,
@@ -248,9 +265,12 @@ class SwinBlock(nn.Module):
             persistent=False)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                record: Record = None) -> torch.Tensor:
         """x (B, L, C) in the model dtype; `train` takes the training
-        forward, whose DropPath and dropout draws come from `generator`."""
+        forward, whose DropPath and dropout draws come from `generator`.
+        Without `kernels`, or with a `record` (a capture forward), the
+        plain path: windows attention and the MLP in plain PyTorch."""
         b, l, c = x.shape
         h, w = self.resolution
         ws, shift = self.ws, self.shift
@@ -264,9 +284,10 @@ class SwinBlock(nn.Module):
             xs = F.pad(xs, (0, 0, 0, self.pad[1], 0, self.pad[0]))
         if shift > 0:
             xs = torch.roll(xs, shifts=(-shift, -shift), dims=(1, 2))
+        plain = record is not None or not self.kernels
         # the fused spatial kernels take neither the contrast scaling nor
         # padding, nor attention dropout in training
-        fused = not a.contrast_adaptive and not self.padded \
+        fused = not plain and not a.contrast_adaptive and not self.padded \
             and (not train or a.attn_drop_rate == 0.0)
         # serving: proj + residual ride the attention kernel's epilogue
         proj_fused = fused and not train and not a.quality_guided
@@ -279,7 +300,8 @@ class SwinBlock(nn.Module):
                 xs, self.norm1.scale, self.norm1.bias, dt)
             hp, wp = xs.shape[1:3]
             xs = window_reverse(a(window_partition(xn, ws), self.attn_mask,
-                                  train, generator), ws, hp, wp)
+                                  train, generator,
+                                  record=scoped(record, "attn")), ws, hp, wp)
         if shift > 0:
             xs = torch.roll(xs, shifts=(shift, shift), dims=(1, 2))
         if self.padded:
@@ -288,27 +310,28 @@ class SwinBlock(nn.Module):
         if not proj_fused:
             x = shortcut + self.drop_path(x, train, generator)
         m = self.mlp
-        if not train:
+        if not train and not plain:
             return fused_ln_mlp_residual(
                 x.contiguous(), self.norm2.scale, self.norm2.bias,
                 m.Dense_0.kernel, m.Dense_0.bias, m.Dense_1.kernel, m.Dense_1.bias)
-        if self.train_token_kernels and self.drop_rate == 0.0:
+        if train and not plain and self.train_token_kernels \
+                and self.drop_rate == 0.0:
             y = fused_ln_mlp(x.contiguous(), self.norm2.scale, self.norm2.bias,
                              m.Dense_0.kernel, m.Dense_0.bias,
                              m.Dense_1.kernel, m.Dense_1.bias)
             return x + self.drop_path(y, True, generator)
         y = manual_layer_norm(x, self.norm2.scale, self.norm2.bias, dt)
         y = F.gelu(dense(y, m.Dense_0.kernel, m.Dense_0.bias, dt))
-        y = dropout(y, self.drop_rate, True, generator)
+        y = dropout(y, self.drop_rate, train, generator)
         y = dense(y, m.Dense_1.kernel, m.Dense_1.bias, dt)
-        y = dropout(y, self.drop_rate, True, generator)
-        return x + self.drop_path(y, True, generator)
+        y = dropout(y, self.drop_rate, train, generator)
+        return x + self.drop_path(y, train, generator)
 
 
 class PatchMerging(nn.Module):
     """2×2 patch merge, 4C → 2C, with optional quality weights on the four
     neighbours; norm + reduction in one fused kernel when serving,
-    LayerNorm and a plain matmul in training."""
+    LayerNorm and a plain matmul in training and on the plain path."""
 
     def __init__(self, input_resolution: Tuple[int, int], dim: int,
                  quality_aware: bool = False):
@@ -321,7 +344,8 @@ class PatchMerging(nn.Module):
         self.norm = LNParams(4 * dim)
         self.reduction = DenseParams(4 * dim, 2 * dim, use_bias=False)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                plain: bool = False) -> torch.Tensor:
         h, w = self.resolution
         b, _, c = x.shape
         dt = x.dtype
@@ -340,7 +364,7 @@ class PatchMerging(nn.Module):
             merged = (merged.reshape(b, -1, 4, c) * (4.0 * qw[..., None])) \
                 .reshape(b, -1, 4 * c)
         merged = merged.contiguous()
-        if train:
+        if train or plain:
             normed = manual_layer_norm(merged, self.norm.scale, self.norm.bias, dt)
             return dense(normed, self.reduction.kernel, None, dt)
         return fused_ln_matmul(merged, self.norm.scale, self.norm.bias,
@@ -362,9 +386,10 @@ class SwinStage(nn.Module):
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  contrast_adaptive: bool = False, quality_guided: bool = False,
                  quality_aware_merge: bool = False,
-                 train_token_kernels: bool = False):
+                 train_token_kernels: bool = False, kernels: bool = True):
         super().__init__()
         self.depth = depth
+        self.kernels = kernels
         rates = tuple(drop_path_rates) or (0.0,) * depth
         for i in range(depth):
             self.add_module(f"block_{i}", SwinBlock(
@@ -375,17 +400,22 @@ class SwinStage(nn.Module):
                 drop_path_rate=float(rates[i]),
                 contrast_adaptive=contrast_adaptive,
                 quality_guided=quality_guided,
-                train_token_kernels=train_token_kernels))
+                train_token_kernels=train_token_kernels, kernels=kernels))
         self.downsample = PatchMerging(input_resolution, dim,
                                        quality_aware=quality_aware_merge) \
             if downsample else None
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                record: Record = None) -> torch.Tensor:
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x, train, generator)
+            x = getattr(self, f"block_{i}")(
+                x, train, generator, record=scoped(record, f"block_{i}"))
+        if record is not None:
+            record("stage_features", x)
         if self.downsample is not None:
-            x = self.downsample(x, train)
+            x = self.downsample(x, train,
+                                plain=record is not None or not self.kernels)
         return x
 
 
@@ -401,7 +431,7 @@ class SwinTransformer(nn.Module):
                  patch_norm: bool = True, medical_adaptations: bool = False,
                  contrast_adaptive: bool = False, quality_guided: bool = False,
                  uncertainty_head: bool = False,
-                 train_token_kernels: bool = False,
+                 train_token_kernels: bool = False, kernels: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if img_size % patch_size:
@@ -434,7 +464,7 @@ class SwinTransformer(nn.Module):
                 contrast_adaptive=contrast_adaptive or medical_adaptations,
                 quality_guided=quality_guided or medical_adaptations,
                 quality_aware_merge=medical_adaptations,
-                train_token_kernels=train_token_kernels))
+                train_token_kernels=train_token_kernels, kernels=kernels))
         feat = int(embed_dim * 2 ** (self.num_layers - 1))
         self.norm = LNParams(feat)
         self.head = DenseParams(feat, num_classes)
@@ -467,12 +497,10 @@ class SwinTransformer(nn.Module):
                 return_uncertainty: bool = False):
         """x (B, S, S, in_channels) NHWC → (B, num_classes) float32 logits;
         with `return_uncertainty`, (logits, uncertainty) where the model has
-        the uncertainty head. `train` takes the training forward, whose
-        DropPath and dropout draws come from `generator` (on x's device)."""
-        if capture:
-            raise NotImplementedError(
-                "attention capture is not ported (ROADMAP Queue 1: "
-                "Analysis)")
+        the uncertainty head; with `capture`, (that, intermediates).
+        `train` takes the training forward, whose DropPath and dropout
+        draws come from `generator` (on x's device)."""
+        recorded, record = recorder(capture)
         b = x.shape[0]
         dt = self.dtype
         x = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.patch_embed.weight.to(dt),
@@ -484,17 +512,24 @@ class SwinTransformer(nn.Module):
             x = x + self.absolute_pos_embed.to(dt)
         x = dropout(x, self.drop_rate, train, generator)
         for i in range(self.num_layers):
-            x = getattr(self, f"stage_{i}")(x, train, generator)
+            x = getattr(self, f"stage_{i}")(x, train, generator,
+                                            record=scoped(record, f"stage_{i}"))
         x = manual_layer_norm(x, self.norm.scale, self.norm.bias, dt)
+        if record is not None:
+            record("final_tokens", x)
         feat = x.mean(dim=1)
         logits = feat.float() @ self.head.kernel + self.head.bias
-        if not return_uncertainty or self.uncertainty_1 is None:
-            return logits
+        if self.uncertainty_1 is None or not (return_uncertainty or capture):
+            return captured(logits, recorded)
         u = F.relu(dense(feat, self.uncertainty_1.kernel,
                          self.uncertainty_1.bias, dt))
         u = dropout(u, 0.1, train, generator)
-        return logits, dense(u, self.uncertainty_2.kernel,
-                             self.uncertainty_2.bias, torch.float32)
+        u = dense(u, self.uncertainty_2.kernel, self.uncertainty_2.bias,
+                  torch.float32)
+        if record is not None:
+            record("uncertainty", u)
+        return captured((logits, u) if return_uncertainty else logits,
+                        recorded)
 
 
 SWIN_PARAMS = {
@@ -510,8 +545,9 @@ SWIN_PARAMS = {
 def swin_arguments(cfg: Any) -> Dict[str, Any]:
     """The SwinTransformer arguments of a model config, every key JAX's
     build_swin reads (not `train_token_kernels`, which it ignores too).
-    `use_pallas_attention` and `use_checkpoint` are read and have no
-    effect here; `attn_softmax_dtype` bf16 raises."""
+    `use_pallas_attention` false builds the model without kernels (unset,
+    with them); `use_checkpoint` is read and has no effect here;
+    `attn_softmax_dtype` bf16 raises."""
     name = cfg_get(cfg, "name", "swin_tiny")
     dim, depths, heads, dpr, img = SWIN_PARAMS.get(
         name, (96, (2, 2, 6, 2), (3, 6, 12, 24), 0.2, 224))
@@ -541,6 +577,7 @@ def swin_arguments(cfg: Any) -> Dict[str, Any]:
         contrast_adaptive=bool(cfg_get(cfg, "contrast_adaptive", False)),
         quality_guided=bool(cfg_get(cfg, "quality_guided", False)),
         uncertainty_head=bool(cfg_get(cfg, "uncertainty_head", False)),
+        kernels=bool(cfg_get(cfg, "use_pallas_attention", True)),
         dtype=resolve_dtype(cfg),
     )
 

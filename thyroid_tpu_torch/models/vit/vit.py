@@ -10,7 +10,14 @@ residual); training forwards, and `token_kernels: false`, take the plain
 path, as JAX's CPU does. Parameters are float32 and named as in the JAX
 tree; the stream runs in the model dtype. `forward(...,
 return_patch_quality=True)` returns (logits, patch-quality scores) for a
-`quality_aware` model; attention capture raises.
+`quality_aware` model. `forward(..., capture=True)` returns (output,
+intermediates): each block's attention probabilities
+("block_{i}/Attention_0/attention", (B, heads, N, N)), the tokens after the
+final norm ("final_tokens") and, for a `quality_aware` model, the patch
+scores ("patch_embed/patch_quality"), which JAX sows on every forward. A
+capture forward takes the plain blocks, never kernels 2-3, as JAX's does.
+`pool_type` and `class_token` are attributes, as GradCAM's head rule
+reads them.
 """
 from __future__ import annotations
 
@@ -20,9 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..layers import (Block, DenseParams, LNParams, PatchEmbed, dropout,
-                      manual_layer_norm, sincos_pos_embed,
-                      token_kernels_default, trunc_normal_)
+from ..layers import (Block, DenseParams, LNParams, PatchEmbed, Record,
+                      captured, dropout, manual_layer_norm, recorder, scoped,
+                      sincos_pos_embed, token_kernels_default, trunc_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 
 
@@ -43,6 +50,7 @@ class VisionTransformer(nn.Module):
         self.embed_dim, self.depth = embed_dim, depth
         self.drop_rate = float(drop_rate)
         self.pool_type = pool_type
+        self.class_token = class_token
         self.token_kernels = token_kernels
         self.dtype = dtype
         self.patch_embed = PatchEmbed(in_channels, embed_dim, patch_size,
@@ -84,9 +92,10 @@ class VisionTransformer(nn.Module):
                     mod.bias.zero_()
 
     def encode(self, x: torch.Tensor, train: bool,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator],
+               record: Record = None) -> torch.Tensor:
         """x (B, S, S, C) NHWC → the final-normed tokens (B, seq, D) in the
-        model dtype."""
+        model dtype; `record` takes the capture path's tensors."""
         dt = self.dtype
         tokens = self.patch_embed(x, dt)
         b = tokens.shape[0]
@@ -95,8 +104,15 @@ class VisionTransformer(nn.Module):
         pe = self.pos_embed if self.pos_embed is not None else self.sincos
         tokens = dropout(tokens + pe.to(dt), self.drop_rate, train, generator)
         for i in range(self.depth):
-            tokens = getattr(self, f"block_{i}")(tokens, train, generator)
-        return manual_layer_norm(tokens, self.norm.scale, self.norm.bias, dt)
+            tokens = getattr(self, f"block_{i}")(
+                tokens, train, generator, record=scoped(record, f"block_{i}"))
+        tokens = manual_layer_norm(tokens, self.norm.scale, self.norm.bias, dt)
+        if record is not None:
+            record("final_tokens", tokens)
+            if self.patch_embed.quality_conv1 is not None:
+                record("patch_embed/patch_quality",
+                       self.patch_embed.scores(x, dt))
+        return tokens
 
     def classify(self, tokens: torch.Tensor, train: bool):
         """The normed tokens → float32 logits."""
@@ -111,16 +127,15 @@ class VisionTransformer(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 return_patch_quality: bool = False):
         """x (B, S, S, in_channels) NHWC → (B, num_classes) float32 logits;
-        with `return_patch_quality`, (logits, (B, N) patch-quality scores).
-        `train` takes the training forward, whose DropPath and dropout
-        draws come from `generator` (on x's device)."""
-        if capture:
-            raise NotImplementedError(
-                "attention capture is not ported (ROADMAP Queue 1: Analysis)")
-        logits = self.classify(self.encode(x, train, generator), train)
+        with `return_patch_quality`, (logits, (B, N) patch-quality scores);
+        with `capture`, (that, intermediates). `train` takes the training
+        forward, whose DropPath and dropout draws come from `generator` (on
+        x's device)."""
+        recorded, record = recorder(capture)
+        out = self.classify(self.encode(x, train, generator, record), train)
         if return_patch_quality:
-            return logits, self.patch_embed.scores(x, self.dtype)
-        return logits
+            out = out, self.patch_embed.scores(x, self.dtype)
+        return captured(out, recorded)
 
 
 VIT_PARAMS = {

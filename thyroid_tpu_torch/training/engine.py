@@ -42,10 +42,18 @@ equal to this loop); the epoch permutation, DropPath and dropout, the
 batch augmentation and MixUp/CutMix draw from `torch.Generator`s seeded
 with `TrainerConfig.seed`, so their random streams are not JAX's; the
 initial weights come from the port's own initialisers unless `variables`
-(or `params`) carries a JAX tree in. Meshes and attention-map logging
-raise NotImplementedError; the TrainerConfig fields
-that only those read (mesh axes) and the two the JAX engine never reads
-(`log_every_n_steps`, `deterministic`) are left out.
+(or `params`) carries a JAX tree in. Meshes raise NotImplementedError; the
+TrainerConfig fields that only they read (mesh axes) and the two the JAX
+engine never reads (`log_every_n_steps`, `deterministic`) are left out.
+
+Attention-map logging (`log_attention_every_n_epochs` > 0) draws, every
+that many epochs, the first 4 validation images over the class-token
+heatmap of the last captured attention map (`attention_maps` computes
+them on the device, `_log_attention_maps` draws on the host). JAX wraps
+it in `except Exception` and logs failures at debug level; here a model
+whose last map is not one per image (Swin's windows, a CNN's none) is
+skipped by JAX's shape rule and any other failure raises, and a Trainer
+asked to log raises at construction when matplotlib cannot be imported.
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -169,7 +178,11 @@ class Trainer:
         if mesh is not None or self.cfg.mesh_shape:
             raise _unported("training on a mesh", "Parallelism")
         if self.cfg.log_attention_every_n_epochs:
-            raise _unported("attention-map logging", "Analysis")
+            try:
+                import matplotlib  # noqa: F401
+            except ImportError as e:
+                raise ImportError("log_attention_every_n_epochs needs "
+                                  "matplotlib to draw the maps") from e
         # trainer.precision drives the compute dtype: rebuild the model in
         # bf16 unless the model config pins a dtype (params stay float32)
         if self.cfg.precision == "bf16" and cfg_get(model_config, "dtype", None) is None:
@@ -438,6 +451,9 @@ class Trainer:
                 if val_pipeline is not None and \
                         (epoch + 1) % self.cfg.check_val_every_n_epoch == 0:
                     metrics.update(self.eval_epoch(val_pipeline, "val_"))
+                n_att = self.cfg.log_attention_every_n_epochs
+                if n_att and val_pipeline is not None and (epoch + 1) % n_att == 0:
+                    self._log_attention_maps(metric_logger, val_pipeline, epoch)
                 metrics["epoch"] = epoch
                 metrics["lr"] = float(self.schedule(self._global_step))
                 metrics["time_s"] = time.time() - t0
@@ -484,6 +500,53 @@ class Trainer:
             history=history,
             stopped_epoch=stopped,
         )
+
+    def attention_maps(self, val_pipeline):
+        """(images (n, S, S, C), labels (n,), class-token heatmaps) of the
+        first n ≤ 4 images of the validation pipeline's first batch, from
+        the last captured attention map under the current parameters; None
+        where that map is not one per image (JAX's skip rule: Swin's
+        window maps, a CNN's none)."""
+        from ..analysis.attention import (cls_attention_heatmap,
+                                          collect_attention_maps)
+        from ..analysis.evaluation import eval_batches
+
+        batch = next(iter(eval_batches(val_pipeline)))
+        images = batch.image[:4]
+        maps = collect_attention_maps(self.model, self.state.variables(), images)
+        if not maps or maps[-1].shape[0] != len(images):
+            return None
+        has_cls = str(cfg_get(self.model_config, "name", "")).startswith(
+            ("vit", "deit"))
+        heatmaps = [cls_attention_heatmap(maps[-1][i:i + 1], has_cls=has_cls)
+                    for i in range(len(images))]
+        return (images.float().cpu().numpy(), batch.label[:4].cpu().numpy(),
+                heatmaps)
+
+    def _log_attention_maps(self, metric_logger: MetricLogger, val_pipeline,
+                            epoch: int) -> None:
+        """Draw attention_maps as a figure: the images over their
+        heatmaps, logged as the "attention_maps" image of the epoch."""
+        found = self.attention_maps(val_pipeline)
+        if found is None:
+            return
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        images, labels, heatmaps = found
+        fig, axes = plt.subplots(2, len(images),
+                                 figsize=(2.6 * len(images), 5.2))
+        axes = np.atleast_2d(axes)
+        for i in range(len(images)):
+            axes[0, i].imshow(images[i].squeeze(), cmap="gray")
+            axes[0, i].set_title(f"label {int(labels[i])}", fontsize=9)
+            axes[1, i].imshow(heatmaps[i], cmap="inferno")
+            for r in (0, 1):
+                axes[r, i].axis("off")
+        fig.suptitle(f"attention maps — epoch {epoch}")
+        metric_logger.log_image("attention_maps", fig, step=epoch)
 
     def save_state(self, path: str | Path) -> Path:
         """The full training state (params, batch_stats, opt_state, EMA, step)

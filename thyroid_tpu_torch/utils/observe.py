@@ -1,6 +1,6 @@
 """Observability (counterpart of thyroid_tpu/utils/observe.py): a JSON-lines
-scalar logger and a rolling step timer. The TensorBoard and wandb mirrors
-of the JAX logger are not ported."""
+scalar and image logger and a rolling step timer. The TensorBoard and
+wandb mirrors of the JAX logger are not ported."""
 from __future__ import annotations
 
 import json
@@ -9,6 +9,8 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
+
+from ..data.imageio import encode_png
 
 
 class MetricLogger:
@@ -25,6 +27,24 @@ class MetricLogger:
                      if isinstance(v, (int, float))}}
         self._jsonl.write(json.dumps(record) + "\n")
         self._jsonl.flush()
+
+    def log_image(self, tag: str, image, step: int) -> Path:
+        """Write a matplotlib figure (savefig, then closed) or a gray
+        (H, W[, 1]) array (min-max scaled to uint8, data/imageio.py's PNG
+        writer) as log_dir/images/{tag}_{step:05d}.png; → the path."""
+        img_dir = self.log_dir / "images"
+        img_dir.mkdir(exist_ok=True)
+        path = img_dir / f"{tag.replace('/', '_')}_{step:05d}.png"
+        if hasattr(image, "savefig"):                      # matplotlib figure
+            image.savefig(path, dpi=110, bbox_inches="tight")
+            import matplotlib.pyplot as plt
+
+            plt.close(image)
+        else:
+            arr = np.asarray(image)
+            arr = (arr - arr.min()) / max(float(arr.max() - arr.min()), 1e-9)
+            path.write_bytes(encode_png((arr * 255).astype(np.uint8)))
+        return path
 
     def close(self) -> None:
         self._jsonl.close()
