@@ -283,7 +283,22 @@ Phases, each printing its lines before the final one:
    finite, and the members card against CPU on the 16 frames; (e) the
    quality-report CLI on the card and the CPU, issue lists equal; (f)
    Trainer.fit of deit_tiny with attention-map logging: the figure and
-   the logged maps against the CPU's.
+   the logged maps against the CPU's;
+28. serving, the rest: (a) `python -m thyroid_tpu_torch.serving.server`'s
+   server on a port checkpoint of the registry swin_tiny (bf16, phase 1's
+   weights) at 127.0.0.1 and a free port, in a thread: /healthz, a
+   32-frame .npy post, a 2-frame JSON post and 4 rounds of 16 concurrent
+   single-frame posts through the BatchAggregator (each round in fewer
+   than 16 batches); every answer equal to engine.predict on the same
+   frames in the same batch within 1e-6, kernels 1-4 at 1/15/12/12
+   launches per forward, requests/s and p50/p99 latency; (b) resnet50 and
+   vit_base (bf16) served with quantize="int8": every int32 product of a
+   forward at bucket 4 bit-equal to the CPU's on the same int8 operands,
+   the probabilities within 3e-2 of the CPU port's int8 engine, top-1
+   agreement with the card's bf16 engine over 32 frames, kernel 1 the only
+   kernel (vit_base without kernels 2 and 3), images/s int8 beside bf16 at
+   bucket 32; (c) vit_tiny float32 on prepared 224x224 frames with mean
+   0.45 / std 0.25 against the CPU (1e-3), no kernel 1 launch.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -5538,6 +5553,354 @@ def phase_analysis(card: str) -> None:
         raise AssertionError(f"phase 27 checks failed: {ok}")
 
 
+# phase 28: the served swin_tiny through the HTTP front end, from a port
+# checkpoint; rounds of SERVE_CLIENTS concurrent single-frame posts
+SERVE_BUCKETS = (1, 8, 32)
+SERVE_CLIENTS, SERVE_ROUNDS, SERVE_DELAY_MS = 16, 4, 20.0
+SERVE_PER_FORWARD = {"percentile": 1, "ln_matmul": 15, "ln_mlp_residual": 12,
+                     "swin_block_attention": 12}
+# the server rounds probabilities to 6 decimals
+SERVE_TOL = 1e-6
+# int8 engines at full width, card vs the CPU port's int8 engine on
+# INT8_FRAMES frames (bucket INT8_FRAMES): every int32 product is held bit
+# for bit, so what is left is the bf16 model around the products, which
+# PROB_TOL[bf16] bounds card vs CPU (phases 24-25); an activation that the
+# two devices' bf16 roundings put on either side of an int8 step moves its
+# layer's output by one step, 1/127 of the tensor's max, below a bf16
+# value's own 2^-8 relative step at a tenth of the max and above it at the
+# max, so the same bound is kept
+INT8_MODELS = ("resnet50", "vit_base")
+INT8_FRAMES = 4
+INT8_PROB_TOL = PROB_TOL[torch.bfloat16]
+# share of BATCH frames whose class the int8 engine gives as the card's
+# bf16 engine does (JAX's own model-level bound, tests/unit/test_quantize.py)
+INT8_TOP1 = 0.75
+# quantized layers per forward: resnet50's convs but the 1-channel stem;
+# vit_base's qkv, proj and the two MLP layers of 12 blocks
+INT8_LAYERS = {"resnet50": 52, "vit_base": 48}
+
+
+def serve_checkpoint(params) -> Path:
+    """A port checkpoint of the registry swin_tiny (bf16) on phase 1's
+    perturbed weights, with its model_config metadata."""
+    from types import SimpleNamespace
+
+    from thyroid_tpu_torch.models.base import create_and_init
+    from thyroid_tpu_torch.models.from_jax import (batch_stats, jax_layout,
+                                                   load_jax_params)
+    from thyroid_tpu_torch.training.checkpoint import save_checkpoint
+
+    model = create_and_init(SWIN_TINY, device="cpu", pretrained=False)
+    load_jax_params(model, params)
+    state = SimpleNamespace(params=dict(model.named_parameters()),
+                            batch_stats=batch_stats(model),
+                            layout=jax_layout(model), step=0)
+    return save_checkpoint(WORK / "serve" / "swin_tiny", state,
+                           {"model_config": SWIN_TINY})
+
+
+def http_call(port: int, method: str, path: str, body=None,
+              ctype: str = "application/octet-stream"):
+    """(status, decoded JSON answer, seconds) of one request on loopback."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request(method, path, body=body, headers={"Content-Type": ctype})
+    resp = conn.getresponse()
+    out = resp.status, json.loads(resp.read())
+    conn.close()
+    return out + (time.perf_counter() - t0,)
+
+
+def npy_bytes(arr) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, np.asarray(arr, np.float32))
+    return buf.getvalue()
+
+
+def serving_front_end(card: str, params) -> bool:
+    """(a) of phase 28: `python -m thyroid_tpu_torch.serving.server` on a
+    port checkpoint of swin_tiny bf16, at 127.0.0.1 and a free port in a
+    thread: /healthz, a 32-frame .npy post, a 2-frame JSON post and
+    SERVE_ROUNDS rounds of SERVE_CLIENTS concurrent single-frame posts.
+    Every answer against engine.predict on the same frames in the same
+    batch (re-run) within SERVE_TOL; kernels 1-4 at their exact counts
+    per forward over the requests; each round in fewer batches than
+    posts; requests/s and p50/p99 latency of the single-frame clients."""
+    import threading
+
+    from thyroid_tpu_torch.serving import server as srv
+
+    ck = serve_checkpoint(params)
+    t0 = time.perf_counter()
+    server, engine, agg = srv.build_server([
+        "--checkpoint", str(ck), "--port", "0", "--buckets",
+        *map(str, SERVE_BUCKETS), "--max-delay-ms", str(SERVE_DELAY_MS)])
+    log(f"[front end] checkpoint {ck.name} restored and buckets "
+        f"{SERVE_BUCKETS} warmed in {time.perf_counter() - t0:.2f} s")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    calls, predict = [], engine.predict
+
+    def recorded(images):
+        probs = predict(images)
+        calls.append((np.array(images, np.float32), probs))
+        return probs
+
+    engine.predict = recorded
+    rs = np.random.RandomState(280)
+    frames = rs.randint(0, 65536, (BATCH, 512, 512, 1)).astype(np.float32)
+    singles = rs.randint(0, 65536, (SERVE_ROUNDS, SERVE_CLIENTS, 512, 512)) \
+        .astype(np.float32)
+    answers, latencies, rounds = [], [], []
+    watched = all_counters()
+    try:
+        code, health, _ = http_call(port, "GET", "/healthz")
+        ok = code == 200 and health["buckets"] == list(SERVE_BUCKETS)
+        log(f"[front end] GET /healthz on port {port}: {code} {health}")
+        for fn in watched.values():
+            fn.launches = 0
+        code, body, secs = http_call(port, "POST", "/predict", npy_bytes(frames))
+        answers.append((frames, body, code))
+        log(f"[front end] POST {BATCH}-frame .npy ({frames.nbytes / 1e6:.1f} MB): "
+            f"{code} in {secs * 1e3:.1f} ms")
+        code, body, secs = http_call(
+            port, "POST", "/predict",
+            json.dumps({"images": frames[:2, ..., 0].astype(int).tolist()}),
+            ctype="application/json")
+        answers.append((frames[:2], body, code))
+        log(f"[front end] POST 2-frame JSON: {code} in {secs * 1e3:.1f} ms")
+        for r in range(SERVE_ROUNDS):
+            out = [None] * SERVE_CLIENTS
+            before = agg.batches_dispatched
+
+            def client(i, r=r, out=out):
+                out[i] = http_call(port, "POST", "/predict",
+                                   npy_bytes(singles[r, i]))
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            rounds.append((time.perf_counter() - t0,
+                           agg.batches_dispatched - before))
+            for i, (code, body, secs) in enumerate(out):
+                answers.append((singles[r, i][None, ..., None], body, code))
+                latencies.append(secs)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in watched.items()}
+    finally:
+        server.shutdown()
+        server.server_close()
+        agg.close()
+        thread.join(timeout=30)
+        engine.predict = predict
+    forwards = len(calls)
+    want = {k: SERVE_PER_FORWARD.get(k, 0) * forwards for k in launches}
+    ok &= launches == want and forwards == 2 + sum(b for _, b in rounds)
+    log(f"[front end] {forwards} forwards ({len(calls) - 2} aggregated batches "
+        f"for {SERVE_ROUNDS * SERVE_CLIENTS} single frames); launches "
+        f"{ {k: v for k, v in launches.items() if v} }, expected "
+        f"{ {k: v for k, v in want.items() if v} }")
+    for r, (secs, batches) in enumerate(rounds):
+        log(f"[front end] round {r}: {SERVE_CLIENTS} concurrent posts in "
+            f"{batches} batches, {secs * 1e3:.1f} ms")
+        ok &= batches < SERVE_CLIENTS
+    # every batch re-runs to the same bits; a multi-frame answer is its own
+    # call's, a single frame's the row of the aggregated batch that held it
+    # (the same frame in another bucket rounds differently in bf16)
+    worst = 0.0
+    for images, probs in calls:
+        worst = max(worst, float(np.abs(engine.predict(images) - probs).max()))
+    rerun = worst
+    for images, body, code in answers:
+        ok &= code == 200
+        if len(images) > 1:
+            want = [p for im, p in calls if np.array_equal(im, images)]
+        else:
+            want = [p[i:i + 1] for im, p in calls[2:] for i in range(len(im))
+                    if np.array_equal(im[i], images[0])]
+        ok &= len(want) == 1
+        worst = max(worst, float(np.abs(np.asarray(body["probs"]) - want[0]).max()))
+    ok &= worst <= SERVE_TOL
+    lat = np.asarray(latencies) * 1e3
+    total = sum(secs for secs, _ in rounds)
+    log(f"[front end] answers vs engine.predict on the same frames and batch: "
+        f"max_abs_err {worst:.3e} (re-runs {rerun:.3e}) tol {SERVE_TOL:.0e}")
+    log(f"[front end] single-frame clients: {len(lat) / total:.1f} requests/s "
+        f"over {SERVE_ROUNDS} rounds of {SERVE_CLIENTS}, latency p50 "
+        f"{np.percentile(lat, 50):.1f} ms, p99 {np.percentile(lat, 99):.1f} ms, "
+        f"max {lat.max():.1f} ms (max_delay_ms {SERVE_DELAY_MS}); card {card}")
+    del engine
+    torch.cuda.empty_cache()
+    return bool(ok)
+
+
+def int8_products(engine, frames):
+    """Probabilities of the card's int8 engine on `frames`, with every
+    int32 product's operands and result recorded: [(a, b, y) on the
+    card]."""
+    from thyroid_tpu_torch.serving.quantize import observing
+
+    seen = []
+    with observing(lambda kernel, a, b, y: seen.append((a, b, y))):
+        probs = engine.predict(frames)
+    return probs, seen
+
+
+def int8_operands(name: str, card_seen, cpu_seen) -> None:
+    """Where the card's int8 forward leaves the CPU's: per quantized layer
+    in order, the share of int8 activations (operand a) that differ and by
+    how many steps, logged (the products on equal operands are held bit
+    for bit apart)."""
+    diffs = []
+    for i, ((a, _, _), (c, _, _)) in enumerate(zip(card_seen, cpu_seen)):
+        d = (a.cpu().int() - c.int()).abs()
+        diffs.append((i, float((d > 0).float().mean()), int(d.max())))
+    moved = [x for x in diffs if x[1] > 0]
+    log(f"[int8] {name} card vs CPU int8 activations, layer by layer: "
+        f"{len(moved)} of {len(diffs)} layers differ, the first at layer "
+        f"{moved[0][0] if moved else None}; largest share "
+        f"{max((x[1] for x in diffs), default=0):.3e}, largest step "
+        f"{max((x[2] for x in diffs), default=0)}; (layer, share, step) of the "
+        f"first five that differ {[(i, f'{s:.2e}', m) for i, s, m in moved[:5]]}")
+
+
+def int8_times(engines, frames, card: str, name: str) -> None:
+    """images/s of `predict` at bucket BATCH for each engine, in turns
+    (median of 5)."""
+    secs = {k: [] for k in engines}
+    for _ in range(5):
+        for k, eng in engines.items():
+            t0 = time.perf_counter()
+            eng.predict(frames)
+            secs[k].append(time.perf_counter() - t0)
+    log(f"[int8] {name} predict bucket {BATCH}, raw 512² frames: " + ", ".join(
+        f"{k} {BATCH / statistics.median(v):.1f} images/s "
+        f"({statistics.median(v) * 1e3:.2f} ms)" for k, v in secs.items())
+        + f" (median of 5, in turns); card {card}")
+
+
+def serving_int8(card: str) -> bool:
+    """(b) of phase 28: resnet50 and vit_base bf16 served with
+    quantize="int8". Each quantized layer's int32 product on the card
+    against the CPU's on the same int8 operands, bit for bit; the
+    probabilities against the CPU port's int8 engine on the same
+    INT8_FRAMES frames within INT8_PROB_TOL; top-1 agreement with the
+    card's bf16 engine over BATCH frames; vit_base's int8 forward without
+    kernels 2 and 3; images/s int8 beside bf16."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+    from thyroid_tpu_torch.serving.quantize import int_matmul
+
+    ok = True
+    rs = np.random.RandomState(281)
+    frames = (rs.rand(BATCH, 512, 512, 1) * 65535).astype(np.float32)
+    buckets = (INT8_FRAMES, BATCH)
+    for name in INT8_MODELS:
+        t0 = time.perf_counter()
+        cfg = zoo_config(name)
+        variables = effnet_variables(RESNET50) if name == "resnet50" \
+            else {"params": perturbed_params(cfg)}
+        engines = {k: InferenceEngine(cfg, variables=variables, buckets=buckets,
+                                      quantize=k if k == "int8" else None)
+                   for k in ("bf16", "int8")}
+        card_q, seen = int8_products(engines["int8"], frames[:INT8_FRAMES])
+        mismatched = [i for i, (a, b, y) in enumerate(seen)
+                      if not torch.equal(int_matmul(a.cpu(), b.cpu()), y.cpu())]
+        shapes = sorted({(a.shape[0], a.shape[1], b.shape[1]) for a, b, _ in seen})
+        log(f"[int8] {name}: {len(seen)} int32 products in one forward at "
+            f"bucket {INT8_FRAMES} (expected {INT8_LAYERS[name]}), card vs CPU on "
+            f"the same int8 operands: {len(seen) - len(mismatched)} bit-equal, "
+            f"mismatched {mismatched}; (M, K, N) from {shapes[0]} to {shapes[-1]}")
+        ok &= not mismatched and len(seen) == INT8_LAYERS[name]
+        cpu = {"bf16": InferenceEngine(cfg, variables=variables, buckets=buckets,
+                                       device="cpu").predict(frames[:INT8_FRAMES])}
+        cpu["int8"], cpu_seen = int8_products(
+            InferenceEngine(cfg, variables=variables, buckets=buckets,
+                            quantize="int8", device="cpu"), frames[:INT8_FRAMES])
+        int8_operands(name, seen, cpu_seen)
+        del seen, cpu_seen
+        err = float(np.abs(card_q - cpu["int8"]).max())
+        bf16_err = float(np.abs(engines["bf16"].predict(frames[:INT8_FRAMES])
+                                - cpu["bf16"]).max())
+        log(f"[int8] {name} N={INT8_FRAMES} probabilities, card int8 vs CPU int8: "
+            f"max_abs_err {err:.3e} tol {INT8_PROB_TOL:.0e} (card bf16 vs CPU "
+            f"bf16 on the same frames {bf16_err:.3e}, logged; p0 card "
+            f"{[f'{v:.5f}' for v in card_q[:, 0]]})")
+        ok &= err <= INT8_PROB_TOL
+        launches = zoo_counts(lambda: engines["int8"].predict(frames))
+        want = {k: int(k == "percentile") for k in launches}
+        log(f"[int8] {name} int8 forward at bucket {BATCH}: launches "
+            f"{ {k: v for k, v in launches.items() if v} }, expected "
+            f"{ {k: v for k, v in want.items() if v} }")
+        ok &= launches == want
+        probs = {k: eng.predict(frames) for k, eng in engines.items()}
+        agree = float((probs["int8"].argmax(-1) == probs["bf16"].argmax(-1)).mean())
+        log(f"[int8] {name} top-1 agreement int8 vs bf16 on the card over {BATCH} "
+            f"frames: {agree:.3f} (at least {INT8_TOP1}); max |p int8 - p bf16| "
+            f"{float(np.abs(probs['int8'] - probs['bf16']).max()):.3e}, spread of "
+            f"bf16 p0 {float(np.ptp(probs['bf16'][:, 0])):.3e}")
+        ok &= agree >= INT8_TOP1
+        int8_times(engines, frames, card, name)
+        log(f"[int8] {name}: {time.perf_counter() - t0:.1f} s")
+        del engines
+        torch.cuda.empty_cache()
+    return bool(ok)
+
+
+def serving_prepared(card: str) -> bool:
+    """(c) of phase 28: vit_tiny float32 on prepared 224² frames
+    (raw_inputs=False) with mean 0.45 / std 0.25, card vs CPU within
+    PROB_TOL[float32]; no kernel 1 launch (nothing to prepare), 12 each of
+    kernels 2 and 3; the override moves the answer."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = zoo_config("vit_tiny", "f32")
+    params = perturbed_params(cfg)
+    kw = dict(params=params, raw_inputs=False, mean=(0.45,), std=(0.25,),
+              buckets=(8,))
+    frames = np.random.RandomState(282).rand(8, 224, 224, 1).astype(np.float32)
+    card_engine = InferenceEngine(cfg, **kw)
+    card_engine.warmup()
+    probs = {}
+    launches = zoo_counts(lambda: probs.setdefault("card", card_engine.predict(frames)))
+    cpu = InferenceEngine(cfg, device="cpu", **kw).predict(frames)
+    default = InferenceEngine(cfg, device="cpu", params=params, raw_inputs=False,
+                              buckets=(8,)).predict(frames)
+    err = float(np.abs(probs["card"] - cpu).max())
+    moved = float(np.abs(cpu - default).max())
+    want = {k: 12 if k in ("ln_matmul", "ln_mlp_residual") else 0 for k in launches}
+    log(f"[prepared] vit_tiny f32, raw_inputs=False, mean 0.45 std 0.25, N=8: card "
+        f"vs CPU max_abs_err {err:.3e} tol {PROB_TOL[torch.float32]:.0e}; against "
+        f"the default statistics {moved:.3e}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }, expected "
+        f"{ {k: v for k, v in want.items() if v} }; card {card}")
+    return err <= PROB_TOL[torch.float32] and moved > 1e-4 and launches == want
+
+
+def phase_serving(card: str, params) -> None:
+    """Phase 28: serving, the rest: (a) the HTTP front end on a port
+    checkpoint of swin_tiny, (b) int8 resnet50 and vit_base at full
+    width, (c) prepared inputs and statistics overrides; float32 matmuls
+    and convolutions without TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    ok = {"front end": serving_front_end(card, params),
+          "int8": serving_int8(card),
+          "prepared": serving_prepared(card)}
+    log(f"[serving] checks {ok}; phase 28 {time.perf_counter() - t0:.1f} s")
+    if not all(ok.values()):
+        raise AssertionError(f"phase 28 checks failed: {ok}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5601,6 +5964,8 @@ def main() -> int:
         phase_distill(card)
         torch.cuda.empty_cache()
         phase_analysis(card)
+        torch.cuda.empty_cache()
+        phase_serving(card, params)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

@@ -199,8 +199,8 @@ def test_engine_matches_jax_engine():
 def test_serving_size_and_unported_options():
     """A b3 config without img_size is served at 224, as the JAX engine
     serves it (cfg img_size or 224), not at b3's resolution 300; the
-    capture forward records the feature map ("features"); int8 serving and
-    meshes raise."""
+    capture forward records the feature map ("features"); int8 serving
+    builds (a mode other than int8 raises, as in JAX); meshes raise."""
     b3 = {"name": "efficientnet_b3", "in_channels": 1, "num_classes": 2}
     engine = InferenceEngine(b3, device="cpu")
     assert engine.img_size == engine.model.img_size == 224
@@ -208,8 +208,9 @@ def test_serving_size_and_unported_options():
     with torch.no_grad():
         _, inter = engine.model(torch.zeros(1, 32, 32, 1), capture=True)
     assert list(inter) == ["features"] and inter["features"].shape == (1, 1, 1, 1536)
-    with pytest.raises(NotImplementedError, match="int8"):
-        InferenceEngine(b3, quantize="int8", device="cpu")
+    assert InferenceEngine(b3, quantize="int8", device="cpu").quantize == "int8"
+    with pytest.raises(ValueError, match="int8"):
+        InferenceEngine(b3, quantize="int4", device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         InferenceEngine(b3, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="not both"):

@@ -127,3 +127,35 @@ def test_sources_cover_the_analysis():
     assert {f"thyroid_tpu_torch/{m}.py" for m in (
         "analysis/__init__", "analysis/gradcam", "analysis/attention",
         "analysis/evaluation", "analysis/cli", "data/quality_report")} <= names
+
+
+@pytest.mark.unit
+def test_sources_cover_the_serving_package():
+    """The scans above cover the serving engine, int8 serving and the HTTP
+    front end."""
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {f"thyroid_tpu_torch/serving/{m}.py" for m in (
+        "__init__", "engine", "quantize", "server")} <= names
+
+
+@pytest.mark.unit
+def test_server_runs_without_jax():
+    """`python -m thyroid_tpu_torch.serving.server --help` in a process
+    where importing jax, flax or thyroid_tpu fails; the models import
+    `serving.quantize` without loading the engine (the package's names
+    load lazily), and the package exports JAX's five serving names."""
+    code = (
+        "import runpy, sys\n"
+        f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+        "import thyroid_tpu_torch.models.layers\n"
+        "assert 'thyroid_tpu_torch.serving.engine' not in sys.modules\n"
+        "import thyroid_tpu_torch.serving as s\n"
+        "names = ('BatchAggregator', 'InferenceEngine', 'QuantConfig',\n"
+        "         'int8_serving', 'quantized_apply')\n"
+        "assert all(callable(getattr(s, n)) for n in names)\n"
+        "sys.argv = ['server', '--help']\n"
+        "runpy.run_module('thyroid_tpu_torch.serving.server', run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "--quantize" in out.stdout and "--device" in out.stdout

@@ -26,8 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import (BatchNorm, ConvParams, DenseParams, captured, dropout,
-                      lecun_normal_)
+from ..layers import (BatchNorm, ConvParams, DenseParams, captured,
+                      dense_layer, dropout, lecun_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 from .efficientnet import conv_nhwc, pointwise
 
@@ -125,8 +125,7 @@ class DenseNet(nn.Module):
         x = F.relu(self.norm_final(x, train, dt))
         recorded = {"features": x} if capture else None
         x = x.mean(dim=(1, 2))
-        return captured(x.float() @ self.classifier.kernel + self.classifier.bias,
-                        recorded)
+        return captured(dense_layer(x, self.classifier, torch.float32), recorded)
 
 
 DENSENET_PARAMS = {

@@ -43,8 +43,9 @@ from torch import nn
 
 from ...ops.depthwise import shift_depthwise_conv
 from ...ops.depthwise_pallas import depthwise_conv2d_pallas
+from ...serving.quantize import conv_site
 from ..layers import (BatchNorm, ConvParams, DenseParams, DropPath, captured,
-                      dropout, lecun_normal_)
+                      conv_layer, dense_layer, dropout, lecun_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 
 # (expand_ratio, channels, repeats, stride, kernel) — standard B0 plan
@@ -73,18 +74,20 @@ def round_repeats(r: int, depth_mult: float) -> int:
 
 def conv_nhwc(x: torch.Tensor, conv: ConvParams, dtype: torch.dtype,
               stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """flax nn.Conv(dtype) on NHWC x with symmetric `padding`: x and the
-    kernel in `dtype`, handed to F.conv2d as a channels-last view; the
+    """flax nn.Conv(dtype) on NHWC x with symmetric `padding`
+    (layers.conv_layer, int8 under `int8_serving` where eligible); the
     result NHWC contiguous in `dtype`."""
-    bias = conv.bias.to(dtype) if conv.bias is not None else None
-    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv.kernel.to(dtype), bias,
-                 stride, padding, groups=conv.groups)
-    return y.permute(0, 2, 3, 1).contiguous()
+    return conv_layer(x, conv.kernel, conv.bias, dtype, stride, padding,
+                      conv.groups).contiguous()
 
 
 def pointwise(x: torch.Tensor, conv: ConvParams,
               dtype: torch.dtype) -> torch.Tensor:
-    """A 1×1 stride-1 flax Conv on NHWC x as a matmul over channels."""
+    """A 1×1 stride-1 flax Conv on NHWC x as a matmul over channels (its
+    int8 form under `int8_serving` where eligible)."""
+    y = conv_site(x, conv.kernel, conv.bias, dtype)
+    if y is not None:
+        return y
     bias = conv.bias.to(dtype) if conv.bias is not None else None
     return F.linear(x.to(dtype), conv.kernel[:, :, 0, 0].to(dtype), bias)
 
@@ -259,8 +262,7 @@ class EfficientNet(nn.Module):
         x = F.silu(self.head_bn(pointwise(x, self.head_conv, dt), train, dt))
         recorded = {"features": x} if capture else None
         x = dropout(x.mean(dim=(1, 2)), self.dropout_rate, train, generator)
-        return captured(x.float() @ self.classifier.kernel + self.classifier.bias,
-                        recorded)
+        return captured(dense_layer(x, self.classifier, torch.float32), recorded)
 
 
 EFFICIENTNET_PARAMS = {

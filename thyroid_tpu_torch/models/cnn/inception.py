@@ -33,8 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import (BatchNorm, ConvParams, DenseParams, captured, dropout,
-                      lecun_normal_)
+from ..layers import (BatchNorm, ConvParams, DenseParams, captured,
+                      dense_layer, dropout, lecun_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 from .efficientnet import conv_nhwc, pointwise
 
@@ -256,7 +256,7 @@ class InceptionV3(_Convs):
         a = self.aux_conv0(a, train, dt)
         pad = "VALID" if min(a.shape[1], a.shape[2]) >= 5 else "SAME"
         a = self.aux_conv1(a, train, dt, padding=pad).mean(dim=(1, 2))
-        return a.float() @ self.aux_fc.kernel + self.aux_fc.bias
+        return dense_layer(a, self.aux_fc, torch.float32)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 capture: bool = False,
@@ -275,7 +275,7 @@ class InceptionV3(_Convs):
             x = block(x, train, dt)
         recorded = {"features": x} if capture else None
         x = dropout(x.mean(dim=(1, 2)), self.dropout_rate, train, generator)
-        logits = x.float() @ self.fc.kernel + self.fc.bias
+        logits = dense_layer(x, self.fc, torch.float32)
         return captured((logits, aux) if aux is not None else logits, recorded)
 
 
@@ -389,7 +389,7 @@ class InceptionV4(_Convs):
             x = block(x, train, dt)
         recorded = {"features": x} if capture else None
         x = dropout(x.mean(dim=(1, 2)), self.dropout_rate, train, generator)
-        return captured(x.float() @ self.fc.kernel + self.fc.bias, recorded)
+        return captured(dense_layer(x, self.fc, torch.float32), recorded)
 
 
 @ModelRegistry.register(["inception_v3", "inception_v4"], "cnn")

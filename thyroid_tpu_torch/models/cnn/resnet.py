@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers import (BatchNorm, ConvParams, DenseParams, LecunDense,
-                      captured, dropout, lecun_normal_)
+                      captured, dense_layer, dropout, lecun_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 from .efficientnet import conv_nhwc, pointwise
 
@@ -118,10 +118,9 @@ class QualityEncoder(nn.Module):
         self.Dense_1 = LecunDense(hidden_dim, hidden_dim)
 
     def forward(self, quality_scores: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        x = quality_scores.to(dt)
+        x = quality_scores
         for d in (self.Dense_0, self.Dense_1):
-            x = F.relu(x @ d.kernel.to(dt) + d.bias.to(dt))
+            x = F.relu(dense_layer(x, d, self.dtype))
         return x
 
 
@@ -180,7 +179,7 @@ class ResNet(nn.Module):
             x = getattr(self, name)(x, train, dt)
         recorded = {"features": x} if capture else None
         x = dropout(x.mean(dim=(1, 2)), self.dropout_rate, train, generator)
-        return captured(x.float() @ self.fc.kernel + self.fc.bias, recorded)
+        return captured(dense_layer(x, self.fc, torch.float32), recorded)
 
 
 RESNET_PARAMS = {

@@ -8,6 +8,11 @@ variable tree maps onto a module leaf by leaf (models/from_jax.py). Dense
 kernels keep the JAX layout (in, out), which the fused kernels take; a
 module whose parameters are laid out otherwise declares the difference in
 `jax_layout` (ConvParams: flax's HWIO kernel is PyTorch's OIHW here).
+
+Every call site that is an nn.Dense or nn.Conv call in JAX goes through
+`dense_layer` / `conv_layer` (or efficientnet.py's `conv_nhwc` and
+`pointwise`), the sites that int8 serving (serving/quantize.py) rewrites;
+the math JAX writes out from raw parameters calls `dense`.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.token_fused import fused_ln_matmul, fused_ln_mlp_residual
+from ..serving.quantize import conv_site, dense_site
 from .registry import cfg_get
 
 # torch nn.LayerNorm's default, which the JAX package and its kernels use
@@ -252,6 +258,31 @@ def dense(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
     return y + bias.to(dtype) if bias is not None else y
 
 
+def dense_layer(x: torch.Tensor, p: DenseParams, dtype: torch.dtype) -> torch.Tensor:
+    """A flax nn.Dense(dtype) call site on the parameters `p`: `dense`, or
+    its int8 form under `serving.quantize.int8_serving` where the layer is
+    eligible. The math that JAX writes out from raw parameters calls
+    `dense` instead, which int8 serving never touches, as JAX's
+    interceptor never sees it."""
+    y = dense_site(x, p.kernel, p.bias, dtype)
+    return dense(x, p.kernel, p.bias, dtype) if y is None else y
+
+
+def conv_layer(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+               dtype: torch.dtype, stride: int = 1, padding: Any = 0,
+               groups: int = 1) -> torch.Tensor:
+    """A flax nn.Conv(dtype) call site on NHWC x with the (out, in / groups,
+    kh, kw) `kernel` and symmetric `padding`: x and the kernel in `dtype`
+    through F.conv2d on the channels-last view, or the int8 form under
+    `int8_serving` where the layer is eligible. NHWC out, in `dtype`."""
+    y = conv_site(x, kernel, bias, dtype, stride, padding, groups)
+    if y is not None:
+        return y
+    b = bias.to(dtype) if bias is not None else None
+    return F.conv2d(x.to(dtype).permute(0, 3, 1, 2), kernel.to(dtype), b,
+                    stride, padding, groups=groups).permute(0, 2, 3, 1)
+
+
 # ------------------------------------------------- the plain transformer
 # (ViT and DeiT). Parameters carry flax's names for both paths of a Block:
 # LayerNorm_0, Attention_0/Dense_{0,1}, LayerNorm_1, Mlp_0/Dense_{0,1}.
@@ -268,9 +299,9 @@ class Mlp(MlpParams):
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = x.dtype
-        x = F.gelu(dense(x, self.Dense_0.kernel, self.Dense_0.bias, dt))
+        x = F.gelu(dense_layer(x, self.Dense_0, dt))
         x = dropout(x, self.drop_rate, train, generator)
-        x = dense(x, self.Dense_1.kernel, self.Dense_1.bias, dt)
+        x = dense_layer(x, self.Dense_1, dt)
         return dropout(x, self.drop_rate, train, generator)
 
 
@@ -304,7 +335,7 @@ class Attention(nn.Module):
             qkv = fused_ln_matmul(x.contiguous(), ln[0], ln[1],
                                   self.Dense_0.kernel, self.Dense_0.bias)
         else:
-            qkv = dense(x, self.Dense_0.kernel, self.Dense_0.bias, dt)
+            qkv = dense_layer(x, self.Dense_0, dt)
         q, k, v = qkv.reshape(b, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
         # the scale rounded to the model dtype, as JAX's weakly typed constant
         q = q * torch.tensor(self.scale, dtype=dt)
@@ -314,8 +345,7 @@ class Attention(nn.Module):
             record("attention", attn)
         attn = dropout(attn, self.attn_drop_rate, train, generator)
         out = (attn.float() @ v.float()).to(dt)
-        out = dense(out.transpose(1, 2).reshape(b, n, c), self.Dense_1.kernel,
-                    self.Dense_1.bias, dt)
+        out = dense_layer(out.transpose(1, 2).reshape(b, n, c), self.Dense_1, dt)
         return dropout(out, self.proj_drop_rate, train, generator)
 
 
@@ -358,9 +388,8 @@ class PatchEmbed(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         self._check(x)
         p = self.patch_size
-        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.proj.kernel.to(dtype),
-                     self.proj.bias.to(dtype), stride=p)
-        return y.permute(0, 2, 3, 1).reshape(x.shape[0], -1, self.embed_dim)
+        y = conv_layer(x, self.proj.kernel, self.proj.bias, dtype, stride=p)
+        return y.reshape(x.shape[0], -1, self.embed_dim)
 
     def scores(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """(B, N) patch-quality scores in `dtype`."""
@@ -368,10 +397,9 @@ class PatchEmbed(nn.Module):
             raise ValueError("this patch embedding has no quality head")
         self._check(x)
         c1, c2 = self.quality_conv1, self.quality_conv2
-        q = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), c1.kernel.to(dtype),
-                     c1.bias.to(dtype), padding=1)
-        q = F.conv2d(F.relu(q), c2.kernel.to(dtype), c2.bias.to(dtype))
-        q = F.avg_pool2d(torch.sigmoid(q), self.patch_size)
+        q = F.relu(conv_layer(x, c1.kernel, c1.bias, dtype, padding=1))
+        q = torch.sigmoid(conv_layer(q, c2.kernel, c2.bias, dtype))
+        q = F.avg_pool2d(q.permute(0, 3, 1, 2), self.patch_size)
         return q.reshape(x.shape[0], -1)
 
 

@@ -14,7 +14,7 @@ from typing import Any
 
 import torch
 
-from ..layers import DenseParams
+from ..layers import DenseParams, dense_layer
 from ..registry import ModelRegistry, cfg_get
 from .vit import VisionTransformer, vit_arguments
 
@@ -42,8 +42,8 @@ class DeiT(VisionTransformer):
     def classify(self, tokens: torch.Tensor, train: bool):
         """(cls_logits, dist_logits) in training, their mean at eval;
         float32."""
-        cls = tokens[:, 0].float() @ self.head.kernel + self.head.bias
-        dist = tokens[:, 1].float() @ self.head_dist.kernel + self.head_dist.bias
+        cls = dense_layer(tokens[:, 0], self.head, torch.float32)
+        dist = dense_layer(tokens[:, 1], self.head_dist, torch.float32)
         if train:
             return cls, dist
         return (cls + dist) / 2.0

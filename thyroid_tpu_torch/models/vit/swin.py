@@ -75,8 +75,9 @@ from ...ops.attention import window_partition, window_reverse  # noqa: F401
 from ...ops.token_fused import (fused_ln_matmul, fused_ln_mlp,
                                 fused_ln_mlp_residual)
 from ..layers import (HWIO_TO_OIHW, DenseParams, DropPath, LecunDense,
-                      LNParams, MlpParams, Record, captured, dense, dropout,
-                      manual_layer_norm, recorder, scoped, trunc_normal_)
+                      LNParams, MlpParams, Record, captured, conv_layer, dense,
+                      dense_layer, dropout, manual_layer_norm, recorder,
+                      scoped, trunc_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 
 
@@ -222,11 +223,10 @@ class WindowAttention(nn.Module):
                      generator: Optional[torch.Generator]) -> torch.Tensor:
         dt = out.dtype
         if self.quality_guided:
-            g = F.relu(dense(out, self.quality_gate_1.kernel,
-                             self.quality_gate_1.bias, dt))
-            g = dense(g, self.quality_gate_2.kernel, self.quality_gate_2.bias, dt)
+            g = F.relu(dense_layer(out, self.quality_gate_1, dt))
+            g = dense_layer(g, self.quality_gate_2, dt)
             out = out * torch.sigmoid(g)
-        out = dense(out, self.proj.kernel, self.proj.bias, dt)
+        out = dense_layer(out, self.proj, dt)
         return dropout(out, self.proj_drop_rate, train, generator)
 
 
@@ -354,10 +354,8 @@ class PatchMerging(nn.Module):
                             x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
         merged = merged.reshape(b, -1, 4 * c)
         if self.quality_aware:
-            qw = F.relu(dense(merged, self.quality_weight_1.kernel,
-                              self.quality_weight_1.bias, dt))
-            qw = dense(qw, self.quality_weight_2.kernel,
-                       self.quality_weight_2.bias, dt)
+            qw = F.relu(dense_layer(merged, self.quality_weight_1, dt))
+            qw = dense_layer(qw, self.quality_weight_2, dt)
             # softmax in the model dtype, as flax writes it out
             e = torch.exp(qw - qw.amax(dim=-1, keepdim=True))
             qw = e / e.sum(dim=-1, keepdim=True)
@@ -503,9 +501,8 @@ class SwinTransformer(nn.Module):
         recorded, record = recorder(capture)
         b = x.shape[0]
         dt = self.dtype
-        x = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.patch_embed.weight.to(dt),
-                     self.patch_embed.bias.to(dt), stride=self.patch_size)
-        x = x.permute(0, 2, 3, 1).reshape(b, -1, self.embed_dim)
+        x = conv_layer(x, self.patch_embed.weight, self.patch_embed.bias, dt,
+                       stride=self.patch_size).reshape(b, -1, self.embed_dim)
         if self.patch_norm is not None:
             x = manual_layer_norm(x, self.patch_norm.scale, self.patch_norm.bias, dt)
         if self.absolute_pos_embed is not None:
@@ -518,14 +515,12 @@ class SwinTransformer(nn.Module):
         if record is not None:
             record("final_tokens", x)
         feat = x.mean(dim=1)
-        logits = feat.float() @ self.head.kernel + self.head.bias
+        logits = dense_layer(feat, self.head, torch.float32)
         if self.uncertainty_1 is None or not (return_uncertainty or capture):
             return captured(logits, recorded)
-        u = F.relu(dense(feat, self.uncertainty_1.kernel,
-                         self.uncertainty_1.bias, dt))
+        u = F.relu(dense_layer(feat, self.uncertainty_1, dt))
         u = dropout(u, 0.1, train, generator)
-        u = dense(u, self.uncertainty_2.kernel, self.uncertainty_2.bias,
-                  torch.float32)
+        u = dense_layer(u, self.uncertainty_2, torch.float32)
         if record is not None:
             record("uncertainty", u)
         return captured((logits, u) if return_uncertainty else logits,

@@ -28,8 +28,9 @@ import torch
 from torch import nn
 
 from ..layers import (Block, DenseParams, LNParams, PatchEmbed, Record,
-                      captured, dropout, manual_layer_norm, recorder, scoped,
-                      sincos_pos_embed, token_kernels_default, trunc_normal_)
+                      captured, dense_layer, dropout, manual_layer_norm,
+                      recorder, scoped, sincos_pos_embed,
+                      token_kernels_default, trunc_normal_)
 from ..registry import ModelRegistry, cfg_get, resolve_dtype
 
 
@@ -120,7 +121,7 @@ class VisionTransformer(nn.Module):
             feat = tokens[:, 0]
         else:
             feat = tokens[:, len(self.prefix):].mean(dim=1)
-        return feat.float() @ self.head.kernel + self.head.bias
+        return dense_layer(feat, self.head, torch.float32)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 capture: bool = False,

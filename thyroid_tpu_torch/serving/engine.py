@@ -1,16 +1,27 @@
-"""Bucketed inference (counterpart of thyroid_tpu/serving/engine.py).
+"""Bucketed inference and request aggregation (counterpart of
+thyroid_tpu/serving/engine.py).
 
-Requests carry raw frames (N, S, S, 1) on the uint16 scale. Each request
-is padded up to the smallest batch bucket that holds it (repeating its
-last frame), or cut into chunks of the largest bucket, and every bucket
-runs the same program: `prepare_images` (with the quality-aware pipeline
-when the engine was built with `quality=True`) → gray→RGB for 3-channel
-models → `standardize` → the model → float32 softmax. The padding rows are sliced
-off. Fixed buckets keep the kernels' shapes to a small known set.
+Requests carry raw frames (N, S, S, 1) on the uint16 scale, or frames
+already resized and normalised to [0, 1] with `raw_inputs=False`. Each
+request is padded up to the smallest batch bucket that holds it
+(repeating its last frame), or cut into chunks of the largest bucket, and
+every bucket runs the same program: `prepare_images` for raw frames (with
+the quality-aware pipeline when the engine was built with
+`quality=True`) → gray→RGB for 3-channel models → `standardize` → the
+model (its eligible Dense/Conv layers in int8 with `quantize="int8"`,
+serving/quantize.py) → float32 softmax. The padding rows are sliced off.
+Fixed buckets keep the kernels' shapes to a small known set.
+
+`BatchAggregator` coalesces single-image requests into bucket-sized
+engine calls: it dispatches when `max_batch` requests are queued or the
+oldest has waited `max_delay_ms`, the throughput/latency trade of the
+HTTP front end (serving/server.py).
 """
 from __future__ import annotations
 
 import threading
+import time
+from dataclasses import dataclass, field
 from typing import Any, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -22,9 +33,10 @@ from ..models.from_jax import load_jax_variables
 from ..models.registry import cfg_get
 from ..ops.image import standardize
 from ..ops.platform import DeviceLike, resolve_device
+from .quantize import int8_serving
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
-RAW_SIDE = 512   # the CARS frame side warmup feeds
+RAW_SIDE = 512   # the CARS frame side warmup feeds raw engines
 
 
 class InferenceEngine:
@@ -33,38 +45,65 @@ class InferenceEngine:
     `variables` is a JAX variable tree ({"params": …, "batch_stats": …},
     nested dicts of arrays) carried in through `load_jax_variables`, as the
     JAX engine takes it; `params` a bare parameter tree, {"params":
-    params}, for a model without BatchNorm statistics; neither draws random
-    weights from seed 0. The frames are resized to the config's `img_size`, else
-    224, as the JAX engine does.
+    params}, for a model without BatchNorm statistics; `checkpoint` a
+    port checkpoint directory (training/checkpoint.py), whose
+    metadata["model_config"] stands in for `model_config` when none is
+    given. Without weights the model is drawn from seed 0. The frames are
+    resized to the config's `img_size`, else 224, as the JAX engine does.
     `quality` runs the quality-aware preprocessing (artifact filters,
     gamma, CLAHE, ops/quality.py) on each request's raw frames before the
-    resize, as `scripts/serve.py --quality` does for the JAX engine; the
-    frame sides must then be divisible by its 32×32 CLAHE grid.
-    `device` None means the CUDA card, and raises when there is none.
-    int8 serving (`quantize`) and serving on a mesh are not ported."""
+    resize, as `serve.py --quality` does; the frame sides must then be
+    divisible by its 32×32 CLAHE grid. `raw_inputs=False` takes frames
+    already at `img_size` in [0, 1] and skips the preparation. `mean` and
+    `std` override the normalisation (default: ImageNet's for 3-channel
+    models, 0.5 / 0.5 otherwise). `quantize="int8"` serves the eligible
+    Dense/Conv layers in int8 (the model built with `token_kernels` off, as
+    in JAX). `device` None means the CUDA card, and raises when there is
+    none. Serving on a mesh is not ported."""
 
-    def __init__(self, model_config: Any,
+    def __init__(self, model_config: Any = None,
                  params: Optional[Mapping[str, Any]] = None,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  quality: bool = False,
                  device: DeviceLike = None,
                  variables: Optional[Mapping[str, Any]] = None,
                  quantize: Optional[str] = None,
-                 mesh: Any = None):
-        if model_config is None:
-            raise ValueError("need model_config")
-        if quantize is not None:
-            raise NotImplementedError("int8 serving is not ported (ROADMAP "
-                                      "Queue 1: Serving, the rest)")
+                 mesh: Any = None,
+                 checkpoint: Optional[str] = None,
+                 raw_inputs: bool = True,
+                 mean: Optional[Sequence[float]] = None,
+                 std: Optional[Sequence[float]] = None):
         if mesh is not None:
             raise NotImplementedError("serving on a mesh is not ported "
                                       "(ROADMAP Queue 1: Parallelism)")
         if params is not None and variables is not None:
             raise ValueError("pass params or variables, not both")
-        self.device = resolve_device(device)
-        self.model_config = model_config
         if params is not None:
             variables = {"params": params}
+        if checkpoint is not None:
+            from ..training.checkpoint import load_checkpoint
+
+            variables, metadata = load_checkpoint(checkpoint)
+            if model_config is None:
+                model_config = metadata.get("model_config")
+                if model_config is None:
+                    raise ValueError(
+                        f"checkpoint {checkpoint} has no model_config "
+                        "metadata; pass model_config explicitly")
+        if model_config is None:
+            raise ValueError("need model_config or checkpoint")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+        self.device = resolve_device(device)
+        self.model_config = model_config
+        if quantize is not None:
+            # the int8 call sites are the nn.Dense/nn.Conv ones; kernels 2-3
+            # read raw parameters, so the ViTs take their plain blocks
+            model_config = dict(model_config.to_dict()
+                                if hasattr(model_config, "to_dict")
+                                else model_config)
+            model_config["token_kernels"] = False
+        self.quantize = quantize
         # as the JAX engine: the config's warm start only without weights
         self.model = create_and_init(model_config, seed=0, device=self.device,
                                      pretrained=variables is None)
@@ -74,20 +113,28 @@ class InferenceEngine:
         self.in_channels = int(cfg_get(model_config, "in_channels", 1))
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.quality = bool(quality)
-        if self.in_channels == 3:
-            self.mean, self.std = IMAGENET_MEAN, IMAGENET_STD
-        else:
-            self.mean, self.std = (0.5,), (0.5,)
+        self.raw_inputs = bool(raw_inputs)
+        if mean is None or std is None:
+            if self.in_channels == 3:
+                mean, std = IMAGENET_MEAN, IMAGENET_STD
+            else:
+                mean, std = (0.5,), (0.5,)
+        self.mean, self.std = tuple(mean), tuple(std)
         self._lock = threading.Lock()
 
     def run(self, x: torch.Tensor) -> torch.Tensor:
-        """One bucket: raw frames on the engine's device → probabilities."""
+        """One bucket: frames on the engine's device → probabilities."""
         with torch.inference_mode():
-            x = prepare_images(x, self.img_size, quality=self.quality)
+            if self.raw_inputs:
+                x = prepare_images(x, self.img_size, quality=self.quality)
             if self.in_channels == 3 and x.shape[-1] == 1:
                 x = x.repeat(1, 1, 1, 3)
             x = standardize(x, self.mean, self.std)
-            logits = self.model(x)
+            if self.quantize == "int8":
+                with int8_serving():
+                    logits = self.model(x)
+            else:
+                logits = self.model(x)
             return torch.softmax(logits.float(), dim=-1)
 
     def bucket_for(self, n: int) -> int:
@@ -98,16 +145,18 @@ class InferenceEngine:
 
     def warmup(self) -> None:
         """Run every bucket once on zero frames (first-call set-up)."""
+        side = RAW_SIDE if self.raw_inputs else self.img_size
         for b in self.buckets:
-            x = torch.zeros(b, RAW_SIDE, RAW_SIDE, 1, device=self.device)
+            x = torch.zeros(b, side, side, 1, device=self.device)
             with self._lock:
                 self.run(x)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def predict(self, images: np.ndarray) -> np.ndarray:
-        """images (N, S, S[, 1]) raw frames → (N, num_classes) float32
-        probabilities. N may exceed the largest bucket; it is chunked."""
+        """images (N, S, S[, 1]) raw frames (or prepared ones with
+        raw_inputs=False) → (N, num_classes) float32 probabilities. N may
+        exceed the largest bucket; it is chunked."""
         images = np.asarray(images, np.float32)
         if images.ndim == 3:
             images = images[..., None]
@@ -126,3 +175,98 @@ class InferenceEngine:
                 probs = self.run(x)
             outs.append(probs.cpu().numpy()[:m])
         return np.concatenate(outs, axis=0)
+
+
+@dataclass
+class _Pending:
+    image: np.ndarray
+    t: float
+    event: threading.Event = field(default_factory=threading.Event)
+    result: Optional[np.ndarray] = None
+    error: Optional[Exception] = None
+
+
+class BatchAggregator:
+    """Coalesce single-image requests into bucket-sized engine calls.
+
+    Dispatch fires when `max_batch` requests are queued or the OLDEST
+    pending request has waited `max_delay_ms`. `submit()` blocks the
+    calling thread until its result is ready; the HTTP front end calls it
+    from one thread per connection. A failing batch raises in its own
+    callers only; the worker goes on."""
+
+    def __init__(self, engine: InferenceEngine, max_batch: Optional[int] = None,
+                 max_delay_ms: float = 10.0):
+        self.engine = engine
+        self.max_batch = int(max_batch or engine.buckets[-1])
+        self.max_delay = max_delay_ms / 1000.0
+        self._pending: List[_Pending] = []
+        self._shape = None
+        self._cv = threading.Condition()
+        self._stop = False
+        self.batches_dispatched = 0
+        self.requests_served = 0
+        self._worker = threading.Thread(target=self._loop, daemon=True)
+        self._worker.start()
+
+    def submit(self, image: np.ndarray, timeout: float = 30.0) -> np.ndarray:
+        image = np.asarray(image, np.float32)
+        if image.ndim == 2:
+            image = image[..., None]
+        if image.ndim != 3:
+            raise ValueError(f"expected one (S, S[, C]) image, got "
+                             f"shape {image.shape}")
+        with self._cv:
+            if self._shape is None:
+                self._shape = image.shape
+            elif image.shape != self._shape:
+                # every coalesced request must stack: reject this one early
+                # instead of failing a whole batch
+                raise ValueError(f"image shape {image.shape} != aggregator "
+                                 f"shape {self._shape}")
+            req = _Pending(image, time.monotonic())
+            self._pending.append(req)
+            self._cv.notify()
+        if not req.event.wait(timeout):
+            raise TimeoutError("inference request timed out")
+        if req.error is not None:
+            raise RuntimeError(f"batched inference failed: {req.error}")
+        return req.result
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._stop and not self._due_locked():
+                    self._cv.wait(timeout=self.max_delay / 4 or 0.01)
+                if self._stop and not self._pending:
+                    return
+                batch = self._pending[:self.max_batch]
+                self._pending = self._pending[len(batch):]
+            if not batch:
+                continue
+            # one bad batch must not kill the worker: a dead loop would
+            # strand every queued and later submit() in TimeoutError
+            try:
+                probs = self.engine.predict(np.stack([r.image for r in batch]))
+                self.batches_dispatched += 1
+                self.requests_served += len(batch)
+                for r, p in zip(batch, probs):
+                    r.result = p
+                    r.event.set()
+            except Exception as exc:  # handed to the waiting callers
+                for r in batch:
+                    r.error = exc
+                    r.event.set()
+
+    def _due_locked(self) -> bool:
+        if not self._pending:
+            return False
+        if len(self._pending) >= self.max_batch:
+            return True
+        return time.monotonic() - self._pending[0].t >= self.max_delay
+
+    def close(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._worker.join(timeout=5.0)
