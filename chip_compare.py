@@ -2,7 +2,7 @@
 """Same-call comparison of kernels between source trees on one card.
 
     python3 chip_compare.py PARENT_TREE [--smokes DIR] [--ablate] [--phases]
-                            [--predict-pairs N] [--kernels all|k1|k8|k12|k15]
+                            [--predict-pairs N] [--kernels all|k1|k8|k12|k15|none]
 
 PARENT_TREE is another checkout of this repository (for example a `git
 archive` of the parent commit unpacked under `build/`). The trees are
@@ -34,7 +34,8 @@ seconds into the summary.
 
 With --kernels k1, k8, k12 or k15 the four runs measure that kernel
 alone (k8: row 8 and the hashes of kernels 4-7), and --ablate cuts only
-it.
+it; with --kernels none there are no kernel turns (with --predict-pairs,
+a comparison of predict alone).
 
 With --ablate, builds of this tree with one part of kernel 1, 8, 12 or 15
 cut or changed (ABLATIONS: a copy of the package under
@@ -475,7 +476,8 @@ def main() -> int:
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--predict-pairs", type=int, default=0)
-    ap.add_argument("--kernels", default="all", choices=("all", "k1", "k8", "k12", "k15"),
+    ap.add_argument("--kernels", default="all",
+                    choices=("all", "k1", "k8", "k12", "k15", "none"),
                     help="what the four turns measure, and with --ablate whose cuts")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
@@ -488,13 +490,16 @@ def main() -> int:
         opt.smokes.mkdir(parents=True, exist_ok=True)
         summary["smokes"] = [run_smoke(tree, opt.smokes.resolve() / f"smoke_{i}_{name}.log")
                              for i, (tree, name) in enumerate(turns)]
-    runs = [run_tree(tree, opt.kernels) for tree, _ in turns]
-    summary.update({"card": runs[0]["card"],
-                    "ms": {k: [r["ms"].get(k) for r in runs] for k in runs[1]["ms"]},
-                    "events_ms": {k: [r["events_ms"].get(k) for r in runs]
-                                  for k in runs[1]["events_ms"]},
-                    "sha256_equal": {k: len({r["sha256"].get(k) for r in runs}) == 1
-                                     for k in runs[1]["sha256"]}})
+    summary["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    if opt.kernels != "none":
+        runs = [run_tree(tree, opt.kernels) for tree, _ in turns]
+        summary.update({"ms": {k: [r["ms"].get(k) for r in runs] for k in runs[1]["ms"]},
+                        "events_ms": {k: [r["events_ms"].get(k) for r in runs]
+                                      for k in runs[1]["events_ms"]},
+                        "sha256_equal": {k: len({r["sha256"].get(k) for r in runs}) == 1
+                                         for k in runs[1]["sha256"]}})
     if opt.predict_pairs:
         # pairs in alternating order: parent first, then this tree first
         order = [t for i in range(opt.predict_pairs)

@@ -298,7 +298,22 @@ Phases, each printing its lines before the final one:
    agreement with the card's bf16 engine over 32 frames, kernel 1 the only
    kernel (vit_base without kernels 2 and 3), images/s int8 beside bf16 at
    bucket 32; (c) vit_tiny float32 on prepared 224x224 frames with mean
-   0.45 / std 0.25 against the CPU (1e-3), no kernel 1 launch.
+   0.45 / std 0.25 against the CPU (1e-3), no kernel 1 launch;
+29. serving export: (a) swin_tiny bf16 (phase 1's weights) on raw 512x512
+   frames exported at buckets 1, 8 and 32 by serving/export.py from the
+   card's engine and from a CPU engine; (b) the same with quality=True;
+   all four bundles loaded on the card in a child process
+   (`--export-child`) that imports no model code, 40 frames predicted (32,
+   then 8): the probabilities within 1e-6 of engine.predict and the
+   launches of every kernel equal to the engine's on the same frames
+   (1/15/12/12 per forward; kernels 12, 13 and 15 once per quality
+   forward); (c) efficientnet_b0 with dw_pallas_conv exported at bucket 32
+   (12 depthwise launches per forward) and (d) int8 resnet50 at bucket 4,
+   each held to its engine; (e) `serving.server --bundle` on the raw card
+   bundle: a 32-frame post equal to the bundle's predict with 1/15/12/12
+   launches, and predict at bucket 32 timed for the engine and the bundle;
+   the host time of one kernel-1 call through its op and through its CUDA
+   implementation alone.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -5901,6 +5916,251 @@ def phase_serving(card: str, params) -> None:
         raise AssertionError(f"phase 28 checks failed: {ok}")
 
 
+# phase 29: serving export. swin_tiny bf16 bundles on raw 512x512 frames,
+# exported from the card's engine and from a CPU engine, loaded in a child
+# process that must not import the model code; EXPORT_FRAMES frames are a
+# chunk of 32, then 8 at bucket 8 (no padding, so the bundle's zero padding
+# and the engine's repeated frame never differ)
+EXPORT_BUCKETS = SERVE_BUCKETS
+EXPORT_FRAMES = 40
+# a bundle is the engine's own program: the same kernels on the same inputs
+EXPORT_TOL = 1e-6
+EXPORT_TIMED = 10
+# modules a bundle's process must not load
+MODEL_CODE = ("thyroid_tpu_torch.models", "thyroid_tpu_torch.config",
+              "thyroid_tpu_torch.serving.engine")
+
+
+def counted(run):
+    """(run(), {counter: launches}) with every counter set to 0 just before."""
+    held = {}
+    launches = zoo_counts(lambda: held.update(out=run()))
+    return held["out"], {k: v for k, v in launches.items() if v}
+
+
+def export_child(pairs) -> int:
+    """`python3 chip_smoke.py --export-child BUNDLE:FRAMES ...`: load each
+    bundle on the card with load_exported, predict its frames with every
+    counter counted, save the probabilities beside the frames, and print
+    one `CHILD {...}` line with the launches, the load seconds and the
+    model-code modules this process imported (none expected)."""
+    from thyroid_tpu_torch.serving import load_exported
+
+    out = {}
+    for pair in pairs:
+        bundle, frames = pair.split(":")
+        t0 = time.perf_counter()
+        engine = load_exported(bundle)
+        engine.warmup()
+        loaded = time.perf_counter() - t0
+        probs, launches = counted(lambda: engine.predict(np.load(frames)))
+        np.save(frames.replace(".npy", f"_{Path(bundle).name}.npy"), probs)
+        out[Path(bundle).name] = {"launches": launches, "load_s": loaded}
+    out["model_code"] = sorted(m for m in sys.modules if m.startswith(MODEL_CODE))
+    print("CHILD " + json.dumps(out), flush=True)
+    return 0
+
+
+def graph_ops(path: Path):
+    """{op: calls} of the thyroid_tpu_torch ops in one exported program."""
+    exported = torch.export.load(str(path))
+    found = {}
+    for node in exported.graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and name.startswith("thyroid_tpu_torch."):
+            found[name.split(".")[1]] = found.get(name.split(".")[1], 0) + 1
+    return found
+
+
+def export_swin(card: str, params, root: Path):
+    """(a) and (b) of phase 29: swin_tiny bf16, without and with the
+    quality pipeline, exported at EXPORT_BUCKETS from the card's engine and
+    from a CPU engine; every bundle loaded on the card in one child process
+    (no model code imported), EXPORT_FRAMES frames predicted: the
+    probabilities within EXPORT_TOL of engine.predict and the launches equal
+    to the engine's on the same frames → (ok, the raw card engine)."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+    from thyroid_tpu_torch.serving.export import export_engine
+
+    rs = np.random.RandomState(290)
+    frames = {"raw": (rs.rand(EXPORT_FRAMES, 512, 512, 1) * 65535).astype(np.float32),
+              "quality": quality_frames(EXPORT_FRAMES)[..., None]}
+    ok, wants, pairs, kept = True, {}, [], None
+    for tag in ("raw", "quality"):
+        engine = InferenceEngine(SWIN_TINY, params=params, buckets=EXPORT_BUCKETS,
+                                 quality=tag == "quality")
+        engine.warmup()
+        wants[tag] = counted(lambda: engine.predict(frames[tag]))
+        log(f"[export] engine {tag}: {EXPORT_FRAMES} frames in 2 forwards, "
+            f"launches {wants[tag][1]}")
+        np.save(root / f"{tag}.npy", frames[tag])
+        for where in ("card", "cpu"):
+            source = engine if where == "card" else InferenceEngine(
+                SWIN_TINY, params=params, buckets=EXPORT_BUCKETS,
+                quality=tag == "quality", device="cpu")
+            t0 = time.perf_counter()
+            export_engine(source, str(root / f"{tag}_{where}"))
+            log(f"[export] {tag} bundle exported from the {where} engine at "
+                f"buckets {EXPORT_BUCKETS} in {time.perf_counter() - t0:.1f} s; "
+                f"bucket 32 holds {graph_ops(root / f'{tag}_{where}' / 'bucket_32.pt2')}")
+            pairs.append(f"{root / f'{tag}_{where}'}:{root / f'{tag}.npy'}")
+        if tag == "raw":
+            kept = engine
+        else:
+            del engine
+    per_forward = {k: 2 * v for k, v in SERVE_PER_FORWARD.items()}
+    ok &= wants["raw"][1] == per_forward
+    ok &= all(wants["quality"][1].get(k) == 2 for k in (
+        "stats_quantile", "median_bilateral", "apply_luts_dual"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--export-child", *pairs], capture_output=True,
+                          text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("CHILD ")]
+    if proc.returncode != 0 or not lines:
+        log(proc.stdout[-3000:], proc.stderr[-3000:])
+        raise AssertionError(f"the bundle process failed (exit {proc.returncode})")
+    child = json.loads(lines[-1][len("CHILD "):])
+    log(f"[export] child process: {len(pairs)} bundles loaded and served in "
+        f"{time.perf_counter() - t0:.1f} s; model code imported: {child['model_code']}")
+    ok &= child["model_code"] == []
+    for tag in ("raw", "quality"):
+        for where in ("card", "cpu"):
+            name = f"{tag}_{where}"
+            got = np.load(root / f"{tag}_{name}.npy")
+            err = float(np.abs(got - wants[tag][0]).max())
+            same = child[name]["launches"] == wants[tag][1]
+            log(f"[export] {name} bundle on the card: max_abs_err {err:.3e} vs "
+                f"engine.predict (tol {EXPORT_TOL:.0e}), launches "
+                f"{child[name]['launches']} {'equal to' if same else 'DIFFER from'} "
+                f"the engine's; loaded and warmed in {child[name]['load_s']:.1f} s")
+            ok &= err <= EXPORT_TOL and same and got.shape == (EXPORT_FRAMES, 2)
+    return bool(ok), kept
+
+
+def export_one(card: str, root: Path, name: str, engine, frames, want_launches) -> bool:
+    """Export `engine` at its buckets, load the bundle in this process and
+    hold its predict to the engine's on `frames` (EXPORT_TOL) with the
+    launches `want_launches`."""
+    from thyroid_tpu_torch.serving import export_engine, load_exported
+
+    t0 = time.perf_counter()
+    export_engine(engine, str(root / name))
+    bundle = load_exported(str(root / name))
+    secs = time.perf_counter() - t0
+    want = engine.predict(frames)
+    got, launches = counted(lambda: bundle.predict(frames))
+    err = float(np.abs(got - want).max())
+    log(f"[export] {name}: exported and loaded in {secs:.1f} s; bucket "
+        f"{engine.buckets[-1]} holds {graph_ops(root / name / f'bucket_{engine.buckets[-1]}.pt2')}; "
+        f"max_abs_err {err:.3e} vs engine.predict (tol {EXPORT_TOL:.0e}); "
+        f"launches {launches}, expected {want_launches}")
+    return err <= EXPORT_TOL and launches == want_launches
+
+
+def export_front_end(card: str, root: Path, engine) -> bool:
+    """(e) of phase 29: `serving.server --bundle` on the card-exported raw
+    bundle at 127.0.0.1 and a free port: one 32-frame post equal to the
+    bundle's own predict within SERVE_TOL, with 1/15/12/12 launches; then
+    the predict time at bucket 32 of the engine and of the bundle, in turns."""
+    import threading
+
+    from thyroid_tpu_torch.serving import server as srv
+
+    server, bundle, agg = srv.build_server([
+        "--bundle", str(root / "raw_card"), "--port", "0"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    frames = (np.random.RandomState(291).rand(BATCH, 512, 512, 1) * 65535) \
+        .astype(np.float32)
+    try:
+        (code, body, secs), launches = counted(lambda: http_call(
+            server.server_address[1], "POST", "/predict", npy_bytes(frames)))
+    finally:
+        server.shutdown()
+        server.server_close()
+        agg.close()
+        thread.join(timeout=30)
+    err = float(np.abs(np.asarray(body.get("probs", np.nan)) - bundle.predict(frames)).max())
+    log(f"[export] front end --bundle: {code} in {secs * 1e3:.1f} ms, "
+        f"max_abs_err {err:.3e} vs the bundle's predict (tol {SERVE_TOL:.0e}), "
+        f"launches {launches}, expected {SERVE_PER_FORWARD}")
+    ok = code == 200 and err <= SERVE_TOL and launches == SERVE_PER_FORWARD
+    times = {"engine": [], "bundle": []}
+    for _ in range(EXPORT_TIMED):
+        for name, run in (("engine", engine), ("bundle", bundle)):
+            t0 = time.perf_counter()
+            run.predict(frames)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"[export] predict at bucket {BATCH} (median of {EXPORT_TIMED}, in turns): "
+        f"engine {statistics.median(times['engine']):.2f} ms, bundle "
+        f"{statistics.median(times['bundle']):.2f} ms; card {card}")
+    return bool(ok)
+
+
+def dispatch_cost(card: str, calls: int = 400) -> None:
+    """Host time of one call of kernel 1 on a tiny batch, where the launch
+    and not the device bounds the loop: through the op
+    (thyroid_tpu_torch::percentile_normalize, the dispatcher, then its CUDA
+    implementation) and through the CUDA implementation alone, in turns;
+    the difference is what the op adds to each of a forward's launches."""
+    from thyroid_tpu_torch.ops import percentile
+
+    x = torch.rand(1, 8, 8, 1, device="cuda")
+    runs = {"op": lambda: percentile.fused_percentile_normalize(x),
+            "direct": lambda: percentile._percentile_cuda(x, 1.0, 99.0, 22, 1e-8)}
+    us = {k: [] for k in runs}
+    for _ in range(5):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+            us[name].append((time.perf_counter() - t0) / calls * 1e6)
+    op, direct = (statistics.median(us[k]) for k in ("op", "direct"))
+    log(f"[export] dispatch: kernel 1 on (1, 8, 8, 1), host time a call (median "
+        f"of 5 x {calls}): through the op {op:.2f} us, its CUDA implementation "
+        f"alone {direct:.2f} us, the op adds {op - direct:.2f} us; card {card}")
+
+
+def phase_export(card: str, params) -> None:
+    """Phase 29: serving export on the card: (a, b) swin_tiny bf16 bundles
+    with and without the quality pipeline, from the card and from the CPU,
+    served in a process without the model code; (c) efficientnet_b0 with
+    dw_pallas_conv at bucket 32 (12 depthwise launches per forward); (d)
+    int8 resnet50 at bucket INT8_FRAMES; (e) the front end on a bundle and
+    the predict times."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    root = WORK / "export"
+    root.mkdir(parents=True, exist_ok=True)
+    ok = {}
+    ok["swin_tiny"], engine = export_swin(card, params, root)
+    rs = np.random.RandomState(292)
+    frames = (rs.rand(BATCH, 512, 512, 1) * 65535).astype(np.float32)
+    effnet = InferenceEngine(EFFNET_B0, variables=effnet_variables(EFFNET_B0),
+                             buckets=(BATCH,))
+    ok["efficientnet_b0"] = export_one(card, root, "efficientnet_b0", effnet, frames,
+                                       {"depthwise": 12, "percentile": 1})
+    del effnet
+    resnet = InferenceEngine(RESNET50, variables=effnet_variables(RESNET50),
+                             buckets=(INT8_FRAMES,), quantize="int8")
+    ok["int8 resnet50"] = export_one(card, root, "int8_resnet50", resnet,
+                                     frames[:INT8_FRAMES], {"percentile": 1})
+    del resnet
+    torch.cuda.empty_cache()
+    ok["front end"] = export_front_end(card, root, engine)
+    dispatch_cost(card)
+    log(f"[export] checks {ok}; phase 29 {time.perf_counter() - t0:.1f} s")
+    if not all(ok.values()):
+        raise AssertionError(f"phase 29 checks failed: {ok}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5966,6 +6226,8 @@ def main() -> int:
         phase_analysis(card)
         torch.cuda.empty_cache()
         phase_serving(card, params)
+        torch.cuda.empty_cache()
+        phase_export(card, params)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))
@@ -5977,4 +6239,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(export_child(sys.argv[2:]) if sys.argv[1:2] == ["--export-child"]
+             else main())

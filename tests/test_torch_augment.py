@@ -27,6 +27,7 @@ from tests.torch_parity import (assert_close_8bit, jax_elastic_params,
                                 jax_patch_quality_params,
                                 jax_train_augment_params,
                                 jax_vit_augment_params)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu.ops import augment as JA
 from thyroid_tpu.ops import image as JI
 from thyroid_tpu.ops import warp as JW

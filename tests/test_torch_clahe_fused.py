@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from thyroid_tpu.ops import clahe as jclahe
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.ops import clahe as tclahe
 
 KW = dict(clip_coarse=2.0, grid_coarse=(16, 16), clip_fine=0.03,

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from thyroid_tpu.ops import clahe as jclahe
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.ops import clahe as tclahe
 
 

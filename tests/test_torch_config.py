@@ -12,6 +12,7 @@ from thyroid_tpu.config import ConfigNode as JaxNode
 from thyroid_tpu.config import compose as jax_compose
 from thyroid_tpu.config import list_model_configs as jax_list
 from thyroid_tpu.config import load_model_config as jax_load
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch import config as tcfg
 from thyroid_tpu_torch.config import (ConfigNode, compose, list_model_configs,
                                       load_model_config)

@@ -18,6 +18,7 @@ from sklearn.model_selection import train_test_split as sk_train_test_split
 
 from thyroid_tpu.data import corpus as jcorpus
 from thyroid_tpu.data import synthetic as jsynthetic
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.data import corpus, stratify, synthetic
 from thyroid_tpu_torch.data.imageio import decode_image
 

@@ -19,6 +19,7 @@ from tests.torch_parity import (flat_tree, global_rel, golden_input,
                                 golden_variables, jax_cnn,
                                 jax_mixup_cutmix_params, jax_step,
                                 jax_train_stats, port_step, tree_shapes_equal)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.models.cnn import densenet as port_densenet
 from thyroid_tpu_torch.models.from_jax import load_jax_variables, to_jax_variables
 from thyroid_tpu_torch.models.registry import ModelRegistry

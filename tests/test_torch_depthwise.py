@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.ops import depthwise_pallas
 from thyroid_tpu_torch.ops.depthwise import shift_depthwise_conv
 

@@ -15,6 +15,7 @@ import torch
 
 from tests.torch_parity import (SMALL_EFFNET, flat_tree, jax_cnn,
                                 jax_train_stats)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.data.pipeline import prepare_images
 from thyroid_tpu_torch.models.base import create_and_init
 from thyroid_tpu_torch.models.cnn.efficientnet import EFFICIENTNET_PARAMS

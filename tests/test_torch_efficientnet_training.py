@@ -14,6 +14,7 @@ import yaml
 
 from tests.torch_parity import (SMALL_EFFNET, assert_trees_close, flat_tree,
                                 jax_cnn, jax_train_stats)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.data.pipeline import DevicePipeline
 from thyroid_tpu_torch.models.from_jax import jax_tree, to_jax_variables
 from thyroid_tpu_torch.models.layers import dropout

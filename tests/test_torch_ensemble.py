@@ -20,6 +20,7 @@ import torch
 import yaml
 
 from tests.torch_parity import SMALL_EFFNET, jax_cnn, jax_train_stats
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.models.base import create_and_init
 from thyroid_tpu_torch.models.ensemble import (DEFAULT_MODEL_ACCURACIES,
                                                CNNEnsemble,

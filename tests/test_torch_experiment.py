@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import SMALL_EFFNET
+from tests.torch_parity import SMALL_EFFNET, one_torch_thread  # noqa: F401
 from thyroid_tpu.config import compose as jax_compose
 from thyroid_tpu.data.corpus import generate_kfold_splits as jax_kfold_splits
 from thyroid_tpu.data.pipeline import create_data_loaders as jax_loaders

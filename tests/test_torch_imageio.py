@@ -14,6 +14,7 @@ import pytest
 
 from thyroid_tpu.data.dataset import CARSThyroidDataset as JaxDataset
 from thyroid_tpu.data.dataset import decode_image as jax_decode
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.data import imageio
 from thyroid_tpu_torch.data.dataset import CARSThyroidDataset
 from thyroid_tpu_torch.data.synthetic import generate_image

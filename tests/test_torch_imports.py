@@ -135,7 +135,8 @@ def test_sources_cover_the_serving_package():
     front end."""
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {f"thyroid_tpu_torch/serving/{m}.py" for m in (
-        "__init__", "engine", "quantize", "server")} <= names
+        "__init__", "engine", "aggregator", "quantize", "server", "export",
+        "export_serving")} <= names
 
 
 @pytest.mark.unit
@@ -143,7 +144,8 @@ def test_server_runs_without_jax():
     """`python -m thyroid_tpu_torch.serving.server --help` in a process
     where importing jax, flax or thyroid_tpu fails; the models import
     `serving.quantize` without loading the engine (the package's names
-    load lazily), and the package exports JAX's five serving names."""
+    load lazily), the package exports JAX's eight serving names, and
+    `python -m thyroid_tpu_torch.serving.export_serving --help` runs too."""
     code = (
         "import runpy, sys\n"
         f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
@@ -151,11 +153,31 @@ def test_server_runs_without_jax():
         "assert 'thyroid_tpu_torch.serving.engine' not in sys.modules\n"
         "import thyroid_tpu_torch.serving as s\n"
         "names = ('BatchAggregator', 'InferenceEngine', 'QuantConfig',\n"
-        "         'int8_serving', 'quantized_apply')\n"
+        "         'int8_serving', 'quantized_apply', 'ExportedEngine',\n"
+        "         'export_engine', 'load_exported')\n"
         "assert all(callable(getattr(s, n)) for n in names)\n"
-        "sys.argv = ['server', '--help']\n"
-        "runpy.run_module('thyroid_tpu_torch.serving.server', run_name='__main__')\n")
+        "for mod in ('export_serving', 'server'):\n"
+        "    sys.argv = [mod, '--help']\n"
+        "    try:\n"
+        "        runpy.run_module(f'thyroid_tpu_torch.serving.{mod}', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "--quantize" in out.stdout and "--device" in out.stdout
+    assert "--bundle" in out.stdout and "--preprocessed" in out.stdout
+
+
+@pytest.mark.unit
+def test_bundle_loader_imports_no_model_code():
+    """serving/export.py imports, at module level, the ops (whose
+    definitions torch.export.load needs) and nothing of the models, the
+    config tree, the data pipeline or the engine: those load only inside
+    export_engine's caller."""
+    tree = ast.parse((ROOT / "thyroid_tpu_torch/serving/export.py").read_text())
+    local = [n.module for n in tree.body
+             if isinstance(n, ast.ImportFrom) and n.level]
+    assert local and all(m == "ops" or m.startswith("ops.") for m in local), local
+    src = (ROOT / "thyroid_tpu_torch/serving/aggregator.py").read_text()
+    assert "import" in src and "models" not in src and "engine import" not in src

@@ -22,6 +22,7 @@ import yaml
 from tests.torch_parity import (flat_tree, global_rel, golden_input,
                                 golden_variables, jax_module_variables,
                                 jax_step, port_step, tree_shapes_equal)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.models.cnn import inception as port_inception
 from thyroid_tpu_torch.models.from_jax import load_jax_variables, to_jax_variables
 from thyroid_tpu_torch.models.registry import ModelRegistry

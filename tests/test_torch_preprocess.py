@@ -11,6 +11,7 @@ import torch
 from thyroid_tpu.data.pipeline import prepare_images as jax_prepare
 from thyroid_tpu.ops import image as jimg
 from thyroid_tpu.ops.percentile import fused_percentile_normalize as jax_fused
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.data.pipeline import prepare_images
 from thyroid_tpu_torch.ops import image as timg
 from thyroid_tpu_torch.ops.percentile import (fused_percentile_normalize,

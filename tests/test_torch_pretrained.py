@@ -7,7 +7,7 @@ import logging
 
 import pytest
 
-from tests.torch_parity import SMALL_SWIN
+from tests.torch_parity import SMALL_SWIN, one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.models.base import create_and_init
 from thyroid_tpu_torch.models.from_jax import to_jax_params
 from thyroid_tpu_torch.models.import_torch import find_pretrained_file

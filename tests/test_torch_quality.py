@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import SMALL_SWIN, jax_swin
+from tests.torch_parity import SMALL_SWIN, jax_swin, one_torch_thread  # noqa: F401
 from thyroid_tpu.data import synthetic as jsyn
 from thyroid_tpu.ops import clahe as jclahe
 from thyroid_tpu.ops import image as jimg

@@ -41,6 +41,7 @@ from hypothesis import strategies as st
 
 from thyroid_tpu.ops import image as jimg
 from thyroid_tpu.ops import percentile as jperc
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.ops import image as timg
 from thyroid_tpu_torch.ops import percentile as tperc
 

@@ -19,6 +19,7 @@ import yaml
 from tests.torch_parity import (flat_tree, global_rel, golden_variables,
                                 jax_cnn, jax_mixup_cutmix_params,
                                 jax_train_stats)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.models.cnn import resnet as port_resnet
 from thyroid_tpu_torch.models.from_jax import (jax_tree, load_jax_variables,
                                                to_jax_variables)

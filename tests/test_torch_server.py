@@ -246,11 +246,29 @@ def test_server_coalesces_concurrent_posts(served):
 
 @pytest.mark.unit
 @pytest.mark.parametrize("argv,item", [
-    (["--bundle", "exported/"], "Serving, the rest"),
+    (["--bundle", "exported/", "--model", "resnet18"], "--bundle is exclusive"),
     (["--model", "resnet18", "--data-parallel", "2"], "Parallelism")])
-def test_server_refusals(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_server_refusals(argv, item, capsys):
+    """A bundle with a model is refused with JAX's usage error (SystemExit);
+    data-parallel serving is not ported (NotImplementedError)."""
+    error = {"--bundle is exclusive": SystemExit,
+             "Parallelism": NotImplementedError}[item]
+    with pytest.raises(error) as err:
         srv.build_server(argv + ["--device", "cpu"])
+    assert item in str(err.value) + capsys.readouterr().err
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("extra", [["--checkpoint", "ck"], ["--model", "resnet18"],
+                                   ["--quantize", "int8"], ["--data-parallel", "2"]])
+def test_bundle_is_exclusive(extra, capsys):
+    """--bundle with any of --checkpoint, --model, --quantize or
+    --data-parallel exits with JAX's usage error, before anything loads."""
+    with pytest.raises(SystemExit) as err:
+        srv.build_server(["--bundle", "absent/", "--device", "cpu"] + extra)
+    assert err.value.code == 2
+    assert ("--bundle is exclusive with --checkpoint/--model/--quantize/"
+            "--data-parallel") in capsys.readouterr().err
 
 
 @pytest.mark.unit

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import SMALL_SWIN, jax_swin
+from tests.torch_parity import SMALL_SWIN, jax_swin, one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.ops import attention, percentile, token_fused
 from thyroid_tpu_torch.serving.engine import InferenceEngine
 

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import SMALL_SWIN, count_leaves, jax_swin
+from tests.torch_parity import JittedModule, SMALL_SWIN, count_leaves, jax_swin
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.models.base import create_and_init, num_parameters
 from thyroid_tpu_torch.models.from_jax import load_jax_params, to_jax_params
 from thyroid_tpu_torch.models.registry import ModelRegistry, resolve_dtype
@@ -18,8 +19,8 @@ SWIN_TINY = {"name": "swin_tiny", "in_channels": 1, "num_classes": 2}
 def _jax_logits(config, params, x, use_pallas):
     from thyroid_tpu.models.registry import ModelRegistry as JaxRegistry
 
-    model = JaxRegistry.create_model(
-        dict(config, use_pallas_attention=use_pallas))
+    model = JittedModule(JaxRegistry.create_model(
+        dict(config, use_pallas_attention=use_pallas)))
     return np.asarray(model.apply({"params": params}, jnp.asarray(x),
                                   train=False))
 
@@ -108,7 +109,8 @@ def test_swin_option_matches_jax(flag):
     cfg = dict(SMALL_SWIN, **{flag: True})
     _, params = jax_swin(cfg)
     x = np.random.RandomState(6).randn(2, 64, 64, 1).astype(np.float32)
-    jmodel = JaxRegistry.create_model(dict(cfg, use_pallas_attention=True))
+    jmodel = JittedModule(JaxRegistry.create_model(
+        dict(cfg, use_pallas_attention=True)))
     want = jmodel.apply({"params": params}, jnp.asarray(x), train=False,
                         return_uncertainty=True)
     model = create_and_init(cfg, device="cpu")

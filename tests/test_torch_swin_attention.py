@@ -9,6 +9,7 @@ import torch
 
 from thyroid_tpu.models.vit.swin import shift_attention_mask as jax_mask
 from thyroid_tpu.ops import attention as jattn
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.models.vit import swin as tswin
 from thyroid_tpu_torch.ops import attention as tattn
 

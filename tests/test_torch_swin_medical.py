@@ -15,6 +15,7 @@ import yaml
 
 from tests.torch_parity import (MEDICAL_SWIN, assert_trees_close, jax_swin,
                                 perturb)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.models.base import create_and_init
 from thyroid_tpu_torch.models.from_jax import (jax_layout, jax_tree,
                                                load_jax_params, to_jax_params)
@@ -103,7 +104,8 @@ def test_window_attention_matches_jax(case):
         targs = (win, torch.from_numpy(mask))
         tkw = {}
     params = _attn_params(jmod, 3, *jargs, **jkw)
-    want = np.asarray(jmod.apply({"params": params}, *jargs, **jkw))
+    want = np.asarray(jax.jit(lambda p, *a: jmod.apply({"params": p}, *a, **jkw))(
+        params, *jargs))
     tmod = tswin.WindowAttention(dim, ws, heads, **opts)
     load_jax_params(tmod, params)
     with torch.inference_mode():
@@ -114,8 +116,11 @@ def test_window_attention_matches_jax(case):
 
 
 def _jax_out(model, params, x, train=False, **kw):
-    return model.apply({"params": params}, jnp.asarray(x), train=train,
-                       rngs={"dropout": jax.random.PRNGKey(0)}, **kw)
+    """JAX's forward in one jitted program (op by op, JAX's CPU takes
+    several times longer)."""
+    return jax.jit(lambda p, x: model.apply(
+        {"params": p}, x, train=train, rngs={"dropout": jax.random.PRNGKey(0)},
+        **kw))(params, jnp.asarray(x))
 
 
 @pytest.mark.unit

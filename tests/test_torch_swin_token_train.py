@@ -12,6 +12,7 @@ import torch
 
 from tests.torch_parity import (SMALL_F32, SMALL_SWIN, assert_trees_close,
                                 flat_tree, jax_swin, small_batch)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.models.from_jax import (jax_layout, jax_tree,
                                                load_jax_params)
 from thyroid_tpu_torch.models.registry import ModelRegistry
@@ -143,13 +144,13 @@ def test_bf16_token_train_step(params):
 
 
 @pytest.mark.unit
-def test_three_step_token_trajectory_matches_jax(params, tmp_path):
+def test_three_step_token_trajectory_matches_jax(params, tmp_path, monkeypatch):
     """The same three batches through JAX Trainer._train_step on the
     flagged JAX model and the port's train_step on the flagged port model,
     from identical weights (configs/training/vit.yaml with warmup_steps 1,
     ema_decay 0.999, clip 1.0, float32): loss per step within 1e-5, params
     and EMA within atol 1e-6, rtol 1e-5, as the unflagged trajectory test."""
-    from thyroid_tpu.training.engine import Trainer as JaxTrainer
+    import thyroid_tpu.training.engine as jax_engine
     from thyroid_tpu.training.metrics import zero_metric_state
 
     mcfg = dict(SMALL_F32, use_pallas_attention=True)
@@ -157,9 +158,12 @@ def test_three_step_token_trajectory_matches_jax(params, tmp_path):
                 scheduler_params=dict(TRAINING_VIT["scheduler_params"],
                                       warmup_steps=1))
     trcfg = dict(TRAINER_DEFAULT, gradient_clip_val=1.0)
-    jt = JaxTrainer(_jax_model(True), mcfg, tcfg, trcfg, steps_per_epoch=3,
-                    output_dir=tmp_path / "jax")
     jp = jax.tree.map(jnp.asarray, params)
+    # the state is rebuilt on these weights below: skip JAX's unjitted init
+    monkeypatch.setattr(jax_engine, "create_and_init",
+                        lambda cfg, rng: (None, {"params": jp}))
+    jt = jax_engine.Trainer(_jax_model(True), mcfg, tcfg, trcfg,
+                            steps_per_epoch=3, output_dir=tmp_path / "jax")
     state = jt.state.replace(params=jp, ema_params=jax.tree.map(jnp.array, jp),
                              opt_state=jt.state.tx.init(jp))
     pt = Trainer(_port_model(SMALL_F32, True), SMALL_F32, tcfg, trcfg,

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from thyroid_tpu.ops import token_fused as jtf
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.ops import token_fused as ttf
 
 RS = np.random.RandomState(21)

@@ -14,6 +14,7 @@ import yaml
 
 from tests.torch_parity import (SMALL_F32, SMALL_SWIN, assert_trees_close,
                                 flat_tree, jax_swin, small_batch)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.data.pipeline import DevicePipeline
 from thyroid_tpu_torch.models.base import create_and_init
 from thyroid_tpu_torch.models.from_jax import (jax_layout, jax_tree,
@@ -229,7 +230,7 @@ def test_metric_state_and_auroc_match_jax():
 
 
 @pytest.mark.unit
-def test_three_step_trajectory_matches_jax(small, tmp_path):
+def test_three_step_trajectory_matches_jax(small, tmp_path, monkeypatch):
     """The same three batches through JAX Trainer._train_step and the
     port's train_step from identical weights: configs/training/vit.yaml
     (label smoothing 0.1, AdamW lr 1e-4, wd 1e-5, layer decay 0.9) with
@@ -239,8 +240,8 @@ def test_three_step_trajectory_matches_jax(small, tmp_path):
     its own root mean square, so an element whose gradient is much larger
     than eps moves by nearly ±lr whatever its size; at lr 1e-4 that keeps
     the difference of the parameters near 1e-8."""
+    import thyroid_tpu.training.engine as jax_engine
     from thyroid_tpu.models.registry import ModelRegistry as JaxRegistry
-    from thyroid_tpu.training.engine import Trainer as JaxTrainer
     from thyroid_tpu.training.metrics import zero_metric_state
 
     _, params = small
@@ -249,9 +250,12 @@ def test_three_step_trajectory_matches_jax(small, tmp_path):
                 scheduler_params=dict(TRAINING_VIT["scheduler_params"],
                                       warmup_steps=1))
     trcfg = dict(TRAINER_DEFAULT, gradient_clip_val=1.0)
-    jt = JaxTrainer(JaxRegistry.create_model(mcfg), mcfg, tcfg, trcfg,
-                    steps_per_epoch=3, output_dir=tmp_path / "jax")
     jp = jax.tree.map(jnp.asarray, params)
+    # the state is rebuilt on these weights below: skip JAX's unjitted init
+    monkeypatch.setattr(jax_engine, "create_and_init",
+                        lambda cfg, rng: (None, {"params": jp}))
+    jt = jax_engine.Trainer(JaxRegistry.create_model(mcfg), mcfg, tcfg, trcfg,
+                            steps_per_epoch=3, output_dir=tmp_path / "jax")
     state = jt.state.replace(params=jp, ema_params=jax.tree.map(jnp.array, jp),
                              opt_state=jt.state.tx.init(jp))
     pt = Trainer(ModelRegistry.create_model(SMALL_F32), SMALL_F32, tcfg, trcfg,

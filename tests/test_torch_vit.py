@@ -22,6 +22,7 @@ from tests.torch_parity import (flat_tree, global_rel, golden_input,
                                 golden_variables, jax_mixup_cutmix_params,
                                 jax_params, jax_step, port_step,
                                 tree_shapes_equal)
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.models import layers as port_layers
 from thyroid_tpu_torch.models.from_jax import load_jax_params, to_jax_params
 from thyroid_tpu_torch.models.registry import ModelRegistry
@@ -88,8 +89,9 @@ def test_forward_matches_jax(family, tk, quality, sincos):
     params = small(family, quality, sincos)
     x = np.random.RandomState(2).randn(3, 32, 32, 1).astype(np.float32)
     jmodel = JaxRegistry.create_model(cfg)
-    want, inter = jmodel.apply({"params": params}, jnp.asarray(x), train=False,
-                               mutable=["intermediates"])
+    want, inter = jax.jit(lambda p, x: jmodel.apply(
+        {"params": p}, x, train=False, mutable=["intermediates"]))(
+            params, jnp.asarray(x))
     port = _port(cfg, params)
     assert all(getattr(port, f"block_{i}").token_kernels == tk for i in range(2))
     with torch.no_grad():

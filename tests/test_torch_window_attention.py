@@ -10,6 +10,7 @@ import torch
 
 from thyroid_tpu.ops import attention as jattn
 from thyroid_tpu.models.vit.swin import shift_attention_mask
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.ops import attention as tattn
 from thyroid_tpu_torch.ops import fused_window_attention
 

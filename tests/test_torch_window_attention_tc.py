@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
 from thyroid_tpu_torch.models.vit.swin import shift_attention_mask
 from thyroid_tpu_torch.ops import attention
 
@@ -144,7 +145,8 @@ def test_model_rounds_only_p(shift):
 def test_route_on_the_cpu():
     """CPU tensors take the plain version whatever the type or width."""
     qkv, bias, _ = _inputs(3, 2, 2, 7, 0)
-    assert attention.window_attention_route(*qkv) == "plain"
+    before = attention.fused_window_attention.launches
     got = attention.fused_window_attention(*qkv, torch.from_numpy(bias))
     want = attention.window_attention_reference(*qkv, torch.from_numpy(bias))
     assert torch.equal(got, want)
+    assert attention.fused_window_attention.launches == before

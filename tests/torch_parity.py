@@ -578,9 +578,10 @@ def tree_shapes_equal(port_variables, jax_shapes) -> None:
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """One intra-op thread for the port's side of a test module that
-    imports this fixture: its tensors are small, so one thread is as fast
-    alone, and under the suite's parallel workers it does not wait on
-    threads the other workers' processes hold."""
+    imports this fixture (every tests/test_torch_*.py that runs on the
+    CPU): its tensors are small, so one thread is about as fast alone, and
+    under the suite's parallel workers it does not wait on threads the
+    other workers' processes hold."""
     import torch
 
     n = torch.get_num_threads()

@@ -75,9 +75,17 @@ def captured(out: Any, recorded: Optional[Dict[str, torch.Tensor]]):
 
 def trunc_normal_(t: torch.Tensor, generator: torch.Generator,
                   std: float = 0.02) -> torch.Tensor:
-    """Truncated normal at ±2σ, the JAX package's default initialiser."""
-    return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
-                                 generator=generator)
+    """Truncated normal at ±2σ, the JAX package's default initialiser,
+    drawn by the inverse CDF as jax.random.truncated_normal draws it: one
+    uniform draw an element, erfinv, clipped to the bounds. (torch 2.13's
+    nn.init.trunc_normal_ draws by rejection instead: each round draws a
+    whole new tensor to replace the elements outside the bounds, until
+    none is left.)"""
+    edge = math.erf(-2.0 / math.sqrt(2.0))
+    with torch.no_grad():
+        t.uniform_(edge, -edge, generator=generator)
+        t.erfinv_().mul_(std * math.sqrt(2.0))
+        return t.clamp_(-2 * std, 2 * std)
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,

@@ -5,8 +5,16 @@ by `nvcc` for `sm_90a` into `build/thyroid_tpu_torch/lib<name>-<hash>.so`,
 where `<hash>` is taken from the source text, so an edited source is never
 served from a stale library. All sources are compiled in parallel, one
 `nvcc` process each, the first time any kernel is needed, and loaded with
-`ctypes`. Nothing here runs at import time: the CPU-only test environment
+`ctypes`. Nothing is built at import time: the CPU-only test environment
 imports every module of the package.
+
+Each kernel entry is one operator of the `thyroid_tpu_torch` namespace
+(`define_op`), with three implementations: the kernel's launch for CUDA
+tensors, its plain PyTorch version for CPU tensors and a fake one that
+gives the outputs' shapes, dtypes and strides (and runs the kernel's
+checks) for meta and fake tensors, which `torch.export` traces. The
+dispatcher picks among them by the tensors' device; no wrapper does, and
+any other device raises.
 """
 from __future__ import annotations
 
@@ -18,7 +26,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "thyroid_tpu_torch"
@@ -29,6 +39,8 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # wall seconds of each source's nvcc in the last build_all, by name
 BUILD_SECONDS: Dict[str, float] = {}
+NAMESPACE = "thyroid_tpu_torch"
+_LIB = torch.library.Library(NAMESPACE, "DEF")
 
 
 def _nvcc() -> str:
@@ -133,9 +145,24 @@ def check(name: str, status: int, what: str) -> None:
                            f"({msg(status).decode()})")
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    import torch
+def define_op(schema: str, *, cpu: Callable, cuda: Callable,
+              fake: Callable) -> torch._ops.OpOverload:
+    """Define `thyroid_tpu_torch::<name>` by its `schema` with the plain
+    version `cpu`, the kernel launch `cuda` and the fake implementation
+    `fake`, and return its overload, which the wrapper calls. An op has
+    no derivative of its own: autograd falls through it, and the plain
+    version runs without recording, as the kernel does; the
+    differentiable wrappers pair the ops in `torch.autograd.Function`s."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    _LIB.impl(name, torch.library.fallthrough_kernel, "Autograd")
+    _LIB.impl(name, torch.no_grad()(cpu), "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
 
+
+def stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 

@@ -18,10 +18,12 @@
   (`csrc/window_attention.cu`; in bf16 at head widths that are multiples
   of 16 up to 64 on wgmma, `window_attention_route`), forward only.
 
-Each runs its CUDA kernel on CUDA tensors and its plain PyTorch version
-(`swin_block_attention_plain`, `swin_attention_plain`,
-`swin_attention_bwd_plain`, `swin_ln_attention_plain`,
-`window_attention_reference`) on CPU tensors.
+Each kernel is an op (`thyroid_tpu_torch::swin_block_attention`,
+`swin_attention`, `swin_attention_bwd`, `swin_ln_attention`,
+`window_attention`; ops/_build.py `define_op`) that runs it on CUDA tensors
+and its plain PyTorch version (`swin_block_attention_plain`,
+`swin_attention_plain`, `swin_attention_bwd_plain`,
+`swin_ln_attention_plain`, `window_attention_reference`) on CPU tensors.
 """
 from __future__ import annotations
 
@@ -63,19 +65,57 @@ def window_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def window_attention_route(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor) -> str:
-    """Which kernel fused_window_attention runs on these q, k, v: "plain"
-    (window_attention_reference) for CPU tensors; on the card the choice
-    that `csrc/window_attention.cu` makes, "wgmma" for bf16 at a head width
-    d that is a multiple of 16 up to 64 (Swin's 32) with q, k and v 16-byte
-    aligned, "scalar" for float32 and every other bf16 head width (24, 40,
-    80, ...)."""
-    if q.device.type == "cpu":
-        return "plain"
+    """Which kernel `thyroid_tpu_torch::window_attention` launches on these
+    CUDA q, k, v, as `csrc/window_attention.cu` chooses: "wgmma" for bf16
+    at a head width d that is a multiple of 16 up to 64 (Swin's 32) with
+    q, k and v 16-byte aligned, "scalar" for float32 and every other bf16
+    head width (24, 40, 80, ...). A query for the card's checks; CPU
+    tensors take window_attention_reference."""
     fn = _build.function("window_attention", "tt_window_attention_route",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
     tc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), q.shape[-1],
             int(q.dtype == torch.bfloat16))
     return "wgmma" if tc else "scalar"
+
+
+def _window_cpu(q, k, v, bias, mask, scale):
+    return window_attention_reference(q, k, v, bias, mask, scale).contiguous()
+
+
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return t.float().contiguous() if t is not None else None
+
+
+def _window_fake(q, k, v, bias, mask, scale):
+    _check_cuda("fused_window_attention", q, q.shape[2], k, v, _f32(bias),
+                _f32(mask))
+    return torch.empty_like(q)
+
+
+def _window_cuda(q, k, v, bias, mask, scale):
+    bw, h, n, d = q.shape
+    bias_f, mask_f = _f32(bias), _f32(mask)
+    _check_cuda("fused_window_attention", q, n, k, v, bias_f, mask_f)
+    out = torch.empty_like(q)
+    if bw == 0:
+        return out
+    fn = _build.function("window_attention", "tt_window_attention",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    status = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias_f),
+                _build.ptr(mask_f) if mask_f is not None else None,
+                _build.ptr(out), bw, h, n, d,
+                mask.shape[0] if mask is not None else 1, float(scale),
+                int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+    _build.check("window_attention", status, "fused_window_attention")
+    fused_window_attention.launches += 1
+    return out
+
+
+_window_op = _build.define_op(
+    "window_attention(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor? mask, "
+    "float scale) -> Tensor",
+    cpu=_window_cpu, cuda=_window_cuda, fake=_window_fake)
 
 
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,27 +150,7 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"with nW dividing {bw}")
     if scale is None:
         scale = d ** -0.5
-    if q.device.type == "cpu":
-        return window_attention_reference(q, k, v, bias, mask, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    bias_f = bias.float().contiguous()
-    mask_f = mask.float().contiguous() if mask is not None else None
-    _check_cuda("fused_window_attention", q, n, k, v, bias_f, mask_f)
-    out = torch.empty_like(q)
-    if bw == 0:
-        return out
-    fn = _build.function("window_attention", "tt_window_attention",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    status = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(bias_f),
-                _build.ptr(mask_f) if mask_f is not None else None,
-                _build.ptr(out), bw, h, n, d,
-                mask.shape[0] if mask is not None else 1, float(scale),
-                int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
-    _build.check("window_attention", status, "fused_window_attention")
-    fused_window_attention.launches += 1
-    return out
+    return _window_op(q, k, v, bias, mask, float(scale))
 
 
 fused_window_attention.launches = 0
@@ -251,18 +271,21 @@ def swin_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
     return dqkv, ds.sum(dim=0)
 
 
-def _swin_attention_fwd(qkv, bias, mask, *, window_size: int, num_heads: int,
-                        scale: float) -> torch.Tensor:
-    """Forward of fused_swin_attention on qkv's device: the kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
-    if qkv.device.type == "cpu":
-        return swin_attention_plain(qkv, bias, mask, window_size=window_size,
-                                    num_heads=num_heads, scale=scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"unsupported device {qkv.device}")
+def _swin_fwd_cpu(qkv, bias, mask, window_size, num_heads, scale):
+    return swin_attention_plain(qkv, bias, mask, window_size=window_size,
+                                num_heads=num_heads, scale=scale).contiguous()
+
+
+def _swin_fwd_fake(qkv, bias, mask, window_size, num_heads, scale):
+    _check_cuda("fused_swin_attention", qkv, window_size ** 2, _f32(bias),
+                _f32(mask))
     b, hh, ww, _, c = qkv.shape
-    bias_f = bias.float().contiguous()
-    mask_f = mask.float().contiguous() if mask is not None else None
+    return qkv.new_empty(b, hh, ww, c)
+
+
+def _swin_fwd_cuda(qkv, bias, mask, window_size, num_heads, scale):
+    b, hh, ww, _, c = qkv.shape
+    bias_f, mask_f = _f32(bias), _f32(mask)
     _check_cuda("fused_swin_attention", qkv, window_size ** 2, bias_f, mask_f)
     out = torch.empty(b, hh, ww, c, dtype=qkv.dtype, device=qkv.device)
     if b == 0:
@@ -280,29 +303,40 @@ def _swin_attention_fwd(qkv, bias, mask, *, window_size: int, num_heads: int,
     return out
 
 
-def fused_swin_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
-                             bias: torch.Tensor, mask: Optional[torch.Tensor],
-                             *, window_size: int, num_heads: int,
-                             scale: float):
-    """The backward of fused_swin_attention, given the output gradient
-    dout (B, H, W, C) in qkv's dtype → (dqkv (B, H, W, 3, C) in qkv's dtype,
-    dbias (heads, N, N) float32): the kernel on a CUDA tensor, the plain
-    version on a CPU tensor. Its launches count on
-    fused_swin_attention.bwd_launches."""
-    if qkv.device.type == "cpu":
-        return swin_attention_bwd_plain(qkv, dout, bias, mask,
-                                        window_size=window_size,
-                                        num_heads=num_heads, scale=scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"unsupported device {qkv.device}")
+_swin_fwd_op = _build.define_op(
+    "swin_attention(Tensor qkv, Tensor bias, Tensor? mask, int window_size, "
+    "int num_heads, float scale) -> Tensor",
+    cpu=_swin_fwd_cpu, cuda=_swin_fwd_cuda, fake=_swin_fwd_fake)
+
+
+def _check_swin_bwd(qkv, dout, bias, mask, window_size):
     b, hh, ww, _, c = qkv.shape
-    n = window_size ** 2
-    bias_f = bias.float().contiguous()
-    mask_f = mask.float().contiguous() if mask is not None else None
-    _check_cuda("fused_swin_attention backward", qkv, n, dout, bias_f, mask_f)
+    _check_cuda("fused_swin_attention backward", qkv, window_size ** 2, dout,
+                bias, mask)
     if dout.dtype != qkv.dtype or tuple(dout.shape) != (b, hh, ww, c):
         raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} does not "
                          f"match qkv {qkv.dtype} {tuple(qkv.shape)}")
+
+
+def _swin_bwd_cpu(qkv, dout, bias, mask, window_size, num_heads, scale):
+    dqkv, dbias = swin_attention_bwd_plain(qkv, dout, bias, mask,
+                                           window_size=window_size,
+                                           num_heads=num_heads, scale=scale)
+    return dqkv.contiguous(), dbias.contiguous()
+
+
+def _swin_bwd_fake(qkv, dout, bias, mask, window_size, num_heads, scale):
+    _check_swin_bwd(qkv, dout, _f32(bias), _f32(mask), window_size)
+    n = window_size ** 2
+    return (torch.empty_like(qkv),
+            qkv.new_empty(num_heads, n, n, dtype=torch.float32))
+
+
+def _swin_bwd_cuda(qkv, dout, bias, mask, window_size, num_heads, scale):
+    b, hh, ww, _, c = qkv.shape
+    n = window_size ** 2
+    bias_f, mask_f = _f32(bias), _f32(mask)
+    _check_swin_bwd(qkv, dout, bias_f, mask_f, window_size)
     dqkv = torch.empty_like(qkv)
     dbias = torch.zeros(num_heads, n, n, dtype=torch.float32, device=qkv.device)
     if b == 0:
@@ -329,6 +363,25 @@ def fused_swin_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     return dqkv, dbias
 
 
+_swin_bwd_op = _build.define_op(
+    "swin_attention_bwd(Tensor qkv, Tensor dout, Tensor bias, Tensor? mask, "
+    "int window_size, int num_heads, float scale) -> (Tensor, Tensor)",
+    cpu=_swin_bwd_cpu, cuda=_swin_bwd_cuda, fake=_swin_bwd_fake)
+
+
+def fused_swin_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
+                             bias: torch.Tensor, mask: Optional[torch.Tensor],
+                             *, window_size: int, num_heads: int,
+                             scale: float):
+    """The backward of fused_swin_attention, given the output gradient
+    dout (B, H, W, C) in qkv's dtype → (dqkv (B, H, W, 3, C) in qkv's dtype,
+    dbias (heads, N, N) float32), through
+    `thyroid_tpu_torch::swin_attention_bwd`. Its launches count on
+    fused_swin_attention.bwd_launches."""
+    return _swin_bwd_op(qkv, dout, bias, mask, int(window_size),
+                        int(num_heads), float(scale))
+
+
 class _SwinAttention(torch.autograd.Function):
     """custom_vjp of the JAX package: the residuals are the inputs (qkv,
     bias, mask), never the probabilities; the backward recomputes them."""
@@ -338,7 +391,7 @@ class _SwinAttention(torch.autograd.Function):
         ctx.save_for_backward(qkv, bias, mask)
         ctx.cfg = dict(window_size=window_size, num_heads=num_heads,
                        scale=scale)
-        return _swin_attention_fwd(qkv, bias, mask, **ctx.cfg)
+        return _swin_fwd_op(qkv, bias, mask, window_size, num_heads, scale)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -405,38 +458,11 @@ def swin_block_attention_plain(qkv: torch.Tensor, residual: torch.Tensor,
     return (residual.float() + window_reverse(y, ws, hh, ww)).to(cdt)
 
 
-def fused_swin_block_attention(qkv: torch.Tensor, residual: torch.Tensor,
-                               proj_kernel: torch.Tensor,
-                               proj_bias: Optional[torch.Tensor],
-                               bias: torch.Tensor,
-                               mask: Optional[torch.Tensor] = None, *,
-                               window_size: int, num_heads: int,
-                               scale: Optional[float] = None) -> torch.Tensor:
-    """out = residual + proj(window_reverse(W-MSA(partition(qkv)))).
-
-    qkv (B, H, W, 3, C) — already LN'd, projected and rolled if shifted;
-    residual (B, H, W, C) — the pre-LN stream in the same rolled frame;
-    proj_kernel (C, C), proj_bias (C,) or None; bias (heads, N, N) the
-    gathered relative-position bias; mask (nW, N, N) shift mask or None.
-    → (B, H, W, C) in qkv's dtype."""
-    refuse_autograd("fused_swin_block_attention", "training uses "
-                    "fused_swin_attention, as in the JAX package, where this "
-                    "serving call has no autodiff", qkv, residual,
-                    proj_kernel, proj_bias, bias)
-    b, hh, ww, _, c = qkv.shape
-    ws, n = window_size, window_size * window_size
-    _check_windows(qkv, bias, mask, ws, num_heads)
-    if tuple(residual.shape) != (b, hh, ww, c):
-        raise ValueError(f"qkv {tuple(qkv.shape)} / residual "
-                         f"{tuple(residual.shape)} do not match")
-    if scale is None:
-        scale = (c // num_heads) ** -0.5
-    if qkv.device.type == "cpu":
-        return swin_block_attention_plain(
-            qkv, residual, proj_kernel, proj_bias, bias, mask,
-            window_size=ws, num_heads=num_heads, scale=float(scale))
-    if qkv.device.type != "cuda":
-        raise ValueError(f"unsupported device {qkv.device}")
+def _block_args(qkv, residual, proj_kernel, proj_bias, bias, mask,
+                num_heads):
+    """The kernel's operands after its checks: the projection in qkv's
+    dtype, its bias, the position bias and the mask in float32."""
+    c = qkv.shape[-1]
     if residual.dtype != qkv.dtype:
         raise TypeError(f"residual {residual.dtype} != qkv {qkv.dtype}")
     dh = c // num_heads
@@ -446,10 +472,30 @@ def fused_swin_block_attention(qkv: torch.Tensor, residual: torch.Tensor,
     wp = proj_kernel.to(qkv.dtype).contiguous()
     bp = (proj_bias.float() if proj_bias is not None
           else torch.zeros(c, dtype=torch.float32, device=qkv.device)).contiguous()
-    bias = bias.float().contiguous()
-    mask_f = mask.float().contiguous() if mask is not None else None
-    _check_cuda("fused_swin_block_attention", qkv, n, residual, wp, bp, bias,
-                mask_f)
+    bias, mask_f = _f32(bias), _f32(mask)
+    _check_cuda("fused_swin_block_attention", qkv, bias.shape[-1], residual,
+                wp, bp, bias, mask_f)
+    return wp, bp, bias, mask_f
+
+
+def _block_cpu(qkv, residual, proj_kernel, proj_bias, bias, mask, window_size,
+               num_heads, scale):
+    return swin_block_attention_plain(
+        qkv, residual, proj_kernel, proj_bias, bias, mask,
+        window_size=window_size, num_heads=num_heads, scale=scale).contiguous()
+
+
+def _block_fake(qkv, residual, proj_kernel, proj_bias, bias, mask,
+                window_size, num_heads, scale):
+    _block_args(qkv, residual, proj_kernel, proj_bias, bias, mask, num_heads)
+    return torch.empty_like(residual)
+
+
+def _block_cuda(qkv, residual, proj_kernel, proj_bias, bias, mask, window_size,
+                num_heads, scale):
+    wp, bp, bias, mask_f = _block_args(qkv, residual, proj_kernel, proj_bias,
+                                       bias, mask, num_heads)
+    b, hh, ww, _, c = qkv.shape
     is_bf16 = int(qkv.dtype == torch.bfloat16)
     y = torch.empty_like(residual)
     if b == 0:
@@ -464,11 +510,48 @@ def fused_swin_block_attention(qkv: torch.Tensor, residual: torch.Tensor,
                 _build.ptr(bp), _build.ptr(bias),
                 _build.ptr(mask_f) if mask_f is not None else None,
                 _build.ptr(y), _build.ptr(work) if work is not None else None,
-                b, hh, ww, c, num_heads, ws, float(scale), is_bf16,
+                b, hh, ww, c, num_heads, window_size, float(scale), is_bf16,
                 _build.stream_ptr(qkv.device))
     _build.check("swin_attention", status, "fused_swin_block_attention")
     fused_swin_block_attention.launches += 1
     return y
+
+
+_block_op = _build.define_op(
+    "swin_block_attention(Tensor qkv, Tensor residual, Tensor proj_kernel, "
+    "Tensor? proj_bias, Tensor bias, Tensor? mask, int window_size, "
+    "int num_heads, float scale) -> Tensor",
+    cpu=_block_cpu, cuda=_block_cuda, fake=_block_fake)
+
+
+def fused_swin_block_attention(qkv: torch.Tensor, residual: torch.Tensor,
+                               proj_kernel: torch.Tensor,
+                               proj_bias: Optional[torch.Tensor],
+                               bias: torch.Tensor,
+                               mask: Optional[torch.Tensor] = None, *,
+                               window_size: int, num_heads: int,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """out = residual + proj(window_reverse(W-MSA(partition(qkv)))).
+
+    qkv (B, H, W, 3, C) — already LN'd, projected and rolled if shifted;
+    residual (B, H, W, C) — the pre-LN stream in the same rolled frame;
+    proj_kernel (C, C), proj_bias (C,) or None; bias (heads, N, N) the
+    gathered relative-position bias; mask (nW, N, N) shift mask or None.
+    → (B, H, W, C) in qkv's dtype
+    (`thyroid_tpu_torch::swin_block_attention`)."""
+    refuse_autograd("fused_swin_block_attention", "training uses "
+                    "fused_swin_attention, as in the JAX package, where this "
+                    "serving call has no autodiff", qkv, residual,
+                    proj_kernel, proj_bias, bias)
+    b, hh, ww, _, c = qkv.shape
+    _check_windows(qkv, bias, mask, window_size, num_heads)
+    if tuple(residual.shape) != (b, hh, ww, c):
+        raise ValueError(f"qkv {tuple(qkv.shape)} / residual "
+                         f"{tuple(residual.shape)} do not match")
+    if scale is None:
+        scale = (c // num_heads) ** -0.5
+    return _block_op(qkv, residual, proj_kernel, proj_bias, bias, mask,
+                     int(window_size), int(num_heads), float(scale))
 
 
 fused_swin_block_attention.launches = 0
@@ -503,6 +586,72 @@ def swin_ln_attention_plain(x: torch.Tensor, ln_scale: torch.Tensor,
     return _heads_window(o, ws, hh, ww).to(cdt)
 
 
+def _ln_attention_args(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, bias,
+                       mask, num_heads):
+    """The kernel's operands after its checks: LN parameters, QKV bias,
+    position bias and mask in float32, the QKV kernel in x's dtype."""
+    c = x.shape[-1]
+    dh = c // num_heads
+    if x.dtype == torch.bfloat16 and (dh % 8 or dh > 64 or c > _MAX_LN_WIDTH):
+        raise ValueError(f"width {c}, head width {dh}: the bf16 kernel takes C "
+                         f"up to {_MAX_LN_WIDTH} and head widths that are "
+                         f"multiples of 8 up to 64")
+    args = (ln_scale.float().contiguous(), ln_bias.float().contiguous(),
+            qkv_kernel.to(x.dtype).contiguous(),
+            _f32(qkv_bias), _f32(bias), _f32(mask))
+    _check_cuda("fused_swin_ln_attention", x, bias.shape[-1], *args)
+    return args
+
+
+def _ln_attention_cpu(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, bias, mask,
+                      window_size, num_heads, scale, eps):
+    return swin_ln_attention_plain(
+        x, ln_scale, ln_bias, qkv_kernel, qkv_bias, bias, mask,
+        window_size=window_size, num_heads=num_heads, scale=scale,
+        eps=eps).contiguous()
+
+
+def _ln_attention_fake(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, bias, mask,
+                       window_size, num_heads, scale, eps):
+    _ln_attention_args(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, bias, mask,
+                       num_heads)
+    return torch.empty_like(x)
+
+
+def _ln_attention_cuda(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, bias, mask,
+                       window_size, num_heads, scale, eps):
+    g, beta, w, bq, bias_f, mask_f = _ln_attention_args(
+        x, ln_scale, ln_bias, qkv_kernel, qkv_bias, bias, mask, num_heads)
+    b, hh, ww, c = x.shape
+    out = torch.empty_like(x)
+    if b == 0:
+        return out
+    # the normalised rows, which the bf16 kernel streams above C = 1024
+    work = torch.empty(b * hh * ww * c, dtype=x.dtype, device=x.device) \
+        if x.dtype == torch.bfloat16 and c > _LN_RESIDENT_WIDTH else None
+    fn = _build.function("swin_ln_attention", "tt_swin_ln_attention",
+                         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                            ctypes.c_void_p])
+    status = fn(_build.ptr(x), _build.ptr(g), _build.ptr(beta), _build.ptr(w),
+                _build.ptr(bq) if bq is not None else None, _build.ptr(bias_f),
+                _build.ptr(mask_f) if mask_f is not None else None,
+                _build.ptr(out), _build.ptr(work) if work is not None else None,
+                b, hh, ww, c, num_heads, window_size, float(scale),
+                float(eps), int(x.dtype == torch.bfloat16),
+                _build.stream_ptr(x.device))
+    _build.check("swin_ln_attention", status, "fused_swin_ln_attention")
+    fused_swin_ln_attention.launches += 1
+    return out
+
+
+_ln_attention_op = _build.define_op(
+    "swin_ln_attention(Tensor x, Tensor ln_scale, Tensor ln_bias, "
+    "Tensor qkv_kernel, Tensor? qkv_bias, Tensor bias, Tensor? mask, "
+    "int window_size, int num_heads, float scale, float eps) -> Tensor",
+    cpu=_ln_attention_cpu, cuda=_ln_attention_cuda, fake=_ln_attention_fake)
+
+
 def fused_swin_ln_attention(x: torch.Tensor, ln_scale: torch.Tensor,
                             ln_bias: torch.Tensor, qkv_kernel: torch.Tensor,
                             qkv_bias: Optional[torch.Tensor],
@@ -515,8 +664,9 @@ def fused_swin_ln_attention(x: torch.Tensor, ln_scale: torch.Tensor,
     residual stream, already rolled if shifted; ln_scale, ln_bias (C,);
     qkv_kernel (C, 3C); qkv_bias (3C,) or None; bias (heads, N, N) the
     gathered relative-position bias; mask (nW, N, N) or None → (B, H, W, C)
-    attention output before the out-projection, in x's dtype. Forward
-    only: training keeps fused_swin_attention, as in the JAX package."""
+    attention output before the out-projection, in x's dtype
+    (`thyroid_tpu_torch::swin_ln_attention`). Forward only: training keeps
+    fused_swin_attention, as in the JAX package."""
     refuse_autograd("fused_swin_ln_attention", "training uses "
                     "fused_swin_attention, as in the JAX package", x,
                     ln_scale, ln_bias, qkv_kernel, qkv_bias, bias)
@@ -535,45 +685,9 @@ def fused_swin_ln_attention(x: torch.Tensor, ln_scale: torch.Tensor,
         raise ValueError(f"mask {tuple(mask.shape)} is not {(nw, n, n)}")
     if scale is None:
         scale = (c // num_heads) ** -0.5
-    kw = dict(window_size=ws, num_heads=num_heads, scale=float(scale),
-              eps=float(eps))
-    if x.device.type == "cpu":
-        return swin_ln_attention_plain(x, ln_scale, ln_bias, qkv_kernel,
-                                       qkv_bias, bias, mask, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    dh = c // num_heads
-    if x.dtype == torch.bfloat16 and (dh % 8 or dh > 64 or c > _MAX_LN_WIDTH):
-        raise ValueError(f"width {c}, head width {dh}: the bf16 kernel takes C "
-                         f"up to {_MAX_LN_WIDTH} and head widths that are "
-                         f"multiples of 8 up to 64")
-    g = ln_scale.float().contiguous()
-    beta = ln_bias.float().contiguous()
-    w = qkv_kernel.to(x.dtype).contiguous()
-    bq = qkv_bias.float().contiguous() if qkv_bias is not None else None
-    bias_f = bias.float().contiguous()
-    mask_f = mask.float().contiguous() if mask is not None else None
-    _check_cuda("fused_swin_ln_attention", x, n, g, beta, w, bq, bias_f, mask_f)
-    out = torch.empty_like(x)
-    if b == 0:
-        return out
-    # the normalised rows, which the bf16 kernel streams above C = 1024
-    work = torch.empty(b * hh * ww * c, dtype=x.dtype, device=x.device) \
-        if x.dtype == torch.bfloat16 and c > _LN_RESIDENT_WIDTH else None
-    fn = _build.function("swin_ln_attention", "tt_swin_ln_attention",
-                         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                         + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                            ctypes.c_void_p])
-    status = fn(_build.ptr(x), _build.ptr(g), _build.ptr(beta), _build.ptr(w),
-                _build.ptr(bq) if bq is not None else None, _build.ptr(bias_f),
-                _build.ptr(mask_f) if mask_f is not None else None,
-                _build.ptr(out), _build.ptr(work) if work is not None else None,
-                b, hh, ww, c, num_heads, ws, float(scale),
-                float(eps), int(x.dtype == torch.bfloat16),
-                _build.stream_ptr(x.device))
-    _build.check("swin_ln_attention", status, "fused_swin_ln_attention")
-    fused_swin_ln_attention.launches += 1
-    return out
+    return _ln_attention_op(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, bias,
+                            mask, int(ws), int(num_heads), float(scale),
+                            float(eps))
 
 
 fused_swin_ln_attention.launches = 0

@@ -22,7 +22,9 @@ apply is the kernel:
   pass, which `clahe_uint16_dual_fused` (plain:
   `clahe_uint16_dual_fused_plain`, JAX's own definition) runs. The quality
   pipeline does not call it, as in the JAX package.
-A CUDA tensor launches the kernel, a CPU tensor takes the plain version.
+Each apply is an op (`thyroid_tpu_torch::apply_luts`, `apply_luts_dual`,
+`apply_luts_dual_fused`; ops/_build.py `define_op`): a CUDA tensor launches
+the kernel, a CPU tensor takes the plain version.
 Tiles need not have even sides.
 """
 from __future__ import annotations
@@ -40,7 +42,9 @@ Grid = Tuple[int, int]
 
 def _tile_hists(x8: torch.Tensor, grid: Grid) -> torch.Tensor:
     """Per-tile 256-bin histograms of integer-valued x8 (B, H, W) in
-    [0, 255] (clipped there) → (B, gh, gw, 256) float32 counts."""
+    [0, 255] (clipped there) → (B, gh, gw, 256) float32 counts, summed
+    by index_add_ (exact: integer counts below 2²⁴) into a fixed number of
+    bins, so that the traced program's shapes do not depend on the data."""
     b, h, w = x8.shape
     gh, gw = grid
     th, tw = h // gh, w // gw
@@ -51,8 +55,10 @@ def _tile_hists(x8: torch.Tensor, grid: Grid) -> torch.Tensor:
     tile = (ty[:, None] * gw + tx[None, :])                       # (H, W)
     idx = (torch.arange(b, device=dev)[:, None, None] * (gh * gw) + tile) \
         * 256 + v
-    return torch.bincount(idx.reshape(-1), minlength=b * gh * gw * 256) \
-        .to(torch.float32).reshape(b, gh, gw, 256)
+    idx = idx.reshape(-1)
+    ones = torch.ones((), dtype=torch.float32, device=dev).expand(idx.shape)
+    return torch.zeros(b * gh * gw * 256, dtype=torch.float32, device=dev) \
+        .index_add_(0, idx, ones).reshape(b, gh, gw, 256)
 
 
 def _luts_from_hists(hist: torch.Tensor, area: int,
@@ -153,13 +159,18 @@ def _check_apply(name: str, x8: torch.Tensor, *luts: torch.Tensor) -> None:
             raise ValueError(f"{name} needs contiguous tensors")
 
 
-def _lut_args(luts: torch.Tensor, b: int, grid: Grid, h: int, w: int):
+def _check_luts(luts: torch.Tensor, b: int, grid: Grid, h: int, w: int) -> None:
     gh, gw = grid
     if luts.shape != (b, gh, gw, 256):
         raise ValueError(f"LUTs {tuple(luts.shape)} do not match "
                          f"({b}, {gh}, {gw}, 256)")
     if h < gh or w < gw:
-        raise ValueError(f"grid {grid} has more tiles than the {h}x{w} frame")
+        raise ValueError(f"grid {tuple(grid)} has more tiles than the {h}x{w} "
+                         f"frame")
+
+
+def _lut_args(luts: torch.Tensor, grid: Grid, h: int, w: int):
+    gh, gw = grid
     return (_build.ptr(luts), gh, gw, h // gh, w // gw)
 
 
@@ -167,15 +178,23 @@ _GRID_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int]
 
 
-def apply_luts(x8: torch.Tensor, luts: torch.Tensor, grid: Grid) -> torch.Tensor:
-    """CLAHE LUT apply: x8 (B, H, W) float32 bins (clipped to [0, 255]),
-    luts (B, gh, gw, 256) float32, integer valued in [0, 255] → the
-    blended (B, H, W) float32."""
-    if x8.device.type == "cpu":
-        return _interp_luts(x8, luts, grid)
-    if x8.device.type != "cuda":
-        raise ValueError(f"unsupported device {x8.device}")
+def _check_single(x8, luts, grid):
     _check_apply("apply_luts", x8, luts)
+    b, h, w = x8.shape
+    _check_luts(luts, b, grid, h, w)
+
+
+def _single_cpu(x8, luts, grid):
+    return _interp_luts(x8, luts, tuple(grid)).contiguous()
+
+
+def _single_fake(x8, luts, grid):
+    _check_single(x8, luts, grid)
+    return torch.empty_like(x8)
+
+
+def _single_cuda(x8, luts, grid):
+    _check_single(x8, luts, grid)
     b, h, w = x8.shape
     out = torch.empty_like(x8)
     if b == 0:
@@ -184,30 +203,54 @@ def apply_luts(x8: torch.Tensor, luts: torch.Tensor, grid: Grid) -> torch.Tensor
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, *_GRID_ARGS, ctypes.c_void_p])
     status = fn(_build.ptr(x8), _build.ptr(out), b, h, w,
-                *_lut_args(luts, b, grid, h, w), _build.stream_ptr(x8.device))
+                *_lut_args(luts, grid, h, w), _build.stream_ptr(x8.device))
     _build.check("clahe", status, "apply_luts")
     apply_luts.launches += 1
     return out
 
 
+_single_op = _build.define_op(
+    "apply_luts(Tensor x8, Tensor luts, int[] grid) -> Tensor",
+    cpu=_single_cpu, cuda=_single_cuda, fake=_single_fake)
+
+
+def apply_luts(x8: torch.Tensor, luts: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """CLAHE LUT apply: x8 (B, H, W) float32 bins (clipped to [0, 255]),
+    luts (B, gh, gw, 256) float32, integer valued in [0, 255] → the
+    blended (B, H, W) float32 (`thyroid_tpu_torch::apply_luts`)."""
+    return _single_op(x8, luts, list(grid))
+
+
 apply_luts.launches = 0
 
 
-def apply_luts_dual(x8: torch.Tensor, luts_c: torch.Tensor,
-                    luts_f: torch.Tensor, use_coarse: torch.Tensor,
-                    grid_c: Grid, grid_f: Grid) -> torch.Tensor:
-    """`apply_luts` with a per-image choice of grid: image i blends
-    luts_c (grid_c) where use_coarse[i], else luts_f (grid_f)."""
-    b, h, w = x8.shape
-    if x8.device.type == "cpu":
-        return torch.where(use_coarse.reshape(b, 1, 1),
-                           _interp_luts(x8, luts_c, grid_c),
-                           _interp_luts(x8, luts_f, grid_f))
-    if x8.device.type != "cuda":
-        raise ValueError(f"unsupported device {x8.device}")
+def _check_flags(x8: torch.Tensor, **flags: torch.Tensor) -> None:
+    for name, flag in flags.items():
+        if flag.shape != (x8.shape[0],) or flag.device != x8.device:
+            raise ValueError(f"{name} must be a (B,) tensor on x8's device")
+
+
+def _check_dual_apply(x8, luts_c, luts_f, use_coarse, grid_c, grid_f):
     _check_apply("apply_luts_dual", x8, luts_c, luts_f)
-    if use_coarse.shape != (b,) or use_coarse.device != x8.device:
-        raise ValueError("use_coarse must be a (B,) tensor on x8's device")
+    b, h, w = x8.shape
+    _check_luts(luts_c, b, grid_c, h, w)
+    _check_luts(luts_f, b, grid_f, h, w)
+    _check_flags(x8, use_coarse=use_coarse)
+
+
+def _dual_cpu(x8, luts_c, luts_f, use_coarse, grid_c, grid_f):
+    return _blend_dual(x8, luts_c, luts_f, use_coarse, tuple(grid_c),
+                       tuple(grid_f)).contiguous()
+
+
+def _dual_fake(x8, luts_c, luts_f, use_coarse, grid_c, grid_f):
+    _check_dual_apply(x8, luts_c, luts_f, use_coarse, grid_c, grid_f)
+    return torch.empty_like(x8)
+
+
+def _dual_cuda(x8, luts_c, luts_f, use_coarse, grid_c, grid_f):
+    _check_dual_apply(x8, luts_c, luts_f, use_coarse, grid_c, grid_f)
+    b, h, w = x8.shape
     sel = use_coarse.to(torch.int32).contiguous()
     out = torch.empty_like(x8)
     if b == 0:
@@ -217,12 +260,27 @@ def apply_luts_dual(x8: torch.Tensor, luts_c: torch.Tensor,
         ctypes.c_int, ctypes.c_int, *_GRID_ARGS, *_GRID_ARGS,
         ctypes.c_void_p])
     status = fn(_build.ptr(x8), _build.ptr(sel), _build.ptr(out), b, h, w,
-                *_lut_args(luts_c, b, grid_c, h, w),
-                *_lut_args(luts_f, b, grid_f, h, w),
+                *_lut_args(luts_c, grid_c, h, w),
+                *_lut_args(luts_f, grid_f, h, w),
                 _build.stream_ptr(x8.device))
     _build.check("clahe", status, "apply_luts_dual")
     apply_luts_dual.launches += 1
     return out
+
+
+_dual_op = _build.define_op(
+    "apply_luts_dual(Tensor x8, Tensor luts_c, Tensor luts_f, "
+    "Tensor use_coarse, int[] grid_c, int[] grid_f) -> Tensor",
+    cpu=_dual_cpu, cuda=_dual_cuda, fake=_dual_fake)
+
+
+def apply_luts_dual(x8: torch.Tensor, luts_c: torch.Tensor,
+                    luts_f: torch.Tensor, use_coarse: torch.Tensor,
+                    grid_c: Grid, grid_f: Grid) -> torch.Tensor:
+    """`apply_luts` with a per-image choice of grid: image i blends
+    luts_c (grid_c) where use_coarse[i], else luts_f (grid_f)
+    (`thyroid_tpu_torch::apply_luts_dual`)."""
+    return _dual_op(x8, luts_c, luts_f, use_coarse, list(grid_c), list(grid_f))
 
 
 apply_luts_dual.launches = 0
@@ -363,31 +421,38 @@ def apply_luts_dual_fused_plain(x8: torch.Tensor, img: torch.Tensor,
     return torch.where(apply.reshape(b, 1, 1), back, img)
 
 
-def apply_luts_dual_fused(x8: torch.Tensor, img: torch.Tensor,
-                          luts_c: torch.Tensor, luts_f: torch.Tensor,
-                          use_coarse: torch.Tensor, apply: torch.Tensor,
-                          lo: torch.Tensor, span: torch.Tensor,
-                          grid_c: Grid, grid_f: Grid) -> torch.Tensor:
-    """The dual apply with the round trip's way back and the branch select
-    in one pass: x8 (B, H, W) float32 bins, img (B, H, W) float32 the frames
-    on the uint16 scale, the two grids' LUTs, use_coarse and apply (B,)
-    bool, lo and span (B,) float32 → (B, H, W) float32: where apply, the
-    equalised frame back on [lo, lo + span], floored (a flat frame: img
-    floored); elsewhere img."""
-    if x8.device.type == "cpu":
-        return apply_luts_dual_fused_plain(x8, img, luts_c, luts_f, use_coarse,
-                                           apply, lo, span, grid_c, grid_f)
-    if x8.device.type != "cuda":
-        raise ValueError(f"unsupported device {x8.device}")
-    b, h, w = x8.shape
+def _check_fused(x8, img, luts_c, luts_f, use_coarse, apply, lo, span,
+                 grid_c, grid_f):
     _check_apply("apply_luts_dual_fused", x8, img, luts_c, luts_f, lo, span)
+    b, h, w = x8.shape
     if img.shape != x8.shape or lo.shape != (b,) or span.shape != (b,):
         raise ValueError(f"img {tuple(img.shape)}, lo {tuple(lo.shape)} and "
                          f"span {tuple(span.shape)} do not match x8 "
                          f"{tuple(x8.shape)}")
-    for name, flag in (("use_coarse", use_coarse), ("apply", apply)):
-        if flag.shape != (b,) or flag.device != x8.device:
-            raise ValueError(f"{name} must be a (B,) tensor on x8's device")
+    _check_flags(x8, use_coarse=use_coarse, apply=apply)
+    _check_luts(luts_c, b, grid_c, h, w)
+    _check_luts(luts_f, b, grid_f, h, w)
+
+
+def _fused_cpu(x8, img, luts_c, luts_f, use_coarse, apply, lo, span, grid_c,
+               grid_f):
+    return apply_luts_dual_fused_plain(
+        x8, img, luts_c, luts_f, use_coarse, apply, lo, span, tuple(grid_c),
+        tuple(grid_f)).contiguous()
+
+
+def _fused_fake(x8, img, luts_c, luts_f, use_coarse, apply, lo, span, grid_c,
+                grid_f):
+    _check_fused(x8, img, luts_c, luts_f, use_coarse, apply, lo, span, grid_c,
+                 grid_f)
+    return torch.empty_like(img)
+
+
+def _fused_cuda(x8, img, luts_c, luts_f, use_coarse, apply, lo, span, grid_c,
+                grid_f):
+    _check_fused(x8, img, luts_c, luts_f, use_coarse, apply, lo, span, grid_c,
+                 grid_f)
+    b, h, w = x8.shape
     sel = use_coarse.to(torch.int32).contiguous()
     take = apply.to(torch.int32).contiguous()
     out = torch.empty_like(img)
@@ -398,11 +463,33 @@ def apply_luts_dual_fused(x8: torch.Tensor, img: torch.Tensor,
         *_GRID_ARGS, *_GRID_ARGS, ctypes.c_void_p])
     status = fn(_build.ptr(x8), _build.ptr(img), _build.ptr(sel),
                 _build.ptr(take), _build.ptr(lo), _build.ptr(span),
-                _build.ptr(out), b, h, w, *_lut_args(luts_c, b, grid_c, h, w),
-                *_lut_args(luts_f, b, grid_f, h, w), _build.stream_ptr(x8.device))
+                _build.ptr(out), b, h, w, *_lut_args(luts_c, grid_c, h, w),
+                *_lut_args(luts_f, grid_f, h, w), _build.stream_ptr(x8.device))
     _build.check("clahe", status, "apply_luts_dual_fused")
     apply_luts_dual_fused.launches += 1
     return out
+
+
+_fused_op = _build.define_op(
+    "apply_luts_dual_fused(Tensor x8, Tensor img, Tensor luts_c, "
+    "Tensor luts_f, Tensor use_coarse, Tensor apply, Tensor lo, Tensor span, "
+    "int[] grid_c, int[] grid_f) -> Tensor",
+    cpu=_fused_cpu, cuda=_fused_cuda, fake=_fused_fake)
+
+
+def apply_luts_dual_fused(x8: torch.Tensor, img: torch.Tensor,
+                          luts_c: torch.Tensor, luts_f: torch.Tensor,
+                          use_coarse: torch.Tensor, apply: torch.Tensor,
+                          lo: torch.Tensor, span: torch.Tensor,
+                          grid_c: Grid, grid_f: Grid) -> torch.Tensor:
+    """The dual apply with the round trip's way back and the branch select
+    in one pass: x8 (B, H, W) float32 bins, img (B, H, W) float32 the frames
+    on the uint16 scale, the two grids' LUTs, use_coarse and apply (B,)
+    bool, lo and span (B,) float32 → (B, H, W) float32: where apply, the
+    equalised frame back on [lo, lo + span], floored (a flat frame: img
+    floored); elsewhere img (`thyroid_tpu_torch::apply_luts_dual_fused`)."""
+    return _fused_op(x8, img, luts_c, luts_f, use_coarse, apply, lo, span,
+                     list(grid_c), list(grid_f))
 
 
 apply_luts_dual_fused.launches = 0

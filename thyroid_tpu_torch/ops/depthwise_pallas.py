@@ -3,8 +3,9 @@
 
 - `depthwise_conv2d_plain(x, w)`: the kernel's plain version, the shifted
   multiply-accumulates of ops/depthwise.py at stride 1.
-- `depthwise_conv2d_pallas(x, w)`: launches the kernel on a CUDA tensor and
-  runs the plain version on a CPU tensor; symmetric k//2 zero padding,
+- `depthwise_conv2d_pallas(x, w)`: through the op
+  `thyroid_tpu_torch::depthwise_conv2d`, which launches the kernel on a
+  CUDA tensor and runs the plain version on a CPU tensor; symmetric k//2 zero padding,
   float32 accumulation in tap order, the output in x's dtype. It is a
   `torch.autograd.Function`, as the JAX function is a custom_vjp, so that
   analysis paths (Grad-CAM) can differentiate an eval forward through it;
@@ -71,17 +72,22 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("depthwise_conv2d_pallas needs contiguous x and w")
     if w.device != x.device:
         raise ValueError("x and w must lie on one device")
+
+
+def _dw_cpu(x, w):
+    return depthwise_conv2d_plain(x, w).contiguous()
+
+
+def _dw_fake(x, w):
+    _check(x, w)
+    return torch.empty_like(x)
+
+
+def _dw_cuda(x, w):
+    _check(x, w)
     if x.data_ptr() % 16:
         raise ValueError("depthwise_conv2d_pallas copies x in 16-byte pieces: "
                          "x must start 16-byte aligned")
-
-
-def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return depthwise_conv2d_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    _check(x, w)
     b, h, wd, c = x.shape
     y = torch.empty_like(x)
     if y.numel() == 0:
@@ -98,11 +104,15 @@ def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+_dw_op = _build.define_op("depthwise_conv2d(Tensor x, Tensor w) -> Tensor",
+                          cpu=_dw_cpu, cuda=_dw_cuda, fake=_dw_fake)
+
+
 class _DepthwiseConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return _forward(x, w)
+        return _dw_op(x, w)
 
     @staticmethod
     def backward(ctx, g):

@@ -247,8 +247,8 @@ def bilateral_filter(x: torch.Tensor, d: int = 5, sigma_color: float = 50.0,
         tap = xp[:, dy:dy + h, dx:dx + w]
         diff = tap - x
         cw = torch.exp(-(diff * diff) * inv) * sw
-        acc = acc + tap.double() * cw.double()
-        norm = norm + cw.double()
+        acc += tap.double() * cw.double()
+        norm += cw.double()
     return (acc / norm).to(x.dtype)
 
 

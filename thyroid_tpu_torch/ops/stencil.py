@@ -1,8 +1,9 @@
 """Fused 3×3 median + bilateral artifact stencil (counterpart of
 thyroid_tpu/ops/stencil.py).
 
-`fused_median_bilateral` launches the CUDA kernel `csrc/stencil.cu` on a
-CUDA tensor and runs its plain PyTorch version, `median_bilateral_plain`
+`fused_median_bilateral` calls the op `thyroid_tpu_torch::median_bilateral`,
+which launches the CUDA kernel `csrc/stencil.cu` on a CUDA tensor and runs
+its plain PyTorch version, `median_bilateral_plain`
 (ops/image.py `median_filter_3x3`, then `bilateral_filter` of the median),
 on a CPU tensor. The median pads its input by edge replication, the
 bilateral pads the median by reflect-101; the kernel follows the plain
@@ -36,16 +37,7 @@ class _Taps(ctypes.Structure):
     _fields_ = [("sw", ctypes.c_float * MAX_TAPS)]
 
 
-def fused_median_bilateral(x8: torch.Tensor, d: int = 5,
-                           sigma_color: float = 50.0,
-                           sigma_space: float = 50.0
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x8 (B, H, W, 1) float32 on the 8-bit scale → (3×3 median, d×d
-    bilateral of the median), both (B, H, W, 1) float32."""
-    if x8.device.type == "cpu":
-        return median_bilateral_plain(x8, d, sigma_color, sigma_space)
-    if x8.device.type != "cuda":
-        raise ValueError(f"unsupported device {x8.device}")
+def _check_stencil(x8: torch.Tensor, d: int) -> None:
     if x8.dtype != torch.float32:
         raise TypeError(f"fused_median_bilateral takes float32, got {x8.dtype}")
     if x8.dim() != 4 or x8.shape[-1] != 1:
@@ -56,10 +48,25 @@ def fused_median_bilateral(x8: torch.Tensor, d: int = 5,
     r = d // 2
     if d % 2 == 0 or r not in RADII:
         raise ValueError(f"the stencil kernel takes d in (3, 5, 7), got {d}")
-    b, h, w, _ = x8.shape
+    h, w = x8.shape[1], x8.shape[2]
     if h <= r or w <= r:
         raise ValueError(f"frame {h}x{w} too small for a reflect-101 pad "
                          f"of {r}")
+
+
+def _stencil_cpu(x8, d, sigma_color, sigma_space):
+    med, bil = median_bilateral_plain(x8, d, sigma_color, sigma_space)
+    return med.contiguous(), bil.contiguous()
+
+
+def _stencil_fake(x8, d, sigma_color, sigma_space):
+    _check_stencil(x8, d)
+    return torch.empty_like(x8), torch.empty_like(x8)
+
+
+def _stencil_cuda(x8, d, sigma_color, sigma_space):
+    _check_stencil(x8, d)
+    b, h, w, _ = x8.shape
     med = torch.empty_like(x8)
     bil = torch.empty_like(x8)
     if b == 0:
@@ -71,11 +78,28 @@ def fused_median_bilateral(x8: torch.Tensor, d: int = 5,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _Taps,
         ctypes.c_void_p])
-    status = fn(_build.ptr(x8), _build.ptr(med), _build.ptr(bil), b, h, w, r,
-                1.0 / (2.0 * sigma_color ** 2), taps, _build.stream_ptr(x8.device))
+    status = fn(_build.ptr(x8), _build.ptr(med), _build.ptr(bil), b, h, w,
+                d // 2, 1.0 / (2.0 * sigma_color ** 2), taps,
+                _build.stream_ptr(x8.device))
     _build.check("stencil", status, "fused_median_bilateral")
     fused_median_bilateral.launches += 1
     return med, bil
+
+
+_stencil_op = _build.define_op(
+    "median_bilateral(Tensor x8, int d, float sigma_color, float sigma_space) "
+    "-> (Tensor, Tensor)",
+    cpu=_stencil_cpu, cuda=_stencil_cuda, fake=_stencil_fake)
+
+
+def fused_median_bilateral(x8: torch.Tensor, d: int = 5,
+                           sigma_color: float = 50.0,
+                           sigma_space: float = 50.0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x8 (B, H, W, 1) float32 on the 8-bit scale → (3×3 median, d×d
+    bilateral of the median), both (B, H, W, 1) float32
+    (`thyroid_tpu_torch::median_bilateral`)."""
+    return _stencil_op(x8, int(d), float(sigma_color), float(sigma_space))
 
 
 fused_median_bilateral.launches = 0

@@ -19,8 +19,10 @@ kernels, so neither direction keeps a hidden tensor in global memory:
 - `fused_ln_mlp_bwd_dw`: dW1, db1, dW2 of LN + MLP (csrc/ln_mlp_bwd.cu; bf16
   on wgmma tensor cores); db2 = ΣdY is a plain sum, as in JAX.
 
-Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
-PyTorch version (`ln_matmul_plain`, `ln_mlp_plain`, `ln_matmul_bwd_plain`,
+Each kernel is an op (`thyroid_tpu_torch::ln_matmul`, `ln_mlp`,
+`ln_matmul_bwd`, `ln_mlp_bwd_dx`, `ln_mlp_bwd_dw`; ops/_build.py
+`define_op`) that launches it on CUDA tensors and runs its plain PyTorch
+version (`ln_matmul_plain`, `ln_mlp_plain`, `ln_matmul_bwd_plain`,
 `ln_mlp_bwd_plain`) on CPU tensors. The compute dtype is x's dtype: weights
 are cast to it, LN parameters and biases to float32, as the JAX wrappers
 do. LN follows flax's fast-variance numerics in float32; intermediate
@@ -121,12 +123,10 @@ def ln_matmul_bwd_plain(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
     return dx, (dxn * xhat).sum(dim=0), dxn.sum(dim=0)
 
 
-def ln_mlp_bwd_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                     dy: torch.Tensor, residual: bool, eps: float = LN_EPS):
-    """Plain version of the LN + MLP backward (both kernels): x, dy (T, C)
-    in the compute dtype → (dX in it, dγ, dβ, dW1, db1, dW2 float32). The
-    LN is rebuilt as x̂·γ + β, as the JAX backward rebuilds it."""
+def _mlp_bwd_hidden(x, g, b, w1, b1, w2, dy, eps):
+    """What both halves of the plain LN + MLP backward start from, in
+    float32: (x̂, rstd, LN(x) rebuilt as x̂·γ + β and rounded, the hidden
+    pre-activation, dH, dY)."""
     cdt = x.dtype
     xhat, r = ln_stats(x.float(), eps)
     w1c, w2c = w1.to(cdt).float(), w2.to(cdt).float()
@@ -134,13 +134,47 @@ def ln_mlp_bwd_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     hr = (xn @ w1c + b1.float()).to(cdt).float()
     dyf = dy.to(cdt).float()
     dh = ((dyf @ w2c.t()) * gelu_grad(hr)).to(cdt).float()
-    dxn = dh @ w1c.t()
+    return xhat, r, xn, hr, dh, dyf
+
+
+def _mlp_bwd_dx_from(x, g, w1, residual, hidden):
+    xhat, r, _, _, dh, dyf = hidden
+    dxn = dh @ w1.to(x.dtype).float().t()
     dx = ln_bwd_rows(dxn, xhat, r, g.float())
     if residual:
         dx = dx + dyf
-    a = torch.nn.functional.gelu(hr).to(cdt).float()
-    return (dx.to(cdt), (dxn * xhat).sum(dim=0), dxn.sum(dim=0),
-            xn.t() @ dh, dh.sum(dim=0), a.t() @ dyf)
+    return dx.to(x.dtype), (dxn * xhat).sum(dim=0), dxn.sum(dim=0)
+
+
+def _mlp_bwd_dw_from(x, hidden):
+    _, _, xn, hr, dh, dyf = hidden
+    a = torch.nn.functional.gelu(hr).to(x.dtype).float()
+    return xn.t() @ dh, dh.sum(dim=0), a.t() @ dyf
+
+
+def ln_mlp_bwd_dx_plain(x, g, b, w1, b1, w2, dy, residual: bool,
+                        eps: float = LN_EPS):
+    """dX in x's dtype, dγ, dβ float32 of the LN + MLP (the first kernel's
+    outputs); with `residual`, dX gains dy."""
+    return _mlp_bwd_dx_from(x, g, w1, residual,
+                            _mlp_bwd_hidden(x, g, b, w1, b1, w2, dy, eps))
+
+
+def ln_mlp_bwd_dw_plain(x, g, b, w1, b1, w2, dy, eps: float = LN_EPS):
+    """dW1, db1, dW2 float32 of the LN + MLP (the second kernel's)."""
+    return _mlp_bwd_dw_from(x, _mlp_bwd_hidden(x, g, b, w1, b1, w2, dy, eps))
+
+
+def ln_mlp_bwd_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                     dy: torch.Tensor, residual: bool, eps: float = LN_EPS):
+    """Plain version of the LN + MLP backward (both kernels): x, dy (T, C)
+    in the compute dtype → (dX in it, dγ, dβ, dW1, db1, dW2 float32). The
+    LN is rebuilt as x̂·γ + β, as the JAX backward rebuilds it, once for
+    both halves."""
+    hidden = _mlp_bwd_hidden(x, g, b, w1, b1, w2, dy, eps)
+    return (_mlp_bwd_dx_from(x, g, w1, residual, hidden)
+            + _mlp_bwd_dw_from(x, hidden))
 
 
 def _check(name: str, x: torch.Tensor, *tensors: torch.Tensor) -> None:
@@ -157,15 +191,6 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("token kernels need a contiguous x")
     return x.reshape(-1, x.shape[-1])
-
-
-def _on_card(name: str, x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return True
 
 
 def _groups(lib: str, symbol: str, *sizes: int) -> int:
@@ -187,16 +212,30 @@ def _workspace(lib: str, symbol: str, device, *sizes: int) -> torch.Tensor:
 # ---------------------------------------------------------------- forward
 
 
-def _ln_matmul_fwd(x2, g, b, w, wb, eps):
-    if not _on_card("fused_ln_matmul", x2):
-        return ln_matmul_plain(x2, g, b, w, wb, eps)
-    t, c = x2.shape
-    out_dim = w.shape[1]
+def _ln_matmul_args(x2, g, b, w, wb):
+    """The kernel's operands: w in x's dtype, LN parameters and bias in
+    float32, all contiguous, after the wrapper's checks."""
     w = w.to(x2.dtype).contiguous()
     g = g.float().contiguous()
     bl = b.float().contiguous()
     wb = wb.float().contiguous() if wb is not None else None
     _check("fused_ln_matmul", x2, g, bl, w, *([wb] if wb is not None else []))
+    return g, bl, w, wb
+
+
+def _ln_matmul_cpu(x2, g, b, w, wb, eps):
+    return ln_matmul_plain(x2, g, b, w, wb, eps).contiguous()
+
+
+def _ln_matmul_fake(x2, g, b, w, wb, eps):
+    _ln_matmul_args(x2, g, b, w, wb)
+    return x2.new_empty(x2.shape[0], w.shape[1])
+
+
+def _ln_matmul_cuda(x2, g, b, w, wb, eps):
+    g, bl, w, wb = _ln_matmul_args(x2, g, b, w, wb)
+    t, c = x2.shape
+    out_dim = w.shape[1]
     y = torch.empty(t, out_dim, dtype=x2.dtype, device=x2.device)
     if t == 0:
         return y
@@ -215,21 +254,36 @@ def _ln_matmul_fwd(x2, g, b, w, wb, eps):
     return y
 
 
-def _ln_mlp_fwd(x2, g, b, w1, b1, w2, b2, eps, residual):
+_ln_matmul_op = _build.define_op(
+    "ln_matmul(Tensor x, Tensor g, Tensor b, Tensor w, Tensor? wb, "
+    "float eps) -> Tensor",
+    cpu=_ln_matmul_cpu, cuda=_ln_matmul_cuda, fake=_ln_matmul_fake)
+
+
+def _ln_mlp_args(x2, g, b, w1, b1, w2, b2, residual):
     name = "fused_ln_mlp_residual" if residual else "fused_ln_mlp"
-    if not _on_card(name, x2):
-        return ln_mlp_plain(x2, g, b, w1, b1, w2, b2, eps, residual)
+    if x2.shape[1] % 4:
+        raise ValueError(f"{name} needs C % 4 == 0, got {x2.shape[1]}")
+    args = (w1.to(x2.dtype).contiguous(), w2.to(x2.dtype).contiguous(),
+            g.float().contiguous(), b.float().contiguous(),
+            b1.float().contiguous(), b2.float().contiguous())
+    _check(name, x2, *args)
+    return args
+
+
+def _ln_mlp_cpu(x2, g, b, w1, b1, w2, b2, eps, residual):
+    return ln_mlp_plain(x2, g, b, w1, b1, w2, b2, eps, residual).contiguous()
+
+
+def _ln_mlp_fake(x2, g, b, w1, b1, w2, b2, eps, residual):
+    _ln_mlp_args(x2, g, b, w1, b1, w2, b2, residual)
+    return torch.empty_like(x2)
+
+
+def _ln_mlp_cuda(x2, g, b, w1, b1, w2, b2, eps, residual):
+    w1, w2, g, bl, b1, b2 = _ln_mlp_args(x2, g, b, w1, b1, w2, b2, residual)
     t, c = x2.shape
     hdim = w1.shape[1]
-    if c % 4:
-        raise ValueError(f"{name} needs C % 4 == 0, got {c}")
-    w1 = w1.to(x2.dtype).contiguous()
-    w2 = w2.to(x2.dtype).contiguous()
-    g = g.float().contiguous()
-    bl = b.float().contiguous()
-    b1 = b1.float().contiguous()
-    b2 = b2.float().contiguous()
-    _check(name, x2, g, bl, w1, b1, w2, b2)
     y = torch.empty_like(x2)
     if t == 0:
         return y
@@ -243,9 +297,16 @@ def _ln_mlp_fwd(x2, g, b, w1, b1, w2, b2, eps, residual):
                 _build.ptr(b1), _build.ptr(w2), _build.ptr(b2), _build.ptr(y),
                 _build.ptr(ws), t, c, hdim, eps, int(residual), is_bf16,
                 _build.stream_ptr(x2.device))
-    _build.check("ln_mlp", status, name)
+    _build.check("ln_mlp", status,
+                 "fused_ln_mlp_residual" if residual else "fused_ln_mlp")
     (fused_ln_mlp_residual if residual else fused_ln_mlp).launches += 1
     return y
+
+
+_ln_mlp_op = _build.define_op(
+    "ln_mlp(Tensor x, Tensor g, Tensor b, Tensor w1, Tensor b1, Tensor w2, "
+    "Tensor b2, float eps, bool residual) -> Tensor",
+    cpu=_ln_mlp_cpu, cuda=_ln_mlp_cuda, fake=_ln_mlp_fake)
 
 
 # ---------------------------------------------------------------- backward
@@ -260,24 +321,33 @@ def _check_bwd(name: str, x2: torch.Tensor, dy: torch.Tensor, width: int) -> Non
                          f"{x2.dtype} {tuple(x2.shape)}")
 
 
-def fused_ln_matmul_bwd(x2: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
-                        dy: torch.Tensor, *, eps: float = LN_EPS):
-    """dX, dγ, dβ of fused_ln_matmul: x2 (T, C), w (C, O) and the output
-    gradient dy (T, O) in the compute dtype → (dX (T, C) in it, dγ (C,),
-    dβ (C,) float32). The kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
-    if not _on_card("fused_ln_matmul_bwd", x2):
-        return ln_matmul_bwd_plain(x2, g, w, dy, eps)
-    t, c = x2.shape
-    out_dim = w.shape[1]
-    _check_bwd("fused_ln_matmul_bwd", x2, dy, out_dim)
+def _ln_matmul_bwd_args(x2, g, w, dy):
+    _check_bwd("fused_ln_matmul_bwd", x2, dy, w.shape[1])
     w = w.to(x2.dtype).contiguous()
     g = g.float().contiguous()
     _check("fused_ln_matmul_bwd", x2, g, w, dy)
+    return g, w
+
+
+def _ln_matmul_bwd_cpu(x2, g, w, dy, eps):
+    dx, dg, db = ln_matmul_bwd_plain(x2, g, w, dy, eps)
+    return dx.contiguous(), torch.stack([dg, db])
+
+
+def _ln_matmul_bwd_fake(x2, g, w, dy, eps):
+    _ln_matmul_bwd_args(x2, g, w, dy)
+    return (torch.empty_like(x2),
+            x2.new_empty(2, x2.shape[1], dtype=torch.float32))
+
+
+def _ln_matmul_bwd_cuda(x2, g, w, dy, eps):
+    g, w = _ln_matmul_bwd_args(x2, g, w, dy)
+    t, c = x2.shape
+    out_dim = w.shape[1]
     dx = torch.empty_like(x2)
     dgb = torch.zeros(2, c, dtype=torch.float32, device=x2.device)
     if t == 0:
-        return dx, dgb[0], dgb[1]
+        return dx, dgb
     is_bf16 = int(x2.dtype == torch.bfloat16)
     partial = torch.empty(_groups("ln_matmul_bwd", "tt_ln_bwd_groups", t,
                                   is_bf16), 2, c, dtype=torch.float32,
@@ -293,6 +363,22 @@ def fused_ln_matmul_bwd(x2: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
                 _build.stream_ptr(x2.device))
     _build.check("ln_matmul_bwd", status, "fused_ln_matmul_bwd")
     fused_ln_matmul_bwd.launches += 1
+    return dx, dgb
+
+
+_ln_matmul_bwd_op = _build.define_op(
+    "ln_matmul_bwd(Tensor x, Tensor g, Tensor w, Tensor dy, float eps) "
+    "-> (Tensor, Tensor)",
+    cpu=_ln_matmul_bwd_cpu, cuda=_ln_matmul_bwd_cuda,
+    fake=_ln_matmul_bwd_fake)
+
+
+def fused_ln_matmul_bwd(x2: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+                        dy: torch.Tensor, *, eps: float = LN_EPS):
+    """dX, dγ, dβ of fused_ln_matmul: x2 (T, C), w (C, O) and the output
+    gradient dy (T, O) in the compute dtype → (dX (T, C) in it, dγ (C,),
+    dβ (C,) float32), through `thyroid_tpu_torch::ln_matmul_bwd`."""
+    dx, dgb = _ln_matmul_bwd_op(x2, g, w, dy, float(eps))
     return dx, dgb[0], dgb[1]
 
 
@@ -308,23 +394,25 @@ def _mlp_bwd_args(name, x2, g, b, w1, b1, w2, dy):
     return args
 
 
-def fused_ln_mlp_bwd_dx(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                        dy: torch.Tensor, *, residual: bool,
-                        eps: float = LN_EPS):
-    """dX, dγ, dβ of the LN + MLP (kernel `_ln_mlp_bwd_dx_kernel` of the
-    JAX package): x2, dy (T, C) in the compute dtype → (dX in it, dγ, dβ
-    float32); with `residual`, dX gains dy. The kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
-    if not _on_card("fused_ln_mlp_bwd_dx", x2):
-        return ln_mlp_bwd_plain(x2, g, b, w1, b1, w2, dy, residual, eps)[:3]
+def _ln_mlp_bwd_dx_cpu(x2, g, b, w1, b1, w2, dy, residual, eps):
+    dx, dg, db = ln_mlp_bwd_dx_plain(x2, g, b, w1, b1, w2, dy, residual, eps)
+    return dx.contiguous(), torch.stack([dg, db])
+
+
+def _ln_mlp_bwd_dx_fake(x2, g, b, w1, b1, w2, dy, residual, eps):
+    _mlp_bwd_args("fused_ln_mlp_bwd_dx", x2, g, b, w1, b1, w2, dy)
+    return (torch.empty_like(x2),
+            x2.new_empty(2, x2.shape[1], dtype=torch.float32))
+
+
+def _ln_mlp_bwd_dx_cuda(x2, g, b, w1, b1, w2, dy, residual, eps):
     args = _mlp_bwd_args("fused_ln_mlp_bwd_dx", x2, g, b, w1, b1, w2, dy)
     t, c = x2.shape
     hdim = w1.shape[1]
     dx = torch.empty_like(x2)
     dgb = torch.zeros(2, c, dtype=torch.float32, device=x2.device)
     if t == 0:
-        return dx, dgb[0], dgb[1]
+        return dx, dgb
     is_bf16 = int(x2.dtype == torch.bfloat16)
     partial = torch.empty(_groups("ln_mlp_bwd", "tt_ln_mlp_bwd_dx_groups", t,
                                   is_bf16), 2, c, dtype=torch.float32,
@@ -340,29 +428,50 @@ def fused_ln_mlp_bwd_dx(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                 hdim, eps, int(residual), is_bf16, _build.stream_ptr(x2.device))
     _build.check("ln_mlp_bwd", status, "fused_ln_mlp_bwd_dx")
     fused_ln_mlp_bwd_dx.launches += 1
+    return dx, dgb
+
+
+_ln_mlp_bwd_dx_op = _build.define_op(
+    "ln_mlp_bwd_dx(Tensor x, Tensor g, Tensor b, Tensor w1, Tensor b1, "
+    "Tensor w2, Tensor dy, bool residual, float eps) -> (Tensor, Tensor)",
+    cpu=_ln_mlp_bwd_dx_cpu, cuda=_ln_mlp_bwd_dx_cuda,
+    fake=_ln_mlp_bwd_dx_fake)
+
+
+def fused_ln_mlp_bwd_dx(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                        dy: torch.Tensor, *, residual: bool,
+                        eps: float = LN_EPS):
+    """dX, dγ, dβ of the LN + MLP (kernel `_ln_mlp_bwd_dx_kernel` of the
+    JAX package): x2, dy (T, C) in the compute dtype → (dX in it, dγ, dβ
+    float32); with `residual`, dX gains dy. Through
+    `thyroid_tpu_torch::ln_mlp_bwd_dx`."""
+    dx, dgb = _ln_mlp_bwd_dx_op(x2, g, b, w1, b1, w2, dy, bool(residual),
+                                float(eps))
     return dx, dgb[0], dgb[1]
 
 
 fused_ln_mlp_bwd_dx.launches = 0
 
 
-def fused_ln_mlp_bwd_dw(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                        dy: torch.Tensor, *, eps: float = LN_EPS):
-    """dW1 (C, Hd), db1 (Hd,), dW2 (Hd, C) of the LN + MLP, float32
-    (kernel `_ln_mlp_bwd_dw_kernel` of the JAX package). The kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
-    if not _on_card("fused_ln_mlp_bwd_dw", x2):
-        return ln_mlp_bwd_plain(x2, g, b, w1, b1, w2, dy, False, eps)[3:]
+def _ln_mlp_bwd_dw_cpu(x2, g, b, w1, b1, w2, dy, eps):
+    dw1, db1, dw2 = ln_mlp_bwd_dw_plain(x2, g, b, w1, b1, w2, dy, eps)
+    return torch.cat([dw1.reshape(-1), dw2.reshape(-1), db1])
+
+
+def _ln_mlp_bwd_dw_fake(x2, g, b, w1, b1, w2, dy, eps):
+    _mlp_bwd_args("fused_ln_mlp_bwd_dw", x2, g, b, w1, b1, w2, dy)
+    c, hdim = w1.shape
+    return x2.new_empty(2 * c * hdim + hdim, dtype=torch.float32)
+
+
+def _ln_mlp_bwd_dw_cuda(x2, g, b, w1, b1, w2, dy, eps):
     args = _mlp_bwd_args("fused_ln_mlp_bwd_dw", x2, g, b, w1, b1, w2, dy)
     t, c = x2.shape
     hdim = w1.shape[1]
     out = torch.zeros(2 * c * hdim + hdim, dtype=torch.float32, device=x2.device)
-    dw1 = out[:c * hdim].view(c, hdim)
-    dw2 = out[c * hdim:2 * c * hdim].view(hdim, c)
-    db1 = out[2 * c * hdim:]
     if t == 0:
-        return dw1, db1, dw2
+        return out
     is_bf16 = int(x2.dtype == torch.bfloat16)
     groups = _groups("ln_mlp_bwd", "tt_ln_mlp_bwd_dw_groups", t, c, hdim,
                      is_bf16)
@@ -381,21 +490,66 @@ def fused_ln_mlp_bwd_dw(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                 _build.stream_ptr(x2.device))
     _build.check("ln_mlp_bwd", status, "fused_ln_mlp_bwd_dw")
     fused_ln_mlp_bwd_dw.launches += 1
-    return dw1, db1, dw2
+    return out
+
+
+_ln_mlp_bwd_dw_op = _build.define_op(
+    "ln_mlp_bwd_dw(Tensor x, Tensor g, Tensor b, Tensor w1, Tensor b1, "
+    "Tensor w2, Tensor dy, float eps) -> Tensor",
+    cpu=_ln_mlp_bwd_dw_cpu, cuda=_ln_mlp_bwd_dw_cuda,
+    fake=_ln_mlp_bwd_dw_fake)
+
+
+def fused_ln_mlp_bwd_dw(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                        w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                        dy: torch.Tensor, *, eps: float = LN_EPS):
+    """dW1 (C, Hd), db1 (Hd,), dW2 (Hd, C) of the LN + MLP, float32
+    (kernel `_ln_mlp_bwd_dw_kernel` of the JAX package), views of the one
+    output of `thyroid_tpu_torch::ln_mlp_bwd_dw`."""
+    out = _ln_mlp_bwd_dw_op(x2, g, b, w1, b1, w2, dy, float(eps))
+    c, hdim = w1.shape
+    return (out[:c * hdim].view(c, hdim), out[2 * c * hdim:],
+            out[c * hdim:2 * c * hdim].view(hdim, c))
 
 
 fused_ln_mlp_bwd_dw.launches = 0
 
 
+def _ln_mlp_bwd_cpu(x2, g, b, w1, b1, w2, dy, residual, eps):
+    dx, dg, db, dw1, db1, dw2 = ln_mlp_bwd_plain(x2, g, b, w1, b1, w2, dy,
+                                                 residual, eps)
+    return (dx.contiguous(), torch.stack([dg, db]),
+            torch.cat([dw1.reshape(-1), dw2.reshape(-1), db1]))
+
+
+def _ln_mlp_bwd_fake(x2, g, b, w1, b1, w2, dy, residual, eps):
+    return (_ln_mlp_bwd_dx_fake(x2, g, b, w1, b1, w2, dy, residual, eps)
+            + (_ln_mlp_bwd_dw_fake(x2, g, b, w1, b1, w2, dy, eps),))
+
+
+def _ln_mlp_bwd_cuda(x2, g, b, w1, b1, w2, dy, residual, eps):
+    return (_ln_mlp_bwd_dx_cuda(x2, g, b, w1, b1, w2, dy, residual, eps)
+            + (_ln_mlp_bwd_dw_cuda(x2, g, b, w1, b1, w2, dy, eps),))
+
+
+# both kernels of the LN + MLP backward in one op, so that the plain
+# version (ln_mlp_bwd_plain) rebuilds the hidden layer once for both
+_ln_mlp_bwd_op = _build.define_op(
+    "ln_mlp_bwd(Tensor x, Tensor g, Tensor b, Tensor w1, Tensor b1, "
+    "Tensor w2, Tensor dy, bool residual, float eps) "
+    "-> (Tensor, Tensor, Tensor)",
+    cpu=_ln_mlp_bwd_cpu, cuda=_ln_mlp_bwd_cuda, fake=_ln_mlp_bwd_fake)
+
+
 def ln_mlp_bwd(x2, g, b, w1, b1, w2, dy, *, residual: bool,
                eps: float = LN_EPS):
-    """The whole LN + MLP backward → (dX, dγ, dβ, dW1, db1, dW2): both
-    kernels on a CUDA tensor, the plain version once on a CPU tensor."""
-    if not _on_card("ln_mlp_bwd", x2):
-        return ln_mlp_bwd_plain(x2, g, b, w1, b1, w2, dy, residual, eps)
-    return (fused_ln_mlp_bwd_dx(x2, g, b, w1, b1, w2, dy, residual=residual,
-                                eps=eps)
-            + fused_ln_mlp_bwd_dw(x2, g, b, w1, b1, w2, dy, eps=eps))
+    """The whole LN + MLP backward → (dX, dγ, dβ, dW1, db1, dW2): kernels 10
+    and 11 through `thyroid_tpu_torch::ln_mlp_bwd`."""
+    dx, dgb, out = _ln_mlp_bwd_op(x2, g, b, w1, b1, w2, dy, bool(residual),
+                                  float(eps))
+    c, hdim = w1.shape
+    return (dx, dgb[0], dgb[1], out[:c * hdim].view(c, hdim),
+            out[2 * c * hdim:], out[c * hdim:2 * c * hdim].view(hdim, c))
 
 
 # ---------------------------------------------------------------- autograd
@@ -410,7 +564,7 @@ class _LnMatmul(torch.autograd.Function):
         ctx.save_for_backward(x2, g, b, w)
         ctx.eps = eps
         ctx.wb_dtype = wb.dtype if wb is not None else None
-        return _ln_matmul_fwd(x2, g, b, w, wb, eps)
+        return _ln_matmul_op(x2, g, b, w, wb, eps)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -437,7 +591,7 @@ class _LnMlp(torch.autograd.Function):
     def forward(ctx, x2, g, b, w1, b1, w2, b2, eps, residual):
         ctx.save_for_backward(x2, g, b, w1, b1, w2)
         ctx.eps, ctx.residual, ctx.b2_dtype = eps, residual, b2.dtype
-        return _ln_mlp_fwd(x2, g, b, w1, b1, w2, b2, eps, residual)
+        return _ln_mlp_op(x2, g, b, w1, b1, w2, b2, eps, residual)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

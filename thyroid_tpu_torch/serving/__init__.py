@@ -1,14 +1,16 @@
 """Serving (counterpart of thyroid_tpu/serving): the bucketed engine, the
-request aggregator, int8 serving and the HTTP front end
+request aggregator, int8 serving, export bundles and the HTTP front end
 (`python -m thyroid_tpu_torch.serving.server`). The names load lazily, so
-that the models can import `serving.quantize` without the engine."""
+that the models can import `serving.quantize` without the engine, and a
+bundle loads without the model code."""
 from __future__ import annotations
 
 import importlib
 
-_EXPORTS = {"InferenceEngine": "engine", "BatchAggregator": "engine",
+_EXPORTS = {"InferenceEngine": "engine", "BatchAggregator": "aggregator",
             "QuantConfig": "quantize", "int8_serving": "quantize",
-            "quantized_apply": "quantize"}
+            "quantized_apply": "quantize", "ExportedEngine": "export",
+            "export_engine": "export", "load_exported": "export"}
 
 __all__ = sorted(_EXPORTS)
 

@@ -136,10 +136,9 @@ def _round_up(n: int, m: int) -> int:
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int32 product of int8 a (M, K) and b (K, N) through
-    `torch._int_mm`, in the card's shapes on the card (`padded_int_mm`)."""
-    if a.device.type == "cuda":
-        return padded_int_mm(a, b)
-    return torch._int_mm(a.contiguous(), b)
+    `torch._int_mm` in the card's shapes (`padded_int_mm`) on every
+    device, so that a program traced on the CPU serves on the card."""
+    return padded_int_mm(a, b)
 
 
 def padded_int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

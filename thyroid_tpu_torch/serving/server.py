@@ -11,6 +11,7 @@ A request that fails answers 400 with the error's text; any other path 404.
 Usage:
   python -m thyroid_tpu_torch.serving.server --checkpoint runs/.../best.ckpt [--port 8000]
   python -m thyroid_tpu_torch.serving.server --model swin_tiny [--quality] [--quantize int8]
+  python -m thyroid_tpu_torch.serving.server --bundle bundle/   (serving/export.py)
 Beside the script's arguments, `--device` (the card unless "cpu" is
 given). `--port 0` takes a free port, which the start line prints.
 """
@@ -97,7 +98,9 @@ def parser() -> argparse.ArgumentParser:
                    help="shard each bucket's batch over N devices (not ported)")
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--bundle", default=None,
-                   help="serve a frozen export bundle (not ported)")
+                   help="serve an export bundle (python -m "
+                        "thyroid_tpu_torch.serving.export_serving); no model "
+                        "code runs")
     p.add_argument("--device", default=None,
                    help='"cpu" for the CPU; the CUDA card otherwise')
     return p
@@ -117,26 +120,37 @@ def build_server(argv: Optional[Sequence[str]] = None
     """Parse `argv`, build the engine (warmed up unless --no-warmup), its
     aggregator and the bound, not yet serving, HTTP server →
     (server, engine, aggregator)."""
-    from .engine import BatchAggregator, InferenceEngine
+    from .aggregator import BatchAggregator
 
-    args = parser().parse_args(argv)
+    p = parser()
+    args = p.parse_args(argv)
     if args.bundle is not None:
-        raise NotImplementedError("serving an export bundle is not ported "
-                                  "(ROADMAP Queue 1: Serving, the rest)")
-    if args.data_parallel > 1:
-        raise NotImplementedError("data-parallel serving is not ported "
-                                  "(ROADMAP Queue 1: Parallelism)")
-    mcfg = None
-    if args.model:
-        mcfg = {"name": args.model, "in_channels": 1, "num_classes": 2,
-                "dtype": "bf16"}
-        if args.img_size:
-            mcfg["img_size"] = args.img_size
-    engine = InferenceEngine(model_config=mcfg, checkpoint=args.checkpoint,
-                             buckets=args.buckets, quality=args.quality,
-                             raw_inputs=not args.preprocessed,
-                             quantize=args.quantize, device=args.device)
-    name = args.model or str(args.checkpoint)
+        if args.checkpoint or args.model or args.quantize \
+                or args.data_parallel > 1:
+            p.error("--bundle is exclusive with --checkpoint/--model/"
+                    "--quantize/--data-parallel (the bundle froze those "
+                    "choices at export time)")
+        from .export import load_exported
+
+        engine = load_exported(args.bundle, device=args.device)
+        name = f"bundle:{engine.manifest['model_config'].get('name', '?')}"
+    else:
+        if args.data_parallel > 1:
+            raise NotImplementedError("data-parallel serving is not ported "
+                                      "(ROADMAP Queue 1: Parallelism)")
+        from .engine import InferenceEngine
+
+        mcfg = None
+        if args.model:
+            mcfg = {"name": args.model, "in_channels": 1, "num_classes": 2,
+                    "dtype": "bf16"}
+            if args.img_size:
+                mcfg["img_size"] = args.img_size
+        engine = InferenceEngine(model_config=mcfg, checkpoint=args.checkpoint,
+                                 buckets=args.buckets, quality=args.quality,
+                                 raw_inputs=not args.preprocessed,
+                                 quantize=args.quantize, device=args.device)
+        name = args.model or str(args.checkpoint)
     if not args.no_warmup:
         print("warming up bucket programs...", flush=True)
         engine.warmup()
