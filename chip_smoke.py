@@ -183,7 +183,12 @@ Phases, each printing its lines before the final one:
    folds succeed with finite averages, the summary holds the k-fold
    summary's keys, and, with every counter set to 0 just before, kernels
    12, 13, 15 and 1 launch once per 32-frame chunk of each split (32) and
-   no other kernel launches;
+   no other kernel launches; and the committed decoding fixtures of
+   tests/fixtures/imageio (a 512x512 LZW uint16 TIFF, a 512x512 baseline
+   gray JPEG, a 512x512 progressive 4:2:0 colour JPEG and the small TIFF,
+   PNG and JPEG variants) decoded on the host, each equal to the SHA-256
+   of cv2's array stored beside them, the ms per frame of each beside a
+   512x512 PNG's, and a corpus of the 512x512 ones through load_images;
 24. augmentation and ResNet: (a) train_augment at light, medium and heavy,
    vit_augment (m = 9) and mixup_cutmix (α 0.8 / 1.0) at batch 32, 224x224,
    on parameters drawn once on the CPU and copied to the card, card
@@ -313,7 +318,23 @@ Phases, each printing its lines before the final one:
    bundle: a 32-frame post equal to the bundle's predict with 1/15/12/12
    launches, and predict at bucket 32 timed for the engine and the bundle;
    the host time of one kernel-1 call through its op and through its CUDA
-   implementation alone.
+   implementation alone;
+30. wide token training: (a) rows 9, 10 and 11 against their plain
+   versions at swin_base's and swin_large's stage-3 and stage-4 shapes
+   (C = 512, 768, 1024, 1536; batch 8), float32 and bf16, two runs
+   bit-equal (bf16 past C = 768: each sum over tokens within DBIAS_RTOL of
+   the plain version, or no farther than 1.5 times the plain version's own
+   distance from a float64 evaluation of the same roundings); (b) full-width
+   swin_base and swin_large float32 train steps (batch 2, drop path 0)
+   with train_token_kernels against the same step without it on the card,
+   24 launches per step of rows 2, 3 (no residual), 5, 6, 9, 10 and 11,
+   and the bf16 steps' losses; (c) swin_tiny bf16 served with
+   use_pallas_attention false and attn_softmax_dtype bf16 against the CPU
+   engine (only kernel 1 launches); (d) a use_checkpoint: true swin_base
+   float32 step with the flag (batch 16, drop path 0.1) against the step
+   without checkpointing, both peak memories; (e) rows 9-11's device times at C =
+   1024 and 1536 (bf16, batch 8) beside their bounds and their
+   torch.autograd.grad yardsticks.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -3601,6 +3622,7 @@ def phase_experiment(card: str) -> None:
             raise AssertionError(f"{path.name} does not decode to the generator's frame")
     log("[experiment] the 16 committed data/synthetic_tiny PNGs decode "
         "pixel-equal to generate_image")
+    decode_fixtures(root, tiny[0])
     ds = CARSThyroidDataset({"data_path": str(corpus)}, split="all")
     t0 = time.perf_counter()
     frames = ds.load_images()
@@ -3675,6 +3697,63 @@ def phase_experiment(card: str) -> None:
     if launches != want or chunks != 32:
         raise AssertionError(f"launches {launches}, expected {want} "
                              f"({chunks} chunks, 32 expected)")
+
+
+def array_digest(arr: np.ndarray) -> str:
+    """SHA-256 of an array's dtype, shape and bytes: the digest
+    tests/fixtures/imageio/make_fixtures.py stores for cv2's arrays."""
+    arr = np.ascontiguousarray(arr)
+    return hashlib.sha256(f"{arr.dtype.str}{arr.shape}".encode() + arr.tobytes()).hexdigest()
+
+
+def decode_fixtures(root: Path, png: Path) -> None:
+    """Phase 23's decoding fixtures: each committed file decoded on the
+    host equal to the SHA-256 of cv2's array (channels in cv2's order) and
+    of JAX's decode_image stored in hashes.json; ms per frame (best of 3)
+    beside a 512x512 PNG's; the 512x512 ones as a corpus through
+    load_images (the k-fold experiment's decode path)."""
+    from thyroid_tpu_torch.data.dataset import CARSThyroidDataset
+    from thyroid_tpu_torch.data.imageio import decode_file, decode_image
+
+    fixtures = root / "tests" / "fixtures" / "imageio"
+    hashes = json.loads((fixtures / "hashes.json").read_text())
+
+    def best_ms(path):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            decode_image(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    bad = []
+    for name, want in sorted(hashes.items()):
+        arr = decode_file(fixtures / name)
+        if arr.ndim == 3:
+            arr = arr[..., [2, 1, 0] + ([3] if arr.shape[-1] == 4 else [])]
+        ok = (array_digest(arr) == want["cv2"]
+              and array_digest(decode_image(fixtures / name)) == want["decode_image"])
+        log(f"[decode] {name} {arr.shape} {arr.dtype}: "
+            f"{'equal to cv2' if ok else 'DIFFERS from cv2'}; "
+            f"{best_ms(fixtures / name):.2f} ms per frame")
+        if not ok:
+            bad.append(name)
+    log(f"[decode] a 512x512 uint16 PNG ({png.name}): {best_ms(png):.2f} ms per frame")
+    corpus = WORK / "decode_corpus"
+    big = [n for n, v in sorted(hashes.items()) if v["shape"][:2] == [512, 512]]
+    for i, name in enumerate(big):
+        cls = corpus / ("normal" if i % 2 == 0 else "cancerous")
+        cls.mkdir(parents=True, exist_ok=True)
+        shutil.copy(fixtures / name, cls / name)
+    ds = CARSThyroidDataset({"data_path": str(corpus)}, split="all")
+    frames = ds.load_images()
+    got = sorted(array_digest(f[..., 0]) for f in frames)
+    want = sorted(hashes[n]["decode_image"] for n in big)
+    log(f"[decode] load_images over {len(big)} 512x512 fixtures {frames.shape}: "
+        f"{'equal to decode_image' if got == want else 'DIFFERS'}")
+    shutil.rmtree(corpus, ignore_errors=True)
+    if bad or got != want:
+        raise AssertionError(f"fixtures decode to other arrays: {bad}")
 
 
 # phase 24: augmentation and ResNet
@@ -6161,6 +6240,227 @@ def phase_export(card: str, params) -> None:
         raise AssertionError(f"phase 29 checks failed: {ok}")
 
 
+# phase 30: wide token training
+SWIN_BASE_F32 = {"name": "swin_base", "in_channels": 1, "num_classes": 2,
+                 "dtype": "f32", "drop_path_rate": 0.0}
+SWIN_LARGE_F32 = dict(SWIN_BASE_F32, name="swin_large")
+WIDE_BATCH = 8                 # rows 9-11 checked and timed at this batch
+WIDE_STEP_BATCH = 2            # the full-width swin_base/large steps
+CKPT_BATCH = 16                # the checkpointed swin_base step: activations dominate
+
+
+def wide_token_shapes(batch: int):
+    """{(T, C): (model, stage)} of swin_base's and swin_large's last two
+    stages at 224², window 7: T = batch·14² at stage 3, batch·7² at 4."""
+    return {(batch * 196, 512): ("swin_base", 3), (batch * 49, 1024): ("swin_base", 4),
+            (batch * 196, 768): ("swin_large", 3), (batch * 49, 1536): ("swin_large", 4)}
+
+
+def compare_wide(kernel: str, args, got, want, dtype):
+    """compare_token, and for bf16 past C = 768 each sum over tokens of
+    rows 10 and 11 that stands past DBIAS_RTOL held instead to the float64
+    evaluation of the same roundings: no farther from it than 1.5 times the
+    plain float32 version's own distance (a C-deep float32 contraction
+    flips some bf16 roundings of the hidden layer in either order)."""
+    from thyroid_tpu_torch.ops import token_fused as tf
+
+    rows = compare_token(kernel, got, want, dtype)
+    if dtype != torch.bfloat16 or args[0].shape[1] <= 768 or kernel == "ln_matmul_bwd":
+        return rows
+    exact = tf.ln_mlp_bwd_plain(*args, False, acc=torch.float64)
+    exact = exact[:3] if kernel == "ln_mlp_bwd_dx" else exact[3:]
+    out = []
+    for (name, err, tol, ok), g, w, e in zip(rows, got, want, exact):
+        if not ok and name in TOKEN_SUMS:
+            own = (w.double() - e).abs().max().item()
+            mine = (g.double() - e).abs().max().item()
+            ok = mine <= 1.5 * own and bool(torch.isfinite(g).all())
+            name = f"{name} (vs float64: {mine:.3e}, plain's own {own:.3e})"
+        out.append((name, err, tol, ok))
+    return out
+
+
+def wide_counters():
+    from thyroid_tpu_torch.ops import attention, token_fused as tf
+
+    class Bwd:       # kernel 6's count lives beside kernel 5's
+        @property
+        def launches(self):
+            return attention.fused_swin_attention.bwd_launches
+
+        @launches.setter
+        def launches(self, n):
+            attention.fused_swin_attention.bwd_launches = n
+
+    return {"ln_matmul": tf.fused_ln_matmul, "ln_mlp": tf.fused_ln_mlp,
+            "swin_attention": attention.fused_swin_attention,
+            "swin_attention_bwd": Bwd(), "ln_matmul_bwd": tf.fused_ln_matmul_bwd,
+            "ln_mlp_bwd_dx": tf.fused_ln_mlp_bwd_dx, "ln_mlp_bwd_dw": tf.fused_ln_mlp_bwd_dw}
+
+
+def wide_kernels(failed) -> None:
+    """(a): rows 9-11 against their plain versions, two runs bit-equal."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel in ("ln_matmul_bwd", "ln_mlp_bwd_dx", "ln_mlp_bwd_dw"):
+            for shape, (model, stage) in wide_token_shapes(WIDE_BATCH).items():
+                args = make_token_inputs(kernel, shape, dtype, gen)
+                fused, plain = token_fns(kernel)
+                got, want = fused(*args), plain(*args)
+                torch.cuda.synchronize()
+                for name, err, tol, ok in compare_wide(kernel, args, got, want, dtype):
+                    log(f"[wide-token] {kernel} {name} {str(dtype)[6:]} {shape} "
+                        f"({model} stage {stage}): max_abs_err {err:.3e} tol "
+                        f"{tol:.3e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failed.append((kernel, name, str(dtype), shape))
+                again = fused(*args)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    log(f"[wide-token] {kernel} {str(dtype)[6:]} {shape}: a second "
+                        f"run DIFFERS")
+                    failed.append((kernel, "rerun", str(dtype), shape))
+                del args, got, want, again
+    torch.cuda.empty_cache()
+
+
+def wide_steps(card: str, failed) -> None:
+    """(b): swin_base and swin_large f32 steps with the flag against
+    without, 24 launches per step; the bf16 steps' losses."""
+    rs = np.random.RandomState(30)
+    batch = ((rs.rand(WIDE_STEP_BATCH, 224, 224, 1) * 65535).astype(np.float32),
+             rs.randint(0, 2, WIDE_STEP_BATCH).astype(np.int64),
+             np.ones(WIDE_STEP_BATCH, np.float32))
+    for config in (SWIN_BASE_F32, SWIN_LARGE_F32):
+        name = config["name"]
+        t0 = time.perf_counter()
+        params = perturbed_params(config)
+        off = step_loss_grads(config, params, batch)
+        counts = wide_counters()
+        for fn in counts.values():
+            fn.launches = 0
+        on = step_loss_grads(config, params, batch, token=True)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counts.items()}
+        bf16_loss, _ = step_loss_grads(dict(config, dtype="bf16"), params, batch,
+                                       token=True)
+        loss_rel, grad_rel, norm = step_agreement(on, off)
+        ok = (launches == {k: 24 for k in counts} and loss_rel <= STEP_LOSS_RTOL
+              and grad_rel <= STEP_GRAD_RTOL and np.isfinite(bf16_loss)
+              and abs(bf16_loss - on[0]) <= BF16_LOSS_TOL)
+        log(f"[wide-token] {name} f32 step (batch {WIDE_STEP_BATCH}, drop path 0) "
+            f"with train_token_kernels vs without on the card: loss {on[0]:.7f} vs "
+            f"{off[0]:.7f} (relative {loss_rel:.3e}, tol {STEP_LOSS_RTOL:.0e}); "
+            f"|grad diff| / |grad| {grad_rel:.3e} (tol {STEP_GRAD_RTOL:.0e}, "
+            f"|grad| {norm:.4e}); launches {launches} (24 each expected); bf16 "
+            f"step loss {bf16_loss:.7f} ({abs(bf16_loss - on[0]):.3e} from f32, "
+            f"tol {BF16_LOSS_TOL:.0e}); {time.perf_counter() - t0:.1f} s; "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append((name, "step"))
+        if name == "swin_base":
+            wide_checkpoint(card, config, params, failed)
+        del params, off, on
+        torch.cuda.empty_cache()
+
+
+def wide_checkpoint(card: str, config, params, failed) -> None:
+    """(d): the flagged swin_base f32 step at batch CKPT_BATCH with
+    use_checkpoint against the same step without it (drop path 0.1, so
+    that the recompute must draw the first run's masks), peak memories of
+    both."""
+    rs = np.random.RandomState(301)
+    batch = ((rs.rand(CKPT_BATCH, 224, 224, 1) * 65535).astype(np.float32),
+             rs.randint(0, 2, CKPT_BATCH).astype(np.int64),
+             np.ones(CKPT_BATCH, np.float32))
+    steps, peaks = {}, {}
+    for ckpt in (False, True):
+        cfg = dict(config, drop_path_rate=0.1, use_checkpoint=ckpt)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        steps[ckpt] = step_loss_grads(cfg, params, batch, token=True)
+        torch.cuda.synchronize()
+        peaks[ckpt] = torch.cuda.max_memory_allocated() / 2 ** 20
+    loss_rel, grad_rel, norm = step_agreement(steps[True], steps[False])
+    equal = steps[True][0] == steps[False][0] and all(
+        torch.equal(g, steps[False][1][n]) for n, g in steps[True][1].items())
+    ok = loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL
+    log(f"[wide-token] swin_base f32 step with train_token_kernels, drop path "
+        f"0.1, batch {CKPT_BATCH}: use_checkpoint vs without: loss relative "
+        f"{loss_rel:.3e}, |grad diff| / |grad| {grad_rel:.3e} (tols "
+        f"{STEP_LOSS_RTOL:.0e}, {STEP_GRAD_RTOL:.0e}; bit-equal {equal}); peak "
+        f"memory {peaks[False]:.0f} MiB without, {peaks[True]:.0f} MiB with; card "
+        f"{card}; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append(("swin_base", "use_checkpoint"))
+
+
+def wide_softmax_serve(failed) -> None:
+    """(c): swin_tiny bf16 with use_pallas_attention false and
+    attn_softmax_dtype bf16 served on the card against the CPU engine."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    config = dict(SWIN_TINY, use_pallas_attention=False, attn_softmax_dtype="bf16")
+    params = perturbed_params(SWIN_TINY)
+    rs = np.random.RandomState(300)
+    frames = (rs.rand(4, 512, 512, 1) * 65535).astype(np.float32)
+    engine = InferenceEngine(config, params=params)
+    for fn in all_counters().values():
+        fn.launches = 0
+    got = engine.predict(frames)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in all_counters().items() if fn.launches}
+    want = InferenceEngine(config, params=params, device="cpu").predict(frames)
+    err = float(np.abs(got - want).max())
+    ok = err <= PROB_TOL[torch.bfloat16] and launches == {"percentile": 1}
+    log(f"[wide-token] swin_tiny bf16, use_pallas_attention false, "
+        f"attn_softmax_dtype bf16, N=4: card vs CPU engine probabilities "
+        f"max_abs_err {err:.3e} (tol {PROB_TOL[torch.bfloat16]:.0e}); launches "
+        f"{launches}; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append(("swin_tiny", "bf16 softmax serve"))
+    del engine
+    torch.cuda.empty_cache()
+
+
+def wide_times(card: str) -> None:
+    """(e): rows 9-11 at C = 1024 and 1536, bf16, batch 8: device time
+    beside the bound and autograd's yardstick."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    dtype = torch.bfloat16
+    for kernel in ("ln_matmul_bwd", "ln_mlp_bwd_dx", "ln_mlp_bwd_dw"):
+        for shape, (model, stage) in wide_token_shapes(WIDE_BATCH).items():
+            if shape[1] <= 768:
+                continue
+            args = make_token_inputs(kernel, shape, dtype, gen)
+            fused, plain = token_fns(kernel)
+            ms = device_ms(lambda: fused(*args))
+            lib_ms = token_library_device_ms(kernel, args)
+            plain_ms = median_ms(lambda: plain(*args), reps=5, warm=1)
+            nbytes, ops, peak = token_work(kernel, shape, dtype)
+            t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
+            log(f"[wide-times] {kernel} bf16 {shape} ({model} stage {stage}): "
+                f"kernel {ms:.4f} ms (device), plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms (device), bound {max(t_bytes, t_ops):.4f} ms "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'}); card {card}")
+            del args
+    torch.cuda.empty_cache()
+
+
+def phase_wide_token(card: str) -> None:
+    """Phase 30: wide token training (see the module docstring)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    failed = []
+    wide_kernels(failed)
+    wide_steps(card, failed)
+    wide_softmax_serve(failed)
+    wide_times(card)
+    log(f"[wide-token] phase 30 {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"phase 30 checks failed: {failed}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6228,6 +6528,8 @@ def main() -> int:
         phase_serving(card, params)
         torch.cuda.empty_cache()
         phase_export(card, params)
+        torch.cuda.empty_cache()
+        phase_wide_token(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

@@ -234,3 +234,37 @@ def test_no_wrapper_selects_by_device():
     with pytest.raises(NotImplementedError):
         OPS["percentile_normalize"](
             a["img"].to_sparse(), 1.0, 99.0, 22, 1e-8)
+
+
+def _wide_args(name: str, c: int, device: str):
+    """Token backward arguments at width c (T = 4, hidden 4c, O = 3c)."""
+    t, h = 4, 4 * c
+    rs = np.random.RandomState(c)
+
+    def t_(*shape):
+        return torch.from_numpy(rs.standard_normal(shape).astype(np.float32)).to(device)
+
+    x, g, b = t_(t, c), t_(c), t_(c)
+    if name == "ln_matmul_bwd":
+        return (x, g, t_(c, 3 * c), t_(t, 3 * c), 1e-5)
+    rest = (t_(c, h), t_(h), t_(h, c), t_(t, c))
+    if name == "ln_mlp_bwd_dw":
+        return (x, g, b) + rest + (1e-5,)
+    return (x, g, b) + rest + (name == "ln_mlp_bwd_dx", 1e-5)
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("c", [1024, 1536])
+@pytest.mark.parametrize("name", ["ln_matmul_bwd", "ln_mlp_bwd_dx",
+                                  "ln_mlp_bwd_dw", "ln_mlp_bwd"])
+def test_token_bwd_ops_take_wide_rows(name, c):
+    """The token backward ops at swin_base's and swin_large's stage-4
+    widths, on meta tensors: their fakes give the outputs' shapes (the
+    kernels' checks no longer refuse C > 768, as JAX's kernels do not) and
+    opcheck passes all four checks."""
+    args = _wide_args(name, c, "meta")
+    out = _leaves(OPS[name](*args))
+    assert all(o.device.type == "meta" for o in out)
+    assert out[0].shape[-1] == (2 * c * 4 * c + 4 * c if name == "ln_mlp_bwd_dw" else c)
+    result = torch.library.opcheck(OPS[name], args)
+    assert set(result.values()) == {"SUCCESS"}, result

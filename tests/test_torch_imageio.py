@@ -188,14 +188,18 @@ def _unported(fn, *args, match="Dataset decoding, the rest"):
 
 @pytest.mark.unit
 def test_unported_formats_raise(tmp_path):
-    """Adam7, palettes, depths below 8, JPEG and other TIFF compressions
-    raise NotImplementedError naming the Queue 1 item (and the TIFF tag's
-    value); corrupt files raise ValueError or OSError."""
+    """What the port still does not read raises NotImplementedError naming
+    the Queue 1 item (and the TIFF tag's value): an arithmetic-coded JPEG
+    and a TIFF compression it lacks; Adam7, palette PNGs and JPEG now
+    decode (tests/test_torch_imageio_rest.py). Corrupt files raise
+    ValueError or OSError."""
     img = np.arange(12, dtype=np.uint8).reshape(3, 4)
-    _unported(imageio.decode_png, _png(img, [0] * 3, interlace=1))
-    _unported(imageio.decode_png, _png(img, [0] * 3, color=3))
     path = tmp_path / "x.jpg"
     assert cv2.imwrite(str(path), img)
+    data = bytearray(path.read_bytes())
+    at = data.find(b"\xff\xc0")
+    data[at + 1] = 0xC9                          # SOF9: arithmetic coding
+    path.write_bytes(bytes(data))
     _unported(imageio.decode_image, path)
     tif = tmp_path / "x.tif"
     assert cv2.imwrite(str(tif), img, [cv2.IMWRITE_TIFF_COMPRESSION, 1])
@@ -205,8 +209,8 @@ def test_unported_formats_raise(tmp_path):
     for i in range(n):
         at = ifd + 2 + 12 * i
         if struct.unpack("<H", data[at:at + 2])[0] == 259:
-            data[at + 8:at + 10] = struct.pack("<H", 7)
-    _unported(imageio.decode_tiff, bytes(data), match="compression 7 .JPEG.")
+            data[at + 8:at + 10] = struct.pack("<H", 3)
+    _unported(imageio.decode_tiff, bytes(data), match="compression 3 .CCITT T.4.")
     good = _png(img, [1] * 3)
     with pytest.raises(ValueError, match="CRC"):
         imageio.decode_png(good[:40] + bytes([good[40] ^ 1]) + good[41:])

@@ -41,9 +41,10 @@
 //   deterministic dgamma/dbeta partials added in block order.
 // The dXn round trip costs 8*T*C bytes a split more than a fused epilogue
 // would (540 MB, 0.16 ms at 3.35 TB/s per flagged step); it keeps
-// one LN-backward pass for kernels 9 and 10, and every width up to 768
-// takes the same path (a fused epilogue would not fit C = 768's 64 x 768
-// f32 tile in one warpgroup's registers). dXn is
+// one LN-backward pass for kernels 9 and 10, and every width takes the same
+// GEMM (a fused epilogue would not fit C = 768's 64 x 768 f32 tile in one
+// warpgroup's registers; C = 1024 and 1536 take four and six blocks of
+// 256); past kMaxC (768) the pass is token_bwd.cuh's ln_bwd_wide. dXn is
 // not rounded before the sums over tokens, so summing a k-tile after
 // another inside wgmma keeps dgamma/dbeta within f32 noise of the plain
 // version. O not a multiple of 8 (TMA's 16-byte row stride) reads W and dY
@@ -56,7 +57,9 @@
 // and W^T through shared memory, into a 32 x C register tile (2 rows x 48
 // columns a thread); the tile goes to shared memory, where one warp per row
 // applies the LN backward and one thread per column adds its dgamma/dbeta
-// terms. Takes C up to 768.
+// terms, up to C = 768 (kMaxC). Wider rows (swin_base's and swin_large's
+// stage 4) take ln_matmul_dxn_wide_kernel: the same register tile over
+// column chunks of 768, dXn to an f32 workspace, then ln_bwd_wide.
 #include "mlp_tc.cuh"
 
 namespace {
@@ -71,6 +74,54 @@ size_t smem_bytes(int c) {
   const int ldw = ncol_pad(c) + 4;
   return sizeof(float) * (static_cast<size_t>(kBK) * ldw + static_cast<size_t>(kBM) * (c + 4) +
                           kBM * (kBK + 1) + 2 * static_cast<size_t>(c) + 2 * kBM);
+}
+
+// acc = dY[row0 : row0 + kBM, :] W[c0 : c0 + ncol, :]^T (ncol a multiple of
+// 64, at most kMaxC; columns past C read zeros): thread (ty, tx) holds rows
+// ty and ty + 16, columns 64 g + 4 tx + e. O streams through shared memory
+// in chunks of kBK: Ys (kBM x (kBK + 1)) and Ws (kBK x (ncol + 4)).
+template <typename T>
+__device__ __forceinline__ void dyw_tile(RowTile& acc, const T* __restrict__ dy,
+                                         const T* __restrict__ w, float* Ys, float* Ws,
+                                         int row0, int t, int c, int c0, int ncol, int o) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int ldw = ncol + 4, ngroups = ncol / 64;
+  zero_tile(acc);
+
+  for (int o0 = 0; o0 < o; o0 += kBK) {
+    for (int i = tid; i < kBM * kBK; i += kThreads) {
+      const int r = i / kBK, kk = i % kBK;
+      const int row = row0 + r, oo = o0 + kk;
+      Ys[r * (kBK + 1) + kk] =
+          (row < t && oo < o) ? to_f32(dy[static_cast<size_t>(row) * o + oo]) : 0.f;
+    }
+    for (int i = tid; i < ncol * kBK; i += kThreads) {
+      const int cc = i / kBK, kk = i % kBK, oo = o0 + kk;
+      Ws[kk * ldw + cc] =
+          (c0 + cc < c && oo < o) ? to_f32(w[static_cast<size_t>(c0 + cc) * o + oo]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float a0 = Ys[ty * (kBK + 1) + kk];
+      const float a1 = Ys[(ty + 16) * (kBK + 1) + kk];
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        if (g < ngroups) {
+          const float4 b = *reinterpret_cast<const float4*>(&Ws[kk * ldw + g * 64 + tx * 4]);
+          acc[0][g][0] = fmaf(a0, b.x, acc[0][g][0]);
+          acc[0][g][1] = fmaf(a0, b.y, acc[0][g][1]);
+          acc[0][g][2] = fmaf(a0, b.z, acc[0][g][2]);
+          acc[0][g][3] = fmaf(a0, b.w, acc[0][g][3]);
+          acc[1][g][0] = fmaf(a1, b.x, acc[1][g][0]);
+          acc[1][g][1] = fmaf(a1, b.y, acc[1][g][1]);
+          acc[1][g][2] = fmaf(a1, b.z, acc[1][g][2]);
+          acc[1][g][3] = fmaf(a1, b.w, acc[1][g][3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
 }
 
 template <typename T>
@@ -103,47 +154,8 @@ ln_matmul_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       }
     }
 
-    float acc[2][kGroups][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int g = 0; g < kGroups; ++g)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
-
-    for (int o0 = 0; o0 < o; o0 += kBK) {
-      for (int i = tid; i < kBM * kBK; i += kThreads) {
-        const int r = i / kBK, kk = i % kBK;
-        const int row = row0 + r, oo = o0 + kk;
-        Ys[r * (kBK + 1) + kk] =
-            (row < t && oo < o) ? to_f32(dy[static_cast<size_t>(row) * o + oo]) : 0.f;
-      }
-      for (int i = tid; i < ncol * kBK; i += kThreads) {
-        const int cc = i / kBK, kk = i % kBK, oo = o0 + kk;
-        Ws[kk * ldw + cc] = (cc < c && oo < o) ? to_f32(w[static_cast<size_t>(cc) * o + oo]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float a0 = Ys[ty * (kBK + 1) + kk];
-        const float a1 = Ys[(ty + 16) * (kBK + 1) + kk];
-#pragma unroll
-        for (int g = 0; g < kGroups; ++g) {
-          if (g < ngroups) {
-            const float4 b = *reinterpret_cast<const float4*>(&Ws[kk * ldw + g * 64 + tx * 4]);
-            acc[0][g][0] = fmaf(a0, b.x, acc[0][g][0]);
-            acc[0][g][1] = fmaf(a0, b.y, acc[0][g][1]);
-            acc[0][g][2] = fmaf(a0, b.z, acc[0][g][2]);
-            acc[0][g][3] = fmaf(a0, b.w, acc[0][g][3]);
-            acc[1][g][0] = fmaf(a1, b.x, acc[1][g][0]);
-            acc[1][g][1] = fmaf(a1, b.y, acc[1][g][1]);
-            acc[1][g][2] = fmaf(a1, b.z, acc[1][g][2]);
-            acc[1][g][3] = fmaf(a1, b.w, acc[1][g][3]);
-          }
-        }
-      }
-      __syncthreads();
-    }
+    RowTile acc;
+    dyw_tile(acc, dy, w, Ys, Ws, row0, t, c, 0, ncol, o);
 
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -180,6 +192,54 @@ int launch_f32(const void* x, const float* g, const void* w, const void* dy, voi
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sum_partials(partial, dgb, groups, 2 * static_cast<size_t>(c), s));
+}
+
+// ---- float32 past kMaxC -------------------------------------------------------
+//
+// dXn = dY W^T in column chunks of kMaxC, a CTA a (row block, chunk) of the
+// same register tile, written to an f32 workspace; token_bwd.cuh's
+// ln_bwd_wide then applies the LN backward.
+
+size_t wide_smem_bytes() {
+  return sizeof(float) * (static_cast<size_t>(kBK) * (kMaxC + 4) + kBM * (kBK + 1));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+ln_matmul_dxn_wide_kernel(const T* __restrict__ w, const T* __restrict__ dy,
+                          float* __restrict__ part, int t, int c, int o) {
+  extern __shared__ __align__(16) float smem[];
+  const int row0 = blockIdx.x * kBM, c0 = blockIdx.y * kMaxC;
+  const int ncol = ncol_pad(min(kMaxC, c - c0));
+  float* Ws = smem;
+  float* Ys = Ws + kBK * (ncol + 4);
+  RowTile acc;
+  dyw_tile(acc, dy, w, Ys, Ws, row0, t, c, c0, ncol, o);
+  store_tile(acc, part, row0, t, c, c0, ncol / 64);
+}
+
+// The wide float32 workspace: dXn (T x C f32), then the rows' statistics.
+size_t wide_part_bytes(int t, int c) {
+  return (static_cast<size_t>(t) * c * sizeof(float) + 255) / 256 * 256;
+}
+
+int launch_f32_wide(const void* x, const float* g, const void* w, const void* dy, void* dx,
+                    float* partial, float* dgb, void* workspace, int t, int c, int o, float eps,
+                    cudaStream_t s) {
+  float* part = static_cast<float*>(workspace);
+  float2* stats = reinterpret_cast<float2*>(static_cast<char*>(workspace) + wide_part_bytes(t, c));
+  const size_t smem = wide_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(ln_matmul_dxn_wide_kernel<float>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t + kBM - 1) / kBM, (c + kMaxC - 1) / kMaxC);
+  ln_matmul_dxn_wide_kernel<float><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(w), static_cast<const float*>(dy), part, t, c, o);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      ln_bwd_wide<float>(part, 1, x, g, nullptr, dx, stats, partial, dgb, t, c, eps, 0, s));
 }
 
 // ---- bf16: dXn = dY W^T on the tensor cores --------------------------------
@@ -290,8 +350,8 @@ ln_matmul_dxn_tc_kernel(const __grid_constant__ CUtensorMap m_dy,
 struct DxnPlan {
   int n, nw, nblk, row_tiles, nk, kps, splits;
   bool staged;
-  size_t part_bytes, w_bytes, dy_bytes;
-  size_t total() const { return part_bytes + w_bytes + dy_bytes; }
+  size_t part_bytes, w_bytes, dy_bytes, stats_bytes;
+  size_t total() const { return part_bytes + w_bytes + dy_bytes + stats_bytes; }
 };
 
 inline DxnPlan dxn_plan(int t, int c, int o) {
@@ -314,6 +374,7 @@ inline DxnPlan dxn_plan(int t, int c, int o) {
   p.part_bytes = mlptc::round256(static_cast<size_t>(p.splits) * t * c * sizeof(float));
   p.w_bytes = p.staged ? mlptc::round256(static_cast<size_t>(c) * op * sizeof(bf16)) : 0;
   p.dy_bytes = p.staged ? mlptc::round256(static_cast<size_t>(t) * op * sizeof(bf16)) : 0;
+  p.stats_bytes = c > kMaxC ? tokbwd::stats_bytes(t) : 0;  // ln_bwd_wide's
   return p;
 }
 
@@ -369,34 +430,44 @@ int launch_bf16(const void* x, const float* g, const void* w, const void* dy, vo
     else status = args(launch_dxn_kernel<2, 256>);
   }
   if (status != 0) return status;
+  if (c > kMaxC) {
+    float2* stats = reinterpret_cast<float2*>(ws + p.part_bytes + p.w_bytes + p.dy_bytes);
+    return static_cast<int>(
+        ln_bwd_wide<bf16>(part, p.splits, x, g, nullptr, dx, stats, partial, dgb, t, c, eps, 0, s));
+  }
   return static_cast<int>(
       ln_bwd_pass(part, p.splits, x, g, nullptr, dx, partial, dgb, t, c, eps, 0, s));
 }
 
 }  // namespace
 
-// Blocks of the grid (bf16: of its LN-backward pass): the wrapper sizes the
-// partials (groups x 2 x C f32).
-TT_EXPORT int tt_ln_bwd_groups(int t, int is_bf16) {
+// Partials of the LN backward's dgamma/dbeta sums (the grid's blocks, its
+// pass's blocks in bf16, ln_bwd_wide's runs past kMaxC): the wrapper sizes
+// them (groups x 2 x C f32).
+TT_EXPORT int tt_ln_bwd_groups(int t, int c, int is_bf16) {
+  if (c > kMaxC) return wide_groups(t, c);
   return is_bf16 ? pass_groups(t) : row_groups(t);
 }
 
-// Bytes of workspace tt_ln_matmul_bwd needs (0 in float32): the f32 dXn
-// partials and, for O not a multiple of 8, padded copies of W and dY.
+// Bytes of workspace tt_ln_matmul_bwd needs: in bf16 the f32 dXn partials
+// and, for O not a multiple of 8, padded copies of W and dY; past kMaxC
+// also the rows' statistics, and in float32 dXn (none up to kMaxC).
 TT_EXPORT long long tt_ln_matmul_bwd_workspace(int t, int c, int o, int is_bf16) {
-  if (!is_bf16) return 0;
-  return static_cast<long long>(dxn_plan(t, c, o).total());
+  if (is_bf16) return static_cast<long long>(dxn_plan(t, c, o).total());
+  if (c <= kMaxC) return 0;
+  return static_cast<long long>(wide_part_bytes(t, c) + tokbwd::stats_bytes(t));
 }
 
-// dgb receives [dgamma | dbeta] (2 x C f32); C must be at most 768.
+// dgb receives [dgamma | dbeta] (2 x C f32), at any C.
 TT_EXPORT int tt_ln_matmul_bwd(const void* x, const void* gamma, const void* w, const void* dy,
                                void* dx, void* partial, void* dgb, void* workspace, int t, int c,
                                int o, float eps, int is_bf16, void* stream) {
-  if (c > kMaxC || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(gamma);
   float* part = static_cast<float*>(partial);
   float* out = static_cast<float*>(dgb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bf16(x, g, w, dy, dx, part, out, workspace, t, c, o, eps, s)
-                 : launch_f32(x, g, w, dy, dx, part, out, t, c, o, eps, s);
+  if (is_bf16) return launch_bf16(x, g, w, dy, dx, part, out, workspace, t, c, o, eps, s);
+  return c > kMaxC ? launch_f32_wide(x, g, w, dy, dx, part, out, workspace, t, c, o, eps, s)
+                   : launch_f32(x, g, w, dy, dx, part, out, t, c, o, eps, s);
 }

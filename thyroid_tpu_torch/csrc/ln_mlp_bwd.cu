@@ -41,12 +41,14 @@
 // column blocks of 384, each recomputing hr and dA: stage 4 does 1.67x
 // the operations): 4 stages of 48 KB + dH (16 KB) = 209 KB of shared
 // memory, 96 + 32 + 32 accumulator registers a thread, of which the 168
-// a thread that nine warps leave spill 712 bytes (ptxas). C = 1536 is not
-// taken: the backward kernels stop at 768 (kMaxC). dXn goes to the
-// workspace as f32 partials over hidden splits (the hidden axis is split
-// where the CTAs would not fill two waves); token_bwd.cuh's ln_bwd_pass,
-// which kernel 9 shares, adds them in split order and runs the LN backward
-// (deterministic dgamma/dbeta partials, summed in block order).
+// a thread that nine warps leave spill 712 bytes (ptxas). C = 1024 and 1536
+// take four and six column blocks of 256, one warpgroup each (no spills;
+// mlp_tc.cuh make_plan). dXn goes
+// to the workspace as f32 partials over hidden splits (the hidden axis is
+// split where the CTAs would not fill two waves); token_bwd.cuh's
+// ln_bwd_pass, which kernel 9 shares, adds them in split order and runs the
+// LN backward (deterministic dgamma/dbeta partials, summed in block order),
+// or past kMaxC (768) its ln_bwd_wide, which holds no row in registers.
 //
 // dw in bf16 (kernel 11, the flagged training step) also runs on wgmma. The
 // same LN pass writes xn; a CTA owns one hidden chunk j (64 units), one dW
@@ -92,7 +94,8 @@
 //
 // float32 (the card-vs-CPU parity step) keeps the scalar dx and dw kernels
 // below: TF32 tensor cores keep 10 mantissa bits and would not hold the
-// 1e-4 float32 checks.
+// 1e-4 float32 checks. Past kMaxC they hand over to the wide kernels
+// (ln_mlp_dxn_wide_kernel, ln_mlp_dw_wide_kernel), which take any C.
 #include "mlp_tc.cuh"
 
 namespace {
@@ -119,6 +122,45 @@ size_t dx_smem_bytes(int c) {
                           kBM * (kBK1 + 1) + 2 * static_cast<size_t>(c) + 2 * kBM);
 }
 
+// dXn[rows, c0 : c0 + ncol] += dH W1[c0 : c0 + ncol, h0 : h0 + kHC]^T: dH
+// (kBM x kHC) in Hs, W1^T streamed through Stg in chunks of kBK2 hidden
+// units; columns past C read zeros.
+template <typename T>
+__device__ __forceinline__ void dh_w1t(RowTile& acc, const float* Hs, float* Stg,
+                                       const T* __restrict__ w1, int c, int c0, int ncol,
+                                       int hdim, int h0) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int ldw = ncol + 4, ngroups = ncol / 64;
+  for (int k0 = 0; k0 < kHC; k0 += kBK2) {
+    for (int i = tid; i < ncol * kBK2; i += kThreads) {
+      const int cc = i / kBK2, kk = i % kBK2, hj = h0 + k0 + kk;
+      Stg[kk * ldw + cc] =
+          (c0 + cc < c && hj < hdim) ? to_f32(w1[static_cast<size_t>(c0 + cc) * hdim + hj]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int kk = 0; kk < kBK2; ++kk) {
+      const float a0 = Hs[ty * kLdH + k0 + kk];
+      const float a1 = Hs[(ty + 16) * kLdH + k0 + kk];
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        if (g < ngroups) {
+          const float4 b = *reinterpret_cast<const float4*>(&Stg[kk * ldw + g * 64 + tx * 4]);
+          acc[0][g][0] = fmaf(a0, b.x, acc[0][g][0]);
+          acc[0][g][1] = fmaf(a0, b.y, acc[0][g][1]);
+          acc[0][g][2] = fmaf(a0, b.z, acc[0][g][2]);
+          acc[0][g][3] = fmaf(a0, b.w, acc[0][g][3]);
+          acc[1][g][0] = fmaf(a1, b.x, acc[1][g][0]);
+          acc[1][g][1] = fmaf(a1, b.y, acc[1][g][1]);
+          acc[1][g][2] = fmaf(a1, b.z, acc[1][g][2]);
+          acc[1][g][3] = fmaf(a1, b.w, acc[1][g][3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 ln_mlp_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
@@ -129,7 +171,7 @@ ln_mlp_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                      int residual) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ncol = ncol_pad(c), ldw = ncol + 4, ngroups = ncol / 64, ldx = c + 4;
+  const int ncol = ncol_pad(c), ngroups = ncol / 64, ldx = c + 4;
   float* Stg = smem;                     // W1 / W2^T / W1^T chunks
   float* Xs = Stg + stage_floats(c);     // kBM x ldx: xn, then dXn
   float* Hs = Xs + kBM * ldx;            // kBM x kLdH: hr, then dH
@@ -163,13 +205,8 @@ ln_mlp_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     }
     __syncthreads();
 
-    float acc[2][kGroups][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int g = 0; g < kGroups; ++g)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+    RowTile acc;
+    zero_tile(acc);
 
     for (int h0 = 0; h0 < hdim; h0 += kHC) {
       // hr for hidden units [h0, h0 + kHC): 2 rows x 8 units a thread
@@ -254,36 +291,7 @@ ln_mlp_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
         }
       __syncthreads();
 
-      // dXn += dH W1[:, h0:h0 + kHC]^T
-      for (int k0 = 0; k0 < kHC; k0 += kBK2) {
-        for (int i = tid; i < ncol * kBK2; i += kThreads) {
-          const int cc = i / kBK2, kk = i % kBK2;
-          const int hj = h0 + k0 + kk;
-          Stg[kk * ldw + cc] =
-              (cc < c && hj < hdim) ? to_f32(w1[static_cast<size_t>(cc) * hdim + hj]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 2
-        for (int kk = 0; kk < kBK2; ++kk) {
-          const float a0 = Hs[ty * kLdH + k0 + kk];
-          const float a1 = Hs[(ty + 16) * kLdH + k0 + kk];
-#pragma unroll
-          for (int g = 0; g < kGroups; ++g) {
-            if (g < ngroups) {
-              const float4 b = *reinterpret_cast<const float4*>(&Stg[kk * ldw + g * 64 + tx * 4]);
-              acc[0][g][0] = fmaf(a0, b.x, acc[0][g][0]);
-              acc[0][g][1] = fmaf(a0, b.y, acc[0][g][1]);
-              acc[0][g][2] = fmaf(a0, b.z, acc[0][g][2]);
-              acc[0][g][3] = fmaf(a0, b.w, acc[0][g][3]);
-              acc[1][g][0] = fmaf(a1, b.x, acc[1][g][0]);
-              acc[1][g][1] = fmaf(a1, b.y, acc[1][g][1]);
-              acc[1][g][2] = fmaf(a1, b.z, acc[1][g][2]);
-              acc[1][g][3] = fmaf(a1, b.w, acc[1][g][3]);
-            }
-          }
-        }
-        __syncthreads();
-      }
+      dh_w1t(acc, Hs, Stg, w1, c, 0, ncol, hdim, h0);
     }
 
     // dXn replaces xn in Xs (every read of xn ended before the last barrier)
@@ -434,7 +442,7 @@ DwKernel<T> dw_kernel(int c) {
   if (c <= 6 * kHW) return ln_mlp_bwd_dw_kernel<T, 6>;
   if (c <= 12 * kHW) return ln_mlp_bwd_dw_kernel<T, 12>;
   if (c <= 24 * kHW) return ln_mlp_bwd_dw_kernel<T, 24>;
-  return ln_mlp_bwd_dw_kernel<T, kMaxC / kHW>;
+  return ln_mlp_bwd_dw_kernel<T, kMaxC / kHW>;  // wider rows take ln_mlp_dw_wide_kernel
 }
 
 // Token groups of the dw grid: about two waves of the blocks that fit on
@@ -474,6 +482,287 @@ int launch_dx_f32(const void* x, const float* g, const float* b, const void* w1,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sum_partials(partial, dgb, groups, 2 * static_cast<size_t>(c), s));
+}
+
+// ---- float32 past kMaxC ----------------------------------------------------
+//
+// Neither scalar kernel above fits a row past kMaxC: the dx kernel keeps a
+// 32 x C row block in shared memory and a 32 x C register tile, the dw
+// kernel C / 16 columns a thread and W1, W2 chunks of C x 16. Past kMaxC a
+// pass first writes xn = round(x_hat gamma + beta) (f32, mlptc::ln_rows) to
+// the workspace, and
+// - dx: a CTA takes a row block of kBM rows and a chunk of kMaxC dXn
+//   columns and walks the hidden chunks as ln_mlp_bwd_dx_kernel does, with
+//   xn and dY streaming from global memory in chunks of kBK1 (each column
+//   chunk recomputes hr and dA), into the same register tile; dXn goes to
+//   the workspace, and token_bwd.cuh's ln_bwd_wide applies the LN backward;
+// - dw: a CTA takes 16 hidden units, a run of token rows and a chunk of
+//   kWideCols output columns; hr and dA contract over C in chunks of kWideK
+//   staged in shared memory, and the sums over tokens run as in
+//   ln_mlp_bwd_dw_kernel over the chunk's columns.
+// Both keep the narrow kernels' order of every sum, so a column's dXn, dW1
+// and dW2 are the values the narrow kernels give.
+
+size_t dx_wide_smem_bytes() {
+  return sizeof(float) * (stage_floats(kMaxC) + kBM * kLdH + kBM * (kBK1 + 1));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+ln_mlp_dxn_wide_kernel(const T* __restrict__ xn, const T* __restrict__ w1,
+                       const float* __restrict__ b1, const T* __restrict__ w2,
+                       const T* __restrict__ dy, float* __restrict__ part, int t, int c,
+                       int hdim) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;  // rows ty, ty + 16
+  const int row0 = blockIdx.x * kBM, c0 = blockIdx.y * kMaxC;
+  const int ncol = ncol_pad(min(kMaxC, c - c0));
+  float* Stg = smem;                   // W1 / W2^T / W1^T chunks
+  float* Hs = Stg + stage_floats(kMaxC);  // kBM x kLdH: hr, then dH
+  float* As = Hs + kBM * kLdH;         // kBM x (kBK1+1): an xn or dY chunk
+
+  // acc[i] (+)= A[rows, k0 : k0 + kBK1] B, A streamed from a (T x C) and B
+  // the chunk load() staged in Stg: the hidden products of both kernels
+  auto chunk_product = [&](float (&hacc)[2][8], const T* __restrict__ a, auto load) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) hacc[i][e] = 0.f;
+    for (int k0 = 0; k0 < c; k0 += kBK1) {
+      for (int i = tid; i < kBM * kBK1; i += kThreads) {
+        const int r = i / kBK1, kk = i % kBK1;
+        const int row = row0 + r, k = k0 + kk;
+        As[r * (kBK1 + 1) + kk] = (row < t && k < c) ? to_f32(a[static_cast<size_t>(row) * c + k]) : 0.f;
+      }
+      load(k0);
+      __syncthreads();
+      const int kmax = min(kBK1, c - k0);
+      for (int kk = 0; kk < kmax; ++kk) {
+        const float a0 = As[ty * (kBK1 + 1) + kk];
+        const float a1 = As[(ty + 16) * (kBK1 + 1) + kk];
+        const float4 p = *reinterpret_cast<const float4*>(&Stg[kk * kLdH + tx * 4]);
+        const float4 q = *reinterpret_cast<const float4*>(&Stg[kk * kLdH + 64 + tx * 4]);
+        const float bv[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          hacc[0][e] = fmaf(a0, bv[e], hacc[0][e]);
+          hacc[1][e] = fmaf(a1, bv[e], hacc[1][e]);
+        }
+      }
+      __syncthreads();
+    }
+  };
+
+  RowTile acc;
+  zero_tile(acc);
+
+  for (int h0 = 0; h0 < hdim; h0 += kHC) {
+    float hacc[2][8];
+    chunk_product(hacc, xn, [&](int k0) {  // W1[k0 : k0 + kBK1, h0 : h0 + kHC]
+      for (int i = tid; i < kBK1 * kHC; i += kThreads) {
+        const int kk = i / kHC, jj = i % kHC, k = k0 + kk, hj = h0 + jj;
+        Stg[kk * kLdH + jj] = (k < c && hj < hdim) ? to_f32(w1[static_cast<size_t>(k) * hdim + hj]) : 0.f;
+      }
+    });
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int jj = (e < 4 ? tx * 4 + e : 64 + tx * 4 + e - 4);
+        const int hj = h0 + jj;
+        Hs[(ty + 16 * i) * kLdH + jj] = hj < hdim ? round_to<T>(hacc[i][e] + b1[hj]) : 0.f;
+      }
+    chunk_product(hacc, dy, [&](int k0) {  // W2[h0 : h0 + kHC, k0 : k0 + kBK1]^T
+      for (int i = tid; i < kHC * kBK1; i += kThreads) {
+        const int jj = i / kBK1, kk = i % kBK1, k = k0 + kk, hj = h0 + jj;
+        Stg[kk * kLdH + jj] = (k < c && hj < hdim) ? to_f32(w2[static_cast<size_t>(hj) * c + k]) : 0.f;
+      }
+    });
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int jj = (e < 4 ? tx * 4 + e : 64 + tx * 4 + e - 4);
+        float* hp = &Hs[(ty + 16 * i) * kLdH + jj];
+        *hp = h0 + jj < hdim ? round_to<T>(hacc[i][e] * gelu_grad(*hp)) : 0.f;
+      }
+    __syncthreads();
+
+    dh_w1t(acc, Hs, Stg, w1, c, c0, ncol, hdim, h0);
+  }
+  store_tile(acc, part, row0, t, c, c0, ncol / 64);
+}
+
+constexpr int kWideK = 64;                 // contraction chunk of hr and dA over C
+constexpr int kWideP = 24;                 // output columns a thread sums
+constexpr int kWideCols = kHW * kWideP;    // output columns of a dw CTA (384)
+
+size_t dw_wide_smem_bytes() {
+  return sizeof(float) * (2 * kWideK * kHW + 2 * kBR * (kWideK + 1) +
+                          2 * kBR * (kWideCols + 1) + 2 * kBR * (kHW + 1));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ln_mlp_dw_wide_kernel(const T* __restrict__ xn, const T* __restrict__ w1,
+                      const float* __restrict__ b1, const T* __restrict__ w2,
+                      const T* __restrict__ dy, float* __restrict__ partial, int t, int c,
+                      int hdim) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * kHW, c0 = blockIdx.z * kWideCols;
+  float* W1k = smem;                        // kWideK x kHW: W1[k0.., j0..]
+  float* W2k = W1k + kWideK * kHW;          // kWideK x kHW: W2[j0.., k0..]^T
+  float* Xk = W2k + kWideK * kHW;           // kBR x (kWideK+1): xn[:, k0..]
+  float* Dk = Xk + kBR * (kWideK + 1);      // kBR x (kWideK+1): dY[:, k0..]
+  float* Xc = Dk + kBR * (kWideK + 1);      // kBR x (kWideCols+1): xn[:, c0..]
+  float* Dc = Xc + kBR * (kWideCols + 1);   // kBR x (kWideCols+1): dY[:, c0..]
+  float* Hs = Dc + kBR * (kWideCols + 1);   // kBR x (kHW+1): dH
+  float* As = Hs + kBR * (kHW + 1);         // kBR x (kHW+1): a = round(gelu(hr))
+
+  const int tj = tid % kHW, tr = tid / kHW;  // hr, dA: row tr, unit tj; sums: columns tr + 16 m
+  const int hj = j0 + tj;
+  const float bias1 = hj < hdim ? b1[hj] : 0.f;
+  float acc1[kWideP], acc2[kWideP], db = 0.f;
+#pragma unroll
+  for (int m = 0; m < kWideP; ++m) acc1[m] = acc2[m] = 0.f;
+
+  const int nrows = (t + kBR - 1) / kBR;
+  for (int rb = blockIdx.y; rb < nrows; rb += gridDim.y) {
+    const int row0 = rb * kBR;
+    float h = 0.f, da = 0.f;
+    for (int k0 = 0; k0 < c; k0 += kWideK) {
+      __syncthreads();  // the last chunk's (and the last step's) reads are done
+      for (int i = tid; i < kWideK * kHW; i += kThreads) {
+        const int kk = i / kHW, j = i % kHW, k = k0 + kk;
+        const bool in = k < c && j0 + j < hdim;
+        W1k[i] = in ? to_f32(w1[static_cast<size_t>(k) * hdim + j0 + j]) : 0.f;
+        W2k[i] = in ? to_f32(w2[static_cast<size_t>(j0 + j) * c + k]) : 0.f;
+      }
+      for (int i = tid; i < kBR * kWideK; i += kThreads) {
+        const int r = i / kWideK, kk = i % kWideK, row = row0 + r, k = k0 + kk;
+        const bool in = row < t && k < c;
+        Xk[r * (kWideK + 1) + kk] = in ? to_f32(xn[static_cast<size_t>(row) * c + k]) : 0.f;
+        Dk[r * (kWideK + 1) + kk] = in ? to_f32(dy[static_cast<size_t>(row) * c + k]) : 0.f;
+      }
+      __syncthreads();
+      const int kmax = min(kWideK, c - k0);
+      for (int kk = 0; kk < kmax; ++kk) {
+        h = fmaf(Xk[tr * (kWideK + 1) + kk], W1k[kk * kHW + tj], h);
+        da = fmaf(Dk[tr * (kWideK + 1) + kk], W2k[kk * kHW + tj], da);
+      }
+    }
+    for (int i = tid; i < kBR * kWideCols; i += kThreads) {
+      const int r = i / kWideCols, kk = i % kWideCols, row = row0 + r, k = c0 + kk;
+      const bool in = row < t && k < c;
+      Xc[r * (kWideCols + 1) + kk] = in ? to_f32(xn[static_cast<size_t>(row) * c + k]) : 0.f;
+      Dc[r * (kWideCols + 1) + kk] = in ? to_f32(dy[static_cast<size_t>(row) * c + k]) : 0.f;
+    }
+    const bool valid = row0 + tr < t && hj < hdim;
+    const float hr = round_to<T>(h + bias1);
+    Hs[tr * (kHW + 1) + tj] = valid ? round_to<T>(da * gelu_grad(hr)) : 0.f;
+    As[tr * (kHW + 1) + tj] = valid ? round_to<T>(gelu(hr)) : 0.f;
+    __syncthreads();
+
+    for (int r = 0; r < kBR; ++r) {
+      const float dh = Hs[r * (kHW + 1) + tj];
+      const float a = As[r * (kHW + 1) + tj];
+      db += dh;
+      const float* xs = Xc + r * (kWideCols + 1);
+      const float* ds = Dc + r * (kWideCols + 1);
+#pragma unroll
+      for (int m = 0; m < kWideP; ++m) {
+        const int k = tr + kHW * m;
+        if (c0 + k < c) {
+          acc1[m] = fmaf(xs[k], dh, acc1[m]);
+          acc2[m] = fmaf(a, ds[k], acc2[m]);
+        }
+      }
+    }
+  }
+
+  if (hj < hdim) {
+    float* out = partial + static_cast<size_t>(blockIdx.y) * (2 * static_cast<size_t>(c) * hdim + hdim);
+    float* dw2 = out + static_cast<size_t>(c) * hdim;
+#pragma unroll
+    for (int m = 0; m < kWideP; ++m) {
+      const int k = c0 + tr + kHW * m;
+      if (k < c) {
+        out[static_cast<size_t>(k) * hdim + hj] = acc1[m];
+        dw2[static_cast<size_t>(hj) * c + k] = acc2[m];
+      }
+    }
+    if (tr == 0 && blockIdx.z == 0) out[2 * static_cast<size_t>(c) * hdim + hj] = db;
+  }
+}
+
+// Token groups of the wide dw grid: about two waves of the blocks that fit
+// on the card at once, over hidden chunks x column chunks.
+int dw_wide_groups(int t, int c, int hdim, int* groups) {
+  const int smem = static_cast<int>(dw_wide_smem_bytes());
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_dw_wide_kernel<float>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ln_mlp_dw_wide_kernel<float>,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (hdim + kHW - 1) / kHW * ((c + kWideCols - 1) / kWideCols);
+  const int rows = (t + kBR - 1) / kBR;
+  int g = (2 * (per_sm > 0 ? per_sm : 1) * kSMs + blocks - 1) / blocks;
+  if (g > rows) g = rows;
+  *groups = g < 1 ? 1 : g;
+  return 0;
+}
+
+// The wide float32 workspace: xn (T x C f32), then for dx dXn (T x C f32)
+// and the rows' statistics.
+size_t wide_rows_bytes(int t, int c) {
+  return mlptc::round256(static_cast<size_t>(t) * c * sizeof(float));
+}
+
+int launch_dx_f32_wide(const void* x, const float* g, const float* b, const void* w1,
+                       const float* b1, const void* w2, const void* dy, void* dx,
+                       float* partial, float* dgb, void* workspace, int t, int c, int hdim,
+                       float eps, int residual, cudaStream_t s) {
+  char* ws = static_cast<char*>(workspace);
+  float* xn = reinterpret_cast<float*>(ws);
+  float* part = reinterpret_cast<float*>(ws + wide_rows_bytes(t, c));
+  float2* stats = reinterpret_cast<float2*>(ws + 2 * wide_rows_bytes(t, c));
+  cudaError_t err = mlptc::ln_rows(x, g, b, xn, t, c, c, eps, 1, s);
+  const size_t smem = dx_wide_smem_bytes();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ln_mlp_dxn_wide_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t + kBM - 1) / kBM, (c + kMaxC - 1) / kMaxC);
+  ln_mlp_dxn_wide_kernel<float><<<grid, kThreads, smem, s>>>(
+      xn, static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
+      static_cast<const float*>(dy), part, t, c, hdim);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      ln_bwd_wide<float>(part, 1, x, g, dy, dx, stats, partial, dgb, t, c, eps, residual, s));
+}
+
+int launch_dw_f32_wide(const void* x, const float* g, const float* b, const void* w1,
+                       const float* b1, const void* w2, const void* dy, float* partial,
+                       float* out, void* workspace, int t, int c, int hdim, float eps,
+                       cudaStream_t s) {
+  float* xn = static_cast<float*>(workspace);
+  cudaError_t err = mlptc::ln_rows(x, g, b, xn, t, c, c, eps, 1, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int groups = 0;
+  const int status = dw_wide_groups(t, c, hdim, &groups);
+  if (status != 0) return status;
+  const dim3 grid((hdim + kHW - 1) / kHW, groups, (c + kWideCols - 1) / kWideCols);
+  ln_mlp_dw_wide_kernel<float><<<grid, kThreads, dw_wide_smem_bytes(), s>>>(
+      xn, static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
+      static_cast<const float*>(dy), partial, t, c, hdim);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t n = 2 * static_cast<size_t>(c) * hdim + hdim;
+  return static_cast<int>(sum_partials(partial, out, groups, n, s));
 }
 
 // ---- dx in bf16: the tensor-core kernel ------------------------------------
@@ -663,6 +952,11 @@ int launch_dx_bf16(const void* x, const float* g, const float* b, const void* w1
   else if (p.nw == 2 && p.nwc == 256) status = args(launch_dx_tc_kernel<2, 256>);
   else return static_cast<int>(cudaErrorInvalidValue);
   if (status != 0) return status;
+  if (c > kMaxC) {
+    float2* stats = reinterpret_cast<float2*>(ws + p.total() - p.stats_bytes);
+    return static_cast<int>(ln_bwd_wide<bf16>(part, p.splits, x, g, dy, dx, stats, partial, dgb,
+                                              t, c, eps, residual, s));
+  }
   return static_cast<int>(
       ln_bwd_pass(part, p.splits, x, g, dy, dx, partial, dgb, t, c, eps, residual, s));
 }
@@ -1019,10 +1313,12 @@ int launch_dw_bf16(const void* x, const float* g, const float* b, const void* w1
 
 }  // namespace
 
-// Blocks of the dx grid (bf16: of its LN-backward pass) and token groups of
+// Partials of the dx kernel's dgamma/dbeta sums (its grid's blocks, its
+// pass's blocks in bf16, ln_bwd_wide's runs past kMaxC) and token groups of
 // the dw grid (bf16: token splits): the wrapper sizes the partials with them
 // (groups x 2 x C, and groups x (2 C Hd + Hd), f32).
-TT_EXPORT int tt_ln_mlp_bwd_dx_groups(int t, int is_bf16) {
+TT_EXPORT int tt_ln_mlp_bwd_dx_groups(int t, int c, int is_bf16) {
+  if (c > kMaxC) return wide_groups(t, c);
   return is_bf16 ? pass_groups(t) : row_groups(t);
 }
 // tt_ln_mlp_bwd_dw_groups returns the group count, or -1 when the float32
@@ -1030,54 +1326,65 @@ TT_EXPORT int tt_ln_mlp_bwd_dx_groups(int t, int is_bf16) {
 TT_EXPORT int tt_ln_mlp_bwd_dw_groups(int t, int c, int hdim, int is_bf16) {
   if (is_bf16) return dw_plan(t, c, hdim).splits;
   int groups = 0;
-  return dw_groups<float>(t, c, hdim, &groups) == 0 ? groups : -1;
+  const int status = c > kMaxC ? dw_wide_groups(t, c, hdim, &groups)
+                               : dw_groups<float>(t, c, hdim, &groups);
+  return status == 0 ? groups : -1;
 }
 
-// Bytes of workspace tt_ln_mlp_bwd_dx needs (0 in float32): xn in bf16, the
-// f32 dXn partials and, for widths that are not multiples of 8, padded
-// copies of W1, W2 and dY.
+// Bytes of workspace tt_ln_mlp_bwd_dx needs: in bf16 xn, the f32 dXn
+// partials and, for widths that are not multiples of 8, padded copies of
+// W1, W2 and dY; past kMaxC also the rows' statistics, and in float32 xn
+// and dXn (none up to kMaxC).
 TT_EXPORT long long tt_ln_mlp_bwd_dx_workspace(int t, int c, int hdim, int is_bf16) {
-  if (!is_bf16) return 0;
-  return static_cast<long long>(mlptc::make_plan(t, c, hdim, true).total());
+  if (is_bf16) return static_cast<long long>(mlptc::make_plan(t, c, hdim, true).total());
+  if (c <= kMaxC) return 0;
+  return static_cast<long long>(2 * wide_rows_bytes(t, c) + tokbwd::stats_bytes(t));
 }
 
-// Bytes of workspace tt_ln_mlp_bwd_dw needs (0 in float32): xn in bf16 and,
-// for widths that are not multiples of 8, padded copies of W1, W2 and dY.
+// Bytes of workspace tt_ln_mlp_bwd_dw needs: in bf16 xn and, for widths
+// that are not multiples of 8, padded copies of W1, W2 and dY; in float32
+// past kMaxC xn (none up to kMaxC).
 TT_EXPORT long long tt_ln_mlp_bwd_dw_workspace(int t, int c, int hdim, int is_bf16) {
-  if (!is_bf16) return 0;
-  return static_cast<long long>(dw_plan(t, c, hdim).total());
+  if (is_bf16) return static_cast<long long>(dw_plan(t, c, hdim).total());
+  return c <= kMaxC ? 0 : static_cast<long long>(wide_rows_bytes(t, c));
 }
 
-// dgb receives [dgamma | dbeta] (2 x C f32); residual adds dY to dX.
+// dgb receives [dgamma | dbeta] (2 x C f32); residual adds dY to dX. Any C.
 TT_EXPORT int tt_ln_mlp_bwd_dx(const void* x, const void* gamma, const void* beta,
                                const void* w1, const void* b1, const void* w2, const void* dy,
                                void* dx, void* partial, void* dgb, void* workspace, int t, int c,
                                int hdim, float eps, int residual, int is_bf16, void* stream) {
-  if (c > kMaxC || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
   const float* bb1 = static_cast<const float*>(b1);
   float* part = static_cast<float*>(partial);
   float* out = static_cast<float*>(dgb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dx_bf16(x, g, b, w1, bb1, w2, dy, dx, part, out, workspace, t, c, hdim,
-                                  eps, residual, s)
-                 : launch_dx_f32(x, g, b, w1, bb1, w2, dy, dx, part, out, t, c, hdim, eps,
-                                 residual, s);
+  if (is_bf16)
+    return launch_dx_bf16(x, g, b, w1, bb1, w2, dy, dx, part, out, workspace, t, c, hdim, eps,
+                          residual, s);
+  if (c > kMaxC)
+    return launch_dx_f32_wide(x, g, b, w1, bb1, w2, dy, dx, part, out, workspace, t, c, hdim,
+                              eps, residual, s);
+  return launch_dx_f32(x, g, b, w1, bb1, w2, dy, dx, part, out, t, c, hdim, eps, residual, s);
 }
 
-// out receives [dW1 (C x Hd) | dW2 (Hd x C) | db1 (Hd)], f32.
+// out receives [dW1 (C x Hd) | dW2 (Hd x C) | db1 (Hd)], f32. Any C.
 TT_EXPORT int tt_ln_mlp_bwd_dw(const void* x, const void* gamma, const void* beta,
                                const void* w1, const void* b1, const void* w2, const void* dy,
                                void* partial, void* out, void* workspace, int t, int c, int hdim,
                                float eps, int is_bf16, void* stream) {
-  if (c > kMaxC || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
   const float* bb1 = static_cast<const float*>(b1);
   float* part = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dw_bf16(x, g, b, w1, bb1, w2, dy, part, o, workspace, t, c, hdim, eps, s)
-                 : launch_dw_f32(x, g, b, w1, bb1, w2, dy, part, o, t, c, hdim, eps, s);
+  if (is_bf16)
+    return launch_dw_bf16(x, g, b, w1, bb1, w2, dy, part, o, workspace, t, c, hdim, eps, s);
+  if (c > kMaxC)
+    return launch_dw_f32_wide(x, g, b, w1, bb1, w2, dy, part, o, workspace, t, c, hdim, eps, s);
+  return launch_dw_f32(x, g, b, w1, bb1, w2, dy, part, o, t, c, hdim, eps, s);
 }

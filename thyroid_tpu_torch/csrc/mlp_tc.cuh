@@ -26,9 +26,9 @@
 //   the second product, between two named barriers of the consumers;
 // - the second product accumulates into an f32 register tile of 64 rows x
 //   NWC columns a warpgroup (NWC <= 256, at most 128 registers a thread);
-//   a CTA takes NW * NWC >= its column block, at most 512 columns. Wider
-//   rows (C = 768, 1024, 1536) take two or three column blocks, each of
-//   which recomputes the first product(s);
+//   a CTA takes NW * NWC >= its column block, at most 512 columns (256 in
+//   kernel 10 past C = 768). Wider rows take several column blocks, each
+//   of which recomputes the first product(s);
 // - when a grid of row tiles x column blocks would not fill the card twice,
 //   the hidden axis is split over CTAs; each split writes f32 partials
 //   that a second pass adds in split order, so the sum is deterministic.
@@ -85,14 +85,22 @@ struct Plan {
   // workspace, in this order: xn (T x round8(C) bf16), f32 partials, and
   // when staged the padded W1 (C x round8(Hd)), W2 (Hd x round8(C)) and,
   // for kernel 10, dY (T x round8(C))
-  size_t xn_bytes, part_bytes, w1_bytes, w2_bytes, dy_bytes;
-  size_t total() const { return xn_bytes + part_bytes + w1_bytes + w2_bytes + dy_bytes; }
+  // and, for kernel 10 past tokbwd::kMaxC, the rows' statistics
+  size_t xn_bytes, part_bytes, w1_bytes, w2_bytes, dy_bytes, stats_bytes;
+  size_t total() const {
+    return xn_bytes + part_bytes + w1_bytes + w2_bytes + dy_bytes + stats_bytes;
+  }
 };
 
-// bwd: kernel 10, which writes its dXn as partials even unsplit.
+// bwd: kernel 10, which writes its dXn as partials even unsplit. Its rows
+// past tokbwd::kMaxC (C = 1024, 1536) take blocks of 256 columns, one
+// warpgroup each: two warpgroups of 256 spill 1.3 KB a thread (ptxas) and
+// were the slower on the card, though each block recomputes hr
+// and dA.
 inline Plan make_plan(int t, int c, int hdim, bool bwd) {
   Plan p;
-  p.nblk = (c + kMaxBlockCols - 1) / kMaxBlockCols;
+  const int most = bwd && c > tokbwd::kMaxC ? 256 : kMaxBlockCols;
+  p.nblk = (c + most - 1) / most;
   p.cblock = ((c + p.nblk - 1) / p.nblk + 63) / 64 * 64;
   p.nw = p.cblock > 256 ? 2 : 1;
   p.nwc = ((p.cblock + p.nw - 1) / p.nw + 63) / 64 * 64;
@@ -112,6 +120,7 @@ inline Plan make_plan(int t, int c, int hdim, bool bwd) {
   p.w1_bytes = p.staged ? round256(static_cast<size_t>(c) * hp * sizeof(bf16)) : 0;
   p.w2_bytes = p.staged ? round256(static_cast<size_t>(hdim) * cp * sizeof(bf16)) : 0;
   p.dy_bytes = p.staged && bwd ? round256(static_cast<size_t>(t) * cp * sizeof(bf16)) : 0;
+  p.stats_bytes = bwd && c > tokbwd::kMaxC ? tokbwd::stats_bytes(t) : 0;
   return p;
 }
 
@@ -168,32 +177,34 @@ inline cudaError_t pad_copy(const void* src, void* dst, int rows, int cols, int 
   return cudaGetLastError();
 }
 
-// LayerNorm rows into bf16 (row stride ld), one warp a row: the forward's
-// (x - mu) * (rstd * gamma) + beta (bwd_form = 0, as ln_mlp.cu's scalar
-// kernel) or the backward's round-by-step x_hat * gamma + beta (1, as
-// token_bwd.cuh). Statistics as flax: mean, max(0, E[x^2] - mean^2).
+// LayerNorm rows into the compute type T (row stride ld), one warp a row:
+// the forward's (x - mu) * (rstd * gamma) + beta (bwd_form = 0, as
+// ln_mlp.cu's scalar kernel) or the backward's round-by-step x_hat * gamma +
+// beta (1, as token_bwd.cuh). Statistics as flax: mean, max(0, E[x^2] -
+// mean^2).
+template <typename T>
 __global__ void __launch_bounds__(256)
-ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, bf16* __restrict__ xn, int t, int c, int ld,
+ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, T* __restrict__ xn, int t, int c, int ld,
                float eps, int bwd_form) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   if (row >= t) return;
-  const bf16* xr = x + static_cast<size_t>(row) * c;
-  bf16* out = xn + static_cast<size_t>(row) * ld;
+  const T* xr = x + static_cast<size_t>(row) * c;
+  T* out = xn + static_cast<size_t>(row) * ld;
   float mu, rs;
   tokbwd::row_stats(xr, c, eps, mu, rs);
   for (int k = threadIdx.x & 31; k < c; k += 32) {
     const float v = to_f32(xr[k]);
-    out[k] = __float2bfloat16_rn(
-        bwd_form ? tokbwd::ln_affine(tokbwd::xhat(v, mu, rs), gamma[k], beta[k])
-                 : (v - mu) * (rs * gamma[k]) + beta[k]);
+    out[k] = from_f32<T>(bwd_form ? tokbwd::ln_affine(tokbwd::xhat(v, mu, rs), gamma[k], beta[k])
+                                  : (v - mu) * (rs * gamma[k]) + beta[k]);
   }
 }
 
-inline cudaError_t ln_rows(const void* x, const float* g, const float* b, bf16* xn, int t, int c,
+template <typename T>
+inline cudaError_t ln_rows(const void* x, const float* g, const float* b, T* xn, int t, int c,
                            int ld, float eps, int bwd_form, cudaStream_t s) {
-  ln_rows_kernel<<<(t + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(x), g, b, xn, t, c, ld,
-                                             eps, bwd_form);
+  ln_rows_kernel<T><<<(t + 7) / 8, 256, 0, s>>>(static_cast<const T*>(x), g, b, xn, t, c, ld,
+                                                eps, bwd_form);
   return cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 // statistics of a row, the LayerNorm backward of a row block whose dXn sits
 // in shared memory (the float32 kernels), the LayerNorm backward pass of the
 // bf16 tensor-core kernels, which read dXn as f32 partials from global
-// memory (ln_bwd_pass), and the fixed-order sum of per-block partials.
+// memory (ln_bwd_pass), the same pass for rows wider than kMaxC in either
+// type (ln_bwd_wide), and the fixed-order sum of per-block partials.
 //
 // Sums over tokens (dgamma, dbeta, dW1, db1, dW2) are deterministic: each
 // block owns a fixed, strided set of row blocks and keeps its own sums, a
@@ -19,7 +20,8 @@ namespace tokbwd {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBM = 32;                 // token rows of a row block (kernels 9, 10)
-constexpr int kMaxC = 768;              // widest token row the kernels take
+constexpr int kMaxC = 768;              // widest row of the register-tile kernels;
+                                        // wider rows take the wide path (ln_bwd_wide)
 constexpr int kGroups = kMaxC / 64;     // 64-column groups of the register tile
 constexpr int kSMs = 132;               // H100 SXM streaming multiprocessors
 
@@ -28,6 +30,37 @@ constexpr int kSMs = 132;               // H100 SXM streaming multiprocessors
 inline int row_groups(int t) {
   const int blocks = (t + kBM - 1) / kBM;
   return blocks < 1 ? 1 : (blocks < kSMs ? blocks : kSMs);
+}
+
+// The register tile of the float32 kernels: a block's 256 threads as 16 x
+// 16 (ty, tx), thread (ty, tx) holding rows ty and ty + 16 of a 32-row
+// block and columns 64 g + 4 tx + e of a chunk of up to kMaxC columns.
+using RowTile = float[2][kGroups][4];
+
+__device__ __forceinline__ void zero_tile(RowTile& acc) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+}
+
+// The tile as rows [row0, row0 + kBM) x columns [c0, c0 + 64 ngroups) of
+// an f32 (T x C) array (the wide paths' dXn), rows past t and columns past
+// C left out.
+__device__ __forceinline__ void store_tile(const RowTile& acc, float* __restrict__ out, int row0,
+                                           int t, int c, int c0, int ngroups) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + ty + 16 * i, col = c0 + g * 64 + tx * 4 + e;
+        if (g < ngroups && row < t && col < c) out[static_cast<size_t>(row) * c + col] = acc[i][g][e];
+      }
 }
 
 constexpr float kSqrtHalf = 0.70710678118654752440f;
@@ -278,5 +311,149 @@ inline cudaError_t ln_bwd_pass(const float* part, int splits, const void* x, con
   if (err != cudaSuccess) return err;
   return sum_partials(partial, dgb, groups, 2 * static_cast<size_t>(c), s);
 }
+
+// ---- the LayerNorm backward of rows wider than kMaxC ------------------------
+//
+// Past kMaxC (swin_base's stage 4, C = 1024, and swin_large's, 1536) no
+// kernel keeps a row in registers or a row block in shared memory: dXn
+// arrives, in either type, as f32 partials over splits in global memory, as
+// for ln_bwd_pass, and two kernels hold no per-column state but a loop
+// index, so any width that fits the card's memory passes:
+// - ln_bwd_wide_rows_kernel: one block a row (the wide rows belong to the
+//   last stages, whose few tokens would leave a warp a row latency-bound),
+//   thread i taking columns i, i + 256, ... in turn: the row statistics,
+//   m1 = mean(dXh), m2 = mean(dXh x_hat) (block_sum2), then dX = rstd
+//   (dXh - m1 - x_hat m2) (+ dY), each column's dXn the sum of its
+//   partials in split order, as ln_bwd_pass adds them; it writes the row's
+//   (mean, rstd);
+// - ln_bwd_wide_cols_kernel: one thread a column over a fixed run of rows,
+//   in row order: dgamma += dXn x_hat, dbeta += dXn, one partial per run,
+//   which sum_partials adds in run order.
+// Deterministic, no atomics.
+
+// Rows a column thread sums: enough runs for about four blocks an SM.
+inline int wide_rows_per(int t, int c) {
+  const int col_blocks = (c + kThreads - 1) / kThreads;
+  int runs = 4 * kSMs / col_blocks;
+  runs = runs < 1 ? 1 : (runs > t ? t : runs);
+  return (t + runs - 1) / runs;
+}
+
+// Partials of ln_bwd_wide (rows of 2C f32): one per run of rows.
+inline int wide_groups(int t, int c) {
+  if (t < 1) return 1;
+  const int per = wide_rows_per(t, c);
+  return (t + per - 1) / per;
+}
+
+__device__ __forceinline__ float split_sum(const float* __restrict__ part, int splits, size_t n,
+                                           size_t i) {
+  float d = 0.f;
+  for (int sp = 0; sp < splits; ++sp) d += part[sp * n + i];
+  return d;
+}
+
+// Sums a and b over the block's threads: each warp's by shuffles, then the
+// eight warps' in warp order; every thread gets both.
+__device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  a = warp_sum(a);
+  b = warp_sum(b);
+  __syncthreads();  // the last call's reads of red are done
+  if (lane == 0) {
+    red[warp] = a;
+    red[kWarps + warp] = b;
+  }
+  __syncthreads();
+  a = b = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    a += red[w];
+    b += red[kWarps + w];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_wide_rows_kernel(const float* __restrict__ part, int splits, const T* __restrict__ x,
+                        const float* __restrict__ gamma, const T* __restrict__ dy,
+                        T* __restrict__ dx, float2* __restrict__ stats, int t, int c, float eps,
+                        int residual) {
+  __shared__ float red[2 * kWarps];
+  const int tid = threadIdx.x, row = blockIdx.x;
+  const float cf = static_cast<float>(c);
+  const size_t n = static_cast<size_t>(t) * c, base = static_cast<size_t>(row) * c;
+  float s = 0.f, ss = 0.f;
+  for (int k = tid; k < c; k += kThreads) {
+    const float v = to_f32(x[base + k]);
+    s += v;
+    ss += v * v;
+  }
+  block_sum2(s, ss, red);
+  const float mu = s / cf;
+  const float rs = rsqrtf(fmaxf(0.f, ss / cf - mu * mu) + eps);
+  float m1 = 0.f, m2 = 0.f;
+  for (int k = tid; k < c; k += kThreads) {
+    const float dxh = split_sum(part, splits, n, base + k) * gamma[k];
+    m1 += dxh;
+    m2 += dxh * xhat(to_f32(x[base + k]), mu, rs);
+  }
+  block_sum2(m1, m2, red);
+  m1 /= cf;
+  m2 /= cf;
+  for (int k = tid; k < c; k += kThreads) {
+    const float xh = xhat(to_f32(x[base + k]), mu, rs);
+    float v = rs * (split_sum(part, splits, n, base + k) * gamma[k] - m1 - xh * m2);
+    if (residual) v += to_f32(dy[base + k]);
+    dx[base + k] = from_f32<T>(v);
+  }
+  if (tid == 0) stats[row] = make_float2(mu, rs);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_wide_cols_kernel(const float* __restrict__ part, int splits, const T* __restrict__ x,
+                        const float2* __restrict__ stats, float* __restrict__ partial, int t,
+                        int c, int rows_per) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= c) return;
+  const size_t n = static_cast<size_t>(t) * c;
+  const int r0 = blockIdx.y * rows_per, r1 = min(t, r0 + rows_per);
+  float sg = 0.f, sb = 0.f;
+  for (int row = r0; row < r1; ++row) {
+    const size_t i = static_cast<size_t>(row) * c + k;
+    const float d = split_sum(part, splits, n, i);
+    const float2 st = stats[row];
+    sg += d * xhat(to_f32(x[i]), st.x, st.y);
+    sb += d;
+  }
+  float* out = partial + static_cast<size_t>(blockIdx.y) * 2 * c;
+  out[k] = sg;
+  out[c + k] = sb;
+}
+
+// The wide pass over dXn's `splits` partials (f32, T x C each); stats is a
+// workspace of T float2, partial wide_groups(t, c) x 2C f32, dgb receives
+// [dgamma | dbeta].
+template <typename T>
+inline cudaError_t ln_bwd_wide(const float* part, int splits, const void* x, const float* gamma,
+                               const void* dy, void* dx, float2* stats, float* partial,
+                               float* dgb, int t, int c, float eps, int residual,
+                               cudaStream_t s) {
+  ln_bwd_wide_rows_kernel<T><<<t, kThreads, 0, s>>>(
+      part, splits, static_cast<const T*>(x), gamma, static_cast<const T*>(dy),
+      static_cast<T*>(dx), stats, t, c, eps, residual);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int per = wide_rows_per(t, c), groups = wide_groups(t, c);
+  const dim3 grid((c + kThreads - 1) / kThreads, groups);
+  ln_bwd_wide_cols_kernel<T><<<grid, kThreads, 0, s>>>(part, splits, static_cast<const T*>(x),
+                                                       stats, partial, t, c, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_partials(partial, dgb, groups, 2 * static_cast<size_t>(c), s);
+}
+
+inline size_t stats_bytes(int t) { return (static_cast<size_t>(t) * sizeof(float2) + 255) / 256 * 256; }
 
 }  // namespace tokbwd

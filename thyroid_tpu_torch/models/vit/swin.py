@@ -46,8 +46,14 @@ read `train_token_kernels` or `ln_kernel`: they are set on the modules,
 (JAX's default on its accelerator); with false every block and merge
 takes the plain path, no kernel, as JAX's flag does (JAX's analysis
 scripts set it, so that autograd runs through the forward).
-`use_checkpoint` only trades memory in JAX and is read and ignored;
-`attn_softmax_dtype` bf16 raises.
+`use_checkpoint: true` runs each block under
+`torch.utils.checkpoint.checkpoint` in training (JAX's `nn.remat`): the
+block's forward runs again in the backward, with the DropPath and dropout
+generator set back to the state it had, so the draws and the gradients are
+those of the step without it. `attn_softmax_dtype: bf16` takes the plain
+attention's scores as JAX's `preferred_element_type=bf16`: q·kᵀ rounded to
+bfloat16, the bias and mask added and the softmax taken in bfloat16 (the
+fused kernels do not read it, as JAX's do not).
 
 `forward(..., capture=True)` returns (output, intermediates), JAX's sown
 tensors: each block's window attention after the contrast scaling
@@ -65,6 +71,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 from torch.nn import functional as F
 
@@ -124,9 +131,11 @@ class WindowAttention(nn.Module):
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  attn_drop_rate: float = 0.0, proj_drop_rate: float = 0.0,
                  contrast_adaptive: bool = False, quality_guided: bool = False,
-                 train_token_kernels: bool = False, ln_kernel: bool = False):
+                 train_token_kernels: bool = False, ln_kernel: bool = False,
+                 softmax_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ws, self.num_heads = window_size, num_heads
+        self.softmax_dtype = softmax_dtype
         self.scale = float(qk_scale or (dim // num_heads) ** -0.5)
         self.attn_drop_rate = float(attn_drop_rate)
         self.proj_drop_rate = float(proj_drop_rate)
@@ -204,14 +213,23 @@ class WindowAttention(nn.Module):
         # q·scale in the model dtype, the scale rounded to it as JAX's
         # weakly typed constant is
         q = q * torch.tensor(self.scale, dtype=dt)
-        attn = q.float() @ k.float().transpose(-1, -2) + bias[None]
+        # the scores in softmax_dtype (JAX's preferred_element_type): a
+        # float32 product, rounded once; bias and mask added in that dtype
+        sdt = self.softmax_dtype
+        attn = (q.float() @ k.float().transpose(-1, -2)).to(sdt) \
+            + bias[None].to(sdt)
         if mask is not None:
             nw = mask.shape[0]
             attn = (attn.reshape(b_ // nw, nw, heads, n, n)
-                    + mask[None, :, None].float()).reshape(b_, heads, n, n)
+                    + mask[None, :, None].to(sdt)).reshape(b_, heads, n, n)
         if self.contrast_adaptive:
             attn = attn * self.contrast_scale.float().reshape(1, -1, 1, 1)
-        attn = torch.softmax(attn, dim=-1).to(dt)
+        if attn.dtype == torch.float32:
+            attn = torch.softmax(attn, dim=-1)
+        else:  # jax.nn.softmax written out, each step rounded to bfloat16
+            e = torch.exp(attn - attn.amax(dim=-1, keepdim=True))
+            attn = e / e.sum(dim=-1, keepdim=True)
+        attn = attn.to(dt)
         if record is not None:
             record("attention", attn)
         attn = dropout(attn, self.attn_drop_rate, train, generator)
@@ -237,7 +255,8 @@ class SwinBlock(nn.Module):
                  qk_scale: Optional[float] = None, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  contrast_adaptive: bool = False, quality_guided: bool = False,
-                 train_token_kernels: bool = False, kernels: bool = True):
+                 train_token_kernels: bool = False, kernels: bool = True,
+                 softmax_dtype: torch.dtype = torch.float32):
         super().__init__()
         h, w = input_resolution
         ws, shift = window_size, shift_size
@@ -255,7 +274,7 @@ class SwinBlock(nn.Module):
         self.attn = WindowAttention(
             dim, ws, num_heads, qkv_bias, qk_scale, attn_drop_rate, drop_rate,
             contrast_adaptive=contrast_adaptive, quality_guided=quality_guided,
-            train_token_kernels=train_token_kernels)
+            train_token_kernels=train_token_kernels, softmax_dtype=softmax_dtype)
         self.norm2 = LNParams(dim)
         self.mlp = MlpParams(dim, int(dim * mlp_ratio))
         self.drop_path = DropPath(drop_path_rate)
@@ -376,6 +395,30 @@ class PatchEmbed(nn.Conv2d):
     jax_layout = {"kernel": ("weight", HWIO_TO_OIHW)}
 
 
+def checkpointed(block: nn.Module, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """block(x, train=True) under torch.utils.checkpoint (JAX's nn.remat):
+    its activations are dropped and the forward runs again in the
+    backward. checkpoint restores the global RNGs only, so the recompute
+    sets `generator` back to its state before the first run, and restores
+    it after, and draws the same DropPath and dropout masks."""
+    state = generator.get_state() if generator is not None else None
+    first = [True]
+
+    def run(x):
+        if first[0] or generator is None:
+            first[0] = False
+            return block(x, True, generator)
+        after = generator.get_state()
+        generator.set_state(state)
+        try:
+            return block(x, True, generator)
+        finally:
+            generator.set_state(after)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+
+
 class SwinStage(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int], depth: int,
                  num_heads: int, window_size: int, mlp_ratio: float,
@@ -384,10 +427,13 @@ class SwinStage(nn.Module):
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  contrast_adaptive: bool = False, quality_guided: bool = False,
                  quality_aware_merge: bool = False,
-                 train_token_kernels: bool = False, kernels: bool = True):
+                 train_token_kernels: bool = False, kernels: bool = True,
+                 softmax_dtype: torch.dtype = torch.float32,
+                 use_checkpoint: bool = False):
         super().__init__()
         self.depth = depth
         self.kernels = kernels
+        self.use_checkpoint = use_checkpoint
         rates = tuple(drop_path_rates) or (0.0,) * depth
         for i in range(depth):
             self.add_module(f"block_{i}", SwinBlock(
@@ -398,7 +444,8 @@ class SwinStage(nn.Module):
                 drop_path_rate=float(rates[i]),
                 contrast_adaptive=contrast_adaptive,
                 quality_guided=quality_guided,
-                train_token_kernels=train_token_kernels, kernels=kernels))
+                train_token_kernels=train_token_kernels, kernels=kernels,
+                softmax_dtype=softmax_dtype))
         self.downsample = PatchMerging(input_resolution, dim,
                                        quality_aware=quality_aware_merge) \
             if downsample else None
@@ -407,8 +454,12 @@ class SwinStage(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 record: Record = None) -> torch.Tensor:
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(
-                x, train, generator, record=scoped(record, f"block_{i}"))
+            block = getattr(self, f"block_{i}")
+            if self.use_checkpoint and train and torch.is_grad_enabled():
+                x = checkpointed(block, x, generator)
+            else:
+                x = block(x, train, generator,
+                          record=scoped(record, f"block_{i}"))
         if record is not None:
             record("stage_features", x)
         if self.downsample is not None:
@@ -430,6 +481,8 @@ class SwinTransformer(nn.Module):
                  contrast_adaptive: bool = False, quality_guided: bool = False,
                  uncertainty_head: bool = False,
                  train_token_kernels: bool = False, kernels: bool = True,
+                 softmax_dtype: torch.dtype = torch.float32,
+                 use_checkpoint: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if img_size % patch_size:
@@ -462,7 +515,8 @@ class SwinTransformer(nn.Module):
                 contrast_adaptive=contrast_adaptive or medical_adaptations,
                 quality_guided=quality_guided or medical_adaptations,
                 quality_aware_merge=medical_adaptations,
-                train_token_kernels=train_token_kernels, kernels=kernels))
+                train_token_kernels=train_token_kernels, kernels=kernels,
+                softmax_dtype=softmax_dtype, use_checkpoint=use_checkpoint))
         feat = int(embed_dim * 2 ** (self.num_layers - 1))
         self.norm = LNParams(feat)
         self.head = DenseParams(feat, num_classes)
@@ -541,15 +595,12 @@ def swin_arguments(cfg: Any) -> Dict[str, Any]:
     """The SwinTransformer arguments of a model config, every key JAX's
     build_swin reads (not `train_token_kernels`, which it ignores too).
     `use_pallas_attention` false builds the model without kernels (unset,
-    with them); `use_checkpoint` is read and has no effect here;
-    `attn_softmax_dtype` bf16 raises."""
+    with them); `use_checkpoint` checkpoints each block in training;
+    `attn_softmax_dtype` bf16 (or bfloat16) takes the plain attention's
+    scores in bfloat16."""
     name = cfg_get(cfg, "name", "swin_tiny")
     dim, depths, heads, dpr, img = SWIN_PARAMS.get(
         name, (96, (2, 2, 6, 2), (3, 6, 12, 24), 0.2, 224))
-    if cfg_get(cfg, "attn_softmax_dtype", None) in ("bf16", "bfloat16"):
-        raise NotImplementedError(
-            "attn_softmax_dtype bf16 is not ported (ROADMAP Queue 1: Swin "
-            "options, the rest)")
     return dict(
         img_size=int(cfg_get(cfg, "img_size", img)),
         patch_size=int(cfg_get(cfg, "patch_size", 4)),
@@ -573,6 +624,9 @@ def swin_arguments(cfg: Any) -> Dict[str, Any]:
         quality_guided=bool(cfg_get(cfg, "quality_guided", False)),
         uncertainty_head=bool(cfg_get(cfg, "uncertainty_head", False)),
         kernels=bool(cfg_get(cfg, "use_pallas_attention", True)),
+        softmax_dtype=(torch.bfloat16 if cfg_get(cfg, "attn_softmax_dtype", None)
+                       in ("bf16", "bfloat16") else torch.float32),
+        use_checkpoint=bool(cfg_get(cfg, "use_checkpoint", False)),
         dtype=resolve_dtype(cfg),
     )
 

@@ -28,7 +28,9 @@ are cast to it, LN parameters and biases to float32, as the JAX wrappers
 do. LN follows flax's fast-variance numerics in float32; intermediate
 activations are rounded to the compute dtype where the JAX kernels round
 them, and every product accumulates in float32. The backward kernels take
-widths C up to 768.
+every width C that JAX's do (rows past 768, swin_base's and swin_large's
+last stage, take their wide path: csrc/token_bwd.cuh `ln_bwd_wide`); the
+only refusal left is a dY whose shape or dtype does not match.
 """
 from __future__ import annotations
 
@@ -42,7 +44,6 @@ from . import _build
 
 LN_EPS = 1e-5
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_BWD_WIDTH = 768          # the backward kernels' widest row (csrc/token_bwd.cuh)
 
 
 def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -123,24 +124,24 @@ def ln_matmul_bwd_plain(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
     return dx, (dxn * xhat).sum(dim=0), dxn.sum(dim=0)
 
 
-def _mlp_bwd_hidden(x, g, b, w1, b1, w2, dy, eps):
+def _mlp_bwd_hidden(x, g, b, w1, b1, w2, dy, eps, acc=torch.float32):
     """What both halves of the plain LN + MLP backward start from, in
-    float32: (x̂, rstd, LN(x) rebuilt as x̂·γ + β and rounded, the hidden
-    pre-activation, dH, dY)."""
+    `acc` (float32): (x̂, rstd, LN(x) rebuilt as x̂·γ + β and rounded, the
+    hidden pre-activation, dH, dY)."""
     cdt = x.dtype
-    xhat, r = ln_stats(x.float(), eps)
-    w1c, w2c = w1.to(cdt).float(), w2.to(cdt).float()
-    xn = (xhat * g.float() + b.float()).to(cdt).float()
-    hr = (xn @ w1c + b1.float()).to(cdt).float()
-    dyf = dy.to(cdt).float()
-    dh = ((dyf @ w2c.t()) * gelu_grad(hr)).to(cdt).float()
+    xhat, r = ln_stats(x.to(acc), eps)
+    w1c, w2c = w1.to(cdt).to(acc), w2.to(cdt).to(acc)
+    xn = (xhat * g.to(acc) + b.to(acc)).to(cdt).to(acc)
+    hr = (xn @ w1c + b1.to(acc)).to(cdt).to(acc)
+    dyf = dy.to(cdt).to(acc)
+    dh = ((dyf @ w2c.t()) * gelu_grad(hr)).to(cdt).to(acc)
     return xhat, r, xn, hr, dh, dyf
 
 
 def _mlp_bwd_dx_from(x, g, w1, residual, hidden):
     xhat, r, _, _, dh, dyf = hidden
-    dxn = dh @ w1.to(x.dtype).float().t()
-    dx = ln_bwd_rows(dxn, xhat, r, g.float())
+    dxn = dh @ w1.to(x.dtype).to(dh.dtype).t()
+    dx = ln_bwd_rows(dxn, xhat, r, g.to(dh.dtype))
     if residual:
         dx = dx + dyf
     return dx.to(x.dtype), (dxn * xhat).sum(dim=0), dxn.sum(dim=0)
@@ -148,7 +149,7 @@ def _mlp_bwd_dx_from(x, g, w1, residual, hidden):
 
 def _mlp_bwd_dw_from(x, hidden):
     _, _, xn, hr, dh, dyf = hidden
-    a = torch.nn.functional.gelu(hr).to(x.dtype).float()
+    a = torch.nn.functional.gelu(hr).to(x.dtype).to(dh.dtype)
     return xn.t() @ dh, dh.sum(dim=0), a.t() @ dyf
 
 
@@ -167,12 +168,16 @@ def ln_mlp_bwd_dw_plain(x, g, b, w1, b1, w2, dy, eps: float = LN_EPS):
 
 def ln_mlp_bwd_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                      w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                     dy: torch.Tensor, residual: bool, eps: float = LN_EPS):
+                     dy: torch.Tensor, residual: bool, eps: float = LN_EPS,
+                     acc: torch.dtype = torch.float32):
     """Plain version of the LN + MLP backward (both kernels): x, dy (T, C)
     in the compute dtype → (dX in it, dγ, dβ, dW1, db1, dW2 float32). The
     LN is rebuilt as x̂·γ + β, as the JAX backward rebuilds it, once for
-    both halves."""
-    hidden = _mlp_bwd_hidden(x, g, b, w1, b1, w2, dy, eps)
+    both halves. `acc` torch.float64 evaluates the same roundings to the
+    compute dtype with float64 products and sums (and gives the sums in
+    float64): the yardstick of how far the float32 sums themselves stand
+    from exact."""
+    hidden = _mlp_bwd_hidden(x, g, b, w1, b1, w2, dy, eps, acc)
     return (_mlp_bwd_dx_from(x, g, w1, residual, hidden)
             + _mlp_bwd_dw_from(x, hidden))
 
@@ -199,9 +204,10 @@ def _groups(lib: str, symbol: str, *sizes: int) -> int:
 
 
 def _workspace(lib: str, symbol: str, device, *sizes: int) -> torch.Tensor:
-    """The scratch bytes a tensor-core launch asks for (the normalised rows
-    in bf16, f32 partials over hidden splits and, for widths that are not
-    multiples of 8, zero-padded operand copies; none in float32)."""
+    """The scratch bytes a launch asks for (in bf16 the normalised rows,
+    f32 partials over hidden splits and, for widths that are not multiples
+    of 8, zero-padded operand copies; in float32 none up to C = 768, and the
+    backward's normalised rows, dXn and row statistics past it)."""
     fn = getattr(_build.library(lib), symbol)
     fn.argtypes = [ctypes.c_int] * len(sizes)
     fn.restype = ctypes.c_longlong
@@ -313,9 +319,7 @@ _ln_mlp_op = _build.define_op(
 
 
 def _check_bwd(name: str, x2: torch.Tensor, dy: torch.Tensor, width: int) -> None:
-    if x2.shape[1] > _MAX_BWD_WIDTH:
-        raise ValueError(f"{name} takes C up to {_MAX_BWD_WIDTH}, got "
-                         f"{x2.shape[1]}")
+    # no width limit: JAX's backward kernels take any C, and so do these
     if dy.dtype != x2.dtype or tuple(dy.shape) != (x2.shape[0], width):
         raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
                          f"{x2.dtype} {tuple(x2.shape)}")
@@ -349,7 +353,7 @@ def _ln_matmul_bwd_cuda(x2, g, w, dy, eps):
     if t == 0:
         return dx, dgb
     is_bf16 = int(x2.dtype == torch.bfloat16)
-    partial = torch.empty(_groups("ln_matmul_bwd", "tt_ln_bwd_groups", t,
+    partial = torch.empty(_groups("ln_matmul_bwd", "tt_ln_bwd_groups", t, c,
                                   is_bf16), 2, c, dtype=torch.float32,
                           device=x2.device)
     ws = _workspace("ln_matmul_bwd", "tt_ln_matmul_bwd_workspace", x2.device,
@@ -415,7 +419,7 @@ def _ln_mlp_bwd_dx_cuda(x2, g, b, w1, b1, w2, dy, residual, eps):
         return dx, dgb
     is_bf16 = int(x2.dtype == torch.bfloat16)
     partial = torch.empty(_groups("ln_mlp_bwd", "tt_ln_mlp_bwd_dx_groups", t,
-                                  is_bf16), 2, c, dtype=torch.float32,
+                                  c, is_bf16), 2, c, dtype=torch.float32,
                           device=x2.device)
     ws = _workspace("ln_mlp_bwd", "tt_ln_mlp_bwd_dx_workspace", x2.device, t,
                     c, hdim, is_bf16)
