@@ -334,7 +334,28 @@ Phases, each printing its lines before the final one:
    float32 step with the flag (batch 16, drop path 0.1) against the step
    without checkpointing, both peak memories; (e) rows 9-11's device times at C =
    1024 and 1536 (bf16, batch 8) beside their bounds and their
-   torch.autograd.grad yardsticks.
+   torch.autograd.grad yardsticks;
+31. warm starts: seeded 3-channel, 1000-class checkpoints written in the
+   key names and layouts timm and torchvision give (TORCH_MODULES) to a
+   temporary $THYROID_PRETRAINED_DIR, then (a) the registry swin_tiny
+   (bf16) served from swin_tiny.pth through `pretrained: true` at bucket
+   32: 1/15/12/12 launches of kernels 1-4 per forward and no other
+   kernel, the probabilities of the card's bf16 and float32 engines
+   against the CPU's float32 engine warm-started from the same file
+   (phase 3's bounds), every imported leaf on the card equal to the file's
+   tensor after conversion bit for bit (the patch embedding averaged over
+   RGB, linears transposed) and the 2-class head the seeded init; (b) the
+   same file through the Trainer: its float32 step (batch 8, drop path 0)
+   against the CPU's at phase 6's tolerances, and Trainer.fit for one
+   epoch of 96 frames at batch 32 (12 + 12 launches of kernels 5 and 6
+   per step); (c) efficientnet_b0 with dw_pallas_conv from a timm-named
+   file with running statistics (12 depthwise launches per forward, phase
+   15's bounds); (d) deit_small at 256² from a 224² checkpoint with
+   dist_token and head_dist (the pos-embed resized from 198 to 258 tokens
+   at D = 384; 12 + 12 launches of kernels 2-3 per forward; phase 25's
+   bounds); (e) resnet50 kept RGB (in_channels 3) from a Lightning
+   envelope with `model.` prefixes named by pretrained_path (kernel 1
+   only; phase 25's bounds). It logs its seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
@@ -2365,10 +2386,13 @@ def effnet_variables(config, seed: int = 0):
     """Seeded efficientnet variables as a JAX tree: the port's initial
     weights bumped by 0.01·sin(0.7·i); running statistics equal to the batch
     statistics of one float32 train-mode forward on the card (momentum 0)
-    on 32 prepared, standardized raw 512x512 frames, then perturbed likewise.
-    (The initial mean 0, var 1 would make the eval forward all but blind to
-    its input.)"""
-    from thyroid_tpu_torch.data.pipeline import prepare_images
+    on 32 prepared, standardized raw 512x512 frames (a 3-channel model's
+    repeated over its channels and standardized with ImageNet's mean and
+    std, as the engine feeds it), then perturbed likewise. (The initial
+    mean 0, var 1 would make the eval forward all but blind to its
+    input.)"""
+    from thyroid_tpu_torch.data.pipeline import (IMAGENET_MEAN, IMAGENET_STD,
+                                                 prepare_images)
     from thyroid_tpu_torch.models.base import create_and_init
     from thyroid_tpu_torch.models.from_jax import (load_jax_variables,
                                                    to_jax_variables)
@@ -2383,7 +2407,13 @@ def effnet_variables(config, seed: int = 0):
     rs = np.random.RandomState(seed + 100)
     raw = torch.from_numpy((rs.rand(BATCH, 512, 512, 1) * 65535)
                            .astype(np.float32)).cuda()
-    x = standardize(prepare_images(raw, 224), (0.5,), (0.5,))
+    x = prepare_images(raw, 224)
+    if int(config.get("in_channels", 1)) == 3:
+        # as the engine feeds a 3-channel model: gray repeated, ImageNet's
+        # mean and std
+        x = standardize(x.repeat(1, 1, 1, 3), IMAGENET_MEAN, IMAGENET_STD)
+    else:
+        x = standardize(x, (0.5,), (0.5,))
     for mod in model.modules():
         if isinstance(mod, BatchNorm):
             mod.momentum = 0.0
@@ -6461,6 +6491,354 @@ def phase_wide_token(card: str) -> None:
         raise AssertionError(f"phase 30 checks failed: {failed}")
 
 
+# ------------------------------------------------ phase 31: warm starts
+
+# every served model's head has 2 classes; the checkpoints carry
+# ImageNet's, which the importers skip
+IMAGENET_CLASSES = 1000
+DEIT_SIDE = 256                # deit_small served at 256²: 16² patches + 2
+# the least spread of p0 over the compared frames: below it, probabilities
+# stuck at 0 / 1 or at one value would agree whatever the weights
+MIN_SPREAD = 1e-3
+# efficientnet_b0's file: the gray model's stem spread over R, G and B by
+# these factors, whose mean is 1, so that the running statistics drawn for
+# the gray model still fit the averaged stem
+RGB_SPREAD = (0.9, 1.0, 1.1)
+WARM_FRAMES = 96               # phase 31's Trainer.fit: 3 steps of 32
+# a JAX module path → its torch module in the names timm and torchvision
+# give and models/import_torch.py reads, per family: (regex, name)
+TORCH_MODULES = {
+    "swin": (
+        (r"patch_embed", lambda m: "patch_embed.proj"),
+        (r"patch_norm", lambda m: "patch_embed.norm"),
+        (r"stage_(\d+)\.block_(\d+)\.(norm1|norm2|attn|attn\.qkv|attn\.proj)",
+         lambda m: f"layers.{m[1]}.blocks.{m[2]}.{m[3]}"),
+        (r"stage_(\d+)\.block_(\d+)\.mlp\.Dense_(\d)",
+         lambda m: f"layers.{m[1]}.blocks.{m[2]}.mlp.fc{int(m[3]) + 1}"),
+        (r"stage_(\d+)\.downsample\.(norm|reduction)",
+         lambda m: f"layers.{m[1]}.downsample.{m[2]}"),
+        (r"norm|head", lambda m: m[0])),
+    "deit": (
+        (r"", lambda m: ""),
+        (r"patch_embed\.proj|norm|head|head_dist", lambda m: m[0]),
+        (r"block_(\d+)\.LayerNorm_(\d)",
+         lambda m: f"blocks.{m[1]}.norm{int(m[2]) + 1}"),
+        (r"block_(\d+)\.Attention_0\.Dense_(\d)",
+         lambda m: f"blocks.{m[1]}.attn.{('qkv', 'proj')[int(m[2])]}"),
+        (r"block_(\d+)\.Mlp_0\.Dense_(\d)",
+         lambda m: f"blocks.{m[1]}.mlp.fc{int(m[2]) + 1}")),
+    "resnet": (
+        (r"conv1|bn1|fc", lambda m: m[0]),
+        (r"layer(\d)_(\d+)\.ConvBN_(\d)\.(Conv|BatchNorm)_0",
+         lambda m: f"layer{m[1]}.{m[2]}.{dict(Conv='conv', BatchNorm='bn')[m[4]]}"
+                   f"{int(m[3]) + 1}"),
+        (r"layer(\d)_(\d+)\.downsample\.(Conv|BatchNorm)_0",
+         lambda m: f"layer{m[1]}.{m[2]}.downsample.{int(m[3] != 'Conv')}")),
+    "efficientnet": (
+        (r"stem_conv|stem_bn|head_conv|head_bn|classifier",
+         lambda m: {"stem_conv": "conv_stem", "stem_bn": "bn1", "head_conv":
+                    "conv_head", "head_bn": "bn2"}.get(m[0], m[0])),
+        (r"mbconv(\d)_(\d+)\.SqueezeExcite_0\.Conv_(\d)",
+         lambda m: f"blocks.{m[1]}.{m[2]}.se.conv_{('reduce', 'expand')[int(m[3])]}"),
+        (r"mbconv(\d)_(\d+)\.BatchNorm_(\d)",
+         lambda m: f"blocks.{m[1]}.{m[2]}.bn{int(m[3]) + 1}"),
+        # stage 0 is timm's DepthwiseSeparableConv (conv_dw, bn1, se,
+        # conv_pw, bn2), the rest InvertedResidual (conv_pw, bn1, conv_dw,
+        # bn2, se, conv_pwl, bn3)
+        (r"mbconv(\d)_(\d+)\.Conv_(\d)",
+         lambda m: f"blocks.{m[1]}.{m[2]}.conv_"
+                   + (("dw", "pw") if m[1] == "0" else ("pw", "dw", "pwl"))[int(m[3])])),
+}
+# JAX's leaf names → torch's (other leaves keep theirs)
+TORCH_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def torch_key(family: str, path: str) -> str:
+    """The torch key of the dotted JAX path `path` ("params.a.b.kernel")."""
+    _, *module, leaf = path.split(".")
+    module = ".".join(module)
+    for pattern, name in TORCH_MODULES[family]:
+        m = re.fullmatch(pattern, module)
+        if m is not None:
+            return ".".join(p for p in (name(m), TORCH_LEAF.get(leaf, leaf)) if p)
+    raise KeyError(f"{family}: no torch name for {path}")
+
+
+def torch_checkpoint(family: str, variables, path: Path,
+                     envelope: bool = False):
+    """Write `variables` (the JAX tree of a 3-channel, 1000-class model) to
+    `path` as `family`'s torch state_dict: conv kernels OIHW, linear
+    weights (out, in), BatchNorms with timm's num_batches_tracked, Swin's
+    attention with its relative_position_index buffer; with `envelope`, as
+    a Lightning checkpoint with the reference's `model.` prefix. Returns
+    {JAX path: torch key}."""
+    from thyroid_tpu_torch.models.from_jax import _flatten
+    from thyroid_tpu_torch.models.vit.swin import relative_position_index
+
+    names, sd = {}, {}
+    for p, a in _flatten(variables).items():
+        key = names[p] = torch_key(family, p)
+        if p.endswith(".kernel"):
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        sd[key] = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        if key.endswith("running_var"):
+            sd[key.replace("running_var", "num_batches_tracked")] = torch.tensor(300)
+        if key.endswith("relative_position_bias_table"):
+            sd[key.replace("bias_table", "index")] = \
+                torch.from_numpy(relative_position_index(7)).long()
+    if envelope:
+        sd = {"state_dict": {f"model.{k}": v for k, v in sd.items()},
+              "epoch": 3, "global_step": 300}
+    torch.save(sd, path)
+    return names
+
+
+def warm_leaves(tag: str, model, config, seed: int, names, path: Path,
+                first: str, skipped=(), pos_embed: int = 0) -> bool:
+    """Every leaf of `model` (on the card) that the file at `path` covers
+    equals the file's tensor after the importer's conversion, bit for bit:
+    kernels HWIO from OIHW (`first`, the first conv, averaged over RGB
+    when the model is gray) and (in, out) from (out, in); with
+    `pos_embed` prefix tokens, the pos-embed is the file's resized by
+    interpolate_pos_embed (its own checks are CPU tests against cv2).
+    The leaves of `skipped` (the 2-class heads) keep the init that
+    `seed` draws for `config` without the warm start. True when all hold."""
+    from thyroid_tpu_torch.models.base import create_and_init
+    from thyroid_tpu_torch.models.from_jax import _flatten, to_jax_variables
+    from thyroid_tpu_torch.models.import_torch import (interpolate_pos_embed,
+                                                       load_torch_checkpoint)
+
+    got = _flatten(to_jax_variables(model))
+    sd = load_torch_checkpoint(str(path))
+    bad, held = [], 0
+    for p, key in names.items():
+        if p not in got or p.split(".")[1] in skipped:
+            continue
+        want = sd[key].numpy()
+        if p.endswith(".kernel"):
+            want = want.transpose(2, 3, 1, 0) if want.ndim == 4 else want.T
+            if p == first and got[p].shape[2] == 1:
+                want = want.mean(axis=2, keepdims=True)
+        if p == "params.pos_embed" and pos_embed:
+            want = interpolate_pos_embed(want, got[p].shape[1], pos_embed)
+        held += 1
+        if got[p].shape != want.shape or not np.array_equal(got[p], want):
+            bad.append(p)
+    seeded = _flatten(to_jax_variables(create_and_init(
+        config, seed=seed, device="cpu", pretrained=False)))
+    fresh = [p for p in got if p.split(".")[1] in skipped]
+    bad += [p for p in fresh if not np.array_equal(got[p], seeded[p])]
+    log(f"[warm] {tag}: {held} leaves on the card equal to the file's after "
+        f"conversion, {len(fresh)} head leaves equal to the seeded init: "
+        f"{'ok' if not bad else f'FAIL {bad[:6]}'}")
+    return not bad and held > 0 and len(fresh) > 0
+
+
+# engine pairs whose probabilities are held, (engine, reference, tol or
+# None to log only): phase 3's and phase 15's for swin_tiny and
+# efficientnet_b0 (bf16 on the card against float32 on the CPU), phase
+# 25's for the rest (deit_small's and resnet50's bf16 stand past PROB_TOL
+# from their float32 on the CPU too: phase 24)
+PHASE3_PAIRS = (("cuda f32", "cpu f32", PROB_TOL[torch.float32]),
+                ("cuda bf16", "cpu f32", PROB_TOL[torch.bfloat16]))
+ZOO_PAIRS = (("cuda f32", "cpu f32", PROB_TOL[torch.float32]),
+             ("cuda bf16", "cpu bf16", PROB_TOL[torch.bfloat16]),
+             ("cuda bf16", "cpu f32", None))
+
+
+def warm_serve(tag: str, config, per_forward, pairs, card: str):
+    """Serve `config` (a warm start) at bucket 32 on 32 raw 512² frames:
+    the launches of one forward, every counter set to 0 just before, equal
+    to `per_forward` (the other kernels none), images/s (median of 3), and
+    the first 8 frames' probabilities of engines warm-started from the same
+    file held pair by pair (`pairs`). Returns (the card's engine, ok)."""
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    engine = InferenceEngine(config)
+    engine.warmup()
+    rs = np.random.RandomState(310)
+    frames = (rs.rand(BATCH, 512, 512, 1) * 65535).astype(np.float32)
+    served = {}
+    launches = zoo_counts(lambda: served.setdefault("p", engine.predict(frames)))
+    want = {k: per_forward.get(k, 0) for k in launches}
+    ok = launches == want and served["p"].shape == (BATCH, 2) \
+        and bool(np.isfinite(served["p"]).all())
+    probs = {f"cuda {config['dtype']}": served["p"][:8]}
+    log(f"[warm] {tag} served N={BATCH} at bucket {BATCH} on the card: launches "
+        f"{ {k: v for k, v in launches.items() if v} }; expected "
+        f"{ {k: v for k, v in want.items() if v} } (every other kernel 0): "
+        f"{'ok' if launches == want else 'FAIL'}")
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.predict(frames)
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    log(f"[warm] {tag} predict bucket {BATCH}: {med * 1e3:.2f} ms, "
+        f"{BATCH / med:.1f} images/s (median of 3); card {card}")
+    for what in sorted({e for pair in pairs for e in pair[:2]} - set(probs)):
+        dev, dt = what.split()
+        probs[what] = InferenceEngine(dict(config, dtype=dt), device=dev) \
+            .predict(frames[:8])
+    spread = float(np.ptp(probs["cpu f32"][:, 0]))
+    if spread < MIN_SPREAD:
+        log(f"[warm] {tag}: p0 spreads {spread:.3e} over the batch, under "
+            f"{MIN_SPREAD:.0e}: the comparison would hold nothing FAIL")
+        ok = False
+    for what, ref, tol in pairs:
+        err = float(np.abs(probs[what] - probs[ref]).max())
+        held = tol is None or err <= tol
+        log(f"[warm] {tag} N=8 probabilities, {what} vs {ref}: max_abs_err "
+            f"{err:.3e} " + (f"tol {tol:.0e}" if tol else "(logged, not held)")
+            + f" (spread of p0 over the batch {spread:.3e})"
+            + ("" if held else " FAIL"))
+        ok &= held
+    return engine, ok
+
+
+def warm_fit(config, path: Path, names, card: str) -> bool:
+    """(b) of phase 31: the f32 step (batch 8, drop path 0) of a Trainer
+    warm-started from `path` on the card against the CPU's at phase 6's
+    tolerances, then Trainer.fit from it for one epoch of WARM_FRAMES raw
+    frames at batch 32 with validation on 32, the launches counted."""
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+
+    rs = np.random.RandomState(31)
+    batch = (rs.randn(8, 224, 224, 1).astype(np.float32),
+             (np.arange(8) % 2).astype(np.int64), np.ones(8, np.float32))
+    f32 = dict(config, dtype="f32", drop_path_rate=0.0)
+    cpu = step_loss_grads(f32, None, batch, "cpu")
+    card_step = step_loss_grads(f32, None, batch)
+    torch.cuda.empty_cache()
+    loss_rel, grad_rel, norm = step_agreement(card_step, cpu)
+    ok = loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL
+    log(f"[warm] swin_tiny f32 step from the file, batch 8, card vs cpu: loss "
+        f"{card_step[0]:.7f} vs {cpu[0]:.7f} (relative {loss_rel:.3e}, tol "
+        f"{STEP_LOSS_RTOL:.0e}); |grad diff| / |grad| {grad_rel:.3e} (tol "
+        f"{STEP_GRAD_RTOL:.0e}, |grad| {norm:.4e}): {'ok' if ok else 'FAIL'}")
+
+    raw = (rs.rand(WARM_FRAMES + BATCH, 512, 512, 1) * 65535).astype(np.float32)
+    labels = rs.permutation(np.arange(WARM_FRAMES + BATCH) % 2)
+    trainer = make_trainer(config, None, "warm_fit", epochs=1)
+    ok &= warm_leaves("swin_tiny Trainer", trainer.model, config,
+                      trainer.cfg.seed, names, path, "params.patch_embed.kernel",
+                      ("head",))
+    reset_train_counts()
+    t0 = time.perf_counter()
+    train = DevicePipeline(raw[:WARM_FRAMES], labels[:WARM_FRAMES],
+                           batch_size=BATCH, train=True)
+    val = DevicePipeline(raw[WARM_FRAMES:], labels[WARM_FRAMES:], batch_size=BATCH)
+    fit = trainer.fit(train, val)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_train_counts()
+    steps, evals = train.steps_per_epoch(), val.steps_per_epoch()
+    want = {"percentile": 2, "ln_matmul": 15 * evals,
+            "ln_mlp_residual": 12 * evals, "swin_block_attention": 12 * evals,
+            "swin_attention": 12 * steps, "swin_attention_bwd": 12 * steps}
+    metrics = {k: v for k, v in fit.history[-1].items()
+               if k.startswith(("train_", "val_"))}
+    good = launches == want and all(np.isfinite(v) for v in metrics.values())
+    log(f"[warm] Trainer.fit swin_tiny bf16 from the file: 1 epoch, {steps} "
+        f"steps of {BATCH} + {evals} eval forwards in {secs:.2f} s; launches "
+        f"{launches}, expected {want}; {json.dumps(metrics)}: "
+        f"{'ok' if good else 'FAIL'}; card {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    return ok and good
+
+
+def phase_warm_start(card: str) -> None:
+    """Phase 31: warm starts from local torch checkpoints (see the module
+    docstring)."""
+    import os
+
+    # float32 engines and steps are held to the CPU's: no TF32 (the
+    # earlier phases leave it off too; a call of this phase alone must)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    root = WORK / "pretrained"
+    root.mkdir(parents=True, exist_ok=True)
+    rgb = {"in_channels": 3, "num_classes": IMAGENET_CLASSES}
+    before = os.environ.get("THYROID_PRETRAINED_DIR")
+    os.environ["THYROID_PRETRAINED_DIR"] = str(root)
+    failed = []
+    try:
+        # (a) swin_tiny, found in $THYROID_PRETRAINED_DIR
+        path = root / "swin_tiny.pth"
+        names = torch_checkpoint(
+            "swin", {"params": perturbed_params(dict(SWIN_TINY, **rgb))}, path)
+        cfg = dict(SWIN_TINY, pretrained=True)
+        engine, ok = warm_serve("swin_tiny", cfg, SERVE_PER_FORWARD,
+                                PHASE3_PAIRS, card)
+        ok &= warm_leaves("swin_tiny served", engine.model, cfg, 0, names,
+                          path, "params.patch_embed.kernel", ("head",))
+        del engine
+        if not ok:
+            failed.append("swin_tiny served")
+        # (b) the same file through the Trainer
+        if not warm_fit(cfg, path, names, card):
+            failed.append("swin_tiny trained")
+        # (c) efficientnet_b0 with the depthwise kernel, running statistics
+        # drawn for the gray model (a checkpoint's statistics fit the
+        # input it was trained on)
+        path = root / "efficientnet_b0.pth"
+        variables = effnet_variables(dict(EFFNET_B0, num_classes=IMAGENET_CLASSES))
+        stem = variables["params"]["stem_conv"]
+        stem["kernel"] = np.concatenate(
+            [stem["kernel"] * f for f in RGB_SPREAD], axis=2).astype(np.float32)
+        names = torch_checkpoint("efficientnet", variables, path)
+        cfg = dict(EFFNET_B0, pretrained=True)
+        engine, ok = warm_serve("efficientnet_b0", cfg,
+                                {"percentile": 1, "depthwise": 12},
+                                PHASE3_PAIRS, card)
+        ok &= warm_leaves("efficientnet_b0 served", engine.model, cfg, 0,
+                          names, path, "params.stem_conv.kernel", ("classifier",))
+        del engine
+        if not ok:
+            failed.append("efficientnet_b0")
+        # (d) deit_small at 256² from a 224² checkpoint: pos-embed 198 → 258
+        path = root / "deit_small.pth"
+        names = torch_checkpoint(
+            "deit", {"params": perturbed_params({"name": "deit_small", **rgb})},
+            path)
+        cfg = {"name": "deit_small", "img_size": DEIT_SIDE, "in_channels": 1,
+               "num_classes": 2, "dtype": "bf16", "pretrained": True}
+        engine, ok = warm_serve("deit_small", cfg,
+                                {"percentile": 1, "ln_matmul": 12,
+                                 "ln_mlp_residual": 12}, ZOO_PAIRS, card)
+        ok &= tuple(engine.model.pos_embed.shape) == (1, 2 + (DEIT_SIDE // 16) ** 2, 384)
+        ok &= warm_leaves("deit_small served", engine.model, cfg, 0, names,
+                          path, "params.patch_embed.proj.kernel",
+                          ("head", "head_dist"), pos_embed=2)
+        del engine
+        if not ok:
+            failed.append("deit_small")
+        # (e) resnet50 kept RGB, from a Lightning envelope by pretrained_path
+        path = root / "resnet50-imagenet.ckpt"
+        names = torch_checkpoint(
+            "resnet", effnet_variables(dict(RESNET50, **rgb)), path, envelope=True)
+        cfg = dict(RESNET50, in_channels=3, pretrained_path=str(path))
+        engine, ok = warm_serve("resnet50", cfg, {"percentile": 1}, ZOO_PAIRS, card)
+        ok &= warm_leaves("resnet50 served", engine.model, cfg, 0, names, path,
+                          "params.conv1.kernel", ("fc",))
+        del engine
+        if not ok:
+            failed.append("resnet50")
+    finally:
+        if before is None:
+            os.environ.pop("THYROID_PRETRAINED_DIR", None)
+        else:
+            os.environ["THYROID_PRETRAINED_DIR"] = before
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"[warm] phase 31 {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"phase 31 checks failed: {failed}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6530,6 +6908,8 @@ def main() -> int:
         phase_export(card, params)
         torch.cuda.empty_cache()
         phase_wide_token(card)
+        torch.cuda.empty_cache()
+        phase_warm_start(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

@@ -181,3 +181,45 @@ def test_bundle_loader_imports_no_model_code():
     assert local and all(m == "ops" or m.startswith("ops.") for m in local), local
     src = (ROOT / "thyroid_tpu_torch/serving/aggregator.py").read_text()
     assert "import" in src and "models" not in src and "engine import" not in src
+
+
+@pytest.mark.unit
+def test_warm_start_runs_without_jax_or_cv2(tmp_path):
+    """models/import_torch.py is under the scans above, and a warm start
+    runs in a process where importing jax, flax, thyroid_tpu, cv2 or PIL
+    fails: a timm-named ViT-Ti checkpoint (224-style 4x4 grid, RGB, 1000
+    classes) in a Lightning envelope into a gray 8x8-grid registry vit_tiny
+    through create_and_init, its pos-embed resized at D = 192 (where JAX's
+    importer calls cv2, inside the function, out of the scans' sight)."""
+    assert ROOT / "thyroid_tpu_torch/models/import_torch.py" in SOURCES
+    ckpt = str(tmp_path / "vit.ckpt")
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN + ABSENT!r}: sys.modules[m] = None\n"
+        "import torch\n"
+        "from thyroid_tpu_torch.models.base import create_and_init\n"
+        "D, g = 192, torch.Generator().manual_seed(0)\n"
+        "r = lambda *s: 0.02 * torch.randn(*s, generator=g)\n"
+        "sd = {'patch_embed.proj.weight': r(D, 3, 16, 16), 'patch_embed.proj.bias': r(D),\n"
+        "      'cls_token': r(1, 1, D), 'pos_embed': r(1, 17, D),\n"
+        "      'norm.weight': 1 + r(D), 'norm.bias': r(D),\n"
+        "      'head.weight': r(1000, D), 'head.bias': r(1000)}\n"
+        "for name, shape in (('norm1', (D,)), ('attn.qkv', (3 * D, D)),\n"
+        "                    ('attn.proj', (D, D)), ('norm2', (D,)),\n"
+        "                    ('mlp.fc1', (4 * D, D)), ('mlp.fc2', (D, 4 * D))):\n"
+        "    sd[f'model.blocks.0.{name}.weight'] = r(*shape)\n"
+        "    sd[f'model.blocks.0.{name}.bias'] = r(shape[0])\n"
+        f"torch.save({{'state_dict': sd}}, {ckpt!r})\n"
+        "m = create_and_init({'name': 'vit_tiny', 'img_size': 128, 'depth': 1,\n"
+        "                     'in_channels': 1, 'num_classes': 2,\n"
+        f"                     'pretrained_path': {ckpt!r}}}, device='cpu')\n"
+        "assert tuple(m.pos_embed.shape) == (1, 65, D)\n"
+        "assert m.cls_token.equal(sd['cls_token'])\n"
+        "qkv = dict(m.named_parameters())['block_0.Attention_0.Dense_0.kernel']\n"
+        "assert qkv.equal(sd['model.blocks.0.attn.qkv.weight'].T)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ABSENT!r} and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

@@ -48,7 +48,9 @@ class InferenceEngine:
     params}, for a model without BatchNorm statistics; `checkpoint` a
     port checkpoint directory (training/checkpoint.py), whose
     metadata["model_config"] stands in for `model_config` when none is
-    given. Without weights the model is drawn from seed 0. The frames are
+    given. Without weights the model is drawn from seed 0, then
+    warm-started from the config's `pretrained` / `pretrained_path` torch
+    checkpoint when one is found (models/import_torch.py). The frames are
     resized to the config's `img_size`, else 224, as the JAX engine does.
     `quality` runs the quality-aware preprocessing (artifact filters,
     gamma, CLAHE, ops/quality.py) on each request's raw frames before the

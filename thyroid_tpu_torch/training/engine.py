@@ -69,8 +69,8 @@ import torch
 from torch.func import functional_call
 
 from ..models import cnn, ensemble, vit  # noqa: F401  (register the model families)
-from ..models.base import check_pretrained
 from ..models.from_jax import load_jax_variables
+from ..models.import_torch import maybe_load_pretrained
 from ..models.registry import ModelRegistry, cfg_get
 from ..ops.augment import apply_mixup_cutmix, draw_mixup_cutmix
 from ..ops.platform import DeviceLike, resolve_device
@@ -156,9 +156,9 @@ class Trainer:
     `variables`, a JAX variable tree ({"params", "batch_stats"}), or
     `params`, a bare parameter tree for a model without BatchNorm,
     replaces the seeded initial weights; without either, the model
-    config's `pretrained` / `pretrained_path` go through
-    models.base.check_pretrained, as the JAX Trainer's create_and_init
-    reads them."""
+    config's `pretrained` / `pretrained_path` warm-start them from a local
+    torch checkpoint (models.import_torch.maybe_load_pretrained), as the
+    JAX Trainer's create_and_init does."""
 
     def __init__(self, model: torch.nn.Module, model_config: Any,
                  training_config: Any, trainer_config: Any = None,
@@ -234,15 +234,17 @@ class Trainer:
             gamma=cfg_get(sched, "gamma", None),
         )
 
-        if params is None and variables is None:
-            check_pretrained(self.model_config)
-        # weights drawn on the CPU, so a seed gives the same model anywhere
+        # weights drawn on the CPU, so a seed gives the same model anywhere;
+        # weights carried in, or else the config's warm start, replace
+        # them before the optimizer, EMA and layer-decay state are built
         self.model.to("cpu")
         self.model.init_weights(torch.Generator().manual_seed(self.cfg.seed))
         if params is not None:
             variables = {"params": params}
         if variables is not None:
             load_jax_variables(self.model, variables)
+        else:
+            maybe_load_pretrained(self.model_config, self.model)
         self.model.to(self.device)
         depth = int(cfg_get(model_config, "depth", 0) or 0) or \
             len(tuple(cfg_get(model_config, "depths", ()) or ())) or 12
