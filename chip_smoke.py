@@ -357,6 +357,29 @@ Phases, each printing its lines before the final one:
    envelope with `model.` prefixes named by pretrained_path (kernel 1
    only; phase 25's bounds). It logs its seconds.
 
+32. parallelism: (a) one process, a world of one over NCCL: swin_tiny bf16
+   with train_token_kernels, Trainer.fit of 3 steps of 32 under
+   mesh_shape {"data": 1} and {"data": 1, "model": 1}, losses, metrics and
+   every parameter bit-equal to the no-mesh fit, launches equal; (b) two
+   ranks on the one card through thyroid_tpu_torch.parallel.spawn with
+   gloo (NCCL refuses two ranks on one device), float32, TF32 off,
+   Trainer.fit of 2 steps of 2 x 16 against one process at 32:
+   efficientnet_b0 with dw_pallas_conv (BatchNorm over the global batch,
+   row 17 in the eval forward) and swin_tiny with train_token_kernels
+   (rows 2, 3, 5, 6, 9, 10, 11) on {"data": 2}, swin_tiny FSDP on {"data":
+   1, "model": 2}; losses within 1e-5, parameters and running statistics
+   within 1e-5 of max|leaf|, each rank's launches the one process's, and
+   swin_tiny with the gradients' all-reduce dropped missing that bound; (c)
+   serving on a mesh that lists the card twice (and every card when there
+   are more): swin_tiny bf16 from raw frames against the no-mesh engine
+   at the shard's batch within 1e-6, swin_tiny float32 and int8 resnet50
+   (float32) against the no-mesh engine at bucket 8 within 1e-6 (a
+   per-shard int8 scale, logged, misses), launches equal to each shard's
+   bucket counts, and `serving.server --data-parallel 2` answering a post
+   within 5e-7; (d) k-fold over two slices on a 16-frame synthetic corpus
+   (a narrow efficientnet_b0, 2 folds, one epoch), the slice summaries
+   merged, rows equal to the one-process run's. It logs its seconds.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits nonzero
 before that line is printed. Needs one CUDA card; exits nonzero without one.
@@ -1190,10 +1213,10 @@ def reset_train_counts() -> None:
 
 
 def make_trainer(config, params, out: str, device=None, token: bool = False,
-                 **training):
+                 trainer_extra=None, **training):
     """A Trainer of `config`; with `token`, its model built from the same
     arguments with train_token_kernels on (build_swin ignores the key, as
-    JAX's does)."""
+    JAX's does); `trainer_extra` overrides keys of the trainer config."""
     from thyroid_tpu_torch.models.registry import ModelRegistry
     from thyroid_tpu_torch.models.vit.swin import SwinTransformer, swin_arguments
     from thyroid_tpu_torch.training.configs import TRAINER_DEFAULT, TRAINING_VIT
@@ -1203,7 +1226,8 @@ def make_trainer(config, params, out: str, device=None, token: bool = False,
     model = SwinTransformer(**swin_arguments(config), train_token_kernels=True) \
         if token else ModelRegistry.create_model(config)
     return Trainer(model, config, tcfg,
-                   dict(TRAINER_DEFAULT, max_epochs=tcfg["epochs"]),
+                   dict(TRAINER_DEFAULT, max_epochs=tcfg["epochs"],
+                        **(trainer_extra or {})),
                    steps_per_epoch=TRAIN_FRAMES // BATCH,
                    output_dir=WORK / out, params=params, device=device)
 
@@ -6838,6 +6862,403 @@ def phase_warm_start(card: str) -> None:
     if failed:
         raise AssertionError(f"phase 31 checks failed: {failed}")
 
+# ------------------------------------------------------------ phase 32
+
+MESH_FRAMES = 96               # (a): Trainer.fit of 3 steps of 32
+DP_TRAIN, DP_VAL = 64, 32      # (b): 2 steps of 32 (2 x 16 on two ranks)
+DP_SIDE = 256                  # (b)'s raw frames, prepared at 224
+DP_LOSS_TOL = 1e-5             # (b): losses against one process
+# (b): parameters and running statistics against one process, of
+# max|leaf|: float32 sums of the global batch in another order (BatchNorm's
+# over 2 ranks, the gradients' all-reduce), through SGD's linear update.
+# Worst reading on an H100 80GB HBM3 at 700 W: 5.638e-7 (efficientnet_b0's
+# mbconv1_0.BatchNorm_0.mean); a run with the gradients' all-reduce
+# dropped (job "nosync") must miss it, and the phase checks that it does
+DP_STATE_TOL = 1e-5
+MESH_PROB_TOL = 1e-6           # (c): mesh engine against the no-mesh engine
+POST_TOL = 5e-7                # (c): a post against engine.predict (6 decimals)
+DP_TRAINING = {"epochs": 1, "batch_size": 32,
+               "optimizer_params": {"name": "sgd", "lr": 1e-3},
+               "scheduler_params": None, "monitor_metric": "val_acc",
+               "monitor_mode": "max", "early_stopping_patience": 10}
+DP_TRAINER = {"max_epochs": 1, "enable_checkpointing": False,
+              "precision": "f32"}
+
+
+def state_of(trainer):
+    """{name: float32 CPU copy} of the parameters and running statistics."""
+    return {n: t.detach().float().cpu().clone()
+            for n, t in {**trainer.state.params, **trainer.state.batch_stats}.items()}
+
+
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def worst_leaf(got, want):
+    """(max |got - want| / max|want| over the leaves, that leaf)."""
+    rows = [(float((got[n] - w).abs().max()) / max(float(w.abs().max()), 1e-12), n)
+            for n, w in want.items()]
+    return max(rows)
+
+
+def mesh_fit(params, frames, labels, tag: str, extra=None):
+    """(history, state, launches) of Trainer.fit of swin_tiny bf16 with
+    train_token_kernels on 3 steps of 32 raw 512x512 frames, validation on
+    32, the trainer config updated by `extra`."""
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+
+    held = {}
+
+    def run():
+        train = DevicePipeline(frames[:MESH_FRAMES], labels[:MESH_FRAMES],
+                               batch_size=BATCH, train=True)
+        val = DevicePipeline(frames[MESH_FRAMES:], labels[MESH_FRAMES:],
+                             batch_size=BATCH)
+        held["t"] = make_trainer(SWIN_TINY, params, f"mesh_{tag}", token=True,
+                                 epochs=1, trainer_extra=dict(
+                                     enable_checkpointing=False, **(extra or {})))
+        held["fit"] = held["t"].fit(train, val)
+
+    launches = all_launches(run)
+    return held["fit"].history, state_of(held["t"]), launches
+
+
+def parallel_world_of_one(params) -> bool:
+    """(a): one process, a world of 1 over NCCL: Trainer.fit under
+    mesh_shape {"data": 1} and {"data": 1, "model": 1} bit-equal to the
+    no-mesh fit (losses, metrics, parameters), launches equal."""
+    import torch.distributed as dist
+
+    from thyroid_tpu_torch.parallel.mesh import destroy_meshes
+
+    rs = np.random.RandomState(320)
+    frames = (rs.rand(MESH_FRAMES + BATCH, 512, 512, 1) * 65535).astype(np.float32)
+    labels = rs.permutation(np.arange(len(frames)) % 2)
+    # both fits take the deterministic backward of gathers (Swin's
+    # relative-position bias) so that bit equality can hold
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ok = True
+    try:
+        base = mesh_fit(params, frames, labels, "none")
+        for shape, axis in (({"data": 1}, None), ({"data": 1, "model": 1}, "model")):
+            got = mesh_fit(params, frames, labels, "_".join(shape),
+                           {"mesh_shape": shape, "model_axis": axis})
+            backend = dist.get_backend()
+            skip = ("time_s", "ms_per_step", "steps_per_sec")
+            diff = [k for k, v in base[0][-1].items()
+                    if k not in skip and got[0][-1].get(k) != v]
+            equal = [n for n, t in base[1].items() if torch.equal(got[1][n], t)]
+            worst = worst_leaf(got[1], base[1])
+            log(f"[parallel] (a) swin_tiny bf16 train_token_kernels Trainer.fit "
+                f"3 steps of {BATCH} under mesh_shape {shape} (world of "
+                f"{dist.get_world_size()}, {backend}): metrics differing from the "
+                f"no-mesh fit {diff}; {len(equal)}/{len(base[1])} tensors "
+                f"bit-equal (worst {worst[0]:.3e} at {worst[1]}); train_loss "
+                f"{got[0][-1]['train_loss']!r} vs {base[0][-1]['train_loss']!r}; "
+                f"launches {nonzero(got[2])} vs {nonzero(base[2])}")
+            ok &= not diff and len(equal) == len(base[1]) and got[2] == base[2] \
+                and backend == "nccl"
+    finally:
+        torch.use_deterministic_algorithms(False)
+        destroy_meshes()
+    return bool(ok)
+
+
+def dp_pipelines(seed: int = 321):
+    """(train, val) DevicePipelines of DP_TRAIN and DP_VAL raw frames."""
+    from thyroid_tpu_torch.data.pipeline import DevicePipeline
+
+    rs = np.random.RandomState(seed)
+    frames = (rs.rand(DP_TRAIN + DP_VAL, DP_SIDE, DP_SIDE, 1) * 65535).astype(np.float32)
+    labels = rs.permutation(np.arange(len(frames)) % 2)
+    return (DevicePipeline(frames[:DP_TRAIN], labels[:DP_TRAIN], batch_size=BATCH,
+                           train=True),
+            DevicePipeline(frames[DP_TRAIN:], labels[DP_TRAIN:], batch_size=BATCH))
+
+
+def dp_run(job: str, mesh_shape=None):
+    """One job of (b), Trainer.fit of one epoch (2 steps of 32 and a
+    validation of 32), float32, SGD, on `mesh_shape` (None: one process)
+    → {"history": the epoch's metrics, "state", "launches"}:
+    "effnet" efficientnet_b0 with dw_pallas_conv; "swin" swin_tiny with
+    train_token_kernels (drop path 0.2); "fsdp" the same with model_axis
+    "model"."""
+    from thyroid_tpu_torch.models.registry import ModelRegistry
+    from thyroid_tpu_torch.models.vit.swin import SwinTransformer, swin_arguments
+    from thyroid_tpu_torch.training.engine import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    extra = {} if mesh_shape is None else {"mesh_shape": mesh_shape}
+    if job == "fsdp":
+        extra["model_axis"] = "model"
+    held = {}
+
+    def run():
+        train, val = dp_pipelines()
+        if job == "effnet":
+            cfg = dict(EFFNET_B0, dtype="f32")
+            model, kw = ModelRegistry.create_model(cfg), \
+                {"variables": effnet_variables(EFFNET_B0)}
+        else:
+            cfg = dict(SWIN_TINY, dtype="f32")
+            model = SwinTransformer(**swin_arguments(cfg), train_token_kernels=True)
+            kw = {"params": perturbed_params(SWIN_TINY)}
+        held["t"] = Trainer(model, cfg, DP_TRAINING, dict(DP_TRAINER, **extra),
+                            steps_per_epoch=DP_TRAIN // BATCH,
+                            output_dir=WORK / "dp" / f"{job}_{mesh_shape is not None}",
+                            **kw)
+        held["fit"] = held["t"].fit(train, val)
+
+    launches = all_launches(run)
+    return {"history": held["fit"].history[-1], "state": state_of(held["t"]),
+            "launches": launches}
+
+
+def parallel_ranks(jobs):
+    """The ranks' side of (b), run by thyroid_tpu_torch.parallel.spawn: each
+    job of `jobs` ((name, mesh_shape) pairs) → its result; the state from
+    rank 0 only. Job "nosync" is "swin" with a planted fault: the
+    gradients are not summed over the data axis (GradSync.reduce keeps
+    each rank's own), which the state bound must catch."""
+    import torch.distributed as dist
+
+    from thyroid_tpu_torch.parallel.collectives import GradSync
+
+    out = {}
+    reduce = GradSync.reduce
+    for job, shape in jobs:
+        times = []
+
+        def timed(self, grads):
+            # the gradients' all-reduce of a step, between synchronisations
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = reduce(self, grads)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return got
+
+        GradSync.reduce = (lambda self, grads: self.local(grads)) \
+            if job == "nosync" else timed
+        try:
+            res = dp_run("swin" if job == "nosync" else job, shape)
+        finally:
+            GradSync.reduce = reduce
+        res["reduce_ms"] = times
+        if dist.get_rank() != 0:
+            res.pop("state")
+        out[f"{job} {shape}"] = res
+    return out
+
+
+def parallel_two_ranks(card: str) -> bool:
+    """(b): two ranks on the one card through spawn with gloo (which
+    carries the CUDA tensors' all-reduces through the host; NCCL refuses
+    two ranks on one device), each job held to the one-process run at the
+    global batch of 32: efficientnet_b0 with the depthwise kernel (row
+    17, BatchNorm over the global batch) and swin_tiny with the token
+    kernels (rows 2, 3, 5, 6, 9, 10, 11) on {"data": 2}, and swin_tiny
+    FSDP on {"data": 1, "model": 2}; then the planted fault ("nosync"),
+    which must miss the state bound."""
+    from thyroid_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    refs = {job: dp_run(job) for job in ("effnet", "swin")}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    jobs = [("effnet", {"data": 2}), ("swin", {"data": 2}),
+            ("fsdp", {"data": 1, "model": 2})]
+    ranks = spawn("chip_smoke:parallel_ranks", 2, jobs + [("nosync", {"data": 2})],
+                  backend="gloo", timeout=600)
+    t2 = time.perf_counter()
+    ok = True
+    for job, shape in jobs:
+        key = f"{job} {shape}"
+        ref = refs["swin" if job == "fsdp" else job]
+        got = ranks[0][key]
+        losses = {k: (got["history"][k], ref["history"][k])
+                  for k in ("train_loss", "val_loss")}
+        loss_err = max(abs(a - b) for a, b in losses.values())
+        worst = worst_leaf(got["state"], ref["state"])
+        metric = [k for k in got["history"] if k.startswith(("train_", "val_"))]
+        same = all(ranks[1][key]["history"][k] == got["history"][k] for k in metric)
+        launches_ok = all(r[key]["launches"] == ref["launches"] for r in ranks)
+        log(f"[parallel] (b) {job} on {shape}, 2 ranks x {BATCH // shape['data']} "
+            f"(gloo, one card) vs one process at {BATCH}: gradient all-reduce "
+            f"ms a step {[round(t, 3) for t in got['reduce_ms']]} (gloo through "
+            f"the host; card {card}); losses {losses} "
+            f"(max diff {loss_err:.3e}, tol {DP_LOSS_TOL:.0e}); parameters and "
+            f"running statistics worst {worst[0]:.3e} of max|leaf| at {worst[1]} "
+            f"(tol {DP_STATE_TOL:.0e}); ranks' metrics equal {same}; launches "
+            f"per rank {[nonzero(r[key]['launches']) for r in ranks]} vs one "
+            f"process {nonzero(ref['launches'])}")
+        ok &= loss_err <= DP_LOSS_TOL and worst[0] <= DP_STATE_TOL and same \
+            and launches_ok
+    fsdp, rep = ranks[0]["fsdp {'data': 1, 'model': 2}"], ranks[0]["swin {'data': 2}"]
+    worst = worst_leaf(fsdp["state"], rep["state"])
+    log(f"[parallel] (b) FSDP {{'data': 1, 'model': 2}} vs replicated "
+        f"{{'data': 2}}: worst {worst[0]:.3e} of max|leaf| at {worst[1]}")
+    ok &= worst[0] <= DP_STATE_TOL
+    fault = worst_leaf(ranks[0]["nosync {'data': 2}"]["state"], refs["swin"]["state"])
+    log(f"[parallel] (b) planted fault, swin_tiny on {{'data': 2}} with the "
+        f"gradients' all-reduce dropped: worst {fault[0]:.3e} of max|leaf| at "
+        f"{fault[1]} (must exceed the tol {DP_STATE_TOL:.0e})")
+    ok &= fault[0] > DP_STATE_TOL
+    log(f"[parallel] (b) one-process runs {t1 - t0:.1f} s, the two ranks' spawn "
+        f"{t2 - t1:.1f} s (correctness, not scaling: two ranks share one card); "
+        f"card {card}")
+    return bool(ok)
+
+
+def parallel_serving(card: str, params) -> bool:
+    """(c): serving on a mesh that lists the card twice (and every card
+    when there are more), bucket 8 as equal shards. swin_tiny bf16 from
+    raw frames against the no-mesh engine at the shard's batch (the same
+    frames in buckets of 8 / n: a library picks its algorithm by batch
+    size, so bf16 moves with it, mesh or not; the no-mesh bucket 8 is
+    logged beside), launches equal to each shard's bucket counts;
+    swin_tiny float32 and int8 resnet50 (float32) against the no-mesh
+    engine at bucket 8, the int8 scale global over the bucket (a
+    per-shard scale, logged, misses); `serving.server --data-parallel 2`
+    answering a post."""
+    import threading
+
+    import thyroid_tpu_torch.serving.engine as serving_engine
+    from thyroid_tpu_torch.parallel import create_mesh
+    from thyroid_tpu_torch.serving import server as srv
+    from thyroid_tpu_torch.serving.engine import InferenceEngine
+
+    rs = np.random.RandomState(322)
+    frames = (rs.rand(8, 512, 512, 1) * 65535).astype(np.float32)
+    frames[4:] *= 0.25                      # the second shard's maxima lower
+    lists = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() > 1:
+        lists.append([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    ok = True
+    resnet = effnet_variables(RESNET50)
+    for devices in lists:
+        n = len(devices)
+        mesh = create_mesh({"data": n}, devices=devices)
+        for tag, cfg, kw, per_shard in (
+                ("swin_tiny bf16", SWIN_TINY, {"params": params}, SERVE_PER_FORWARD),
+                ("swin_tiny f32", dict(SWIN_TINY, dtype="f32"), {"params": params},
+                 SERVE_PER_FORWARD),
+                ("resnet50 int8 f32", zoo_config("resnet50", "f32"),
+                 {"variables": resnet, "quantize": "int8"}, {"percentile": 1})):
+            sharded = InferenceEngine(cfg, buckets=(8,), mesh=mesh, **kw)
+            got, launches = counted(lambda: sharded.predict(frames))
+            whole = InferenceEngine(cfg, buckets=(8,), **kw).predict(frames)
+            if tag.endswith("bf16"):
+                want = InferenceEngine(cfg, buckets=(8 // n,), **kw).predict(frames)
+                against = f"the no-mesh engine at bucket {8 // n}"
+                extra = f"; the no-mesh engine at bucket 8: {np.abs(got - whole).max():.3e}"
+            else:
+                want, against, extra = whole, "the no-mesh engine at bucket 8", ""
+            if "int8" in tag:
+                own = serving_engine.exchanging
+                serving_engine.exchanging = lambda exchange, i: own(None, i)
+                try:
+                    apart = float(np.abs(sharded.predict(frames) - whole).max())
+                finally:
+                    serving_engine.exchanging = own
+                extra = f"; each shard on its own scale {apart:.3e}"
+                ok &= apart > 1e-3
+            expect = {k: v * n for k, v in per_shard.items() if v}
+            err = float(np.abs(got - want).max())
+            log(f"[parallel] (c) {tag} on a mesh of {devices}, bucket 8 as {n} "
+                f"shards: max |p - p| against {against} {err:.3e} (tol "
+                f"{MESH_PROB_TOL:.0e}){extra}; launches {launches}, expected {expect}")
+            ok &= err <= MESH_PROB_TOL and launches == expect
+            del sharded
+        torch.cuda.empty_cache()
+    server, engine, agg = srv.build_server(
+        ["--model", "swin_tiny", "--data-parallel", "2", "--port", "0",
+         "--buckets", "4", "8", "--no-warmup"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        code, body, secs = http_call(server.server_address[1], "POST",
+                                     "/predict", npy_bytes(frames[:3]))
+        err = float(np.abs(np.asarray(body["probs"]) - engine.predict(frames[:3])).max())
+        log(f"[parallel] (c) serving.server --data-parallel 2 on "
+            f"{[str(d) for d in engine.shard_devices]}, buckets {engine.buckets}: "
+            f"POST 3 frames {code} in {secs * 1e3:.1f} ms, max |p - predict| "
+            f"{err:.3e} (tol {POST_TOL:.0e}); card {card}")
+        ok &= code == 200 and err <= POST_TOL
+    finally:
+        server.shutdown()
+        agg.close()
+        server.server_close()
+        thread.join(timeout=30)
+    return bool(ok)
+
+
+def parallel_slices(card: str) -> bool:
+    """(d): k-fold over 2 slices on a 16-frame synthetic corpus (a narrow
+    efficientnet_b0, 2 folds, 1 epoch): slice_index 0 and 1 in turn, their
+    summaries merged by merge_slice_summaries, against the one-process
+    run's rows."""
+    from thyroid_tpu_torch.experiment import launch_experiment
+    from thyroid_tpu_torch.parallel import merge_slice_summaries
+
+    work = WORK / "slices"
+    shutil.rmtree(work, ignore_errors=True)
+    base = ["model=cnn/efficientnet_b0", "dataset=synthetic_tiny", "training=cnn",
+            "augmentation=no_aug", "trainer.max_epochs=1", "kfold.num_folds=2",
+            f"dataset.data_path={work / 'synthetic'}",
+            f"dataset.split_dir={work / 'splits'}",
+            f"kfold.split_dir={work / 'splits'}", "dataset.synthetic_size=16",
+            "training.batch_size=4", "model.img_size=32",
+            "+model.width_mult=0.25", "+model.depth_mult=0.3", "+model.dtype=f32"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        one = launch_experiment(base + [f"output_dir={work / 'one'}"])
+        for i in (0, 1):
+            launch_experiment(base + [f"output_dir={work / 'sliced'}",
+                                      "+kfold.num_slices=2",
+                                      f"+kfold.slice_index={i}"])
+        secs = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    files = sorted((work / "sliced").rglob("kfold_summary_*_slice*.json"))
+    merged = merge_slice_summaries(files)
+
+    def rows(summary):
+        return [{k: v for k, v in r.items()
+                 if k not in ("train_time_s", "best_checkpoint")}
+                for r in summary["raw_fold_results"]]
+
+    got, want = rows(merged), rows(one)
+    same = json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)
+    log(f"[parallel] (d) k-fold over 2 slices: {[f.name for f in files]} merged, "
+        f"folds {[r['fold'] for r in got]}; raw_fold_results equal to the "
+        f"one-process run's (wall time and checkpoint paths aside) {same}; "
+        f"test_acc {[r.get('test_acc') for r in got]} vs "
+        f"{[r.get('test_acc') for r in want]}; 3 runs in {secs:.1f} s; card {card}")
+    return same and len(files) == 2 and merged["num_successful_folds"] == 2
+
+
+def phase_parallel(card: str, params) -> None:
+    """Phase 32: parallelism (see the module docstring)."""
+    t0 = time.perf_counter()
+    failed = []
+    for tag, check in (("(a) world of one", lambda: parallel_world_of_one(params)),
+                       ("(b) two ranks", lambda: parallel_two_ranks(card)),
+                       ("(c) mesh serving", lambda: parallel_serving(card, params)),
+                       ("(d) slices", lambda: parallel_slices(card))):
+        t1 = time.perf_counter()
+        if not check():
+            failed.append(tag)
+        torch.cuda.empty_cache()
+        log(f"[parallel] {tag}: {time.perf_counter() - t1:.1f} s")
+    shutil.rmtree(WORK / "dp", ignore_errors=True)
+    log(f"[parallel] phase 32 {time.perf_counter() - t0:.1f} s; card {card}")
+    if failed:
+        raise AssertionError(f"phase 32 checks failed: {failed}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -6910,6 +7331,8 @@ def main() -> int:
         phase_wide_token(card)
         torch.cuda.empty_cache()
         phase_warm_start(card)
+        torch.cuda.empty_cache()
+        phase_parallel(card, params)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(json.dumps({"kernels": entries}))

@@ -201,7 +201,8 @@ def test_serving_size_and_unported_options():
     """A b3 config without img_size is served at 224, as the JAX engine
     serves it (cfg img_size or 224), not at b3's resolution 300; the
     capture forward records the feature map ("features"); int8 serving
-    builds (a mode other than int8 raises, as in JAX); meshes raise."""
+    builds (a mode other than int8 raises, as in JAX); a mesh that is not
+    a device mesh raises a TypeError naming the mesh."""
     b3 = {"name": "efficientnet_b3", "in_channels": 1, "num_classes": 2}
     engine = InferenceEngine(b3, device="cpu")
     assert engine.img_size == engine.model.img_size == 224
@@ -212,7 +213,7 @@ def test_serving_size_and_unported_options():
     assert InferenceEngine(b3, quantize="int8", device="cpu").quantize == "int8"
     with pytest.raises(ValueError, match="int8"):
         InferenceEngine(b3, quantize="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         InferenceEngine(b3, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="not both"):
         InferenceEngine(b3, params={}, variables={}, device="cpu")

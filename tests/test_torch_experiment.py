@@ -187,15 +187,14 @@ def test_failed_fold_is_recorded_and_sweep_goes_on(tiny_corpus, tmp_path,
                              {"error": "division by zero", "fold": 2}]}
 
 
-# option: (overrides, the Queue 1 item it raises naming, or None where the
-# option is ported and the folds must run)
+# option: (overrides, the folds it must run: both, or slice 1's of 2)
 UNPORTED = {
-    "distillation": (["+distillation.enabled=true"], None),
-    "stacked": (["+kfold.stacked=true"], None),
-    "slices": (["+kfold.num_slices=2"], "Parallelism"),
-    "ablation": (["+ablation.parameter_space=[]"], None),
+    "distillation": (["+distillation.enabled=true"], [1, 2]),
+    "stacked": (["+kfold.stacked=true"], [1, 2]),
+    "slices": (["+kfold.num_slices=2", "+kfold.slice_index=1"], [2]),
+    "ablation": (["+ablation.parameter_space=[]"], [1, 2]),
     "augmentation": (["augmentation=medium",
-                      "dataset.apply_augmentations=true"], None),
+                      "dataset.apply_augmentations=true"], [1, 2]),
 }
 
 
@@ -203,27 +202,30 @@ UNPORTED = {
 @pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_options_raise_before_any_fold(case, tiny_corpus, tmp_path,
                                                 monkeypatch):
-    """Each unported option (k-fold over slices) raises before any fold;
-    the ported ones reach both folds: augmentation
-    (test_augmented_kfold_runs runs them), distillation
+    """Every option once refused here is ported and reaches its folds:
+    augmentation (test_augmented_kfold_runs runs them), distillation
     (tests/test_torch_distill.py), the stacked trainer, which takes both
-    folds at once (tests/test_torch_stacked.py), and an ablation node
-    without a parameter space, which the manager leaves to the k-fold
-    experiment as JAX's does (tests/test_torch_ablation.py)."""
-    extra, item = UNPORTED[case]
+    folds at once (tests/test_torch_stacked.py), an ablation node without
+    a parameter space, which the manager leaves to the k-fold experiment
+    as JAX's does (tests/test_torch_ablation.py), and k-fold over slices:
+    slice 1 of 2 runs fold 2 alone (round robin) and writes its summary as
+    kfold_summary_<prefix>_slice1.json with slice_index and num_slices
+    (tests/test_torch_parallel.py merges both slices' files)."""
+    extra, folds = UNPORTED[case]
     ran = []
     monkeypatch.setattr(KFoldExperiment, "run_fold",
                         lambda self, fold: ran.append(fold) or _fake_row(fold))
     monkeypatch.setattr(KFoldExperiment, "run_stacked", lambda self, folds: (
         ran.extend(folds), self.fold_results.extend(map(_fake_row, folds))))
     overrides = _overrides(tiny_corpus, tmp_path, *extra)
-    if item is None:
-        launch_experiment(overrides, device="cpu")
-        assert ran == [1, 2]
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        launch_experiment(overrides, device="cpu")
-    assert ran == [] and not (tmp_path / "splits").exists()
+    summary = launch_experiment(overrides, device="cpu")
+    assert ran == folds
+    if case == "slices":
+        (path,) = (tmp_path / "out").rglob("kfold_summary_*.json")
+        assert path.name.endswith("_slice1.json")
+        assert (summary["slice_index"], summary["num_slices"]) == (1, 2)
+        assert [r["fold"] for r in json.loads(path.read_text())[
+            "raw_fold_results"]] == [2]
 
 
 # narrow models at 32² for the augmented experiments: the root default's

@@ -94,9 +94,16 @@ def test_exported_predict_chunks_large_requests(engine, loaded):
 
 @pytest.mark.unit
 def test_export_rejects_mesh_engines(tmp_path):
-    engine_like = type("E", (), {"mesh": object()})()
-    with pytest.raises(ValueError):
-        export_engine(engine_like, str(tmp_path / "b"))
+    """A real mesh engine (the CPU twice) is refused, as JAX's export
+    refuses its mesh engines, before anything is written."""
+    from thyroid_tpu_torch.parallel import create_mesh
+
+    engine = InferenceEngine(NARROW_RESNET, device="cpu", buckets=(2,),
+                             raw_inputs=False,
+                             mesh=create_mesh({"data": 2}, devices=["cpu", "cpu"]))
+    with pytest.raises(ValueError, match="mesh"):
+        export_engine(engine, str(tmp_path / "b"))
+    assert not (tmp_path / "b").exists()
 
 
 @pytest.mark.unit

@@ -39,15 +39,16 @@ def test_no_jax_imports(path):
 
 @pytest.mark.unit
 def test_package_imports_with_jax_blocked():
-    """Every port module and the card scripts import in a process where
-    importing jax, flax or thyroid_tpu fails."""
+    """Every port module, the card scripts and the module the parallel
+    tests' spawned ranks run (tests/torch_parallel_jobs.py) import in a
+    process where importing jax, flax or thyroid_tpu fails."""
     code = (
         "import sys, pkgutil, importlib\n"
         f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
         "import thyroid_tpu_torch as pkg\n"
         "for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(info.name)\n"
-        "import chip_smoke, chip_compare\n"
+        "import chip_smoke, chip_compare, tests.torch_parallel_jobs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
@@ -223,3 +224,38 @@ def test_warm_start_runs_without_jax_or_cv2(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+# the modules that join torch.distributed: the parallel package, the
+# Trainer and the stacked trainer on a mesh, and device resolution under a
+# process group
+DISTRIBUTED = {"parallel/__init__", "parallel/mesh", "parallel/collectives",
+               "parallel/multislice", "parallel/spawn", "training/engine",
+               "training/stacked", "ops/platform"}
+
+
+@pytest.mark.unit
+def test_parallel_package_import_rules():
+    """parallel/ (mesh, collectives, multislice, spawn) is under the scans
+    above; torch.distributed is imported there and in the modules that
+    train or resolve devices on a mesh, nowhere else; the spawned ranks'
+    module imports no JAX, no JAX package module and no test module."""
+    port = ROOT / "thyroid_tpu_torch"
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {f"thyroid_tpu_torch/{m}.py" for m in DISTRIBUTED} <= names
+    users = set()
+    for path in sorted(port.rglob("*.py")):
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            mods = [a.name for a in node.names] if isinstance(node, ast.Import) \
+                else [node.module or ""] if isinstance(node, ast.ImportFrom) \
+                and node.level == 0 else []
+            if any(m == "torch.distributed" or m.startswith("torch.distributed.")
+                   for m in mods):
+                users.add(path.relative_to(port).with_suffix("").as_posix())
+    assert users <= DISTRIBUTED, sorted(users - DISTRIBUTED)
+    assert {"parallel/mesh", "parallel/collectives", "training/engine"} <= users
+    jobs = ROOT / "tests" / "torch_parallel_jobs.py"
+    mods = list(_imported(jobs))
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], mods
+    assert not [m for m in mods if m.startswith(("tests.test_", "tests.torch_parity"))]

@@ -249,11 +249,25 @@ def test_server_coalesces_concurrent_posts(served):
     (["--bundle", "exported/", "--model", "resnet18"], "--bundle is exclusive"),
     (["--model", "resnet18", "--data-parallel", "2"], "Parallelism")])
 def test_server_refusals(argv, item, capsys):
-    """A bundle with a model is refused with JAX's usage error (SystemExit);
-    data-parallel serving is not ported (NotImplementedError)."""
-    error = {"--bundle is exclusive": SystemExit,
-             "Parallelism": NotImplementedError}[item]
-    with pytest.raises(error) as err:
+    """A bundle with a model is refused with JAX's usage error
+    (SystemExit); data-parallel serving, once refused here naming
+    Parallelism, builds: --data-parallel 2 on the CPU serves from two
+    replica shards, buckets rounded up to multiples of 2, the start line
+    naming them (tests/test_torch_parallel.py answers a post through
+    it)."""
+    if item == "Parallelism":
+        server, engine, aggregator = srv.build_server(
+            argv + ["--device", "cpu", "--port", "0", "--no-warmup",
+                    "--img-size", "32", "--buckets", "1", "3"])
+        try:
+            assert [str(d) for d in engine.shard_devices] == ["cpu", "cpu"]
+            assert engine.buckets == (2, 4)
+            assert "on ['cpu', 'cpu']" in capsys.readouterr().out
+        finally:
+            aggregator.close()
+            server.server_close()
+        return
+    with pytest.raises(SystemExit) as err:
         srv.build_server(argv + ["--device", "cpu"])
     assert item in str(err.value) + capsys.readouterr().err
 

@@ -174,9 +174,10 @@ def test_normalisation_matches_jax(resnet_variables, case):
 
 @pytest.mark.unit
 def test_engine_refusals():
-    """JAX's errors for an unknown quantize mode; a mesh names ROADMAP's
-    Parallelism."""
+    """JAX's errors for an unknown quantize mode; a mesh that is not a
+    device mesh raises a TypeError naming the mesh (serving on a device
+    mesh runs in tests/test_torch_parallel.py)."""
     with pytest.raises(ValueError, match="quantize must be None or 'int8'"):
         InferenceEngine(NARROW_RESNET, device="cpu", quantize="fp4")
-    with pytest.raises(NotImplementedError, match="Parallelism"):
+    with pytest.raises(TypeError, match="mesh"):
         InferenceEngine(NARROW_RESNET, device="cpu", mesh=object())

@@ -142,7 +142,9 @@ def test_export_fold_checkpoints(fitted, tmp_path):
 def test_reset_and_shape_checks(tmp_path):
     """reset swaps in same-geometry data and restarts every fold from the
     initial state; other geometries raise StackedShapeError, as unequal
-    folds do at construction; a mesh raises naming Parallelism."""
+    folds do at construction; a mesh that is not a process mesh raises a
+    TypeError naming the mesh (the stacked trainer on a (slice, data)
+    mesh runs in tests/test_torch_parallel.py)."""
     folds = _folds()
     st = _stacked(folds, tmp_path, NARROW)
     init = {n: p.detach().clone() for n, p in st.trainers[0].state.params.items()}
@@ -160,7 +162,7 @@ def test_reset_and_shape_checks(tmp_path):
     with pytest.raises(StackedShapeError):
         StackedKFoldTrainer(NARROW, TCFG, TRAINER_CFG, [folds[0]["train"], bad],
                             [f["val"] for f in folds], device="cpu")
-    with pytest.raises(NotImplementedError, match="Parallelism"):
+    with pytest.raises(TypeError, match="mesh"):
         _stacked(folds, tmp_path, NARROW, mesh=object())
 
 

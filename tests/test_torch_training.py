@@ -438,14 +438,15 @@ def test_swin_training_options():
 
 @pytest.mark.unit
 def test_trainer_refuses_unported_modes(tmp_path):
-    """A mesh and attention-map logging raise naming their Queue 1 items.
+    """A mesh that is not a process mesh raises a TypeError naming the
+    mesh (training on a mesh runs in tests/test_torch_parallel.py).
     Distillation (a teacher_fn), SGD, gradient accumulation and clipping by
     value, once refused here, build and step (tests/test_torch_distill.py
     and tests/test_torch_optim_extra.py hold them to JAX); loss mode
     "distillation" without a teacher raises a ValueError."""
     kw = dict(steps_per_epoch=2, output_dir=tmp_path, device="cpu")
     model = ModelRegistry.create_model(SMALL_SWIN)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         Trainer(model, SMALL_SWIN, TRAINING_VIT, TRAINER_DEFAULT, **kw,
                 mesh=object())
     with pytest.raises(ValueError, match="teacher"):

@@ -46,13 +46,18 @@ class CARSThyroidDataset:
             n = int(self._get("synthetic_size", 450))
             diff = float(self._get("synthetic_difficulty", 0.0))
             noise = float(self._get("synthetic_label_noise", 0.0))
-            if not (data_path / "normal").exists():
-                logger.info("generating synthetic corpus (%d images, "
-                            "difficulty %.2f, label noise %.2f) at %s",
-                            n, diff, noise, data_path)
-            # idempotent: regenerates only when the stamped parameters differ
-            generate_corpus(data_path, n_images=n, difficulty=diff,
-                            label_noise=noise)
+            # idempotent: regenerates only when the stamped parameters
+            # differ; under torchrun rank 0 writes it, the others wait
+            from ..parallel.mesh import barrier, is_lead_process
+
+            if is_lead_process():
+                if not (data_path / "normal").exists():
+                    logger.info("generating synthetic corpus (%d images, "
+                                "difficulty %.2f, label noise %.2f) at %s",
+                                n, diff, noise, data_path)
+                generate_corpus(data_path, n_images=n, difficulty=diff,
+                                label_noise=noise)
+            barrier()
 
         self.all_paths, self.all_labels, self.patient_ids = scan_corpus(data_path)
         if len(self.all_paths) == 0:

@@ -16,11 +16,20 @@ caller's device generator), the gray→RGB repeat for 3-channel models and
   row at weight 0, so that metrics are exact.
 `create_data_loaders` decodes each split of a corpus on disk
 (data/dataset.py) into a DevicePipeline.
+
+On a process mesh (parallel/mesh.py) a pipeline's `sharding` (a
+RowSharding over the data axis, or the one `epoch` is given) makes each
+rank yield its contiguous rows of every global batch, as JAX's
+`device_put(batch, sharding)` places them: the order and padding are the
+global batch's, and an augmented batch is drawn and augmented whole on
+every rank (the draws are the one process's) before the rank keeps its
+rows; so is a batch that the trainer mixes (`epoch(mix=)`: MixUp/CutMix
+on the global batch, as JAX's step mixes the global array).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Iterator, Optional
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -73,6 +82,9 @@ class Batch:
     image: torch.Tensor    # (B, S, S, C) float32, standardized
     label: torch.Tensor    # (B,) int64
     weight: torch.Tensor   # (B,) float32, 0 for padding rows
+    # a mixed batch (epoch(mix=)): the second labels (B,) and λ (a scalar)
+    label_b: Optional[torch.Tensor] = None
+    lam: Optional[torch.Tensor] = None
 
 
 class DevicePipeline:
@@ -87,8 +99,9 @@ class DevicePipeline:
                  augment_mode: str = "standard", train: bool = False,
                  out_channels: int = 1,
                  vit_aug_params: Optional[dict] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, sharding: Any = None):
         self.device = resolve_device(device)
+        self.sharding = sharding
         self.augmentation_level = augmentation_level
         self.augment_mode = augment_mode
         self.vit_aug_params = dict(vit_aug_params or {})
@@ -131,13 +144,20 @@ class DevicePipeline:
         return max(1, -(-self.n // self.batch_size))
 
     def epoch(self, generator: Optional[torch.Generator] = None,
-              aug_generator: Optional[torch.Generator] = None
-              ) -> Iterator[Batch]:
+              aug_generator: Optional[torch.Generator] = None,
+              sharding: Any = None,
+              mix: Optional[Callable] = None) -> Iterator[Batch]:
         """Yield one epoch's batches. Training draws the epoch's order from
         `generator` (a CPU generator), which it needs, and an augmented
         pipeline its batches' augmentation from `aug_generator` (on the
-        pipeline's device)."""
+        pipeline's device). With `sharding` (default: the pipeline's own)
+        each batch is this rank's rows of the global batch. `mix` (image,
+        label) → (mixed image, second labels, λ) is applied to each global
+        batch before the rank keeps its rows."""
+        sharding = self._sharding(sharding)
         bs, n_steps = self.batch_size, self.steps_per_epoch()
+        if sharding is not None:
+            sharding.rows(bs)
         pos = torch.arange(n_steps * bs)
         if self.train:
             if generator is None:
@@ -152,16 +172,43 @@ class DevicePipeline:
         weight = weight.to(self.device)
         for step in range(n_steps):
             sel = idx[step * bs:(step + 1) * bs]
-            yield Batch(image=self.make_batch(sel, aug_generator),
-                        label=self.labels.index_select(0, sel),
-                        weight=weight[step * bs:(step + 1) * bs])
+            w = weight[step * bs:(step + 1) * bs]
+            label = self.labels.index_select(0, sel)
+            if sharding is not None and not self.augments() and mix is None:
+                sel = sharding.take(sel)
+                yield Batch(image=self.make_batch(sel),
+                            label=self.labels.index_select(0, sel),
+                            weight=sharding.take(w))
+                continue
+            batch = Batch(image=self.make_batch(sel, aug_generator),
+                          label=label, weight=w)
+            if mix is not None:
+                batch.image, batch.label_b, batch.lam = mix(batch.image, label)
+            if sharding is not None:
+                for key in ("image", "label", "weight", "label_b"):
+                    if getattr(batch, key) is not None:
+                        setattr(batch, key, sharding.take(getattr(batch, key)))
+            yield batch
+
+    def _sharding(self, sharding: Any) -> Any:
+        """The rows this process takes: `sharding`, else the pipeline's
+        own; both given must agree."""
+        if sharding is None:
+            return self.sharding
+        if self.sharding is not None and \
+                (self.sharding.count, self.sharding.index) != \
+                (sharding.count, sharding.index):
+            raise ValueError("the pipeline is sharded otherwise than the "
+                             "epoch asks for")
+        return sharding
 
 
 def create_data_loaders(dataset_config: Any,
                         splits: tuple[str, ...] = ("train", "val", "test"),
                         augment_mode: str = "standard",
                         model_config: Any = None,
-                        device: DeviceLike = None) -> dict[str, DevicePipeline]:
+                        device: DeviceLike = None,
+                        sharding: Any = None) -> dict[str, DevicePipeline]:
     """A DevicePipeline per split of the dataset config's corpus, on
     `device` (the card unless the CPU is asked for).
 
@@ -169,9 +216,9 @@ def create_data_loaders(dataset_config: Any,
     unless the dataset config pins 3-channel mean and std. Without
     `apply_augmentations` the level is "none"; the train split is
     augmented at the level ("standard") or by vit_augment with the
-    config's RandAugment and patch-quality keys ("vit"). The JAX
-    function's `sharding` has no counterpart here: meshes are not
-    ported."""
+    config's RandAugment and patch-quality keys ("vit"). `sharding` (a
+    parallel.batch_sharding) gives every pipeline this rank's rows of
+    each batch, as JAX's places each batch with it."""
     level = cfg_get(dataset_config, "augmentation_level", "medium")
     if not cfg_get(dataset_config, "apply_augmentations", True):
         level = "none"
@@ -209,5 +256,6 @@ def create_data_loaders(dataset_config: Any,
             out_channels=out_channels,
             vit_aug_params=vit_aug_params,
             device=device,
+            sharding=sharding,
         )
     return out

@@ -21,6 +21,7 @@ from ..data.pipeline import create_data_loaders
 from ..models import cnn, ensemble, vit  # noqa: F401  (register the model families)
 from ..models.registry import ModelRegistry, cfg_get
 from ..ops.platform import DeviceLike, resolve_device
+from ..parallel.mesh import is_lead_process
 from ..training.engine import Trainer
 from ..utils.logging import get_logger
 from .base_experiment import BaseExperiment
@@ -120,6 +121,8 @@ class AblationExperiment(BaseExperiment):
         }
 
     def log_results(self) -> None:
+        if not is_lead_process():
+            return
         path = self.output_dir / "ablation_summary.json"
         with open(path, "w") as f:
             json.dump(self.summary, f, indent=4, default=str)

@@ -24,6 +24,7 @@ from ..config.loader import list_model_configs, load_model_config
 from ..config.node import ConfigNode
 from ..models.registry import cfg_get
 from ..ops.platform import DeviceLike
+from ..parallel.mesh import barrier, is_lead_process
 from ..utils.logging import get_logger
 from .base_experiment import BaseExperiment
 from .kfold_experiment import KFoldExperiment
@@ -104,10 +105,14 @@ class AllModelsFullKFoldExperiment(BaseExperiment):
     def _prune_checkpoints(self, exp: KFoldExperiment,
                            results: Dict[str, Any]) -> None:
         """Keep only the best fold's best checkpoint (as
-        `{model}/best_checkpoint`); remove the fold directories."""
+        `{model}/best_checkpoint`); remove the fold directories (rank 0
+        under torchrun, the others waiting)."""
         folds = [r for r in results.get("raw_fold_results", [])
                  if "error" not in r and "best_checkpoint" in r]
         if not folds:
+            return
+        if not is_lead_process():
+            barrier()
             return
         best = max(folds, key=lambda r: r.get("test_acc", -np.inf))
         best_ckpt = Path(best["best_checkpoint"])
@@ -118,8 +123,11 @@ class AllModelsFullKFoldExperiment(BaseExperiment):
             shutil.copytree(best_ckpt, keep_dir)
         for fold in range(1, exp.num_folds + 1):
             shutil.rmtree(exp.output_dir / f"fold_{fold}", ignore_errors=True)
+        barrier()
 
     def log_results(self) -> None:
+        if not is_lead_process():
+            return
         path = self.output_dir / "all_models_summary.json"
         with open(path, "w") as f:
             json.dump(self.model_results, f, indent=4, default=str)

@@ -20,9 +20,14 @@ thyroid_tpu/experiment/kfold_experiment.py).
   student's parameter count under distillation.
 
 Everything runs on `device` (the card unless the CPU is asked for).
-`kfold.num_slices` > 1, which has no port, raises NotImplementedError in
-__init__, before any fold runs, because the sweep would record it as
-failed folds.
+
+Over slices (`kfold.num_slices` > 1, parallel/multislice.py): this
+process runs the folds `partition_folds` gives `kfold.slice_index` (round
+robin) and writes kfold_summary_<prefix>_slice<i>.json with `slice_index`
+and `num_slices`; `merge_slice_summaries` of the slice files is the
+one-process summary. Under torchrun (`trainer.mesh_shape`), every rank
+runs every fold data-parallel, and only rank 0 writes the split files and
+the summary.
 """
 from __future__ import annotations
 
@@ -42,7 +47,9 @@ from ..models.base import num_parameters
 from ..models.registry import ModelRegistry, cfg_get
 from ..ops.platform import DeviceLike, resolve_device
 from ..training.checkpoint import create_teacher_from_config
-from ..training.engine import Trainer, _unported
+from ..parallel.mesh import barrier, is_lead_process, lead_value
+from ..parallel.multislice import partition_folds
+from ..training.engine import Trainer
 from ..utils.logging import get_logger
 from .base_experiment import BaseExperiment
 
@@ -63,8 +70,8 @@ class KFoldExperiment(BaseExperiment):
             cfg_get(config, "training", {})
         self.distillation_config = cfg_get(config, "distillation", None)
         self.num_folds = int(cfg_get(self.kfold_config, "num_folds", 5))
-        if int(cfg_get(self.kfold_config, "num_slices", 1)) > 1:
-            raise _unported("k-fold over slices", "Parallelism")
+        self.num_slices = int(cfg_get(self.kfold_config, "num_slices", 1))
+        self.slice_index = int(cfg_get(self.kfold_config, "slice_index", 0))
         self.device = resolve_device(device)
 
     def _distilling(self) -> bool:
@@ -98,16 +105,21 @@ class KFoldExperiment(BaseExperiment):
         """Generate the rotating fold files when any is missing."""
         split_dir = Path(self._split_dir())
         prefix = cfg_get(self.kfold_config, "split_file_prefix", "split_fold_")
-        missing = [n for n in range(1, self.num_folds + 1)
-                   if not (split_dir / f"{prefix}{n}.json").exists()]
+        # rank 0's view decides, so every rank takes the same branch (and
+        # meets the corpus's barrier inside CARSThyroidDataset)
+        missing = lead_value([n for n in range(1, self.num_folds + 1)
+                              if not (split_dir / f"{prefix}{n}.json").exists()])
         if not missing:
             return
         ds = CARSThyroidDataset(self.dataset_config, split="all")
-        generate_kfold_splits(
-            ds.all_labels, self.num_folds, split_dir,
-            random_seed=int(cfg_get(self.kfold_config, "random_seed", 42)),
-            prefix=prefix)
-        logger.info("generated %d fold split files in %s", self.num_folds, split_dir)
+        if is_lead_process():        # rank 0 writes them, the others wait
+            generate_kfold_splits(
+                ds.all_labels, self.num_folds, split_dir,
+                random_seed=int(cfg_get(self.kfold_config, "random_seed", 42)),
+                prefix=prefix)
+            logger.info("generated %d fold split files in %s", self.num_folds,
+                        split_dir)
+        barrier()
 
     # ------------------------------------------------------------------
     def _fold_dataset_config(self, fold: int) -> Dict[str, Any]:
@@ -203,6 +215,11 @@ class KFoldExperiment(BaseExperiment):
 
     def run(self) -> Dict[str, Any]:
         folds = list(range(1, self.num_folds + 1))
+        if self.num_slices > 1:
+            folds = partition_folds(self.num_folds, self.num_slices,
+                                    self.slice_index)
+            logger.info("slice %d/%d runs folds %s", self.slice_index,
+                        self.num_slices, folds)
         if cfg_get(self.kfold_config, "stacked", False):
             from ..training.stacked import StackedShapeError
 
@@ -270,7 +287,13 @@ class KFoldExperiment(BaseExperiment):
                     ModelRegistry.create_model(self.model_config))
             except Exception:
                 res["student_param_count"] = "N/A"
-        path = self.output_dir / f"kfold_summary_{prefix}.json"
+        suffix = f"_slice{self.slice_index}" if self.num_slices > 1 else ""
+        if suffix:
+            self.aggregated_results["slice_index"] = self.slice_index
+            self.aggregated_results["num_slices"] = self.num_slices
+        if not is_lead_process():
+            return
+        path = self.output_dir / f"kfold_summary_{prefix}{suffix}.json"
         with open(path, "w") as f:
             json.dump(self.aggregated_results, f, indent=4, default=str)
         logger.info("k-fold summary written to %s", path)

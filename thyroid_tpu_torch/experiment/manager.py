@@ -24,6 +24,7 @@ from ..config.loader import load_model_config
 from ..config.node import ConfigNode
 from ..models.registry import cfg_get
 from ..ops.platform import DeviceLike
+from ..parallel.mesh import join_from_env
 from ..utils.logging import get_logger
 from .ablation_experiment import AblationExperiment
 from .base_experiment import BaseExperiment
@@ -104,7 +105,11 @@ def launch_experiment(overrides: Optional[Sequence[str]] = None,
                       config_dir: Optional[str] = None,
                       device: DeviceLike = None) -> Any:
     """compose(config_name, overrides) → ExperimentManager(...).run();
-    the overrides default to the command line's arguments."""
+    the overrides default to the command line's arguments. Under torchrun
+    the process joins the group first (over NCCL on the card, gloo on the
+    CPU), so that the corpus, the fold files and the summaries are
+    written by rank 0 alone."""
+    join_from_env(device)
     cfg = compose(config_name=config_name,
                   overrides=overrides if overrides is not None else sys.argv[1:],
                   config_dir=config_dir)

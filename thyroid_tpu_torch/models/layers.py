@@ -170,7 +170,17 @@ class BatchNorm(nn.Module):
     become momentum·ra + (1 − momentum)·batch. (`F.batch_norm` and
     `nn.BatchNorm2d` update the running variance with the unbiased variance,
     n/(n−1) off flax's, so the statistics are written out here.) The
-    normalisation is float32, the result in `dtype`."""
+    normalisation is float32, the result in `dtype`.
+
+    On a process mesh the Trainer sets `group` (the data axis's process
+    group, of `group_size` > 1 ranks holding equal shards): the training
+    statistics are then the global batch's, as JAX's jitted step reduces
+    them over the whole data axis: Σx and Σx² are summed over the group
+    by a differentiable all-reduce before the clip at 0, so the gradient
+    keeps the other ranks' terms. Without a group nothing changes."""
+
+    group = None
+    group_size = 1
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = BN_EPS):
@@ -186,8 +196,18 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            if self.group is None:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            else:
+                from ..parallel.collectives import all_reduce_sum
+
+                count = x.numel() // x.shape[-1] * self.group_size
+                sums = all_reduce_sum(
+                    torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]),
+                    self.group)
+                mean = sums[0] / count
+                var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
             # the step's new statistics, installed in place: the training
             # normalisation reads the batch's, never the running ones
             with torch.no_grad():
@@ -200,6 +220,40 @@ class BatchNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(dtype)
 
 
+class RowShard:
+    """A generator that draws as the global batch would: a draw of shape
+    (b, ...) is taken from the (b·count, ...) draw of `generator`, rows
+    index·b to (index + 1)·b, so that a data-parallel rank holding block
+    `index` of `count` of a batch masks its rows as one process masks
+    the whole batch (every mask's leading dim is batch-major). The
+    state calls reach the generator (Swin's checkpointed blocks replay
+    their draws)."""
+
+    def __init__(self, generator: torch.Generator, index: int, count: int):
+        self.generator, self.index, self.count = generator, index, count
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+    def get_state(self) -> torch.Tensor:
+        return self.generator.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.generator.set_state(state)
+
+
+def uniform(shape, generator, device) -> torch.Tensor:
+    """U[0, 1) of `shape` from `generator` (a torch.Generator or a
+    RowShard)."""
+    if isinstance(generator, RowShard):
+        b = shape[0]
+        full = torch.rand((b * generator.count,) + tuple(shape[1:]),
+                          generator=generator.generator, device=device)
+        return full.narrow(0, generator.index * b, b)
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax nn.Dropout: in training each element is kept with probability
@@ -210,7 +264,7 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = uniform(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -242,7 +296,7 @@ class DropPath(nn.Module):
             raise ValueError("DropPath in training needs a torch.Generator")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        mask = uniform(shape, generator, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 

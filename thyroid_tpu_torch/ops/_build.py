@@ -26,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Any, Callable, Dict
 
 import torch
 
@@ -160,6 +160,17 @@ def define_op(schema: str, *, cpu: Callable, cuda: Callable,
     _LIB.impl(name, cuda, "CUDA")
     torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
     return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper: Any, attr: str = "launches") -> None:
+    """Add one to `wrapper`'s launch counter under a lock: a mesh
+    engine's shards launch from threads at once (serving/engine.py), and
+    `+= 1` is a read, an add and a write."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

@@ -108,7 +108,7 @@ def _window_cuda(q, k, v, bias, mask, scale):
                 mask.shape[0] if mask is not None else 1, float(scale),
                 int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
     _build.check("window_attention", status, "fused_window_attention")
-    fused_window_attention.launches += 1
+    _build.count_launch(fused_window_attention)
     return out
 
 
@@ -299,7 +299,7 @@ def _swin_fwd_cuda(qkv, bias, mask, window_size, num_heads, scale):
                 float(scale), int(qkv.dtype == torch.bfloat16),
                 _build.stream_ptr(qkv.device))
     _build.check("swin_attention", status, "fused_swin_attention")
-    fused_swin_attention.launches += 1
+    _build.count_launch(fused_swin_attention)
     return out
 
 
@@ -359,7 +359,7 @@ def _swin_bwd_cuda(qkv, dout, bias, mask, window_size, num_heads, scale):
                 b, hh, ww, c, num_heads, window_size, float(scale), is_bf16,
                 _build.stream_ptr(qkv.device))
     _build.check("swin_attention_bwd", status, "fused_swin_attention backward")
-    fused_swin_attention.bwd_launches += 1
+    _build.count_launch(fused_swin_attention, "bwd_launches")
     return dqkv, dbias
 
 
@@ -513,7 +513,7 @@ def _block_cuda(qkv, residual, proj_kernel, proj_bias, bias, mask, window_size,
                 b, hh, ww, c, num_heads, window_size, float(scale), is_bf16,
                 _build.stream_ptr(qkv.device))
     _build.check("swin_attention", status, "fused_swin_block_attention")
-    fused_swin_block_attention.launches += 1
+    _build.count_launch(fused_swin_block_attention)
     return y
 
 
@@ -641,7 +641,7 @@ def _ln_attention_cuda(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, bias, mask,
                 float(eps), int(x.dtype == torch.bfloat16),
                 _build.stream_ptr(x.device))
     _build.check("swin_ln_attention", status, "fused_swin_ln_attention")
-    fused_swin_ln_attention.launches += 1
+    _build.count_launch(fused_swin_ln_attention)
     return out
 
 

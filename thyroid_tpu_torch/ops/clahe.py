@@ -205,7 +205,7 @@ def _single_cuda(x8, luts, grid):
     status = fn(_build.ptr(x8), _build.ptr(out), b, h, w,
                 *_lut_args(luts, grid, h, w), _build.stream_ptr(x8.device))
     _build.check("clahe", status, "apply_luts")
-    apply_luts.launches += 1
+    _build.count_launch(apply_luts)
     return out
 
 
@@ -264,7 +264,7 @@ def _dual_cuda(x8, luts_c, luts_f, use_coarse, grid_c, grid_f):
                 *_lut_args(luts_f, grid_f, h, w),
                 _build.stream_ptr(x8.device))
     _build.check("clahe", status, "apply_luts_dual")
-    apply_luts_dual.launches += 1
+    _build.count_launch(apply_luts_dual)
     return out
 
 
@@ -466,7 +466,7 @@ def _fused_cuda(x8, img, luts_c, luts_f, use_coarse, apply, lo, span, grid_c,
                 _build.ptr(out), b, h, w, *_lut_args(luts_c, grid_c, h, w),
                 *_lut_args(luts_f, grid_f, h, w), _build.stream_ptr(x8.device))
     _build.check("clahe", status, "apply_luts_dual_fused")
-    apply_luts_dual_fused.launches += 1
+    _build.count_launch(apply_luts_dual_fused)
     return out
 
 

@@ -100,7 +100,7 @@ def _dw_cuda(x, w):
                 int(w.shape[-1]), int(x.dtype == torch.bfloat16),
                 _build.stream_ptr(x.device))
     _build.check("depthwise", status, "depthwise_conv2d_pallas")
-    depthwise_conv2d_pallas.launches += 1
+    _build.count_launch(depthwise_conv2d_pallas)
     return y
 
 

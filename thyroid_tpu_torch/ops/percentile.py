@@ -74,7 +74,7 @@ def _percentile_cuda(x, p_lo, p_hi, iters, eps):
     status = fn(_build.ptr(x), _build.ptr(y), b, n, t_lo, t_hi, eps, iters,
                 int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device))
     _build.check("percentile", status, "fused_percentile_normalize")
-    fused_percentile_normalize.launches += 1
+    _build.count_launch(fused_percentile_normalize)
     return y
 
 
@@ -142,7 +142,7 @@ def _stats_cuda(x, q, iters):
                 float(np.float32(q * (n - 1))), iters,
                 _build.stream_ptr(x.device))
     _build.check("percentile", status, "fused_stats_quantile")
-    fused_stats_quantile.launches += 1
+    _build.count_launch(fused_stats_quantile)
     return out
 
 

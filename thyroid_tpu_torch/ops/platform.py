@@ -5,16 +5,24 @@ missing card is an error, never a silent fall back to the CPU.
 """
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
+import torch.distributed as dist
 
 DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """None → "cuda". Raises when a CUDA device is asked for and absent."""
+    """None → "cuda"; under a process group (torchrun, parallel.spawn) a
+    bare "cuda" is the process's card, cuda:{LOCAL_RANK mod the cards}.
+    Raises when a CUDA device is asked for and absent."""
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available() \
+            and (dist.is_initialized() or "LOCAL_RANK" in os.environ):
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "

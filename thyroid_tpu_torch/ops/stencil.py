@@ -82,7 +82,7 @@ def _stencil_cuda(x8, d, sigma_color, sigma_space):
                 d // 2, 1.0 / (2.0 * sigma_color ** 2), taps,
                 _build.stream_ptr(x8.device))
     _build.check("stencil", status, "fused_median_bilateral")
-    fused_median_bilateral.launches += 1
+    _build.count_launch(fused_median_bilateral)
     return med, bil
 
 

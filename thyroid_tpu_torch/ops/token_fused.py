@@ -256,7 +256,7 @@ def _ln_matmul_cuda(x2, g, b, w, wb, eps):
                 _build.ptr(ws), t, c, out_dim, eps, is_bf16,
                 _build.stream_ptr(x2.device))
     _build.check("ln_matmul", status, "fused_ln_matmul")
-    fused_ln_matmul.launches += 1
+    _build.count_launch(fused_ln_matmul)
     return y
 
 
@@ -305,7 +305,7 @@ def _ln_mlp_cuda(x2, g, b, w1, b1, w2, b2, eps, residual):
                 _build.stream_ptr(x2.device))
     _build.check("ln_mlp", status,
                  "fused_ln_mlp_residual" if residual else "fused_ln_mlp")
-    (fused_ln_mlp_residual if residual else fused_ln_mlp).launches += 1
+    _build.count_launch(fused_ln_mlp_residual if residual else fused_ln_mlp)
     return y
 
 
@@ -366,7 +366,7 @@ def _ln_matmul_bwd_cuda(x2, g, w, dy, eps):
                 _build.ptr(ws), t, c, out_dim, eps, is_bf16,
                 _build.stream_ptr(x2.device))
     _build.check("ln_matmul_bwd", status, "fused_ln_matmul_bwd")
-    fused_ln_matmul_bwd.launches += 1
+    _build.count_launch(fused_ln_matmul_bwd)
     return dx, dgb
 
 
@@ -431,7 +431,7 @@ def _ln_mlp_bwd_dx_cuda(x2, g, b, w1, b1, w2, dy, residual, eps):
                 _build.ptr(partial), _build.ptr(dgb), _build.ptr(ws), t, c,
                 hdim, eps, int(residual), is_bf16, _build.stream_ptr(x2.device))
     _build.check("ln_mlp_bwd", status, "fused_ln_mlp_bwd_dx")
-    fused_ln_mlp_bwd_dx.launches += 1
+    _build.count_launch(fused_ln_mlp_bwd_dx)
     return dx, dgb
 
 
@@ -493,7 +493,7 @@ def _ln_mlp_bwd_dw_cuda(x2, g, b, w1, b1, w2, dy, eps):
                 _build.ptr(out), _build.ptr(ws), t, c, hdim, eps, is_bf16,
                 _build.stream_ptr(x2.device))
     _build.check("ln_mlp_bwd", status, "fused_ln_mlp_bwd_dw")
-    fused_ln_mlp_bwd_dw.launches += 1
+    _build.count_launch(fused_ln_mlp_bwd_dw)
     return out
 
 

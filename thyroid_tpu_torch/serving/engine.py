@@ -17,10 +17,22 @@ engine calls: it dispatches when `max_batch` requests are queued or the
 oldest has waited `max_delay_ms`, the throughput/latency trade of the
 HTTP front end (serving/server.py); it lives in serving/aggregator.py, so
 that the front end serves an export bundle without the model code.
+
+On a device mesh (`mesh=`, parallel.create_mesh(shape, devices=[...]))
+the engine keeps one replica of the model on each device along
+`mesh_axis` (a device listed twice shares one), rounds its buckets up to
+multiples of the axis size exactly as JAX's does, and runs each bucket as
+that many equal shards, one thread each, gathering the rows in order on
+`device`; int8's activation scale stays global over the bucket
+(serving/quantize.py MaxExchange). The shards run in copies of the
+caller's context, so `int8_serving`-style switches reach them.
 """
 from __future__ import annotations
 
+import contextvars
+import copy
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -32,11 +44,19 @@ from ..models.from_jax import load_jax_variables
 from ..models.registry import cfg_get
 from ..ops.image import standardize
 from ..ops.platform import DeviceLike, resolve_device
+from ..parallel.mesh import Mesh, axis_devices
 from .aggregator import BatchAggregator  # noqa: F401  (JAX's module holds it)
-from .quantize import int8_serving
+from .quantize import MaxExchange, exchanging, int8_serving
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 RAW_SIDE = 512   # the CARS frame side warmup feeds raw engines
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """A bare "cuda" as the card it means (the current one)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 class InferenceEngine:
@@ -61,7 +81,9 @@ class InferenceEngine:
     models, 0.5 / 0.5 otherwise). `quantize="int8"` serves the eligible
     Dense/Conv layers in int8 (the model built with `token_kernels` off, as
     in JAX). `device` None means the CUDA card, and raises when there is
-    none. Serving on a mesh is not ported."""
+    none. `mesh` (a device mesh) serves each bucket sharded over the
+    devices along `mesh_axis` (see the module docstring); `device` is
+    then where requests arrive and probabilities are gathered."""
 
     def __init__(self, model_config: Any = None,
                  params: Optional[Mapping[str, Any]] = None,
@@ -74,10 +96,13 @@ class InferenceEngine:
                  checkpoint: Optional[str] = None,
                  raw_inputs: bool = True,
                  mean: Optional[Sequence[float]] = None,
-                 std: Optional[Sequence[float]] = None):
-        if mesh is not None:
-            raise NotImplementedError("serving on a mesh is not ported "
-                                      "(ROADMAP Queue 1: Parallelism)")
+                 std: Optional[Sequence[float]] = None,
+                 mesh_axis: str = "data"):
+        if mesh is not None and (not isinstance(mesh, Mesh)
+                                 or mesh.is_process_mesh):
+            raise TypeError("InferenceEngine(mesh=) takes a device mesh "
+                            "(parallel.create_mesh(shape, devices=[...])), "
+                            f"got {mesh!r}")
         if params is not None and variables is not None:
             raise ValueError("pass params or variables, not both")
         if params is not None:
@@ -111,6 +136,17 @@ class InferenceEngine:
                                      pretrained=variables is None)
         if variables is not None:
             load_jax_variables(self.model, variables)
+        self.mesh = mesh
+        if mesh is not None:
+            n = int(mesh.shape[mesh_axis])
+            buckets = sorted({max(-(-int(b) // n) * n, n) for b in buckets})
+            self.shard_devices = [_indexed(d) for d in axis_devices(mesh, mesh_axis)]
+            # one replica a device; copies of the weights, not new draws
+            self.replicas = {_indexed(self.device): self.model}
+            for dev in self.shard_devices:
+                if dev not in self.replicas:
+                    self.replicas[dev] = copy.deepcopy(self.model).to(dev)
+            self._pool = ThreadPoolExecutor(n, thread_name_prefix="shard")
         self.img_size = int(cfg_get(model_config, "img_size", 224))
         self.in_channels = int(cfg_get(model_config, "in_channels", 1))
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -145,9 +181,33 @@ class InferenceEngine:
         return torch.softmax(logits.float(), dim=-1)
 
     def run(self, x: torch.Tensor) -> torch.Tensor:
-        """One bucket: frames on the engine's device → probabilities."""
-        with torch.inference_mode():
-            return self.program(x)
+        """One bucket: frames on the engine's device → probabilities (on a
+        mesh, its shards on their devices, gathered in order)."""
+        if self.mesh is None:
+            with torch.inference_mode():
+                return self.program(x)
+        n = len(self.shard_devices)
+        shards = torch.split(x, x.shape[0] // n)
+        exchange = MaxExchange(n) if self.quantize == "int8" else None
+
+        def shard(i: int) -> torch.Tensor:
+            dev = self.shard_devices[i]
+            try:
+                with torch.inference_mode(), exchanging(exchange, i):
+                    return self.program(shards[i].to(dev), self.replicas[dev])
+            except BaseException:
+                if exchange is not None:
+                    exchange.abort()
+                raise
+
+        futures = [self._pool.submit(contextvars.copy_context().run, shard, i)
+                   for i in range(n)]
+        errors = [f.exception() for f in futures]
+        first = [e for e in errors if e is not None
+                 and not isinstance(e, threading.BrokenBarrierError)]
+        if first or any(errors):
+            raise (first or [e for e in errors if e is not None])[0]
+        return torch.cat([f.result().to(self.device) for f in futures])
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:

@@ -38,12 +38,17 @@ forward, in whichever thread runs the forward (the BatchAggregator's
 worker included).
 
 CAVEAT, as in JAX: s_x is global over the batch, so a request's
-probabilities depend on the requests it was batched with.
+probabilities depend on the requests it was batched with. A mesh engine
+(serving/engine.py) runs a bucket as shards, one thread each: under
+`exchanging` every shard's max|x| is combined into the bucket's before
+each layer quantizes (`MaxExchange`), so s_x stays global over the whole
+bucket, padding rows included, as JAX's global array gives it.
 """
 from __future__ import annotations
 
 import contextvars
 import dataclasses
+import threading
 from contextlib import contextmanager
 from typing import Any, Callable, Optional, Sequence, Tuple
 
@@ -74,6 +79,43 @@ _CONFIG: contextvars.ContextVar[Optional[QuantConfig]] = \
 Observer = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], None]
 _OBSERVER: contextvars.ContextVar[Optional[Observer]] = \
     contextvars.ContextVar("int8_observer", default=None)
+
+
+class MaxExchange:
+    """The bucket's max|x| from its `n` shards' threads: each layer's
+    `combine` waits for every shard's maximum and gives each the largest
+    (exact), on its own device. A shard that fails breaks the barrier, so
+    the others raise instead of waiting."""
+
+    def __init__(self, n: int, timeout: float = 600.0):
+        self.n = n
+        self.slots: list = [None] * n
+        self.barrier = threading.Barrier(n, timeout=timeout)
+
+    def combine(self, shard: int, amax: torch.Tensor) -> torch.Tensor:
+        self.slots[shard] = amax
+        self.barrier.wait()
+        out = torch.stack([s.to(amax.device) for s in self.slots]).amax()
+        self.barrier.wait()          # every shard has read the slots
+        return out
+
+    def abort(self) -> None:
+        self.barrier.abort()
+
+
+_EXCHANGE: contextvars.ContextVar[Optional[Tuple[MaxExchange, int]]] = \
+    contextvars.ContextVar("int8_exchange", default=None)
+
+
+@contextmanager
+def exchanging(exchange: Optional[MaxExchange], shard: int):
+    """Inside, shard `shard` of a bucket takes its activation scales from
+    `exchange` (None: its own maxima)."""
+    token = _EXCHANGE.set(None if exchange is None else (exchange, shard))
+    try:
+        yield
+    finally:
+        _EXCHANGE.reset(token)
 
 
 @contextmanager
@@ -125,7 +167,11 @@ def _quantize_weight(w: torch.Tensor, out_axis: int) -> Tuple[torch.Tensor, torc
 def _quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric dynamic per-tensor int8: (x_q, s_x), s_x a 0-d tensor."""
     xf = x.float()
-    s = torch.clamp_min(xf.abs().amax() / 127.0, 1e-12)
+    amax = xf.abs().amax()
+    shared = _EXCHANGE.get()
+    if shared is not None:
+        amax = shared[0].combine(shared[1], amax)
+    s = torch.clamp_min(amax / 127.0, 1e-12)
     xq = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
     return xq, s
 

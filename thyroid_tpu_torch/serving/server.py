@@ -12,8 +12,13 @@ Usage:
   python -m thyroid_tpu_torch.serving.server --checkpoint runs/.../best.ckpt [--port 8000]
   python -m thyroid_tpu_torch.serving.server --model swin_tiny [--quality] [--quantize int8]
   python -m thyroid_tpu_torch.serving.server --bundle bundle/   (serving/export.py)
+  python -m thyroid_tpu_torch.serving.server --model swin_tiny --data-parallel 2
 Beside the script's arguments, `--device` (the card unless "cpu" is
 given). `--port 0` takes a free port, which the start line prints.
+`--data-parallel N` shards each bucket over N replicas (buckets rounded
+up to multiples of N): on the cards in turn (cuda:i mod the cards, so
+one card holds both of two), or N times the CPU with `--device cpu`; the
+start line names them.
 """
 from __future__ import annotations
 
@@ -95,7 +100,8 @@ def parser() -> argparse.ArgumentParser:
                    help="serve Dense/Conv contractions in int8 PTQ "
                         "(serving/quantize.py)")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="shard each bucket's batch over N devices (not ported)")
+                   help="shard each bucket's batch over N devices "
+                        "(buckets round up to multiples of N)")
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--bundle", default=None,
                    help="serve an export bundle (python -m "
@@ -104,6 +110,18 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help='"cpu" for the CPU; the CUDA card otherwise')
     return p
+
+
+def shard_devices(n: int, device: Optional[str]) -> list:
+    """The N devices of `--data-parallel N`: the CPU N times with
+    `--device cpu`, else the CUDA cards in turn."""
+    import torch
+
+    if device is not None and str(device).startswith("cpu"):
+        return ["cpu"] * n
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu")
+    return [f"cuda:{i % torch.cuda.device_count()}" for i in range(n)]
 
 
 class Server(ThreadingHTTPServer):
@@ -135,9 +153,6 @@ def build_server(argv: Optional[Sequence[str]] = None
         engine = load_exported(args.bundle, device=args.device)
         name = f"bundle:{engine.manifest['model_config'].get('name', '?')}"
     else:
-        if args.data_parallel > 1:
-            raise NotImplementedError("data-parallel serving is not ported "
-                                      "(ROADMAP Queue 1: Parallelism)")
         from .engine import InferenceEngine
 
         mcfg = None
@@ -146,11 +161,21 @@ def build_server(argv: Optional[Sequence[str]] = None
                     "dtype": "bf16"}
             if args.img_size:
                 mcfg["img_size"] = args.img_size
+        mesh = None
+        if args.data_parallel > 1:
+            from ..parallel.mesh import create_mesh
+
+            mesh = create_mesh({"data": args.data_parallel},
+                               devices=shard_devices(args.data_parallel,
+                                                     args.device))
         engine = InferenceEngine(model_config=mcfg, checkpoint=args.checkpoint,
                                  buckets=args.buckets, quality=args.quality,
                                  raw_inputs=not args.preprocessed,
-                                 quantize=args.quantize, device=args.device)
+                                 quantize=args.quantize, device=args.device,
+                                 mesh=mesh)
         name = args.model or str(args.checkpoint)
+        if mesh is not None:
+            name += f" on {[str(d) for d in engine.shard_devices]}"
     if not args.no_warmup:
         print("warming up bucket programs...", flush=True)
         engine.warmup()

@@ -44,11 +44,13 @@ def _cpu(tree):
 
 def save_checkpoint(path: str | Path, state: Any,
                     metadata: Optional[Dict[str, Any]] = None,
-                    include_opt_state: bool = False) -> Path:
+                    include_opt_state: bool = False,
+                    opt_state: Optional[Dict[str, Any]] = None) -> Path:
     """Save params, batch_stats and step (+ metadata.json). With
     `include_opt_state` the optimizer state (counts, moments or trace and
-    the accumulated gradients, by port parameter name) and the EMA shadow are stored too, for an exact
-    resume."""
+    the accumulated gradients, by port parameter name; `opt_state` when
+    given, else the state's own) and the EMA shadow are stored too, for
+    an exact resume."""
     path = Path(path).absolute()
     if path.exists():
         shutil.rmtree(path)
@@ -58,7 +60,8 @@ def save_checkpoint(path: str | Path, state: Any,
         "batch_stats": jax_tree(state.batch_stats, state.layout),
         "step": int(state.step)}
     if include_opt_state:
-        payload["opt_state"] = _cpu(state.opt_state.state_dict())
+        payload["opt_state"] = _cpu(opt_state if opt_state is not None
+                                    else state.opt_state.state_dict())
         if state.ema_params is not None:
             payload["ema_params"] = _cpu(state.ema_params)
     torch.save(payload, path / STATE_FILE)
@@ -95,13 +98,18 @@ def variables_of(payload: Dict[str, Any]) -> Dict[str, Any]:
 
 class BestCheckpointManager:
     """Monitors a metric; keeps the top k and the last epoch; maintains
-    the {model}-best.ckpt and {model}-latest.ckpt aliases."""
+    the {model}-best.ckpt and {model}-latest.ckpt aliases. With `write`
+    off (a mesh's other ranks) it decides and names as the writer does and
+    touches no file."""
 
     def __init__(self, checkpoint_dir: str | Path, model_name: str,
                  monitor: str = "val_acc", mode: str = "max",
-                 save_top_k: int = 3, save_last: bool = True):
+                 save_top_k: int = 3, save_last: bool = True,
+                 write: bool = True):
         self.dir = Path(checkpoint_dir)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.model_name = model_name
         self.monitor = monitor
         self.mode = mode
@@ -129,7 +137,7 @@ class BestCheckpointManager:
             return False
         metadata = {"epoch": epoch, "metrics": metrics,
                     "monitor": self.monitor, **(extra_metadata or {})}
-        if self.save_last:
+        if self.save_last and self.write:
             save_checkpoint(self.dir / f"{self.model_name}-latest.ckpt",
                             state, metadata)
         in_top_k = len(self.kept) < self.save_top_k or self._better(
@@ -137,13 +145,15 @@ class BestCheckpointManager:
         is_best = not self.kept or self._better(value, self.kept[0][0])
         if in_top_k:
             path = self.dir / f"{self.model_name}-epoch{epoch:03d}-{value:.4f}.ckpt"
-            save_checkpoint(path, state, metadata)
+            if self.write:
+                save_checkpoint(path, state, metadata)
             self.kept.append((value, path))
             self.kept.sort(key=lambda kv: kv[0], reverse=(self.mode == "max"))
             for _, stale in self.kept[self.save_top_k:]:
-                shutil.rmtree(stale, ignore_errors=True)
+                if self.write:
+                    shutil.rmtree(stale, ignore_errors=True)
             self.kept = self.kept[: self.save_top_k]
-        if is_best:
+        if is_best and self.write:
             best = self.dir / f"{self.model_name}-best.ckpt"
             if best.exists():
                 shutil.rmtree(best)

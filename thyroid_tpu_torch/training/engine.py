@@ -31,9 +31,10 @@ cross-entropy with label smoothing and sample weights:
   its temperature and type; the metrics on the class head (a DeiT
   student's first output), and the metric state also sums class_loss,
   distillation_loss and teacher_agreement.
-With `mixup_alpha` or `cutmix_alpha` above 0 the step mixes the batch
-first (ops/augment.py mixup_cutmix, gated by `mixup_prob`; never under
-distillation) and `ce` is λ·CE(y_a) + (1 − λ)·CE(y_b); the metrics stay
+With `mixup_alpha` or `cutmix_alpha` above 0 the batch is mixed first
+(ops/augment.py mixup_cutmix, gated by `mixup_prob`; never under
+distillation: in `fit` by the pipeline, `epoch(mix=)`, in a direct
+`train_step` call by the step) and `ce` is λ·CE(y_a) + (1 − λ)·CE(y_b); the metrics stay
 on the original labels.
 
 Differences from the JAX engine: the per-step loop is the only loop
@@ -42,9 +43,32 @@ equal to this loop); the epoch permutation, DropPath and dropout, the
 batch augmentation and MixUp/CutMix draw from `torch.Generator`s seeded
 with `TrainerConfig.seed`, so their random streams are not JAX's; the
 initial weights come from the port's own initialisers unless `variables`
-(or `params`) carries a JAX tree in. Meshes raise NotImplementedError; the
-TrainerConfig fields that only they read (mesh axes) and the two the JAX
+(or `params`) carries a JAX tree in. The two TrainerConfig fields the JAX
 engine never reads (`log_every_n_steps`, `deterministic`) are left out.
+
+On a mesh (`mesh=`, or `mesh_shape` in the trainer config: a process
+mesh, parallel/mesh.py, one process a device, launched by torchrun) the
+Trainer trains data-parallel over `data_axis`, as JAX's jitted step does
+over its sharded batch: each rank takes its rows of every global batch
+(DevicePipeline.epoch with the Trainer's `batch_sharding`); every rank
+draws what one process draws for the global batch (the epoch order, the
+augmentation, MixUp/CutMix on the global batch (the pipeline's
+`epoch(mix=)`), the dropout and DropPath masks through a `RowShard`) and
+keeps its rows; BatchNorm takes
+the global batch's statistics (layers.BatchNorm `group`); each rank's
+loss is its share of the global batch's mean (its weight sum over the
+global one), so the gradients summed over the data axis (the
+optimizer's `sync`, at the accumulation boundary under MultiSteps) are
+the global batch's; the metric sums are summed over the data axis and
+the scores gathered, so early stopping and the top-k checkpoints decide
+alike on every rank. A `model_axis` of size > 1 adds FSDP over it
+(parallel/collectives.py GradSync): the optimizer state and the update
+of each ≥2-D parameter are split on the dim JAX's `fsdp_param_sharding`
+picks, the batch is replicated over it. Only the optimizer state is
+sharded (ZeRO-1): the parameters and gradients stay whole on every rank,
+where JAX's mesh shards the parameters too. The mesh's first rank writes the
+logs, history and checkpoints (whole: the moments gathered), the others
+wait for it; a checkpoint of either kind resumes on either.
 
 Attention-map logging (`log_attention_every_n_epochs` > 0) draws, every
 that many epochs, the first 4 validation images over the class-token
@@ -66,14 +90,18 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from ..models import cnn, ensemble, vit  # noqa: F401  (register the model families)
-from ..models.from_jax import load_jax_variables
+from ..models.from_jax import jax_layout, load_jax_variables
 from ..models.import_torch import maybe_load_pretrained
+from ..models.layers import BatchNorm, RowShard
 from ..models.registry import ModelRegistry, cfg_get
 from ..ops.augment import apply_mixup_cutmix, draw_mixup_cutmix
 from ..ops.platform import DeviceLike, resolve_device
+from ..parallel.collectives import GradSync, all_reduce_, gather_rows
+from ..parallel.mesh import Mesh, batch_sharding, create_mesh, default_backend
 from ..utils.observe import MetricLogger, StepTimer
 from .checkpoint import (BestCheckpointManager, load_checkpoint, load_payload,
                          save_checkpoint, variables_of)
@@ -105,6 +133,8 @@ class TrainerConfig:
     limit_test_batches: float = 1.0
     enable_checkpointing: bool = True
     mesh_shape: Optional[Dict[str, int]] = None
+    data_axis: str = "data"
+    model_axis: Optional[str] = None    # set for FSDP over that mesh axis
     monitor_metric: str = "val_acc"
     monitor_mode: str = "max"
     early_stopping_patience: Optional[int] = 10
@@ -122,6 +152,8 @@ class TrainerConfig:
                 v = cfg_get(training_cfg, f_, None)
             if v is not None:
                 kw[f_] = v
+        if kw.get("mesh_shape"):
+            kw["mesh_shape"] = {str(k): int(v) for k, v in dict(kw["mesh_shape"]).items()}
         return cls(**kw)
 
 
@@ -143,11 +175,6 @@ def _limit_batches(limit, full: int) -> int:
     if float(limit) < 1.0:
         return max(1, int(full * float(limit)))
     return full
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported (ROADMAP Queue 1: {item})")
 
 
 class Trainer:
@@ -175,8 +202,6 @@ class Trainer:
         self.model_config = model_config
         self.training_config = training_config
         self.cfg = TrainerConfig.from_config(trainer_config, training_config)
-        if mesh is not None or self.cfg.mesh_shape:
-            raise _unported("training on a mesh", "Parallelism")
         if self.cfg.log_attention_every_n_epochs:
             try:
                 import matplotlib  # noqa: F401
@@ -246,6 +271,7 @@ class Trainer:
         else:
             maybe_load_pretrained(self.model_config, self.model)
         self.model.to(self.device)
+        self._init_mesh(mesh)
         depth = int(cfg_get(model_config, "depth", 0) or 0) or \
             len(tuple(cfg_get(model_config, "depths", ()) or ())) or 12
         tx = build_optimizer(
@@ -261,6 +287,7 @@ class Trainer:
             accumulate_steps=self.cfg.accumulate_grad_batches,
             name=str(cfg_get(opt, "name", "adamw")),
         )
+        tx.sync = self.sync
         ema_decay = cfg_get(training_config, "ema_decay", None)
         self.ema_decay = float(ema_decay) if ema_decay else None
         self.state = TrainState(self.model, tx, ema=self.ema_decay is not None)
@@ -271,7 +298,54 @@ class Trainer:
             .manual_seed(self.cfg.seed)
         self.aug_generator = torch.Generator(device=self.device) \
             .manual_seed(self.cfg.seed)
+        self._dropout_draws = self.dropout_generator if self.mesh is None \
+            else RowShard(self.dropout_generator, self.batch_sharding.index,
+                          self.batch_sharding.count)
         self._global_step = 0
+
+    def _init_mesh(self, mesh: Any) -> None:
+        """Data-parallel (and FSDP) state on `mesh`, else the config's
+        `mesh_shape` (create_mesh over the torch.distributed world)."""
+        self.mesh = self.sync = self.batch_sharding = None
+        self.is_lead = True
+        if mesh is None and self.cfg.mesh_shape:
+            mesh = create_mesh(self.cfg.mesh_shape,
+                               backend=default_backend(self.device))
+        if mesh is None:
+            return
+        if not isinstance(mesh, Mesh) or not mesh.is_process_mesh:
+            raise TypeError("Trainer(mesh=) takes a process mesh "
+                            f"(parallel.create_mesh(shape)), got {mesh!r}")
+        self.mesh = mesh
+        self.batch_sharding = batch_sharding(mesh, self.cfg.data_axis)
+        self.data_group = mesh.group((self.cfg.data_axis,))
+        self.is_lead = mesh.is_lead()
+        self.sync = GradSync(mesh, self.cfg.data_axis, self.cfg.model_axis,
+                             dict(self.model.named_parameters()),
+                             jax_layout(self.model))
+        if self.batch_sharding.count > 1:
+            for m in self.model.modules():
+                if isinstance(m, BatchNorm):
+                    m.group, m.group_size = self.data_group, \
+                        self.batch_sharding.count
+
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch from every rank's rows."""
+        sh = self.batch_sharding
+        return gather_rows(x, self.data_group, sh.index, sh.count)
+
+    def _loss_share(self, weights: Optional[torch.Tensor], n: int) -> torch.Tensor:
+        """This rank's share of the global batch's weight (1 / the data
+        axis size for equal unweighted shards)."""
+        local = weights.float().sum() if weights is not None else \
+            torch.tensor(float(n), device=self.device)
+        total = local.clone()
+        dist.all_reduce(total, group=self.data_group)
+        return local / torch.clamp(total, min=1e-6)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.group(self.mesh.axis_names))
 
     # ------------------------------------------------------------------
     def loss_and_grads(self, images: torch.Tensor, labels: torch.Tensor,
@@ -287,7 +361,7 @@ class Trainer:
         distillation_loss against `teacher_logits` at `alpha` and the aux
         dict holds its three terms (else it is empty)."""
         outputs = self.model(images, train=True,
-                             generator=self.dropout_generator)
+                             generator=self._dropout_draws)
 
         def ce(lgts):
             if labels_b is None:
@@ -319,26 +393,45 @@ class Trainer:
         # a parameter outside the loss (Swin's uncertainty head, the ViT
         # patch-quality head) gets a zero gradient, as jax.grad gives it: it
         # still moves Adam's moments and the decoupled weight decay
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        scaled = loss if self.mesh is None else \
+            loss * self._loss_share(weights, images.shape[0])
+        grads = torch.autograd.grad(scaled, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         return loss.detach(), logits.detach(), dict(zip(names, grads)), aux
 
+    def _mixes(self) -> bool:
+        return (self.mixup_alpha > 0 or self.cutmix_alpha > 0) \
+            and self.loss_mode != "distillation"
+
+    def _mix(self, x: torch.Tensor, y: torch.Tensor):
+        """MixUp/CutMix of a batch, drawn from the augmentation stream →
+        (mixed images, second labels, λ)."""
+        params = draw_mixup_cutmix(self.aug_generator, x.shape,
+                                   self.mixup_alpha, self.cutmix_alpha,
+                                   self.mixup_prob)
+        x, _, labels_b, lam = apply_mixup_cutmix(x, y, params)
+        return x, labels_b, lam
+
     def train_step(self, mstate: Dict[str, torch.Tensor], images: torch.Tensor,
                    labels: torch.Tensor, weights: Optional[torch.Tensor],
-                   alpha=None):
+                   alpha=None, mixed=None):
         """[MixUp/CutMix,] [the teacher's logits,] forward, loss, backward,
         clip, optimizer, EMA, metric update → (new metric state, P(class
         1) scores); the metrics read the original labels. `alpha` is the
         distillation weight (a float32 scalar tensor, as JAX's step takes
-        it; the epoch's by default)."""
+        it; the epoch's by default). `mixed` (second labels, λ) says the
+        images are mixed already, as train_steps has the pipeline mix
+        them (`epoch(mix=)`); a direct call mixes here, on one process."""
         labels_b = lam = teacher_logits = None
-        if (self.mixup_alpha > 0 or self.cutmix_alpha > 0) \
-                and self.loss_mode != "distillation":
-            params = draw_mixup_cutmix(self.aug_generator, images.shape,
-                                       self.mixup_alpha, self.cutmix_alpha,
-                                       self.mixup_prob)
-            images, _, labels_b, lam = apply_mixup_cutmix(images, labels, params)
+        if mixed is not None:
+            labels_b, lam = mixed
+        elif self._mixes():
+            if self.mesh is not None:
+                raise ValueError("on a mesh MixUp/CutMix mixes the global "
+                                 "batch: pass the pipeline's (label_b, lam) "
+                                 "as `mixed`")
+            images, labels_b, lam = self._mix(images, labels)
         if self.loss_mode == "distillation":
             teacher_logits = self.teacher_fn(images)
             if alpha is None:
@@ -396,18 +489,43 @@ class Trainer:
         if 0 < self.cfg.max_steps:
             max_batches = min(max_batches,
                               self.cfg.max_steps - self._global_step)
+        # the pipeline mixes each global batch (one process's mix, on a
+        # mesh before a rank keeps its rows)
+        mix = self._mix if self._mixes() else None
         for i, batch in enumerate(pipeline.epoch(self.perm_generator,
-                                                 self.aug_generator)):
+                                                 self.aug_generator,
+                                                 mix=mix, **self._shard_kw())):
             if i >= max_batches or (0 < self.cfg.max_steps <= self._global_step):
                 break
+            mixed = None if mix is None else (batch.label_b, batch.lam)
             mstate, score1 = self.train_step(mstate, batch.image, batch.label,
-                                             batch.weight, alpha)
+                                             batch.weight, alpha, mixed)
             scores.append(score1)
             lbls.append(batch.label)
             wts.append(batch.weight)
             self._global_step += 1
             yield None
-        yield finalize_metric_state(mstate, scores, lbls, wts, prefix="train_")
+        yield self._finalize(mstate, scores, lbls, wts, "train_")
+
+    def _shard_kw(self) -> Dict[str, Any]:
+        return {} if self.mesh is None else {"sharding": self.batch_sharding}
+
+    def _finalize(self, mstate, scores, lbls, wts, prefix: str) -> Dict[str, float]:
+        """finalize_metric_state of the global batch: on a mesh the sums
+        are summed over the data axis and the scores, labels and weights
+        gathered."""
+        if self.mesh is not None:
+            keys = list(mstate)
+            sums = torch.stack([mstate[k].float() for k in keys])
+            dist.all_reduce(sums, group=self.data_group)
+            mstate = dict(zip(keys, sums.unbind()))
+            if scores:
+                # one float32 gather (labels are exact in float32)
+                rows = torch.stack([torch.cat([t.reshape(-1).float() for t in ts])
+                                    for ts in (scores, lbls, wts)], dim=1)
+                rows = self._global(rows)
+                scores, lbls, wts = [rows[:, 0]], [rows[:, 1].long()], [rows[:, 2]]
+        return finalize_metric_state(mstate, scores, lbls, wts, prefix=prefix)
 
     def eval_epoch(self, pipeline, prefix: str = "val_",
                    use_ema: bool = False,
@@ -420,7 +538,7 @@ class Trainer:
         if limit_fraction is None:
             limit_fraction = self.cfg.limit_val_batches
         n_eval = _limit_batches(limit_fraction, pipeline.steps_per_epoch())
-        for i, batch in enumerate(pipeline.epoch()):
+        for i, batch in enumerate(pipeline.epoch(**self._shard_kw())):
             if i >= n_eval:
                 break
             mstate, score1 = self.eval_step(variables, mstate, batch.image,
@@ -428,7 +546,7 @@ class Trainer:
             scores.append(score1)
             lbls.append(batch.label)
             wts.append(batch.weight)
-        return finalize_metric_state(mstate, scores, lbls, wts, prefix=prefix)
+        return self._finalize(mstate, scores, lbls, wts, prefix)
 
     def fit(self, train_pipeline, val_pipeline=None,
             extra_ckpt_metadata: Optional[Dict[str, Any]] = None) -> FitResult:
@@ -438,9 +556,11 @@ class Trainer:
             ckpt_mgr = BestCheckpointManager(
                 self.output_dir / "checkpoints", model_name,
                 monitor=self.cfg.monitor_metric, mode=self.cfg.monitor_mode,
-                save_top_k=self.cfg.save_top_k, save_last=self.cfg.save_last)
+                save_top_k=self.cfg.save_top_k, save_last=self.cfg.save_last,
+                write=self.is_lead)
         history: List[Dict[str, float]] = []
-        metric_logger = MetricLogger(self.output_dir / "logs")
+        metric_logger = MetricLogger(self.output_dir / "logs") \
+            if self.is_lead else None
         step_timer = StepTimer()
         patience = self.cfg.early_stopping_patience
         bad_epochs = 0
@@ -454,14 +574,16 @@ class Trainer:
                         (epoch + 1) % self.cfg.check_val_every_n_epoch == 0:
                     metrics.update(self.eval_epoch(val_pipeline, "val_"))
                 n_att = self.cfg.log_attention_every_n_epochs
-                if n_att and val_pipeline is not None and (epoch + 1) % n_att == 0:
+                if n_att and val_pipeline is not None and self.is_lead \
+                        and (epoch + 1) % n_att == 0:
                     self._log_attention_maps(metric_logger, val_pipeline, epoch)
                 metrics["epoch"] = epoch
                 metrics["lr"] = float(self.schedule(self._global_step))
                 metrics["time_s"] = time.time() - t0
                 step_timer.tick()
                 metrics.update(step_timer.stats())
-                metric_logger.log(metrics, step=epoch)
+                if metric_logger is not None:
+                    metric_logger.log(metrics, step=epoch)
                 history.append(metrics)
                 logger.info("epoch %d: %s", epoch,
                             {k: round(v, 4) for k, v in metrics.items()
@@ -471,7 +593,9 @@ class Trainer:
                     mc = self.model_config.to_dict() if hasattr(
                         self.model_config, "to_dict") else dict(self.model_config)
                     meta = {"model_config": mc, **(extra_ckpt_metadata or {})}
-                    if ckpt_mgr.step(self.state, metrics, epoch, meta):
+                    improved = ckpt_mgr.step(self.state, metrics, epoch, meta)
+                    self._barrier()
+                    if improved:
                         bad_epochs = 0
                         best = monitored
                     else:
@@ -492,9 +616,11 @@ class Trainer:
                 if 0 < self.cfg.max_steps <= self._global_step:
                     break
         finally:
-            metric_logger.close()
-        with open(self.output_dir / "history.json", "w") as f:
-            json.dump(history, f, indent=2)
+            if metric_logger is not None:
+                metric_logger.close()
+        if self.is_lead:
+            with open(self.output_dir / "history.json", "w") as f:
+                json.dump(history, f, indent=2)
         return FitResult(
             best_metric=best if best is not None else (
                 ckpt_mgr.best_metric if ckpt_mgr else None),
@@ -552,17 +678,54 @@ class Trainer:
 
     def save_state(self, path: str | Path) -> Path:
         """The full training state (params, batch_stats, opt_state, EMA, step)
-        for an exact resume."""
-        return save_checkpoint(path, self.state, include_opt_state=True)
+        for an exact resume. On a mesh every rank calls it: the state is
+        made whole (FSDP's blocks gathered, the accumulated gradients
+        summed over the data axis) and the mesh's first rank writes it."""
+        opt_state = self.state.opt_state.state_dict()
+        if self.mesh is not None:
+            opt_state = self._whole_opt_state(opt_state)
+        path = Path(path).absolute()
+        if self.is_lead:
+            save_checkpoint(path, self.state, include_opt_state=True,
+                            opt_state=opt_state)
+        self._barrier()
+        return path
+
+    def _whole_opt_state(self, sd: Dict[str, Any]) -> Dict[str, Any]:
+        params = self.state.params
+        if "acc" in sd:                       # MultiSteps
+            acc = {n: t.clone() for n, t in sd["acc"].items()}
+            all_reduce_(list(acc.values()), self.data_group)
+            inner = self.sync.full_state(sd["inner"], params) \
+                if self.sync.fsdp else sd["inner"]
+            return {**sd, "inner": inner, "acc": acc}
+        return self.sync.full_state(sd, params) if self.sync.fsdp else sd
+
+    def _blocked_opt_state(self, sd: Dict[str, Any]) -> Dict[str, Any]:
+        """A whole optimizer state → this rank's: FSDP's blocks, the
+        accumulated gradients on the data axis's first rank (their sum
+        over the axis is what the boundary reduces)."""
+        if "acc" in sd:
+            first = self.batch_sharding.index == 0
+            acc = {n: t if first else torch.zeros_like(t)
+                   for n, t in sd["acc"].items()}
+            inner = self.sync.block_state(sd["inner"]) \
+                if self.sync.fsdp else sd["inner"]
+            return {**sd, "inner": inner, "acc": acc}
+        return self.sync.block_state(sd) if self.sync.fsdp else sd
 
     def resume_from(self, path: str | Path) -> None:
-        """Restore a state saved by save_state; a plain model checkpoint
-        (no opt_state) warm-starts the parameters and statistics only."""
+        """Restore a state saved by save_state (on a mesh or not: the
+        checkpoint is whole); a plain model checkpoint (no opt_state)
+        warm-starts the parameters and statistics only."""
         payload = load_payload(path)
         load_jax_variables(self.model, variables_of(payload))
         self.state.step = int(payload.get("step", 0))
         if payload.get("opt_state") is not None:
-            self.state.opt_state.load_state_dict(payload["opt_state"])
+            opt_state = payload["opt_state"]
+            if self.mesh is not None:
+                opt_state = self._blocked_opt_state(opt_state)
+            self.state.opt_state.load_state_dict(opt_state)
         if self.state.ema_params is not None:
             # an older checkpoint without EMA restarts the shadow from the
             # restored parameters

@@ -20,6 +20,13 @@ update; MultiSteps averages k mini-steps' gradients by Welford's update,
 runs the chain on the mean once every k mini-steps (its count, which the
 schedule and Adam's bias correction read, advances only then) and
 returns zeros in between. Parameters are a {name: tensor} dict with the port's dotted names.
+
+On a process mesh the Trainer gives the optimizer a `sync`
+(parallel/collectives.py GradSync): the gradients are summed over the
+data axis before the chain runs, at the accumulation boundary under
+MultiSteps (its running mean stays this rank's until then), and under
+FSDP the chain runs on this rank's blocks, its state holds blocks, and
+the clip's norm is taken over the whole tree from them.
 """
 from __future__ import annotations
 
@@ -161,7 +168,8 @@ class MultiStepsState:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt(Σ over tensors of ‖t‖²), float32."""
+    """sqrt(Σ over tensors of ‖t‖²), float32 (whole tensors; a tree
+    sharded by FSDP takes GradSync.norm)."""
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.sqrt((torch.stack(norms) ** 2).sum())
 
@@ -187,9 +195,16 @@ class Optimizer:
         self.decay_mask, self.scales = decay_mask, scales
         self.name = name
         self.accumulate_steps = int(accumulate_steps)
+        self.sync = None
+
+    def local(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The tensors the chain updates: this rank's FSDP blocks, else
+        `params` itself."""
+        return params if self.sync is None else self.sync.local(params)
 
     def init(self, params: Dict[str, torch.Tensor]):
-        inner = SGDState(params) if self.name == "sgd" else AdamWState(params)
+        local = self.local(params)
+        inner = SGDState(local) if self.name == "sgd" else AdamWState(local)
         if self.accumulate_steps > 1:
             return MultiStepsState(params, inner)
         return inner
@@ -197,7 +212,9 @@ class Optimizer:
     def update(self, grads: Dict[str, torch.Tensor], state,
                params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if not isinstance(state, MultiStepsState):
-            return self._chain(grads, state, params)
+            if self.sync is not None:
+                grads = self.sync.reduce(grads)
+            return self._chain(grads, state, self.local(params))
         # MultiSteps: a running mean of the mini-steps' gradients (Welford:
         # acc + (g − acc) / (n + 1)); the chain runs on it once every k
         # mini-steps, and its count advances only then
@@ -210,7 +227,10 @@ class Optimizer:
         state.mini_step = (state.mini_step + 1) % self.accumulate_steps
         if not emit:
             return {}
-        updates = self._chain(dict(zip(names, acc)), state.inner, params)
+        mean = dict(zip(names, acc))
+        if self.sync is not None:
+            mean = self.sync.reduce(mean)
+        updates = self._chain(mean, state.inner, self.local(params))
         state.gradient_step += 1
         torch._foreach_zero_(acc)
         return updates
@@ -225,7 +245,8 @@ class Optimizer:
                                          self.clip)
         elif self.clip:
             # select(norm < max, t, (t / norm) * max) without a host read
-            norm = global_norm(g)
+            norm = self.sync.norm(dict(zip(names, g))) \
+                if self.sync is not None and self.sync.fsdp else global_norm(g)
             trigger = norm < self.clip
             one = torch.ones((), dtype=norm.dtype, device=norm.device)
             denom = torch.where(trigger, one, norm)

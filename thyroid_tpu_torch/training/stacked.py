@@ -24,6 +24,18 @@ Semantics kept from the JAX package:
 One difference: JAX's stacked program always runs whole epochs, while the
 port's folds honour `limit_{train,val,test}_batches` and `max_steps` as a
 sequential Trainer does.
+
+On a mesh (`mesh=`, or the trainer config's `mesh_shape`: a process mesh)
+with a `slice_axis`, the folds go to the slices in contiguous blocks
+(parallel/multislice.py fold_block: 6 folds on 2 slices, 0-2 and 3-5, as
+JAX's P(slice) blocks them); each rank holds its slice's folds' Trainers,
+each data-parallel over the rest of the mesh through this rank (its
+slice's data line). Once an epoch every rank's val metrics are gathered
+(the host read JAX makes of the stacked metrics) so that the mean over
+all folds stops every slice alike; no training collective crosses a
+slice. fit returns every fold's row, in fold order, on every rank; each
+slice's first rank writes its folds' checkpoints. Without a slice axis
+every fold trains on the whole mesh.
 """
 from __future__ import annotations
 
@@ -34,12 +46,16 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..models.registry import ModelRegistry
+from ..models.registry import ModelRegistry, cfg_get
 from ..ops.platform import DeviceLike, resolve_device
+from ..parallel.collectives import all_gather_objects
+from ..parallel.mesh import Mesh, create_mesh, default_backend
+from ..parallel.multislice import fold_block
 from ..utils.logging import get_logger
 from .checkpoint import save_checkpoint
-from .engine import Trainer, _unported
+from .engine import Trainer
 
 logger = get_logger(__name__)
 
@@ -68,9 +84,7 @@ class StackedKFoldTrainer:
                  output_dir: str | Path = "outputs",
                  teacher_fn: Optional[Callable] = None,
                  distillation_config: Any = None, mesh: Any = None,
-                 device: DeviceLike = None):
-        if mesh is not None:
-            raise _unported("the stacked trainer on a mesh", "Parallelism")
+                 device: DeviceLike = None, slice_axis: str = "slice"):
         self.k = len(train_pipelines)
         if self.k < 1:
             raise ValueError("need at least one fold")
@@ -87,6 +101,7 @@ class StackedKFoldTrainer:
         self.teacher_fn = teacher_fn
         self.distillation_config = distillation_config
         self.device = resolve_device(device)
+        self._init_mesh(mesh, slice_axis)
         self.output_dir = Path(output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self.train_pipelines = train_pipelines
@@ -94,25 +109,72 @@ class StackedKFoldTrainer:
         self.test_pipelines = test_pipelines
         self._init_folds()
 
+    def _init_mesh(self, mesh: Any, slice_axis: str) -> None:
+        """This rank's folds (`self.folds`, 0-based) and the mesh their
+        Trainers train on."""
+        shape = cfg_get(self.trainer_config, "mesh_shape", None)
+        if mesh is None and shape:
+            mesh = create_mesh({str(a): int(n) for a, n in dict(shape).items()},
+                               backend=default_backend(self.device))
+        if mesh is not None and (not isinstance(mesh, Mesh)
+                                 or not mesh.is_process_mesh):
+            raise TypeError("StackedKFoldTrainer(mesh=) takes a process mesh "
+                            f"(parallel.create_mesh(shape)), got {mesh!r}")
+        self.mesh, self.fold_mesh = mesh, None
+        self.folds = list(range(self.k))
+        self.is_lead = True
+        if mesh is None:
+            return
+        rest = [a for a in mesh.axis_names if a != slice_axis]
+        if slice_axis in mesh.shape:
+            self.folds = fold_block(self.k, mesh.shape[slice_axis],
+                                    mesh.index(slice_axis))
+            if not self.folds:
+                raise ValueError(f"{self.k} folds leave slice "
+                                 f"{mesh.index(slice_axis)} of "
+                                 f"{mesh.shape[slice_axis]} without a fold")
+        self.fold_mesh = mesh.submesh(rest) if rest else None
+        self.is_lead = self.fold_mesh is None or self.fold_mesh.is_lead()
+
     def _init_folds(self) -> None:
-        """One Trainer a fold, each as a sequential fold's (same seed)."""
+        """One Trainer for each of this rank's folds, each as a sequential
+        fold's (same seed), on the fold mesh (the mesh the Trainers take
+        explicitly, never the config's mesh_shape)."""
+        tcfg = self.trainer_config
+        if cfg_get(tcfg, "mesh_shape", None):
+            tcfg = dict(tcfg.to_dict() if hasattr(tcfg, "to_dict") else tcfg)
+            tcfg["mesh_shape"] = None
         self.trainers = [
             Trainer(ModelRegistry.create_model(self.model_config),
-                    self.model_config, self.training_config,
-                    self.trainer_config,
+                    self.model_config, self.training_config, tcfg,
                     steps_per_epoch=self.train_pipelines[0].steps_per_epoch(),
                     output_dir=self.output_dir, teacher_fn=self.teacher_fn,
                     distillation_config=self.distillation_config,
-                    device=self.device)
-            for _ in range(self.k)]
+                    mesh=self.fold_mesh, device=self.device)
+            for _ in self.folds]
         self.cfg = self.trainers[0].cfg
         self.use_ema = self.trainers[0].state.ema_params is not None
 
     # ------------------------------------------------------------------
+    def _mine(self, pipelines: List[Any]) -> List[Any]:
+        return [pipelines[f] for f in self.folds]
+
+    def _every_fold(self, mine: List[Any]) -> List[Any]:
+        """Per-fold values of this rank's folds → every fold's, in fold
+        order (gathered over the mesh)."""
+        if self.mesh is None:
+            return mine
+        merged: Dict[int, Any] = {}
+        for part in all_gather_objects(dict(zip(self.folds, mine)),
+                                       self.mesh.group(self.mesh.axis_names)):
+            merged.update(part)
+        return [merged[f] for f in range(self.k)]
+
     def train_epoch(self, epoch: int) -> List[Dict[str, float]]:
-        """One epoch of every fold, in lockstep → each fold's train_*."""
+        """One epoch of this rank's folds, in lockstep → each fold's
+        train_*."""
         runs = [t.train_steps(p, epoch)
-                for t, p in zip(self.trainers, self.train_pipelines)]
+                for t, p in zip(self.trainers, self._mine(self.train_pipelines))]
         last = None
         for last in zip(*runs):
             pass
@@ -121,11 +183,11 @@ class StackedKFoldTrainer:
     def eval_epoch(self, pipelines: List[Any], prefix: str = "val_",
                    limit_fraction: Optional[float] = None
                    ) -> List[Dict[str, float]]:
-        """Each fold's state on its pipeline (the EMA weights where EMA is
-        on)."""
+        """Each of this rank's folds' state on its pipeline (the EMA
+        weights where EMA is on)."""
         return [t.eval_epoch(p, prefix, use_ema=self.use_ema,
                              limit_fraction=limit_fraction)
-                for t, p in zip(self.trainers, pipelines)]
+                for t, p in zip(self.trainers, self._mine(pipelines))]
 
     # ------------------------------------------------------------------
     def reset(self, train_pipelines: List[Any], val_pipelines: List[Any],
@@ -151,10 +213,15 @@ class StackedKFoldTrainer:
                                 ) -> List[Path]:
         """Each fold's (post-fit best) state as a checkpoint in the
         sequential layout `{root}/{name}/fold_{f}/checkpoints/{name}-best.ckpt`,
-        the EMA weights where EMA is on (what the evaluation scored)."""
+        the EMA weights where EMA is on (what the evaluation scored); on a
+        mesh each slice's first rank writes its folds' and every rank
+        returns every fold's path."""
         root = Path(root)
-        paths = []
-        for f, t in enumerate(self.trainers):
+        paths = [root / model_name / f"fold_{f + 1}" / "checkpoints"
+                 / f"{model_name}-best.ckpt" for f in range(self.k)]
+        for f, t in zip(self.folds, self.trainers):
+            if not self.is_lead:
+                break
             st = t.state
             state = SimpleNamespace(
                 params=st.ema_params if st.ema_params is not None else st.params,
@@ -166,16 +233,15 @@ class StackedKFoldTrainer:
                     if hasattr(model_config, "to_dict") else dict(model_config)
             if extra_metadata:
                 meta.update(extra_metadata)
-            path = (root / model_name / f"fold_{f + 1}" / "checkpoints"
-                    / f"{model_name}-best.ckpt")
-            path.parent.mkdir(parents=True, exist_ok=True)
-            save_checkpoint(path, state, metadata=meta)
-            paths.append(path)
+            paths[f].parent.mkdir(parents=True, exist_ok=True)
+            save_checkpoint(paths[f], state, metadata=meta)
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.group(self.mesh.axis_names))
         return paths
 
     # ------------------------------------------------------------------
     def _snapshot(self, f: int) -> Dict[str, Any]:
-        st = self.trainers[f].state
+        st = self.trainers[self.folds.index(f)].state
         snap: Dict[str, Any] = {"step": st.step}
         for key in SNAPSHOT:
             named = getattr(st, key)
@@ -185,7 +251,7 @@ class StackedKFoldTrainer:
 
     @torch.no_grad()
     def _restore(self, f: int, snap: Dict[str, Any]) -> None:
-        st = self.trainers[f].state
+        st = self.trainers[self.folds.index(f)].state
         for key in SNAPSHOT:
             if snap[key] is not None:
                 named = getattr(st, key)
@@ -203,7 +269,7 @@ class StackedKFoldTrainer:
         sign = 1.0 if mode == "max" else -1.0
         best_vec = np.full((self.k,), -np.inf)
         best_epoch_vec = np.full((self.k,), -1, dtype=int)
-        snaps: List[Optional[Dict[str, Any]]] = [None] * self.k
+        snaps: Dict[int, Optional[Dict[str, Any]]] = {f: None for f in self.folds}
         best_mean = None
         bad = 0
         history: List[List[Dict[str, float]]] = []
@@ -215,6 +281,7 @@ class StackedKFoldTrainer:
                 fm.update(vm)
                 fm["epoch"] = epoch
                 fm["time_s"] = time.time() - t0
+            fold_metrics = self._every_fold(fold_metrics)
             history.append(fold_metrics)
             raw_vals = np.array(
                 [np.nan if m.get(monitor) is None else float(m[monitor])
@@ -229,7 +296,8 @@ class StackedKFoldTrainer:
             best_vec = np.where(fold_improved, sign * raw_vals, best_vec)
             best_epoch_vec = np.where(fold_improved, epoch, best_epoch_vec)
             for f in np.flatnonzero(fold_improved):
-                snaps[f] = self._snapshot(int(f))
+                if int(f) in snaps:
+                    snaps[int(f)] = self._snapshot(int(f))
             # early stopping on the mean monitored metric
             mean_improved = mean_v is not None and (
                 best_mean is None or
@@ -241,15 +309,15 @@ class StackedKFoldTrainer:
             if patience and bad >= patience:
                 logger.info("stacked early stop at epoch %d", epoch)
                 break
-        for f, snap in enumerate(snaps):
+        for f, snap in snaps.items():
             if snap is not None:
                 self._restore(f, snap)
 
         test_metrics = None
         if self.test_pipelines:
-            test_metrics = self.eval_epoch(
+            test_metrics = self._every_fold(self.eval_epoch(
                 self.test_pipelines, "test_",
-                limit_fraction=self.cfg.limit_test_batches)
+                limit_fraction=self.cfg.limit_test_batches))
         last = history[-1] if history else [{} for _ in range(self.k)]
         results: List[Dict[str, Any]] = []
         for f in range(self.k):

@@ -7,6 +7,10 @@ shadow in place (saving a second copy of every buffer) and returns the same
 state object; the statistics are updated in place by the training forward
 (layers.BatchNorm), where JAX takes them out of the loss function and
 installs them with the step.
+
+Under FSDP (the optimizer's `sync`, parallel/collectives.py) the update
+lands on this rank's block of each sharded parameter, and the blocks are
+gathered back into the whole parameters before the EMA moves.
 """
 from __future__ import annotations
 
@@ -41,7 +45,9 @@ class TrainState:
     def apply_gradients(self, grads: Dict[str, torch.Tensor],
                         ema_decay: Optional[float] = None) -> "TrainState":
         updates = self.tx.update(grads, self.opt_state, self.params)
-        apply_updates(self.params, updates)
+        apply_updates(self.tx.local(self.params), updates)
+        if updates and self.tx.sync is not None and self.tx.sync.fsdp:
+            self.tx.sync.gather(self.params)
         # step and EMA advance on every call, as JAX's apply_gradients does
         # under gradient accumulation too: on a mini-step whose update is
         # zero (here none) the shadow still moves toward the unchanged
